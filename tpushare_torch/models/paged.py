@@ -1,0 +1,650 @@
+"""Paged KV cache: block-table memory management and the continuous-
+batching slot server. Counterpart of ``tpushare/models/paged.py``.
+
+- Pool: [L, n_blocks, block_size, Hkv, Dh] per K/V on the device; the
+  last block is the trash block (never on the free list) that inactive
+  or unallocated rows write to.
+- Block table [n_slots, max_blocks] int32 (-1 = none) and lengths
+  [n_slots] int32 on the device, with exact host mirrors
+  (``table_np`` / ``lengths_np``) that every scheduling decision reads.
+  The host decides every table entry and every length, so a decode
+  tick never reads control state back from the card: its one
+  device-to-host transfer is the token fetch in ``PendingStep.finalize``.
+- Prefix cache: full prompt blocks are published under their chain
+  digest (``router/chainkeys.py``); a later admit with the same prefix
+  reuses them (refcounted, zero-ref blocks parked on an LRU).
+
+Where the JAX version returns new arrays (and donates the old pools to
+the jitted step), the port updates the device tensors IN PLACE; the
+functions still return the cache for the same call shapes.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpushare_torch import DeviceLike, resolve_device
+from tpushare_torch.models.serving import PendingStep, TokenSampler
+from tpushare_torch.models.transformer import (
+    TODO_INT8_WEIGHTS, TODO_LORA, TODO_MESH, TransformerConfig, forward,
+    init_cache,
+)
+from tpushare_torch.router.chainkeys import chain_keys
+
+# ROADMAP items that port what this slice's server leaves out.
+TODO_SPEC = "ROADMAP A7 (speculation)"
+TODO_KV_QUANT = "ROADMAP A3/B1 (int8 KV pool)"
+TODO_QUOTA = "ROADMAP A5 (per-tenant KV quota)"
+TODO_FAMILY = "ROADMAP A8 (paged MoE through forward_fn)"
+TODO_HOST_TIER = "ROADMAP A5 (host KV tier)"
+TODO_FUSED = "ROADMAP A4 (fused admission tick)"
+
+
+class SlotCapacityExceeded(RuntimeError):
+    """One slot's block table is full (its sequence outgrew
+    max_blocks x block_size): a per-slot terminal condition. Carries
+    ``slot`` so the caller can retire exactly that request."""
+
+    def __init__(self, slot: int, msg: str):
+        super().__init__(msg)
+        self.slot = slot
+
+
+class PoolExhausted(RuntimeError):
+    """Transient pool/slot pressure: the pool (or the slot array)
+    cannot hold this admission right now, but blocks free as
+    generations complete."""
+
+
+@dataclasses.dataclass
+class PagedCache:
+    """Pool + table state. Device tensors are mutated in place; the
+    host mirrors and the prefix bookkeeping are shared host state."""
+    pool_k: torch.Tensor        # [L, n_blocks, bs, Hkv, Dh]
+    pool_v: torch.Tensor
+    block_table: torch.Tensor   # [n_slots, max_blocks] int32 (-1 = none)
+    lengths: torch.Tensor       # [n_slots] int32
+    block_size: int
+    free: List[int]             # host-side free list of pool block ids
+    refs: Dict[int, int] = dataclasses.field(default_factory=dict)
+    index: Dict[bytes, int] = dataclasses.field(default_factory=dict)
+    chains: Dict[int, bytes] = dataclasses.field(default_factory=dict)
+    lru: "collections.OrderedDict[int, None]" = dataclasses.field(
+        default_factory=collections.OrderedDict)
+    table_np: Optional[np.ndarray] = None
+    lengths_np: Optional[np.ndarray] = None
+
+    @property
+    def n_slots(self) -> int:
+        return self.block_table.shape[0]
+
+    @property
+    def max_blocks(self) -> int:
+        return self.block_table.shape[1]
+
+    def host_table(self) -> np.ndarray:
+        """Host truth of the block table (built with one read for a
+        hand-constructed cache, exact by construction afterwards)."""
+        if self.table_np is None:
+            self.table_np = self.block_table.cpu().numpy().copy()
+        return self.table_np
+
+    def host_lengths(self) -> np.ndarray:
+        if self.lengths_np is None:
+            self.lengths_np = self.lengths.cpu().numpy().astype(np.int64)
+        return self.lengths_np
+
+    def live_blocks(self) -> int:
+        return int((self.host_table() >= 0).sum())
+
+    def set_row(self, slot: int, ids: List[int]) -> None:
+        """Write slot's table row (ids then -1) to host and device."""
+        tnp = self.host_table()
+        tnp[slot, :] = -1
+        tnp[slot, :len(ids)] = ids
+        self.block_table[slot] = torch.as_tensor(
+            tnp[slot], device=self.block_table.device)
+
+
+def init_paged_cache(cfg: TransformerConfig, *, n_slots: int,
+                     n_blocks: int, block_size: int = 16,
+                     max_blocks_per_slot: Optional[int] = None,
+                     kv_quant: bool = False,
+                     device: DeviceLike = None) -> PagedCache:
+    """Zeroed pools; the last block is the trash block, left off the
+    free list so no slot is ever handed it."""
+    if kv_quant:
+        raise NotImplementedError(f"kv_quant pools: {TODO_KV_QUANT}")
+    dev = resolve_device(device)
+    mb = max_blocks_per_slot or n_blocks
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    return PagedCache(
+        pool_k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        pool_v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        block_table=torch.full((n_slots, mb), -1, dtype=torch.int32,
+                               device=dev),
+        lengths=torch.zeros((n_slots,), dtype=torch.int32, device=dev),
+        block_size=block_size,
+        free=list(range(n_blocks - 1)),
+        table_np=np.full((n_slots, mb), -1, np.int32),
+        lengths_np=np.zeros((n_slots,), np.int64),
+    )
+
+
+def blocks_needed(n_tokens: int, block_size: int) -> int:
+    return -(-n_tokens // block_size)
+
+
+def _set_length(cache: PagedCache, slot: int, n: int) -> None:
+    cache.host_lengths()[slot] = n
+    cache.lengths[slot] = n
+
+
+def admit(cache: PagedCache, slot: int, n_tokens: int) -> PagedCache:
+    """Host-side: reserve blocks for a prompt of ``n_tokens`` (+ room
+    for the next token). Raises when the pool is exhausted."""
+    need = blocks_needed(n_tokens + 1, cache.block_size)
+    if need > cache.max_blocks:
+        raise ValueError(f"{n_tokens} tokens exceed slot capacity")
+    if need > len(cache.free):
+        raise PoolExhausted(
+            f"KV pool exhausted: need {need} blocks, {len(cache.free)} free")
+    ids = [cache.free.pop() for _ in range(need)]
+    cache.set_row(slot, ids)
+    _set_length(cache, slot, n_tokens)
+    return cache
+
+
+def grow_if_needed(cache: PagedCache, slot: int) -> PagedCache:
+    """Host-side: ensure the slot has a block for position
+    lengths[slot]. Reads only the host mirrors."""
+    t = int(cache.host_lengths()[slot])
+    bi = t // cache.block_size
+    if bi >= cache.max_blocks:
+        raise SlotCapacityExceeded(slot, f"slot {slot} exceeded max_blocks")
+    if int(cache.host_table()[slot, bi]) >= 0:
+        return cache
+    if not cache.free:
+        raise PoolExhausted("KV pool exhausted")
+    blk = cache.free.pop()
+    cache.host_table()[slot, bi] = blk
+    cache.block_table[slot, bi] = blk
+    return cache
+
+
+def evict(cache: PagedCache, slot: int) -> PagedCache:
+    """Host-side: return the slot's blocks to the pool (refcount-aware:
+    delegates to release())."""
+    return release(cache, slot)
+
+
+def reclaimable_blocks(cache: PagedCache) -> int:
+    """Blocks allocatable right now: free list + zero-ref cached."""
+    return len(cache.free) + len(cache.lru)
+
+
+def alloc_blocks(cache: PagedCache, need: int) -> List[int]:
+    """Pop ``need`` block ids: free list first, then reclaim the oldest
+    zero-ref published blocks (unpublishing them). Raises with the host
+    lists intact on a shortfall."""
+    if need > reclaimable_blocks(cache):
+        raise PoolExhausted(
+            f"KV pool exhausted: need {need} blocks, "
+            f"{len(cache.free)} free + {len(cache.lru)} reclaimable")
+    ids = [cache.free.pop() for _ in range(min(need, len(cache.free)))]
+    while len(ids) < need:
+        blk, _ = cache.lru.popitem(last=False)          # oldest first
+        key = cache.chains.pop(blk)
+        cache.index.pop(key, None)
+        cache.refs.pop(blk, None)
+        ids.append(blk)
+    return ids
+
+
+def _unref(cache: PagedCache, blk: int) -> None:
+    """Drop one reference to ``blk``: >0 keep; at zero a published
+    block parks on the resident LRU (still hittable), an unpublished
+    one returns to the free list."""
+    n = cache.refs.get(blk, 1) - 1
+    if n > 0:
+        cache.refs[blk] = n
+        return
+    cache.refs.pop(blk, None)
+    if blk in cache.chains:
+        cache.lru[blk] = None
+    else:
+        cache.free.append(blk)
+
+
+def admit_prefix(cache: PagedCache, slot: int, prompt: np.ndarray,
+                 keys: Optional[List[bytes]] = None
+                 ) -> Tuple[PagedCache, int, List[int]]:
+    """Reserve the slot's blocks, reusing every published block whose
+    chain matches the prompt's prefix. Returns (cache, cached_len,
+    blocks): the caller prefills only positions >= cached_len.
+    Matching stops at (S-1)//bs full blocks, so the tail block decode
+    writes into is always fresh, and at the first chain miss."""
+    S = int(prompt.shape[0])
+    bs = cache.block_size
+    need_total = blocks_needed(S + 1, bs)
+    if need_total > cache.max_blocks:
+        raise ValueError(f"{S} tokens exceed slot capacity")
+    if keys is None:
+        keys = chain_keys(prompt, bs, (S - 1) // bs)
+    matched: List[int] = []
+    for key in keys[:(S - 1) // bs]:
+        blk = cache.index.get(key)
+        if blk is None:
+            break
+        matched.append(blk)
+    # Pin the matched blocks BEFORE allocating: an unpinned match on
+    # the zero-ref LRU could be handed out as "fresh".
+    for b in matched:
+        cache.refs[b] = cache.refs.get(b, 0) + 1
+        cache.lru.pop(b, None)
+    try:
+        fresh = alloc_blocks(cache, need_total - len(matched))
+    except PoolExhausted:
+        for b in reversed(matched):          # leaf-first, as release()
+            _unref(cache, b)
+        raise
+    for b in fresh:
+        cache.refs[b] = 1
+    row = matched + fresh
+    cache.set_row(slot, row)
+    _set_length(cache, slot, S)
+    return cache, len(matched) * bs, row
+
+
+def publish_prefix(cache: PagedCache, blocks: List[int],
+                   prompt: np.ndarray,
+                   keys: Optional[List[bytes]] = None) -> None:
+    """Index the slot's freshly filled full prompt blocks so later
+    admits can share them (host dicts only; first writer wins)."""
+    S = int(prompt.shape[0])
+    bs = cache.block_size
+    n_pub = S // bs
+    if keys is None:
+        keys = chain_keys(prompt, bs, n_pub)
+    for i, key in enumerate(keys[:n_pub]):
+        blk = int(blocks[i])
+        if blk in cache.chains or key in cache.index:
+            continue
+        cache.index[key] = blk
+        cache.chains[blk] = key
+
+
+def release(cache: PagedCache, slot: int) -> PagedCache:
+    """Refcount-aware evict. Blocks park LEAF-FIRST (reversed table
+    order) so reclaim, which pops the LRU oldest-first, eats a chain
+    from its leaf and the surviving prefix stays matchable."""
+    for b in reversed(cache.host_table()[slot]):
+        b = int(b)
+        if b >= 0:
+            _unref(cache, b)
+    cache.set_row(slot, [])
+    _set_length(cache, slot, 0)
+    return cache
+
+
+def decode_core(params, tokens, pool_k, pool_v, table, lengths, active,
+                *, cfg: TransformerConfig, attn_impl: str = "auto"):
+    """One paged decode step over the pools: tokens [B, 1]; active [B]
+    bool. Each layer writes its new KV into its pool slice in place and
+    attends through the block table (forward's paged S=1 branch).
+    Returns (logits [B, 1, V], pool_k, pool_v, lengths advanced by 1
+    for active slots)."""
+    paged_cache = {"pool_k": pool_k, "pool_v": pool_v,
+                   "table": table, "active": active}
+    logits, _ = forward(params, tokens, cfg, cache=paged_cache,
+                        pos_offset=lengths, attn_impl=attn_impl)
+    return logits, pool_k, pool_v, lengths + active.to(lengths.dtype)
+
+
+def prefill_into(params, prompt: torch.Tensor, cfg: TransformerConfig,
+                 cache: PagedCache, slot: int, attn_impl: str = "auto"
+                 ) -> Tuple[torch.Tensor, PagedCache]:
+    """Prefill one prompt [S] and write its KV into the slot's blocks.
+    Returns (last-position logits [V], cache). The ``cached_len == 0``
+    case of ``prefill_suffix_into``."""
+    return prefill_suffix_into(params, prompt, cfg, cache, slot, 0,
+                               attn_impl=attn_impl)
+
+
+def prefill_suffix_into(params, prompt: torch.Tensor,
+                        cfg: TransformerConfig, cache: PagedCache,
+                        slot: int, cached_len: int,
+                        attn_impl: str = "auto"
+                        ) -> Tuple[torch.Tensor, PagedCache]:
+    """Prefix-cached prefill: compute KV only for positions >=
+    ``cached_len``, attending over the shared prefix gathered from the
+    pool, and write only the slot's fresh blocks. Returns
+    (last-position logits [V], cache)."""
+    S = int(prompt.shape[0])
+    row, comp_len, n_blk = _admission_row(cfg, cache, slot, S, cached_len)
+    last, cache, _ = _prefill_chunk(params, prompt, cfg, cache, slot, row,
+                                    cached_len, S, n_blk, comp_len,
+                                    chunk=0, attn_impl=attn_impl)
+    return last, cache
+
+
+_ROW_PAIRS = (("pool_k", "k"), ("pool_v", "v"))
+
+
+def admission_len(S: int, cached_len: int, block_size: int,
+                  max_blocks: int) -> Tuple[int, int]:
+    """(n_blk, comp_len) of a whole-prompt admission of S tokens with
+    ``cached_len`` of them reused: comp_len pads the fresh part to a
+    power-of-two block count, as the reference does. The admission's
+    attention runs Sq = comp_len - cached_len queries at q_offset
+    ``cached_len`` over Sk = comp_len keys."""
+    n_blk = blocks_needed(S + 1, block_size)
+    cached_blk = cached_len // block_size
+    fresh_blk = n_blk - cached_blk
+    comp_fresh = max(1, 1 << (fresh_blk - 1).bit_length())   # pow2 bucket
+    comp_fresh = max(min(comp_fresh, max_blocks - cached_blk), fresh_blk)
+    return n_blk, cached_len + comp_fresh * block_size
+
+
+def _admission_row(cfg: TransformerConfig, cache: PagedCache, slot: int,
+                   S: int, cached_len: int):
+    """The dense row cache one admission computes into, with the
+    [0, cached_len) prefix gathered from the pool once. Returns
+    (row, comp_len, n_blk)."""
+    bs = cache.block_size
+    n_blk, comp_len = admission_len(S, cached_len, bs, cache.max_blocks)
+    cached_blk = cached_len // bs
+    row = init_cache(cfg, 1, comp_len, device=cache.pool_k.device)
+    if cached_blk:
+        L = row["k"].shape[0]
+        blk_ids = cache.block_table[slot, :cached_blk].long()
+        for pf, rk in _ROW_PAIRS:
+            g = getattr(cache, pf)[:, blk_ids]     # [L, cached_blk, bs, ...]
+            row[rk][:, 0, :cached_len] = g.reshape(L, cached_len,
+                                                   *g.shape[3:])
+    return row, comp_len, n_blk
+
+
+def _prefill_chunk(params, prompt: torch.Tensor, cfg: TransformerConfig,
+                   cache: PagedCache, slot: int, row, done: int, end: int,
+                   n_blk: int, comp_len: int, chunk: int,
+                   attn_impl: str = "auto"):
+    """Forward prompt positions [done, end) against the admission row
+    (which already holds [0, done)) and write this chunk's block rows
+    to the pool. Returns (last-position logits [V] on the final chunk
+    else None, cache, row).
+
+    Padding follows the reference: mid chunks run at the fixed
+    ``chunk`` length, the final chunk pads to the row tail — the padded
+    tail writes junk KV into the last block, which decode's length mask
+    never attends and the first decode write at position S overwrites.
+    The full [1, pad_len, V] f32 logits are computed, as there."""
+    S = int(prompt.shape[0])
+    bs = cache.block_size
+    final = end >= S
+    pad_len = (comp_len - done) if final else chunk
+    padded = torch.zeros((pad_len,), dtype=prompt.dtype,
+                         device=prompt.device)
+    padded[:end - done] = prompt[done:end]
+    logits, row = forward(params, padded[None, :], cfg, cache=row,
+                          pos_offset=done, attn_impl=attn_impl)
+    start_blk = done // bs
+    end_blk = n_blk if final else end // bs
+    ids = cache.block_table[slot, start_blk:end_blk].long()
+    L = row["k"].shape[0]
+    n_fresh = end_blk - start_blk
+    for pf, rk in _ROW_PAIRS:
+        r = row[rk][:, 0, start_blk * bs:end_blk * bs]
+        # In-place scatter into the pool (the reference's donated
+        # .at[:, ids].set).
+        getattr(cache, pf)[:, ids] = r.reshape(L, n_fresh, bs, *r.shape[2:])
+    last = logits[0, S - 1 - done] if final else None
+    return last, cache, row
+
+
+def _prompt_host(prompt) -> np.ndarray:
+    if isinstance(prompt, torch.Tensor):
+        return prompt.detach().cpu().numpy().astype(np.int64)
+    return np.asarray(prompt, dtype=np.int64)
+
+
+class PagedSlotServer:
+    """Continuous batching over the paged pool: admit / step / evict.
+
+    Host/device split as in the reference: the host owns the free
+    list, the active bitmap and exact mirrors of the block table and
+    lengths; each decode tick runs one forward over every slot and
+    costs exactly ONE device-to-host transfer, the sampled tokens
+    (fetched in ``PendingStep.finalize``). Growth and capacity
+    retirement read the mirrors.
+
+    This slice serves the dense LM with greedy sampling. The options
+    whose machinery is not ported yet raise ``NotImplementedError``
+    naming the ROADMAP item: speculative_draft, kv_quant, multi_lora,
+    mesh, kv_quota, forward_fn, host_tier, layers_hook, and
+    ``prefill_work`` (the fused admission tick) in ``step``.
+    """
+
+    def __init__(self, params, cfg: TransformerConfig, *, n_slots: int,
+                 n_blocks: int, block_size: int = 16,
+                 max_blocks_per_slot: Optional[int] = None,
+                 attn_impl: str = "auto", layers_hook=None,
+                 prefix_cache: bool = False,
+                 kv_quant: bool = False,
+                 temperature: float = 0.0, top_k=None, top_p=None,
+                 seed: int = 0,
+                 multi_lora=None, speculative_draft=None,
+                 forward_fn=None, mesh=None, kv_quota=None,
+                 host_tier=None, device: DeviceLike = None):
+        for name, val, todo in (
+                ("speculative_draft", speculative_draft, TODO_SPEC),
+                ("multi_lora", multi_lora, TODO_LORA),
+                ("mesh", mesh, TODO_MESH),
+                ("kv_quota", kv_quota, TODO_QUOTA),
+                ("forward_fn", forward_fn, TODO_FAMILY),
+                ("host_tier", host_tier, TODO_HOST_TIER),
+                ("layers_hook", layers_hook, TODO_INT8_WEIGHTS)):
+            if val is not None:
+                raise NotImplementedError(f"{name}: {todo}")
+        if kv_quant:
+            raise NotImplementedError(f"kv_quant: {TODO_KV_QUANT}")
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+        self._sampler = TokenSampler(temperature, top_k, top_p, seed)
+        self.cache = init_paged_cache(
+            cfg, n_slots=n_slots, n_blocks=n_blocks, block_size=block_size,
+            max_blocks_per_slot=max_blocks_per_slot, device=self.device)
+        # Device->host transfers made by admissions and ticks.
+        self.device_fetches = 0
+        self.prefix_cache = prefix_cache
+        self.last_cached_len = 0            # tokens reused by last admit
+        self.prefix_hit_tokens = 0          # cumulative reused tokens
+        self.prefix_prompt_tokens = 0       # cumulative admitted tokens
+        self.active = np.zeros(n_slots, dtype=bool)            # host truth
+        self._active_dev = torch.zeros((n_slots,), dtype=torch.bool,
+                                       device=self.device)      # mirror
+        self._admissions: Dict[int, Dict[str, Any]] = {}
+        self.last_token = torch.zeros((n_slots, 1), dtype=torch.int64,
+                                      device=self.device)
+
+    @property
+    def slot_capacity(self) -> int:
+        return self.cache.max_blocks * self.cache.block_size
+
+    def _sync_active(self) -> None:
+        """Host bitmap -> device mirror (an upload, never a fetch)."""
+        self._active_dev = torch.as_tensor(self.active, device=self.device)
+
+    def admit(self, prompt, adapter: int = -1) -> int:
+        """Reserve blocks for ``prompt`` [S], prefill them, return the
+        slot. Raises PoolExhausted when slots or pool blocks run out."""
+        slot = self.admit_start(prompt, adapter=adapter)
+        while self.admit_step(slot) is None:
+            pass
+        return slot
+
+    def admit_start(self, prompt, adapter: int = -1,
+                    chunk_tokens: Optional[int] = None) -> int:
+        """Reserve a slot and all its blocks for ``prompt`` without
+        prefilling yet; drive the prefill with admit_step(). With
+        ``chunk_tokens`` the prompt prefills in block-aligned chunks,
+        each attending over the admission's row (bit-identical KV to a
+        whole-prompt admit)."""
+        if adapter != -1:
+            raise NotImplementedError(f"adapter: {TODO_LORA}")
+        prompt_np = _prompt_host(prompt)
+        if prompt_np.ndim != 1:
+            raise ValueError("admit takes a single unbatched prompt")
+        candidates = [s for s in range(self.cache.n_slots)
+                      if not self.active[s] and s not in self._admissions]
+        if not candidates:
+            raise PoolExhausted("no free slots")
+        slot = candidates[0]
+        # A slot that retired at capacity still owns its blocks;
+        # release them before reuse or they leak.
+        if (self.cache.host_table()[slot] >= 0).any():
+            self.cache = release(self.cache, slot)
+        S = int(prompt_np.shape[0])
+        bs = self.cache.block_size
+        if self.prefix_cache:
+            keys = chain_keys(prompt_np, bs, S // bs)
+            self.cache, cached_len, blocks = admit_prefix(
+                self.cache, slot, prompt_np, keys=keys)
+            self.last_cached_len = cached_len
+            self.prefix_hit_tokens += cached_len
+            self.prefix_prompt_tokens += S
+        else:
+            self.cache = admit(self.cache, slot, S)
+            cached_len, keys, blocks = 0, None, None
+        chunk = chunk_tokens if chunk_tokens else S
+        chunk = max(bs, -(-chunk // bs) * bs)     # round UP to blocks
+        row, comp_len, n_blk = _admission_row(
+            self.cfg, self.cache, slot, S, cached_len)
+        self._admissions[slot] = {
+            "prompt": torch.as_tensor(prompt_np, device=self.device),
+            "prompt_np": prompt_np, "done": cached_len, "chunk": chunk,
+            "keys": keys, "blocks": blocks,
+            "row": row, "comp_len": comp_len, "n_blk": n_blk,
+        }
+        return slot
+
+    def admit_step(self, slot: int,
+                   max_chunk_tokens: Optional[int] = None
+                   ) -> Optional[int]:
+        """Prefill the next chunk of a started admission (capped at
+        ``max_chunk_tokens`` rounded down to blocks, floor one block).
+        Returns None while chunks remain; on the final chunk, samples
+        the first token (one device-to-host fetch), activates the slot
+        and returns the token."""
+        st = self._admissions[slot]
+        S = int(st["prompt_np"].shape[0])
+        chunk = st["chunk"]
+        if max_chunk_tokens is not None:
+            bs = self.cache.block_size
+            chunk = max(bs, min(chunk, (max_chunk_tokens // bs) * bs))
+        end = min(S, st["done"] + chunk)
+        last_logits, self.cache, st["row"] = _prefill_chunk(
+            self.params, st["prompt"], self.cfg, self.cache, slot,
+            st["row"], st["done"], end, st["n_blk"], st["comp_len"],
+            chunk, attn_impl=self.attn_impl)
+        st["done"] = end
+        if end < S:
+            return None
+        del self._admissions[slot]
+        if self.prefix_cache:
+            publish_prefix(self.cache, st["blocks"], st["prompt_np"],
+                           keys=st["keys"])
+        nxt = self._sampler.pick(last_logits[None, :])[0]
+        self.last_token[slot, 0] = nxt
+        self.active[slot] = True
+        self._sync_active()
+        self.device_fetches += 1
+        return int(nxt.item())
+
+    def _grow_active(self) -> None:
+        """Allocate the next block for every active slot whose length
+        crosses a block boundary: host-mirror reads only, one device
+        write for the batch."""
+        bs = self.cache.block_size
+        lengths = self.cache.host_lengths()
+        table = self.cache.host_table()
+        slots, bis = [], []
+        for slot in np.nonzero(self.active)[0]:
+            bi = int(lengths[slot]) // bs
+            if bi >= self.cache.max_blocks:
+                raise SlotCapacityExceeded(
+                    int(slot), f"slot {slot} exceeded max_blocks")
+            if table[slot, bi] < 0:
+                slots.append(int(slot))
+                bis.append(bi)
+        # Check-then-pop: a shortfall raises with the free list intact.
+        ids = alloc_blocks(self.cache, len(slots))
+        for b in ids:
+            self.cache.refs[b] = 1
+        if slots:
+            table[slots, bis] = ids
+            dev = self.device
+            self.cache.block_table[
+                torch.as_tensor(slots, device=dev),
+                torch.as_tensor(bis, device=dev)] = torch.as_tensor(
+                    ids, dtype=torch.int32, device=dev)
+
+    def step(self, prefill_work: Optional[int] = None,
+             max_chunk_tokens: Optional[int] = None) -> Dict[int, int]:
+        """One greedy decode step for every active slot; returns
+        {slot: new_token}. Slots at capacity deactivate (their blocks
+        stay readable until evict)."""
+        return self.step_async(prefill_work, max_chunk_tokens).finalize()
+
+    def step_async(self, prefill_work: Optional[int] = None,
+                   max_chunk_tokens: Optional[int] = None) -> PendingStep:
+        """step() with the token fetch deferred: block growth, the
+        forward, pool/length updates and capacity retirement happen
+        here; finalize() does the ONE device-to-host fetch."""
+        if prefill_work is not None:
+            raise NotImplementedError(f"prefill_work: {TODO_FUSED}")
+        if not self.active.any():
+            return PendingStep.done({})
+        self._grow_active()
+        c = self.cache
+        logits, _, _, c.lengths = decode_core(
+            self.params, self.last_token, c.pool_k, c.pool_v,
+            c.block_table, c.lengths, self._active_dev, cfg=self.cfg,
+            attn_impl=self.attn_impl)
+        nxt = self._sampler.pick(logits[:, 0])
+        self.last_token = torch.where(self._active_dev[:, None],
+                                      nxt[:, None], self.last_token)
+        # The host mirror advances by the same +1 per active slot.
+        lnp = c.host_lengths()
+        lnp[self.active] += 1
+        slots = [int(s) for s in np.nonzero(self.active)[0]]
+        hit_cap = False
+        for slot in slots:
+            if int(lnp[slot]) >= self.slot_capacity:
+                self.active[slot] = False
+                hit_cap = True
+        if hit_cap:
+            self._sync_active()
+
+        def _finalize(invalid):
+            self.device_fetches += 1
+            toks = nxt.tolist()
+            return {s: toks[s] for s in slots if s not in invalid}
+
+        return PendingStep(_finalize, slots=slots)
+
+    def evict(self, slot: int) -> None:
+        """Free the slot's blocks back to the pool (refcounted and
+        LRU-retained when published). Safe mid-admission."""
+        self.active[slot] = False
+        self._sync_active()
+        self._admissions.pop(slot, None)
+        self.cache = release(self.cache, slot)
