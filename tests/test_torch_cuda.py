@@ -110,6 +110,87 @@ def test_paged_decode_vs_plain(dev, dtype, H, Hkv, D, bs, window, softcap):
     assert torch.all(got[4] == 0)
 
 
+def _paged_inputs(g, dev, dtype, B, Sq, H, Hkv, D, bs, nb, mb, pos, int8):
+    """A pool laid out as the server lays it out: slot b owns the pages
+    through position pos[b] + Sq - 1 (drawn from a shuffled free list),
+    -1 past them, slots 0 and 3 share their first page; the last slot
+    is inactive (all -1). int8 pools come from kv_quantize of random
+    rows, with scales in the port's [nb, Hkv, bs] page layout."""
+    from tpushare_torch.models import quant
+    rows_k = _rand(g, nb, bs, Hkv, D, dtype=torch.float32, dev=dev)
+    rows_v = _rand(g, nb, bs, Hkv, D, dtype=torch.float32, dev=dev)
+    if int8:
+        pool_k, sk = quant.kv_quantize(rows_k)
+        pool_v, sv = quant.kv_quantize(rows_v)
+        scales = {"k_scale": quant.scales_to_pool_layout(sk),
+                  "v_scale": quant.scales_to_pool_layout(sv)}
+    else:
+        pool_k, pool_v, scales = rows_k.to(dtype), rows_v.to(dtype), {}
+    rng = np.random.default_rng(2)
+    table = np.full((B, mb), -1, np.int32)
+    ids = list(rng.permutation(nb - 1))
+    for b in range(B - 1):
+        n = min(mb, (int(pos[b]) + Sq - 1) // bs + 1)
+        table[b, :n] = [ids.pop() for _ in range(n)]
+    table[3, 0] = table[0, 0]                      # a shared page
+    q = _rand(g, B, Sq, H, D, dtype=dtype, dev=dev)
+    return (q, pool_k, pool_v, torch.as_tensor(table, device=dev),
+            torch.as_tensor(np.asarray(pos, np.int32), device=dev), scales)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,D,bs,window,softcap", [
+    (8, 1, 256, 16, None, None),
+    (32, 8, 128, 16, None, None),
+    (4, 2, 128, 8, 20, 30.0),
+])
+def test_paged_decode_int8_vs_plain(dev, dtype, H, Hkv, D, bs, window,
+                                    softcap):
+    g = torch.Generator(device=dev).manual_seed(3)
+    pos = [bs * 3 + 2, 0, bs * 9 - 1, 5, 0]
+    q, pk, pv, table, pos_t, sc = _paged_inputs(
+        g, dev, dtype, 5, 1, H, Hkv, D, bs, 40, 9, pos, int8=True)
+    before = fa.paged_flash_decode.launches_int8
+    got = fa.paged_flash_decode(q, pk, pv, table, pos_t, window=window,
+                                attn_softcap=softcap, **sc)
+    torch.cuda.synchronize()
+    assert fa.paged_flash_decode.launches_int8 == before + 1
+    want = fa.paged_flash_decode_plain(q, pk, pv, table, pos_t,
+                                       window=window, attn_softcap=softcap,
+                                       **sc)
+    _assert_close(got, want, dtype)
+    assert torch.all(got[4] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("Sq,H,Hkv,D,bs,window,softcap", [
+    (5, 32, 8, 128, 16, None, None),
+    (5, 8, 1, 256, 16, None, None),
+    (40, 8, 4, 256, 16, 24, 50.0),
+    (130, 32, 8, 128, 16, None, None),
+])
+def test_paged_verify_vs_plain(dev, dtype, int8, Sq, H, Hkv, D, bs, window,
+                               softcap):
+    g = torch.Generator(device=dev).manual_seed(4)
+    mb = 16
+    pos = [bs * 3 + 2, 0, bs * mb - Sq - 3, 5, 0]
+    q, pk, pv, table, pos_t, sc = _paged_inputs(
+        g, dev, dtype, 5, Sq, H, Hkv, D, bs, 90, mb, pos, int8=int8)
+    attr = "launches_int8" if int8 else "launches"
+    before = getattr(fa.paged_flash_verify, attr)
+    got = fa.paged_flash_verify(q, pk, pv, table, pos_t, window=window,
+                                attn_softcap=softcap, **sc)
+    torch.cuda.synchronize()
+    assert getattr(fa.paged_flash_verify, attr) == before + 1
+    want = fa.paged_flash_verify_plain(q, pk, pv, table, pos_t,
+                                       window=window, attn_softcap=softcap,
+                                       **sc)
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_close(got, want, dtype)
+    assert torch.all(got[4] == 0)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 4, 2, 32), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
@@ -121,6 +202,22 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
                            q.transpose(1, 2))
+    q1 = torch.zeros((2, 1, 4, 128), device=dev)
+    q5 = torch.zeros((2, 5, 4, 128), device=dev)
+    pool = torch.zeros((6, 16, 2, 128), device=dev)
+    pool8 = torch.zeros((6, 16, 2, 128), device=dev, dtype=torch.int8)
+    table = torch.zeros((2, 3), device=dev, dtype=torch.int32)
+    pos = torch.zeros((2,), device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="Sq must be >= 2"):
+        fa.paged_flash_verify(q1, pool, pool, table, pos)
+    with pytest.raises(ValueError, match="Sq must be 1"):
+        fa.paged_flash_decode(q5, pool, pool, table, pos)
+    with pytest.raises(ValueError, match="int8 pages with scales"):
+        fa.paged_flash_verify(q5, pool8, pool8, table, pos)
+    bad = torch.zeros((6, 2, 16), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="scale pages"):
+        fa.paged_flash_decode(q1, pool8, pool8, table, pos, k_scale=bad,
+                              v_scale=bad)
 
 
 def test_tiny_server_kernels_match_reference(dev):
@@ -148,3 +245,42 @@ def test_tiny_server_kernels_match_reference(dev):
     assert out["auto"][2] > 0 and out["auto"][3] > 0
     assert out["reference"][2] == 0 and out["reference"][3] == 0
     assert out["auto"][0] == out["reference"][0]
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_tiny_spec_fused_server_kernels_match_reference(dev, kv_quant):
+    """A tiny bf16 model with an int8-self draft (and int8 pools): fused
+    admission ticks and speculative rounds through the kernels vs the
+    plain reference path. Every kernel variant of the path launches,
+    the reference launches none, every round emits to every slot."""
+    from tpushare_torch.models import paged, quant
+    from tpushare_torch.models import transformer as tt
+    cfg = tt.TransformerConfig(vocab_size=1000, d_model=256, n_layers=2,
+                               n_heads=4, n_kv_heads=2, head_dim=128,
+                               d_ff=512)
+    params = tt.init_params(0, cfg)
+    draft = (quant.quantize_params(params, cfg), cfg)
+    prompts = [np.arange(5 + 11 * i) % cfg.vocab_size for i in range(2)]
+    long = np.arange(70) % cfg.vocab_size
+    counters = [(fa.flash_attention, "launches"),
+                (fa.paged_flash_decode, "launches"),
+                (fa.paged_flash_verify,
+                 "launches_int8" if kv_quant else "launches")]
+    out = {}
+    for impl in ("auto", "reference"):
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        srv = paged.PagedSlotServer(
+            params, cfg, n_slots=4, n_blocks=64, prefix_cache=True,
+            attn_impl=impl, kv_quant=kv_quant, speculative_draft=draft,
+            gamma=2, draft_layers_hook=quant.dequant_hook(cfg))
+        for p in prompts:
+            srv.admit(p)
+        slot = srv.admit_start(long, chunk_tokens=32)
+        while slot in srv._admissions:
+            srv.step(prefill_work=slot)
+        rounds = [srv.step() for _ in range(3)]
+        out[impl] = ([getattr(fn, a) for fn, a in counters], rounds)
+    assert all(n > 0 for n in out["auto"][0]), out["auto"][0]
+    assert out["reference"][0] == [0, 0, 0]
+    assert all(len(r) == 3 for r in out["auto"][1])

@@ -196,6 +196,110 @@ class TestPagedDecodePlain:
         assert torch.isfinite(got).all()
 
 
+def _jax_scales(s):
+    """Port scale pages [nb, Hkv, bs] -> JAX's padded [nb, Hkv_pad, bs]."""
+    from tpushare.models.quant import kv_scale_pad
+    nb, hkv, bs = s.shape
+    out = np.zeros((nb, kv_scale_pad(hkv), bs), np.float32)
+    out[:, :hkv] = s
+    return out
+
+
+def _int8_pages(pk, pv):
+    """Quantize f32 pages as the kv_quant pools hold them: int8 pages
+    and f32 scale pages in the port's [nb, Hkv, bs] layout."""
+    from tpushare_torch.models.quant import (kv_quantize,
+                                             scales_to_pool_layout)
+    qk, sk = kv_quantize(_t(pk))
+    qv, sv = kv_quantize(_t(pv))
+    return (qk.numpy(), qv.numpy(), scales_to_pool_layout(sk).numpy(),
+            scales_to_pool_layout(sv).numpy())
+
+
+def _verify_case(Sq, seed=50, B=3, H=4, Hkv=2, D=128, nb=24, bs=8, mb=8):
+    """Slots whose pages cover positions through pos[b] + Sq - 1 (the
+    JAX kernel clamps -1 entries to page 0 instead of masking them, so
+    no compared row may reach one), a prefix page shared by slots 0
+    and 2, -1 past each slot's pages."""
+    rng = np.random.default_rng(seed)
+    pool_k = rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32)
+    pool_v = rng.normal(size=(nb, bs, Hkv, D)).astype(np.float32)
+    pos = np.array([9, 0, 21], np.int32)[:B]
+    table = np.full((B, mb), -1, np.int32)
+    ids = list(rng.permutation(nb - 1))
+    for b in range(B):
+        n = (int(pos[b]) + Sq - 1) // bs + 1
+        assert n <= mb
+        table[b, :n] = [ids.pop() for _ in range(n)]
+    table[2, 0] = table[0, 0]
+    q = rng.normal(size=(B, Sq, H, D)).astype(np.float32)
+    return q, pool_k, pool_v, table, pos
+
+
+class TestPagedVerifyPlain:
+    """``paged_flash_verify_plain`` (what the wrapper runs on CPU)
+    against the JAX ``_paged_verify_kernel`` in interpret mode."""
+
+    @pytest.mark.parametrize("int8", [False, True])
+    @pytest.mark.parametrize("Sq,window,softcap", [
+        (2, None, None), (5, None, None), (16, 12, None), (40, 20, 30.0)])
+    def test_vs_pallas_interpret(self, Sq, window, softcap, int8):
+        q, pk, pv, table, pos = _verify_case(Sq)
+        kw, tkw = {}, {}
+        if int8:
+            pk, pv, sk, sv = _int8_pages(pk, pv)
+            kw = {"k_scale": jnp.asarray(_jax_scales(sk)),
+                  "v_scale": jnp.asarray(_jax_scales(sv))}
+            tkw = {"k_scale": _t(sk), "v_scale": _t(sv)}
+        want = jfa.paged_flash_verify(
+            *map(jnp.asarray, (q, pk, pv, table, pos)), window=window,
+            attn_softcap=softcap, interpret=True, **kw)
+        got = tfa.paged_flash_verify(*map(_t, (q, pk, pv, table, pos)),
+                                     window=window, attn_softcap=softcap,
+                                     **tkw)
+        assert got.shape == q.shape
+        _close(got, want, atol=FLASH_ATOL)
+
+    def test_row_s_attends_through_pos_plus_s(self):
+        """Sq = 1 of the verify plain version is the decode plain
+        version; each later row sees one more position."""
+        q, pk, pv, table, pos = _verify_case(4, seed=51)
+        got = tfa.paged_flash_verify_plain(*map(_t, (q, pk, pv, table,
+                                                     pos)))
+        for s in range(4):
+            one = tfa.paged_flash_decode_plain(
+                _t(q[:, s:s + 1]), _t(pk), _t(pv), _t(table), _t(pos + s))
+            _close(got[:, s:s + 1], one, atol=1e-6)
+
+
+class TestPagedDecodeInt8Plain:
+    @pytest.mark.parametrize("window,softcap", [(None, None), (20, 30.0)])
+    def test_vs_pallas_interpret(self, window, softcap):
+        q, pk, pv, table, pos = _paged_case(seed=32)
+        qk, qv, sk, sv = _int8_pages(pk, pv)
+        want = jfa.paged_flash_decode(
+            *map(jnp.asarray, (q, qk, qv, table, pos)), window=window,
+            attn_softcap=softcap, k_scale=jnp.asarray(_jax_scales(sk)),
+            v_scale=jnp.asarray(_jax_scales(sv)), interpret=True)
+        got = tfa.paged_flash_decode(*map(_t, (q, qk, qv, table, pos)),
+                                     window=window, attn_softcap=softcap,
+                                     k_scale=_t(sk), v_scale=_t(sv))
+        _close(got, want, atol=FLASH_ATOL)
+
+    def test_dequantizes_in_f32_like_the_kernel(self):
+        """Int8 pages times their scales in f32 give exactly the f32
+        pages' answer: the dequantization is the only difference."""
+        q, pk, pv, table, pos = _paged_case(seed=33)
+        qk, qv, sk, sv = _int8_pages(pk, pv)
+        got = tfa.paged_flash_decode_plain(*map(_t, (q, qk, qv, table, pos)),
+                                           k_scale=_t(sk), v_scale=_t(sv))
+        deq_k = qk.astype(np.float32) * sk.transpose(0, 2, 1)[..., None]
+        deq_v = qv.astype(np.float32) * sv.transpose(0, 2, 1)[..., None]
+        want = tfa.paged_flash_decode_plain(*map(_t, (q, deq_k, deq_v,
+                                                      table, pos)))
+        _close(got, want, atol=1e-6)
+
+
 class TestPortBoundary:
     def test_chain_keys_byte_identical(self):
         prompt = np.random.default_rng(40).integers(0, 50_000, 70)
@@ -248,3 +352,15 @@ class TestPortBoundary:
         pos = torch.empty((2,), dtype=torch.int32, device="meta")
         with pytest.raises(ValueError, match="int32"):
             tfa.paged_flash_decode(q, pool, pool, table, pos)
+        table = torch.empty((2, 3), dtype=torch.int32, device="meta")
+        q5 = torch.empty((2, 5, 4, 128), device="meta")
+        with pytest.raises(ValueError, match="Sq must be >= 2"):
+            tfa.paged_flash_verify(q, pool, pool, table, pos)
+        pool8 = torch.empty((6, 16, 2, 128), dtype=torch.int8, device="meta")
+        with pytest.raises(ValueError, match="both k_scale and v_scale"):
+            tfa.paged_flash_verify(q5, pool8, pool8, table, pos,
+                                   k_scale=pool)
+        scale = torch.empty((6, 16, 2), device="meta")      # rows, not pages
+        with pytest.raises(ValueError, match="scale pages"):
+            tfa.paged_flash_verify(q5, pool8, pool8, table, pos,
+                                   k_scale=scale, v_scale=scale)

@@ -2,8 +2,9 @@
 with the JAX package's, on the CPU in f32, weights carried across by
 ``bridge.params_from_jax``.
 
-Covers forward's three ported branches (no cache, dense scalar offset,
-paged S=1), the configs' spots where the two frameworks round
+Covers forward's ported branches (no cache, dense scalar offset with
+bf16/f32 or int8 rows, paged S=1 and S>1 over plain or int8 pools,
+``layers_hook``), the configs' spots where the two frameworks round
 differently (embedding scale, tanh gelu, logits cast), init_params'
 tree, and the branches that must refuse until their ROADMAP item lands.
 Tolerance: 2e-5 abs on f32 logits — the two libraries sum the same
@@ -52,6 +53,18 @@ def _close(got, want, atol=ATOL):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32),
                                rtol=0, atol=atol)
+
+
+def _close_int8(got_q, want_q, got_s, want_s):
+    """Int8 K/V written by both frameworks from K/V rows that their
+    matmuls compute a few f32 ulps apart: a code moves by one only where
+    x / s sits on a rounding edge (well under 1 in 1000 codes), and the
+    scales agree to f32 rounding."""
+    d = np.abs(np.asarray(got_q, np.int32) - np.asarray(want_q, np.int32))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3, (d.max(), (d > 0).mean())
+    np.testing.assert_allclose(np.asarray(got_s, np.float32),
+                               np.asarray(want_s, np.float32),
+                               rtol=1e-5, atol=0)
 
 
 def _tokens(seed, B, S, vocab):
@@ -212,6 +225,159 @@ class TestForwardParity:
         _close(tcache["pool_v"][:, :-1], jcache["pool_v"][:, :-1])
 
 
+def _jax_scale_pages(s):
+    """Port scale pages [L, nb, Hkv, bs] -> JAX's [L, nb, Hkv_pad, bs]."""
+    from tpushare.models.quant import kv_scale_pad
+    L, nb, hkv, bs = s.shape
+    out = np.zeros((L, nb, kv_scale_pad(hkv), bs), np.float32)
+    out[:, :, :hkv] = s
+    return out
+
+
+# Paged S>1 case: 6 slots, 3 tokens each, bs 4, 5 blocks per slot.
+# Slot 2 shares slot 0's block 0 (a prefix hit); slot 3's third token
+# sits at position 20 = capacity; slot 4 is inactive; slot 5's tokens 1
+# and 2 land under a -1 entry. Those rows write to the trash block and
+# their logits are not a served token's: ``_VALID`` marks the rest.
+_TABLE = np.array([[0, 3, 11, -1, -1], [5, 1, 2, 12, -1],
+                   [0, 7, -1, -1, -1], [8, 9, 10, 4, 13],
+                   [6, -1, -1, -1, -1], [14, -1, -1, -1, -1]], np.int32)
+_POS = np.array([6, 9, 5, 18, 2, 3], np.int32)
+_ACTIVE = np.array([True, True, True, True, False, True])
+_VALID = np.ones((6, 3), bool)
+_VALID[3, 2] = _VALID[4] = _VALID[5, 1:] = False
+
+
+class TestPagedMultiToken:
+    @pytest.mark.parametrize("int8", [False, True])
+    @pytest.mark.parametrize("name", ["tiny", "gemma", "llama", "gemma2"])
+    @pytest.mark.parametrize("attn_impl", ["auto", "reference"])
+    def test_vs_jax(self, name, int8, attn_impl):
+        """The paged S>1 branch (speculative verify, fused tick): writes
+        at pos[b] + j with the trash routing, then attention through the
+        table. Int8 pools quantize on write; the reference dequantizes
+        to cfg.dtype (f32 here), the kernel's plain version in f32."""
+        from tpushare.models import quant as jq
+        from tpushare_torch.models import quant as tq
+        jcfg, jp, tcfg, tp = _pair(name, seed=6)
+        L, nb, bs = jcfg.n_layers, 16, 4
+        rng = np.random.default_rng(7)
+        shape = (L, nb, bs, jcfg.n_kv_heads, jcfg.head_dim)
+        pk = rng.normal(size=shape).astype(np.float32)
+        pv = rng.normal(size=shape).astype(np.float32)
+        jc = {"table": jnp.asarray(_TABLE), "active": jnp.asarray(_ACTIVE)}
+        tc = {"table": torch.from_numpy(_TABLE),
+              "active": torch.from_numpy(_ACTIVE)}
+        if int8:
+            (qk, sk), (qv, sv) = (tq.kv_quantize(torch.from_numpy(a))
+                                  for a in (pk, pv))
+            sk, sv = (tq.scales_to_pool_layout(x) for x in (sk, sv))
+            jc.update(pool_k=jnp.asarray(qk.numpy()),
+                      pool_v=jnp.asarray(qv.numpy()),
+                      pool_k_scale=jnp.asarray(_jax_scale_pages(sk.numpy())),
+                      pool_v_scale=jnp.asarray(_jax_scale_pages(sv.numpy())))
+            tc.update(pool_k=qk, pool_v=qv, pool_k_scale=sk,
+                      pool_v_scale=sv)
+        else:
+            jc.update(pool_k=jnp.asarray(pk), pool_v=jnp.asarray(pv))
+            tc.update(pool_k=torch.from_numpy(pk.copy()),
+                      pool_v=torch.from_numpy(pv.copy()))
+        toks = _tokens(8, 6, 3, jcfg.vocab_size)
+        want, jcache = jt.forward(jp, jnp.asarray(toks), jcfg, cache=jc,
+                                  pos_offset=jnp.asarray(_POS))
+        got, tcache = tt.forward(tp, torch.from_numpy(toks), tcfg,
+                                 cache=tc, pos_offset=torch.from_numpy(_POS),
+                                 attn_impl=attn_impl)
+        assert got.shape == want.shape
+        _close(got.numpy()[_VALID], np.asarray(want)[_VALID])
+        # Every pool page but the trash block agrees: f32 pages within
+        # the logits' tolerance, int8 codes and their scales (in the
+        # port's unpadded layout) as _close_int8 states.
+        hkv = jcfg.n_kv_heads
+        for k in ("pool_k", "pool_v"):
+            if int8:
+                _close_int8(tcache[k][:, :-1], jcache[k][:, :-1],
+                            tcache[k + "_scale"][:, :-1],
+                            np.asarray(jcache[k + "_scale"])[:, :-1, :hkv])
+            else:
+                _close(tcache[k][:, :-1], jcache[k][:, :-1])
+
+    @pytest.mark.parametrize("name", ["tiny", "llama"])
+    def test_int8_paged_decode_vs_jax(self, name):
+        """The paged S=1 branch over an int8 pool: quantize-on-write of
+        the new row and the dequantized read."""
+        from tpushare.models import quant as jq
+        from tpushare_torch.models import quant as tq
+        jcfg, jp, tcfg, tp = _pair(name, seed=9)
+        L, nb, bs = jcfg.n_layers, 16, 4
+        rng = np.random.default_rng(10)
+        shape = (L, nb, bs, jcfg.n_kv_heads, jcfg.head_dim)
+        (qk, sk), (qv, sv) = (tq.kv_quantize(torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32))) for _ in range(2))
+        sk, sv = (tq.scales_to_pool_layout(x) for x in (sk, sv))
+        toks = _tokens(11, 6, 1, jcfg.vocab_size)
+        want, jcache = jt.forward(
+            jp, jnp.asarray(toks), jcfg,
+            cache={"pool_k": jnp.asarray(qk.numpy()),
+                   "pool_v": jnp.asarray(qv.numpy()),
+                   "pool_k_scale": jnp.asarray(_jax_scale_pages(sk.numpy())),
+                   "pool_v_scale": jnp.asarray(_jax_scale_pages(sv.numpy())),
+                   "table": jnp.asarray(_TABLE),
+                   "active": jnp.asarray(_ACTIVE)},
+            pos_offset=jnp.asarray(_POS))
+        got, tcache = tt.forward(
+            tp, torch.from_numpy(toks), tcfg,
+            cache={"pool_k": qk, "pool_v": qv, "pool_k_scale": sk,
+                   "pool_v_scale": sv, "table": torch.from_numpy(_TABLE),
+                   "active": torch.from_numpy(_ACTIVE)},
+            pos_offset=torch.from_numpy(_POS))
+        valid = _VALID[:, 0]
+        _close(got.numpy()[valid], np.asarray(want)[valid])
+        for k in ("pool_k", "pool_v"):
+            _close_int8(tcache[k][:, :-1], jcache[k][:, :-1],
+                        tcache[k + "_scale"][:, :-1],
+                        np.asarray(jcache[k + "_scale"])[:, :-1,
+                                                         :jcfg.n_kv_heads])
+
+
+class TestInt8AndHooks:
+    @pytest.mark.parametrize("name", ["tiny", "gemma2"])
+    def test_dense_scalar_offset_int8_rows(self, name):
+        """Admission into an int8 row cache (quant.init_cache_q8): two
+        chunks and a clamped write, codes and scales as JAX's."""
+        from tpushare.models import quant as jq
+        from tpushare_torch.models import quant as tq
+        jcfg, jp, tcfg, tp = _pair(name, seed=12)
+        toks = _tokens(13, 1, 20, jcfg.vocab_size)
+        jc = jq.init_cache_q8(jcfg, 1, 24)
+        tc = tq.init_cache_q8(tcfg, 1, 24, device="cpu")
+        for lo, hi in ((0, 8), (8, 16), (20, 24)):
+            piece = toks[:, lo:hi] if hi <= 20 else toks[:, 12:16]
+            want, jc = jt.forward(jp, jnp.asarray(piece), jcfg, cache=jc,
+                                  pos_offset=lo)
+            got, tc = tt.forward(tp, torch.from_numpy(piece), tcfg,
+                                 cache=tc, pos_offset=lo)
+            _close(got, want)
+            for k in ("k", "v"):
+                _close_int8(tc[k], jc[k], tc[k + "_scale"], jc[k + "_scale"])
+
+    @pytest.mark.parametrize("name", ["tiny", "llama"])
+    def test_layers_hook_dequant(self, name):
+        """forward over a quantize_params tree with dequant_hook: the
+        int8-self draft's forward."""
+        from tpushare.models import quant as jq
+        from tpushare_torch.models import quant as tq
+        jcfg, jp, tcfg, _ = _pair(name, seed=14)
+        jqp = jq.quantize_params(jp, jcfg)
+        tqp = bridge.params_from_jax(jqp, device="cpu")
+        toks = _tokens(15, 2, 9, jcfg.vocab_size)
+        want, _ = jt.forward(jqp, jnp.asarray(toks), jcfg,
+                             layers_hook=jq.dequant_hook(jcfg))
+        got, _ = tt.forward(tqp, torch.from_numpy(toks), tcfg,
+                            layers_hook=tq.dequant_hook(tcfg))
+        _close(got, want)
+
+
 class TestRefusals:
     def test_unported_branches_name_their_roadmap_item(self):
         cfg = tt.tiny()
@@ -224,16 +390,13 @@ class TestRefusals:
         pool = torch.zeros((cfg.n_layers, 6, 4, 2, 32))
         paged = {"pool_k": pool, "pool_v": pool,
                  "table": torch.zeros((2, 2), dtype=torch.int32)}
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            tt.forward(tp, tok, cfg, cache=paged,
-                       pos_offset=torch.zeros(2, dtype=torch.int32))
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            tt.forward(tp, tok, cfg, cache=dict(dense, k_scale=None))
+        with pytest.raises(ValueError, match="scale leaves"):
+            tt.forward(tp, tok, cfg, cache=dict(
+                paged, pool_k=pool.to(torch.int8)),
+                pos_offset=torch.zeros(2, dtype=torch.int32))
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
             tt.forward(tp, tok, cfg, pctx=object())
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             tt.forward(tp, tok, cfg, mlora_idx=torch.zeros(2))
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            tt.forward(tp, tok, cfg, layers_hook=lambda x: x)
         with pytest.raises(ValueError, match="paged cache"):
             tt.forward(tp, tok[:, :1], cfg, cache=paged, pos_offset=0)

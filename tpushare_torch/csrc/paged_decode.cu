@@ -2,10 +2,15 @@
 // straight off the block-table-paged KV pool, on Hopper.
 //
 // Replaces tpushare/ops/flash_attention.py _paged_decode_kernel behind
-// paged_flash_decode() for f32/bf16 pages (the int8-page variant is not
-// ported yet). q [B,1,H,D]; pool_k/pool_v [nb,bs,Hkv,D] (one layer's
-// pool); table [B,mb] int32 pool block ids (-1 = unallocated); pos [B]
-// int32; D in {128,256}. Slot b's query attends pool positions t <= pos[b] (and
+// paged_flash_decode(), for f32/bf16 pages and (quantized=True there)
+// int8 pages. q [B,1,H,D]; pool_k/pool_v [nb,bs,Hkv,D] (one layer's
+// pool) of q's type or int8; int8 pools add k_scale/v_scale f32
+// [nb,Hkv,bs] (the port's scale page layout: one (page, head) is bs
+// contiguous floats); table [B,mb] int32 pool block ids (-1 =
+// unallocated); pos [B] int32; D in {128,256}. Each loaded int8 K/V
+// row is multiplied by its f32 scale right after the load and all
+// arithmetic stays f32, as in the Pallas body. Slot b's query attends
+// pool positions t <= pos[b] (and
 // t > pos[b] - window when window > 0) through table[b, t / bs].
 // Entries of -1 are never dereferenced: they are clamped out and their
 // rows masked. Pages outside the slot's live range
@@ -14,7 +19,8 @@
 // no live row (inactive, all -1) yields 0.
 //
 // Bound: decode moves every live K/V byte once and does ~4 FLOPs per
-// element, so the bound is bytes. The design reads each live row once
+// element, so the bound is bytes (int8 pages: half of bf16's, plus 4
+// bytes of scale per row and head). The design reads each live row once
 // per (slot, kv head): one block per (kv head, slot) walks the slot's
 // live positions 64 rows at a time, loading K and V rows (16-byte loads)
 // into shared memory, and the GQA group of H/Hkv query heads shares
@@ -36,16 +42,20 @@ size_t smem_bytes(int g) {
          (size_t)(2 * ROWS * (D + 1) + g * D + g * ROWS + g * D + 3 * g);
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(NT)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                    const T* __restrict__ pool_v,
+paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ pool_k,
+                    const P* __restrict__ pool_v,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ table,
                     const int* __restrict__ pos, T* __restrict__ o, int H,
                     int Hkv, int bs, int mb, int window, float scale,
                     float softcap) {
   extern __shared__ float smem[];
   __shared__ long long rowsrc[ROWS];  // pool row of each tile row, -1 masked
+  __shared__ float rowks[ROWS], rowvs[ROWS];  // int8 pages: row scales
+  constexpr bool Q8 = std::is_same<P, int8_t>::value;
   constexpr int DP = D + 1;
   constexpr int CH = D / 8;
   const int g = H / Hkv;
@@ -81,11 +91,21 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     if (tid < ROWS) {
       const long long t = t0 + tid;
       long long src = -1;
+      float sk = 0.f, sv = 0.f;
       if (t < hi * bs && t <= p && t > p - w_eff) {
         const int e = table[(size_t)b * mb + t / bs];
-        if (e >= 0) src = (long long)e * bs + t % bs;
+        if (e >= 0) {
+          src = (long long)e * bs + t % bs;
+          if constexpr (Q8) {
+            const size_t sa = ((size_t)e * Hkv + kvh) * bs + t % bs;
+            sk = k_scale[sa];
+            sv = v_scale[sa];
+          }
+        }
       }
       rowsrc[tid] = src;
+      rowks[tid] = sk;
+      rowvs[tid] = sv;
     }
     __syncthreads();
     for (int i = tid; i < ROWS * CH; i += NT) {
@@ -96,6 +116,13 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
         const size_t a = ((size_t)src * Hkv + kvh) * D + c;
         ts_load8(pool_k + a, kv);
         ts_load8(pool_v + a, vv);
+        if constexpr (Q8) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            kv[e] *= rowks[r];
+            vv[e] *= rowvs[r];
+          }
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) kv[e] = vv[e] = 0.f;
@@ -160,63 +187,87 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   }
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 cudaError_t launch(const void* q, const void* pk, const void* pv,
-                   const int* table, const int* pos, void* o, int B, int H,
-                   int Hkv, int bs, int mb, int window, float scale,
-                   float softcap, cudaStream_t stream) {
-  auto kern = paged_decode_kernel<T, D>;
+                   const float* ks, const float* vs, const int* table,
+                   const int* pos, void* o, int B, int H, int Hkv, int bs,
+                   int mb, int window, float scale, float softcap,
+                   cudaStream_t stream) {
+  auto kern = paged_decode_kernel<T, P, D>;
   const size_t smem = smem_bytes<D>(H / Hkv);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(Hkv, B);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pk),
-      static_cast<const T*>(pv), table, pos, static_cast<T*>(o), H, Hkv, bs,
-      mb, window, scale, softcap);
+      static_cast<const T*>(q), static_cast<const P*>(pk),
+      static_cast<const P*>(pv), ks, vs, table, pos, static_cast<T*>(o), H,
+      Hkv, bs, mb, window, scale, softcap);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t dispatch_d(int D, const void* q, const void* pk, const void* pv,
-                       const int* table, const int* pos, void* o, int B,
-                       int H, int Hkv, int bs, int mb, int window,
-                       float scale, float softcap, cudaStream_t s) {
+                       const float* ks, const float* vs, const int* table,
+                       const int* pos, void* o, int B, int H, int Hkv,
+                       int bs, int mb, int window, float scale,
+                       float softcap, cudaStream_t s) {
   switch (D) {
     case 128:
-      return launch<T, 128>(q, pk, pv, table, pos, o, B, H, Hkv, bs, mb,
-                            window, scale, softcap, s);
+      return launch<T, P, 128>(q, pk, pv, ks, vs, table, pos, o, B, H, Hkv,
+                               bs, mb, window, scale, softcap, s);
     case 256:
-      return launch<T, 256>(q, pk, pv, table, pos, o, B, H, Hkv, bs, mb,
-                            window, scale, softcap, s);
+      return launch<T, P, 256>(q, pk, pv, ks, vs, table, pos, o, B, H, Hkv,
+                               bs, mb, window, scale, softcap, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+cudaError_t dispatch_page(int page, int D, const void* q, const void* pk,
+                          const void* pv, const float* ks, const float* vs,
+                          const int* table, const int* pos, void* o, int B,
+                          int H, int Hkv, int bs, int mb, int window,
+                          float scale, float softcap, cudaStream_t s) {
+  if (page == TS_I8) {
+    if (ks == nullptr || vs == nullptr) return cudaErrorInvalidValue;
+    return dispatch_d<T, int8_t>(D, q, pk, pv, ks, vs, table, pos, o, B, H,
+                                 Hkv, bs, mb, window, scale, softcap, s);
+  }
+  return dispatch_d<T, T>(D, q, pk, pv, ks, vs, table, pos, o, B, H, Hkv,
+                          bs, mb, window, scale, softcap, s);
+}
+
 }  // namespace
 
-// C entry point (loaded with ctypes by ops/flash_attention.py). dtype:
-// 0 = f32, 1 = bf16. softcap <= 0 means none; window <= 0 means global.
-// Returns the cudaError_t of the launch.
+// C entry point (loaded with ctypes by ops/flash_attention.py; the same
+// signature as ts_paged_verify). dtype: q/output type, 0 = f32, 1 = bf16;
+// page: the pools' type, equal to dtype or 2 = int8 (then k_scale and
+// v_scale are [nb,Hkv,bs] f32). Sq must be 1. softcap <= 0 means none;
+// window <= 0 means global. Returns the cudaError_t of the launch.
 extern "C" int ts_paged_decode(const void* q, const void* pool_k,
-                               const void* pool_v, const void* table,
-                               const void* pos, void* o, int B, int H,
-                               int Hkv, int D, int bs, int mb, int dtype,
-                               int window, float scale, float softcap,
-                               void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || bs <= 0 || mb <= 0)
+                               const void* pool_v, const void* k_scale,
+                               const void* v_scale, const void* table,
+                               const void* pos, void* o, int B, int Sq,
+                               int H, int Hkv, int D, int bs, int mb,
+                               int dtype, int page, int window, float scale,
+                               float softcap, void* stream) {
+  if (B <= 0 || Sq != 1 || H <= 0 || Hkv <= 0 || H % Hkv || bs <= 0 ||
+      mb <= 0 || (page != dtype && page != TS_I8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   const int* tb = static_cast<const int*>(table);
   const int* ps = static_cast<const int*>(pos);
   if (dtype == TS_F32)
-    return (int)dispatch_d<float>(D, q, pool_k, pool_v, tb, ps, o, B, H, Hkv,
-                                  bs, mb, window, scale, softcap, s);
+    return (int)dispatch_page<float>(page, D, q, pool_k, pool_v, ks, vs, tb,
+                                     ps, o, B, H, Hkv, bs, mb, window, scale,
+                                     softcap, s);
   if (dtype == TS_BF16)
-    return (int)dispatch_d<__nv_bfloat16>(D, q, pool_k, pool_v, tb, ps, o, B,
-                                          H, Hkv, bs, mb, window, scale,
-                                          softcap, s);
+    return (int)dispatch_page<__nv_bfloat16>(page, D, q, pool_k, pool_v, ks,
+                                             vs, tb, ps, o, B, H, Hkv, bs, mb,
+                                             window, scale, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,9 +4,11 @@
 init_params`` returns (stacked ``[L, ...]`` leaves, any array type that
 numpy can read — JAX arrays included) and returns the port's params:
 the same nested dict of torch tensors on a given device and dtype.
-``config_from_jax`` copies a JAX ``TransformerConfig``'s fields into the
-port's. Neither imports JAX: they read arrays through numpy and config
-fields by name.
+A ``quantize_params`` tree bridges too: its ``#q8`` leaves stay int8
+and its ``#scale`` leaves stay f32, whatever ``dtype`` asks for the
+rest. ``config_from_jax`` copies a JAX ``TransformerConfig``'s fields
+into the port's. Neither imports JAX: they read arrays through numpy
+and config fields by name.
 """
 
 from __future__ import annotations
@@ -35,16 +37,21 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 def params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """Numpy-readable leaves -> torch tensors on ``device``. Leaves go
-    through f32 (numpy has no bfloat16 that torch reads) and are cast
-    to ``dtype`` (default: each leaf's own dtype)."""
+    """Numpy-readable leaves -> torch tensors on ``device``. Float
+    leaves go through f32 (numpy has no bfloat16 that torch reads) and
+    are cast to ``dtype`` (default: each leaf's own dtype); int8 weight
+    leaves (``#q8``) are copied as int8 and their ``#scale`` leaves kept
+    f32."""
     dev = resolve_device(device)
 
-    def conv(leaf):
+    def conv(leaf, key=""):
         if isinstance(leaf, dict):
-            return {k: conv(v) for k, v in leaf.items()}
+            return {k: conv(v, k) for k, v in leaf.items()}
         arr = np.asarray(leaf)
-        target = dtype or _torch_dtype(arr.dtype)
+        if arr.dtype == np.int8:
+            return torch.from_numpy(np.array(arr)).to(device=dev)
+        target = (torch.float32 if key.endswith("#scale")
+                  else dtype or _torch_dtype(arr.dtype))
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
         return t.to(device=dev, dtype=target)
 

@@ -13,6 +13,9 @@ batching slot server. Counterpart of ``tpushare/models/paged.py``.
 - Prefix cache: full prompt blocks are published under their chain
   digest (``router/chainkeys.py``); a later admit with the same prefix
   reuses them (refcounted, zero-ref blocks parked on an LRU).
+- kv_quant pools: int8 K/V pages plus f32 scale pages
+  [L, n_blocks, Hkv, bs] (the port's layout, ``models/quant.py``);
+  shared prefix blocks carry their scales along.
 
 Where the JAX version returns new arrays (and donates the old pools to
 the jitted step), the port updates the device tensors IN PLACE; the
@@ -29,20 +32,21 @@ import numpy as np
 import torch
 
 from tpushare_torch import DeviceLike, resolve_device
-from tpushare_torch.models.serving import PendingStep, TokenSampler
+from tpushare_torch.models.quant import (init_cache_q8, pool_scales_to_rows,
+                                         scales_to_pool_layout)
+from tpushare_torch.models.serving import (PendingStep, TokenSampler,
+                                           fused_chunk_span,
+                                           fused_token_batch)
+from tpushare_torch.models.spec import SpecDecodeMixin
 from tpushare_torch.models.transformer import (
-    TODO_INT8_WEIGHTS, TODO_LORA, TODO_MESH, TransformerConfig, forward,
-    init_cache,
+    TODO_LORA, TODO_MESH, TransformerConfig, forward, init_cache,
 )
 from tpushare_torch.router.chainkeys import chain_keys
 
-# ROADMAP items that port what this slice's server leaves out.
-TODO_SPEC = "ROADMAP A7 (speculation)"
-TODO_KV_QUANT = "ROADMAP A3/B1 (int8 KV pool)"
+# ROADMAP items that port what the port's server still leaves out.
 TODO_QUOTA = "ROADMAP A5 (per-tenant KV quota)"
 TODO_FAMILY = "ROADMAP A8 (paged MoE through forward_fn)"
 TODO_HOST_TIER = "ROADMAP A5 (host KV tier)"
-TODO_FUSED = "ROADMAP A4 (fused admission tick)"
 
 
 class SlotCapacityExceeded(RuntimeError):
@@ -71,6 +75,10 @@ class PagedCache:
     lengths: torch.Tensor       # [n_slots] int32
     block_size: int
     free: List[int]             # host-side free list of pool block ids
+    # kv_quant pools: f32 scale pages [L, n_blocks, Hkv, bs]; None for
+    # full precision.
+    pool_k_scale: Optional[torch.Tensor] = None
+    pool_v_scale: Optional[torch.Tensor] = None
     refs: Dict[int, int] = dataclasses.field(default_factory=dict)
     index: Dict[bytes, int] = dataclasses.field(default_factory=dict)
     chains: Dict[int, bytes] = dataclasses.field(default_factory=dict)
@@ -117,16 +125,20 @@ def init_paged_cache(cfg: TransformerConfig, *, n_slots: int,
                      kv_quant: bool = False,
                      device: DeviceLike = None) -> PagedCache:
     """Zeroed pools; the last block is the trash block, left off the
-    free list so no slot is ever handed it."""
-    if kv_quant:
-        raise NotImplementedError(f"kv_quant pools: {TODO_KV_QUANT}")
+    free list so no slot is ever handed it. ``kv_quant``: int8 pools
+    plus f32 scale pages, about half the bytes of bf16 pools."""
     dev = resolve_device(device)
     mb = max_blocks_per_slot or n_blocks
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim)
+    kv_dtype = torch.int8 if kv_quant else cfg.dtype
+    scale_shape = (cfg.n_layers, n_blocks, cfg.n_kv_heads, block_size)
+    scales = ([torch.zeros(scale_shape, dtype=torch.float32, device=dev)
+               for _ in range(2)] if kv_quant else [None, None])
     return PagedCache(
-        pool_k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
-        pool_v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        pool_k=torch.zeros(shape, dtype=kv_dtype, device=dev),
+        pool_v=torch.zeros(shape, dtype=kv_dtype, device=dev),
+        pool_k_scale=scales[0], pool_v_scale=scales[1],
         block_table=torch.full((n_slots, mb), -1, dtype=torch.int32,
                                device=dev),
         lengths=torch.zeros((n_slots,), dtype=torch.int32, device=dev),
@@ -293,18 +305,46 @@ def release(cache: PagedCache, slot: int) -> PagedCache:
     return cache
 
 
+def _paged_cache(pool_k, pool_v, table, active, pool_k_scale, pool_v_scale):
+    c = {"pool_k": pool_k, "pool_v": pool_v, "table": table,
+         "active": active}
+    if pool_k_scale is not None:
+        c["pool_k_scale"] = pool_k_scale
+        c["pool_v_scale"] = pool_v_scale
+    return c
+
+
 def decode_core(params, tokens, pool_k, pool_v, table, lengths, active,
-                *, cfg: TransformerConfig, attn_impl: str = "auto"):
+                *, cfg: TransformerConfig, attn_impl: str = "auto",
+                layers_hook=None, pool_k_scale=None, pool_v_scale=None):
     """One paged decode step over the pools: tokens [B, 1]; active [B]
     bool. Each layer writes its new KV into its pool slice in place and
     attends through the block table (forward's paged S=1 branch).
     Returns (logits [B, 1, V], pool_k, pool_v, lengths advanced by 1
     for active slots)."""
-    paged_cache = {"pool_k": pool_k, "pool_v": pool_v,
-                   "table": table, "active": active}
-    logits, _ = forward(params, tokens, cfg, cache=paged_cache,
-                        pos_offset=lengths, attn_impl=attn_impl)
+    logits, _ = forward(params, tokens, cfg,
+                        cache=_paged_cache(pool_k, pool_v, table, active,
+                                           pool_k_scale, pool_v_scale),
+                        pos_offset=lengths, attn_impl=attn_impl,
+                        layers_hook=layers_hook)
     return logits, pool_k, pool_v, lengths + active.to(lengths.dtype)
+
+
+def verify_core(params, tokens, pool_k, pool_v, table, lengths, active,
+                *, cfg: TransformerConfig, attn_impl: str = "auto",
+                layers_hook=None, pool_k_scale=None, pool_v_scale=None):
+    """Multi-token paged forward (speculative verify, fused tick):
+    tokens [B, Sq] are written at positions lengths .. lengths+Sq-1 of
+    each active slot (the pools in place) and scored in one forward.
+    Returns logits [B, Sq, V]; lengths are NOT advanced (the caller
+    decides acceptance first; rejected positions leave stale KV the
+    length mask keeps unattended until it is overwritten)."""
+    logits, _ = forward(params, tokens, cfg,
+                        cache=_paged_cache(pool_k, pool_v, table, active,
+                                           pool_k_scale, pool_v_scale),
+                        pos_offset=lengths, attn_impl=attn_impl,
+                        layers_hook=layers_hook)
+    return logits
 
 
 def prefill_into(params, prompt: torch.Tensor, cfg: TransformerConfig,
@@ -334,7 +374,13 @@ def prefill_suffix_into(params, prompt: torch.Tensor,
     return last, cache
 
 
-_ROW_PAIRS = (("pool_k", "k"), ("pool_v", "v"))
+def _row_pairs(kvq: bool):
+    """(pool field, row-cache key) of every leaf the gather/scatter
+    moves; the scale leaves change layout on the way."""
+    pairs = [("pool_k", "k"), ("pool_v", "v")]
+    if kvq:
+        pairs += [("pool_k_scale", "k_scale"), ("pool_v_scale", "v_scale")]
+    return pairs
 
 
 def admission_len(S: int, cached_len: int, block_size: int,
@@ -354,18 +400,23 @@ def admission_len(S: int, cached_len: int, block_size: int,
 
 def _admission_row(cfg: TransformerConfig, cache: PagedCache, slot: int,
                    S: int, cached_len: int):
-    """The dense row cache one admission computes into, with the
-    [0, cached_len) prefix gathered from the pool once. Returns
-    (row, comp_len, n_blk)."""
+    """The dense row cache one admission computes into (int8 rows with
+    row-major scales for a kv_quant pool), with the [0, cached_len)
+    prefix gathered from the pool once. Returns (row, comp_len,
+    n_blk)."""
     bs = cache.block_size
     n_blk, comp_len = admission_len(S, cached_len, bs, cache.max_blocks)
     cached_blk = cached_len // bs
-    row = init_cache(cfg, 1, comp_len, device=cache.pool_k.device)
+    kvq = cache.pool_k_scale is not None
+    make = init_cache_q8 if kvq else init_cache
+    row = make(cfg, 1, comp_len, device=cache.pool_k.device)
     if cached_blk:
         L = row["k"].shape[0]
         blk_ids = cache.block_table[slot, :cached_blk].long()
-        for pf, rk in _ROW_PAIRS:
-            g = getattr(cache, pf)[:, blk_ids]     # [L, cached_blk, bs, ...]
+        for pf, rk in _row_pairs(kvq):
+            g = getattr(cache, pf)[:, blk_ids]     # [L, cached_blk, ...]
+            if pf.endswith("_scale"):
+                g = pool_scales_to_rows(g)         # -> [L, cb, bs, Hkv]
             row[rk][:, 0, :cached_len] = g.reshape(L, cached_len,
                                                    *g.shape[3:])
     return row, comp_len, n_blk
@@ -374,7 +425,7 @@ def _admission_row(cfg: TransformerConfig, cache: PagedCache, slot: int,
 def _prefill_chunk(params, prompt: torch.Tensor, cfg: TransformerConfig,
                    cache: PagedCache, slot: int, row, done: int, end: int,
                    n_blk: int, comp_len: int, chunk: int,
-                   attn_impl: str = "auto"):
+                   attn_impl: str = "auto", layers_hook=None):
     """Forward prompt positions [done, end) against the admission row
     (which already holds [0, done)) and write this chunk's block rows
     to the pool. Returns (last-position logits [V] on the final chunk
@@ -393,17 +444,21 @@ def _prefill_chunk(params, prompt: torch.Tensor, cfg: TransformerConfig,
                          device=prompt.device)
     padded[:end - done] = prompt[done:end]
     logits, row = forward(params, padded[None, :], cfg, cache=row,
-                          pos_offset=done, attn_impl=attn_impl)
+                          pos_offset=done, attn_impl=attn_impl,
+                          layers_hook=layers_hook)
     start_blk = done // bs
     end_blk = n_blk if final else end // bs
     ids = cache.block_table[slot, start_blk:end_blk].long()
     L = row["k"].shape[0]
     n_fresh = end_blk - start_blk
-    for pf, rk in _ROW_PAIRS:
+    for pf, rk in _row_pairs(cache.pool_k_scale is not None):
         r = row[rk][:, 0, start_blk * bs:end_blk * bs]
+        r = r.reshape(L, n_fresh, bs, *r.shape[2:])
+        if pf.endswith("_scale"):
+            r = scales_to_pool_layout(r)           # -> [L, fb, Hkv, bs]
         # In-place scatter into the pool (the reference's donated
         # .at[:, ids].set).
-        getattr(cache, pf)[:, ids] = r.reshape(L, n_fresh, bs, *r.shape[2:])
+        getattr(cache, pf)[:, ids] = r
     last = logits[0, S - 1 - done] if final else None
     return last, cache, row
 
@@ -414,21 +469,26 @@ def _prompt_host(prompt) -> np.ndarray:
     return np.asarray(prompt, dtype=np.int64)
 
 
-class PagedSlotServer:
+class PagedSlotServer(SpecDecodeMixin):
     """Continuous batching over the paged pool: admit / step / evict.
 
     Host/device split as in the reference: the host owns the free
     list, the active bitmap and exact mirrors of the block table and
-    lengths; each decode tick runs one forward over every slot and
-    costs exactly ONE device-to-host transfer, the sampled tokens
-    (fetched in ``PendingStep.finalize``). Growth and capacity
-    retirement read the mirrors.
+    lengths; every tick costs exactly ONE device-to-host transfer (the
+    sampled tokens; on a speculative round the drafts, corrections and
+    accepted counts in one packed tensor), made in
+    ``PendingStep.finalize``. Growth and capacity retirement read the
+    mirrors.
 
-    This slice serves the dense LM with greedy sampling. The options
-    whose machinery is not ported yet raise ``NotImplementedError``
-    naming the ROADMAP item: speculative_draft, kv_quant, multi_lora,
-    mesh, kv_quota, forward_fn, host_tier, layers_hook, and
-    ``prefill_work`` (the fused admission tick) in ``step``.
+    Options ported: greedy sampling, ``prefix_cache``, chunked
+    admission, the fused admission tick (``step(prefill_work=slot)``),
+    ``kv_quant`` (int8 pools), ``layers_hook`` (int8 weights), and
+    greedy speculative decoding (``speculative_draft=(params, cfg)``,
+    ``gamma``, ``spec_horizon``, ``draft_layers_hook``: the
+    ``int8-self`` preset is ``(quant.quantize_params(params, cfg), cfg)``
+    with ``quant.dequant_hook(cfg)``). Still refused, each naming its
+    ROADMAP item: multi_lora, mesh, kv_quota, forward_fn /
+    draft_forward_fn, host_tier, temperature > 0.
     """
 
     def __init__(self, params, cfg: TransformerConfig, *, n_slots: int,
@@ -439,29 +499,31 @@ class PagedSlotServer:
                  kv_quant: bool = False,
                  temperature: float = 0.0, top_k=None, top_p=None,
                  seed: int = 0,
-                 multi_lora=None, speculative_draft=None,
-                 forward_fn=None, mesh=None, kv_quota=None,
-                 host_tier=None, device: DeviceLike = None):
+                 multi_lora=None, speculative_draft=None, gamma: int = 4,
+                 spec_horizon: int = 1, draft_layers_hook=None,
+                 forward_fn=None, draft_forward_fn=None, mesh=None,
+                 kv_quota=None, host_tier=None, device: DeviceLike = None):
         for name, val, todo in (
-                ("speculative_draft", speculative_draft, TODO_SPEC),
                 ("multi_lora", multi_lora, TODO_LORA),
                 ("mesh", mesh, TODO_MESH),
                 ("kv_quota", kv_quota, TODO_QUOTA),
                 ("forward_fn", forward_fn, TODO_FAMILY),
-                ("host_tier", host_tier, TODO_HOST_TIER),
-                ("layers_hook", layers_hook, TODO_INT8_WEIGHTS)):
+                ("draft_forward_fn", draft_forward_fn, TODO_FAMILY),
+                ("host_tier", host_tier, TODO_HOST_TIER)):
             if val is not None:
                 raise NotImplementedError(f"{name}: {todo}")
-        if kv_quant:
-            raise NotImplementedError(f"kv_quant: {TODO_KV_QUANT}")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.layers_hook = layers_hook
         self._sampler = TokenSampler(temperature, top_k, top_p, seed)
+        # kv_quant lives entirely in the cache (int8 pools + scale
+        # pages); every path branches off cache.pool_k_scale.
         self.cache = init_paged_cache(
             cfg, n_slots=n_slots, n_blocks=n_blocks, block_size=block_size,
-            max_blocks_per_slot=max_blocks_per_slot, device=self.device)
+            max_blocks_per_slot=max_blocks_per_slot, kv_quant=kv_quant,
+            device=self.device)
         # Device->host transfers made by admissions and ticks.
         self.device_fetches = 0
         self.prefix_cache = prefix_cache
@@ -474,14 +536,53 @@ class PagedSlotServer:
         self._admissions: Dict[int, Dict[str, Any]] = {}
         self.last_token = torch.zeros((n_slots, 1), dtype=torch.int64,
                                       device=self.device)
+        # Speculative decoding: the draft keeps its own pools, bf16 even
+        # when the target's are int8, indexed by the SAME block table
+        # (shared prefix blocks carry draft KV written by their
+        # publisher: identical values for identical tokens).
+        self.speculative = speculative_draft is not None
+        self.gamma = gamma
+        self.spec_horizon = spec_horizon
+        if self.speculative:
+            self._spec_init(gamma=gamma, spec_horizon=spec_horizon,
+                            temperature=temperature)
+            self.draft_params, self.draft_cfg = speculative_draft
+            if self.draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share a vocab")
+            self.draft_layers_hook = draft_layers_hook
+            dshape = (self.draft_cfg.n_layers, n_blocks, block_size,
+                      self.draft_cfg.n_kv_heads, self.draft_cfg.head_dim)
+            self._dpk = torch.zeros(dshape, dtype=self.draft_cfg.dtype,
+                                    device=self.device)
+            self._dpv = torch.zeros(dshape, dtype=self.draft_cfg.dtype,
+                                    device=self.device)
 
     @property
     def slot_capacity(self) -> int:
         return self.cache.max_blocks * self.cache.block_size
 
     def _sync_active(self) -> None:
-        """Host bitmap -> device mirror (an upload, never a fetch)."""
-        self._active_dev = torch.as_tensor(self.active, device=self.device)
+        """Host bitmap -> device mirror (an upload, never a fetch). A
+        copy even on the CPU, so later edits of the host array never
+        reach the mirror."""
+        self._active_dev = torch.tensor(self.active, device=self.device)
+
+    def _draft_view(self) -> PagedCache:
+        """The draft pools behind the slots' own block table."""
+        return dataclasses.replace(self.cache, pool_k=self._dpk,
+                                   pool_v=self._dpv, pool_k_scale=None,
+                                   pool_v_scale=None)
+
+    def _pool_kw(self) -> Dict[str, Any]:
+        c = self.cache
+        return {"cfg": self.cfg, "attn_impl": self.attn_impl,
+                "layers_hook": self.layers_hook,
+                "pool_k_scale": c.pool_k_scale,
+                "pool_v_scale": c.pool_v_scale}
+
+    def _draft_kw(self) -> Dict[str, Any]:
+        return {"cfg": self.draft_cfg, "attn_impl": self.attn_impl,
+                "layers_hook": self.draft_layers_hook}
 
     def admit(self, prompt, adapter: int = -1) -> int:
         """Reserve blocks for ``prompt`` [S], prefill them, return the
@@ -494,10 +595,11 @@ class PagedSlotServer:
     def admit_start(self, prompt, adapter: int = -1,
                     chunk_tokens: Optional[int] = None) -> int:
         """Reserve a slot and all its blocks for ``prompt`` without
-        prefilling yet; drive the prefill with admit_step(). With
-        ``chunk_tokens`` the prompt prefills in block-aligned chunks,
-        each attending over the admission's row (bit-identical KV to a
-        whole-prompt admit)."""
+        prefilling yet; drive the prefill with admit_step() or with
+        fused ticks (``step(prefill_work=slot)``). With ``chunk_tokens``
+        the prompt prefills in block-aligned chunks, each attending over
+        the admission's row (bit-identical KV to a whole-prompt
+        admit)."""
         if adapter != -1:
             raise NotImplementedError(f"adapter: {TODO_LORA}")
         prompt_np = _prompt_host(prompt)
@@ -528,12 +630,20 @@ class PagedSlotServer:
         chunk = max(bs, -(-chunk // bs) * bs)     # round UP to blocks
         row, comp_len, n_blk = _admission_row(
             self.cfg, self.cache, slot, S, cached_len)
-        self._admissions[slot] = {
+        st = {
             "prompt": torch.as_tensor(prompt_np, device=self.device),
             "prompt_np": prompt_np, "done": cached_len, "chunk": chunk,
             "keys": keys, "blocks": blocks,
             "row": row, "comp_len": comp_len, "n_blk": n_blk,
+            # Fused chunks write straight to the pool; the serial row
+            # then lags it and is re-gathered before the next serial
+            # chunk.
+            "row_stale": False,
         }
+        if self.speculative:
+            st["drow"], st["dcomp_len"], _ = _admission_row(
+                self.draft_cfg, self._draft_view(), slot, S, cached_len)
+        self._admissions[slot] = st
         return slot
 
     def admit_step(self, slot: int,
@@ -550,11 +660,31 @@ class PagedSlotServer:
         if max_chunk_tokens is not None:
             bs = self.cache.block_size
             chunk = max(bs, min(chunk, (max_chunk_tokens // bs) * bs))
+        if st["row_stale"]:
+            # Fused chunks advanced this admission pool-side: rebuild
+            # the serial rows from the pool (what _admission_row does
+            # for a prefix hit of length `done`).
+            st["row"], st["comp_len"], _ = _admission_row(
+                self.cfg, self.cache, slot, S, st["done"])
+            if self.speculative:
+                st["drow"], st["dcomp_len"], _ = _admission_row(
+                    self.draft_cfg, self._draft_view(), slot, S,
+                    st["done"])
+            st["row_stale"] = False
         end = min(S, st["done"] + chunk)
         last_logits, self.cache, st["row"] = _prefill_chunk(
             self.params, st["prompt"], self.cfg, self.cache, slot,
             st["row"], st["done"], end, st["n_blk"], st["comp_len"],
-            chunk, attn_impl=self.attn_impl)
+            chunk, attn_impl=self.attn_impl, layers_hook=self.layers_hook)
+        if self.speculative:
+            # The draft needs the prompt's KV too, chunked the same way
+            # (its pools are written in place through the view).
+            _, _, st["drow"] = _prefill_chunk(
+                self.draft_params, st["prompt"], self.draft_cfg,
+                self._draft_view(), slot, st["drow"], st["done"], end,
+                st["n_blk"], st["dcomp_len"], chunk,
+                attn_impl=self.attn_impl,
+                layers_hook=self.draft_layers_hook)
         st["done"] = end
         if end < S:
             return None
@@ -569,22 +699,27 @@ class PagedSlotServer:
         self.device_fetches += 1
         return int(nxt.item())
 
-    def _grow_active(self) -> None:
-        """Allocate the next block for every active slot whose length
-        crosses a block boundary: host-mirror reads only, one device
-        write for the batch."""
+    def _grow_active(self, extra: int = 0) -> None:
+        """Allocate the blocks active slots need through position
+        length + ``extra`` (a speculative round writes h tokens ahead;
+        clamped at slot capacity, past which writes go to the trash
+        block): host-mirror reads only, one device write for the
+        batch."""
         bs = self.cache.block_size
+        mb = self.cache.max_blocks
         lengths = self.cache.host_lengths()
         table = self.cache.host_table()
         slots, bis = [], []
         for slot in np.nonzero(self.active)[0]:
-            bi = int(lengths[slot]) // bs
-            if bi >= self.cache.max_blocks:
+            lo = int(lengths[slot]) // bs
+            if lo >= mb:
                 raise SlotCapacityExceeded(
                     int(slot), f"slot {slot} exceeded max_blocks")
-            if table[slot, bi] < 0:
-                slots.append(int(slot))
-                bis.append(bi)
+            hi = min((int(lengths[slot]) + extra) // bs, mb - 1)
+            for bi in range(lo, hi + 1):
+                if table[slot, bi] < 0:
+                    slots.append(int(slot))
+                    bis.append(bi)
         # Check-then-pop: a shortfall raises with the free list intact.
         ids = alloc_blocks(self.cache, len(slots))
         for b in ids:
@@ -598,27 +733,40 @@ class PagedSlotServer:
                     ids, dtype=torch.int32, device=dev)
 
     def step(self, prefill_work: Optional[int] = None,
-             max_chunk_tokens: Optional[int] = None) -> Dict[int, int]:
+             max_chunk_tokens: Optional[int] = None) -> Dict[int, Any]:
         """One greedy decode step for every active slot; returns
-        {slot: new_token}. Slots at capacity deactivate (their blocks
-        stay readable until evict)."""
+        {slot: new_token}. Speculative servers return {slot: [tokens]}
+        (up to gamma x horizon + 1 per slot). Slots at capacity
+        deactivate (their blocks stay readable until evict).
+
+        ``prefill_work``: a slot with an in-flight chunked admission —
+        its next chunk (capped at ``max_chunk_tokens``, rounded down to
+        blocks) rides the same multi-token paged forward as the decode
+        rows. A tick carrying a fused chunk is always a plain tick (on a
+        speculative server the draft mirrors the decode tokens and the
+        chunk in one draft forward). On the completing chunk the dict
+        also carries the admitted slot's first token."""
         return self.step_async(prefill_work, max_chunk_tokens).finalize()
 
     def step_async(self, prefill_work: Optional[int] = None,
                    max_chunk_tokens: Optional[int] = None) -> PendingStep:
         """step() with the token fetch deferred: block growth, the
-        forward, pool/length updates and capacity retirement happen
+        forwards, pool/length updates and capacity retirement happen
         here; finalize() does the ONE device-to-host fetch."""
         if prefill_work is not None:
-            raise NotImplementedError(f"prefill_work: {TODO_FUSED}")
+            if prefill_work not in self._admissions:
+                raise ValueError(f"slot {prefill_work} has no in-flight "
+                                 f"admission")
+            return self._fused_tick_async(prefill_work, max_chunk_tokens)
+        if self.speculative:
+            return self._spec_step_async()
         if not self.active.any():
             return PendingStep.done({})
         self._grow_active()
         c = self.cache
         logits, _, _, c.lengths = decode_core(
             self.params, self.last_token, c.pool_k, c.pool_v,
-            c.block_table, c.lengths, self._active_dev, cfg=self.cfg,
-            attn_impl=self.attn_impl)
+            c.block_table, c.lengths, self._active_dev, **self._pool_kw())
         nxt = self._sampler.pick(logits[:, 0])
         self.last_token = torch.where(self._active_dev[:, None],
                                       nxt[:, None], self.last_token)
@@ -640,6 +788,135 @@ class PagedSlotServer:
             return {s: toks[s] for s in slots if s not in invalid}
 
         return PendingStep(_finalize, slots=slots)
+
+    def _fused_tick_async(self, slot: int,
+                          max_chunk_tokens: Optional[int]) -> PendingStep:
+        """One fused tick over the pool: every active decode slot
+        contributes its pending token and admission ``slot`` its next
+        (block-aligned) chunk, in ONE multi-token paged forward. The
+        chunk attends its already-written prefix straight off the pool
+        and its KV lands in the slot's reserved blocks; decode rows'
+        junk columns write KV past their lengths that the length mask
+        keeps unattended. One device-to-host fetch (a completing
+        admission's first token rides it)."""
+        st = self._admissions[slot]
+        if not self.active.any():
+            # No decode batch to fuse into: serial admission, still
+            # capped by the tick budget.
+            tok = self.admit_step(slot, max_chunk_tokens=max_chunk_tokens)
+            return PendingStep.done({} if tok is None else {slot: tok})
+        S = int(st["prompt_np"].shape[0])
+        done = st["done"]
+        end, width = fused_chunk_span(done, S, st["chunk"],
+                                      max_chunk_tokens,
+                                      gran=self.cache.block_size)
+        if width == 0:
+            return self.step_async()    # budget left no chunk room
+        self._grow_active()
+        c = self.cache
+        toks = fused_token_batch(self.last_token, st["prompt"], done, end,
+                                 width, slot)
+        pos = c.lengths.clone()
+        pos[slot] = done
+        # The admitting slot must write (its table row is reserved);
+        # decode rows write their one real token; the rest go to trash.
+        wmask = self._active_dev.clone()
+        wmask[slot] = True
+        logits = verify_core(self.params, toks, c.pool_k, c.pool_v,
+                             c.block_table, pos, wmask, **self._pool_kw())
+        c.lengths = c.lengths + self._active_dev.to(c.lengths.dtype)
+        if self.speculative:
+            # One draft forward: decode rows mirror their pending
+            # token's draft KV, the admitting row advances its draft
+            # chunk — same batch, logits dropped.
+            verify_core(self.draft_params, toks, self._dpk, self._dpv,
+                        c.block_table, pos, wmask, **self._draft_kw())
+        st["done"] = end
+        st["row_stale"] = True
+        final = end >= S
+        if final:
+            # Admission pick before the decode pick, as the reference.
+            first = self._sampler.pick(logits[slot:slot + 1, S - 1 - done])
+        nxt = self._sampler.pick(logits[:, 0])
+        self.last_token = torch.where(self._active_dev[:, None],
+                                      nxt[:, None], self.last_token)
+        lnp = c.host_lengths()
+        lnp[self.active] += 1
+        decode_slots = [int(s) for s in np.nonzero(self.active)[0]]
+        for s in decode_slots:
+            if int(lnp[s]) >= self.slot_capacity:
+                self.active[s] = False
+        fetch = nxt
+        if final:
+            del self._admissions[slot]
+            if self.prefix_cache:
+                publish_prefix(c, st["blocks"], st["prompt_np"],
+                               keys=st["keys"])
+            self.last_token[slot, 0] = first[0]
+            self.active[slot] = True
+            fetch = torch.cat([nxt, first])        # one transfer
+        self._sync_active()
+        out_slots = decode_slots + ([slot] if final else [])
+
+        def _finalize(invalid):
+            self.device_fetches += 1
+            toks_h = fetch.tolist()
+            out: Dict[int, int] = {s: toks_h[s] for s in decode_slots
+                                   if s not in invalid}
+            if final and slot not in invalid:
+                out[slot] = toks_h[-1]
+            return out
+
+        return PendingStep(_finalize, slots=out_slots)
+
+    # -- speculation hooks (models/spec.py SpecDecodeMixin owns the
+    # round loop; these supply the paged mechanics) -----------------
+
+    def _spec_begin(self, h: int) -> torch.Tensor:
+        """Blocks through position length + h (the round's last write),
+        clamped at capacity."""
+        self._grow_active(extra=h)
+        return self.cache.lengths
+
+    def _spec_draft_step(self, tok, base, j: int) -> torch.Tensor:
+        """One draft decode over the draft pools at position base + j."""
+        dl, _, _, _ = decode_core(
+            self.draft_params, tok, self._dpk, self._dpv,
+            self.cache.block_table, base + j, self._active_dev,
+            **self._draft_kw())
+        return dl[:, 0]
+
+    def _spec_draft_catchup(self, block, tok, base, h: int) -> None:
+        """The extra draft step that writes the last proposal's draft KV
+        at base + h (output discarded)."""
+        del block
+        decode_core(self.draft_params, tok, self._dpk, self._dpv,
+                    self.cache.block_table, base + h, self._active_dev,
+                    **self._draft_kw())
+
+    def _spec_verify(self, block, base) -> torch.Tensor:
+        """ONE multi-token target verify over the pools."""
+        c = self.cache
+        return verify_core(self.params, block, c.pool_k, c.pool_v,
+                           c.block_table, base, self._active_dev,
+                           **self._pool_kw())
+
+    def _spec_commit(self, a_b, correction, active) -> None:
+        c = self.cache
+        c.lengths = c.lengths + ((a_b + 1) * active).to(c.lengths.dtype)
+        self.last_token = torch.where(active[:, None], correction,
+                                      self.last_token)
+
+    def _spec_host_lengths(self) -> np.ndarray:
+        return self.cache.host_lengths()
+
+    def _spec_capacity(self) -> int:
+        return self.slot_capacity
+
+    @property
+    def admitting_count(self) -> int:
+        """Chunked admissions in flight."""
+        return len(self._admissions)
 
     def evict(self, slot: int) -> None:
         """Free the slot's blocks back to the pool (refcounted and

@@ -7,13 +7,16 @@ unchanged (``models/bridge.py``): a dict of stacked per-layer tensors
 over layers is a Python loop over the stacked leaves; there is no jit —
 PyTorch runs eagerly.
 
-``forward`` ports three cache branches of the reference: no cache
+``forward`` ports these cache branches of the reference: no cache
 (training / plain prefill), the dense scalar-offset branch (admission
-prefill into a row cache, reference ``transformer.py:608-633``) and the
-paged S=1 decode branch (reference ``:459-533``). The other branches
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
-Caches are updated IN PLACE (the JAX version returns new arrays and
-donates the old pools); ``forward`` returns the same cache dict.
+prefill into a row cache, reference ``transformer.py:608-633``), and
+the paged branches, S = 1 decode (``:459-533``) and S > 1 (speculative
+verify and the fused admission tick, ``:383-458``) — each over bf16/f32
+or int8 KV (``models/quant.py``) — plus the ``layers_hook`` seam (int8
+weights). The dense ragged branches raise ``NotImplementedError``
+naming the ROADMAP item that ports them. Caches are updated IN PLACE
+(the JAX version returns new arrays and donates the old pools);
+``forward`` returns the same cache dict.
 """
 
 from __future__ import annotations
@@ -26,15 +29,16 @@ import torch
 import torch.nn.functional as F
 
 from tpushare_torch import DeviceLike, resolve_device
+from tpushare_torch.models.quant import (kv_dequantize, kv_quantize,
+                                         pool_scales_to_rows)
 from tpushare_torch.ops.attention import attention, window_keep
-from tpushare_torch.ops.flash_attention import paged_flash_decode
+from tpushare_torch.ops.flash_attention import (paged_flash_decode,
+                                                paged_flash_verify)
 from tpushare_torch.ops.norms import rms_norm
 from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
 
-# ROADMAP items that port what this slice leaves out.
-TODO_BRANCHES = "ROADMAP A3 (forward: every cache branch)"
-TODO_INT8_KV = "ROADMAP A3 (int8 KV helpers)"
-TODO_INT8_WEIGHTS = "ROADMAP A6 (int8 weights / layers_hook)"
+# ROADMAP items that port what the port still leaves out.
+TODO_BRANCHES = "ROADMAP A3 (dense ragged branches, with B4)"
 TODO_LORA = "ROADMAP A9 (multi-LoRA)"
 TODO_MESH = "ROADMAP A10 (multi-GPU serving)"
 
@@ -196,44 +200,63 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown activation {name!r}")
 
 
-def _paged_decode_attn(q, k, v, lk, lv, cache, pos, active, w, cfg,
-                       attn_impl):
-    """Paged S=1 branch (reference transformer.py:459-533): write each
-    slot's new KV into its current block — in place, the port's form of
-    the donated-pool scatter — then attend straight off the pool.
+def _paged_attn(q, k, v, lk, lv, lks, lvs, cache, pos, active, w, cfg,
+                attn_impl):
+    """Paged branches of the reference (transformer.py:383-533): write
+    token j of slot b at position pos[b] + j — in place, the port's form
+    of the donated-pool scatter; int8 pools quantize on write — then
+    attend straight off the pool: ``paged_flash_decode`` for S = 1,
+    ``paged_flash_verify`` for S > 1 (speculative verify, fused tick).
 
-    Routing is explicit, as in the reference: row b writes to
-    table[b, min(pos // bs, mb - 1)] only when it is active, the entry
-    is allocated and pos < mb * bs; every other row writes to the trash
-    block (the pool's last). PyTorch raises on an out-of-range index and
-    wraps -1 to the last element, so nothing here leans on either
-    framework's default."""
-    B = q.shape[0]
+    Routing is explicit, as in the reference: a row writes to
+    table[b, min(p // bs, mb - 1)] only when its slot is active, the
+    entry is allocated and p < mb * bs; every other row (inactive
+    slots, -1 entries, positions past capacity) writes to the trash
+    block (the pool's last). PyTorch raises on an out-of-range index
+    and wraps -1 to the last element, so nothing here leans on either
+    framework's default. Every write lands before this layer's
+    attention reads the pool."""
+    B, S = q.shape[:2]
     bs = lk.shape[1]
     table = cache["table"]
     mb = table.shape[1]
     trash = lk.shape[0] - 1
-    bi = torch.clamp(pos // bs, max=mb - 1).long()
-    entry = torch.gather(table, 1, bi[:, None])[:, 0]
-    blk = torch.where(active & (entry >= 0) & (pos < mb * bs),
+    pos_grid = pos.long()[:, None] + torch.arange(S, device=q.device)
+    bi = torch.clamp(pos_grid // bs, max=mb - 1)
+    entry = torch.gather(table, 1, bi)
+    blk = torch.where(active[:, None] & (entry >= 0) & (pos_grid < mb * bs),
                       entry, trash).long()
-    off = (pos % bs).long()
-    lk[blk, off] = k[:, 0].to(lk.dtype)
-    lv[blk, off] = v[:, 0].to(lv.dtype)
+    off = pos_grid % bs
+    if lks is not None:
+        qk, sk = kv_quantize(k)
+        qv, sv = kv_quantize(v)
+        lk[blk, off] = qk
+        lv[blk, off] = qv
+        lks[blk, :, off] = sk           # page layout [nb, Hkv, bs]
+        lvs[blk, :, off] = sv
+    else:
+        lk[blk, off] = k.to(lk.dtype)
+        lv[blk, off] = v.to(lv.dtype)
     if attn_impl != "reference":
-        return paged_flash_decode(q, lk, lv, table, pos,
-                                  scale=cfg.attn_scale, window=w,
-                                  attn_softcap=cfg.attn_softcap)
+        kern = paged_flash_decode if S == 1 else paged_flash_verify
+        kw = {} if lks is None else {"k_scale": lks, "v_scale": lvs}
+        return kern(q, lk, lv, table, pos, scale=cfg.attn_scale, window=w,
+                    attn_softcap=cfg.attn_softcap, **kw)
     # The reference's gathered view: unallocated entries read the trash
-    # block and the length mask keeps them unattended.
+    # block and the per-row length mask keeps them unattended; int8
+    # pages dequantize to cfg.dtype first, as the reference does.
     Hkv, Dh = lk.shape[2], lk.shape[3]
     safe = torch.where(table >= 0, table, trash).long()
-    kd = lk[safe].reshape(B, mb * bs, Hkv, Dh)
-    vd = lv[safe].reshape(B, mb * bs, Hkv, Dh)
-    k_pos = torch.arange(mb * bs, device=q.device)[None, :]
-    kv_mask = k_pos <= pos[:, None]
+    kd, vd = lk[safe], lv[safe]
+    if lks is not None:
+        kd = kv_dequantize(kd, pool_scales_to_rows(lks[safe]), cfg.dtype)
+        vd = kv_dequantize(vd, pool_scales_to_rows(lvs[safe]), cfg.dtype)
+    kd = kd.reshape(B, mb * bs, Hkv, Dh)
+    vd = vd.reshape(B, mb * bs, Hkv, Dh)
+    k_pos = torch.arange(mb * bs, device=q.device)[None, None, :]
+    kv_mask = k_pos <= pos_grid[..., None]                 # [B, S, K]
     if w is not None:
-        kv_mask &= window_keep(pos[:, None], k_pos, w)
+        kv_mask &= window_keep(pos_grid[..., None], k_pos, w)
     return attention(q, kd, vd, causal=False, kv_mask=kv_mask,
                      scale=cfg.attn_scale, attn_softcap=cfg.attn_softcap,
                      impl=attn_impl)
@@ -251,19 +274,20 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """LM forward. tokens [B, S] -> (logits [B, S, V] f32, cache).
 
-    cache=None: plain causal forward. A dense cache {"k", "v"} with an
-    int ``pos_offset``: the new K/V are written at [pos_offset,
-    pos_offset+S) — the start clamped so the write fits, as
-    ``dynamic_update_slice`` does in the reference — and attention runs
-    over the whole cache with a causal ``q_offset``. A paged cache
-    {"pool_k", "pool_v", "table", "active"} with a [B] int32 tensor
-    ``pos_offset`` and S == 1: one ragged decode step over the pool.
+    cache=None: plain causal forward. A dense cache {"k", "v"} (plus
+    {"k_scale", "v_scale"} for int8 rows) with an int ``pos_offset``:
+    the new K/V are written at [pos_offset, pos_offset+S) — the start
+    clamped so the write fits, as ``dynamic_update_slice`` does in the
+    reference — and attention runs over the whole cache with a causal
+    ``q_offset``. A paged cache {"pool_k", "pool_v", "table", "active"}
+    (plus {"pool_k_scale", "pool_v_scale"} for int8 pools) with a [B]
+    int32 tensor ``pos_offset``: token j of slot b at position
+    pos[b] + j, attending through the block table. ``layers_hook`` maps
+    each layer's leaves before use (``quant.dequant_hook``).
     ``attn_impl``: "auto" (the kernels) or "reference" (plain PyTorch).
     """
     if pctx is not None:
         raise NotImplementedError(f"ParallelCtx: {TODO_MESH}")
-    if layers_hook is not None:
-        raise NotImplementedError(f"layers_hook: {TODO_INT8_WEIGHTS}")
     if mlora_idx is not None or "_mlora" in params["layers"]:
         raise NotImplementedError(f"multi-LoRA rows: {TODO_LORA}")
     B, S = tokens.shape
@@ -271,16 +295,17 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     dev = tokens.device
     ragged = isinstance(pos_offset, torch.Tensor)
     paged = cache is not None and "pool_k" in cache
-    if cache is not None and (
-            "k_scale" in cache or "pool_k_scale" in cache
-            or cache["pool_k" if paged else "k"].dtype == torch.int8):
-        raise NotImplementedError(f"int8 KV caches: {TODO_INT8_KV}")
+    # Int8 KV (quant.init_cache_q8 rows / kv_quant pools): int8 rows
+    # plus per-(position, head) scales; rows quantize on write.
+    kvq = cache is not None and ("k_scale" in cache
+                                 or "pool_k_scale" in cache)
+    if not kvq and cache is not None and (
+            cache["pool_k" if paged else "k"].dtype == torch.int8):
+        raise ValueError(
+            "int8 KV cache reached forward() without its scale leaves "
+            "(k_scale/v_scale or pool_*_scale)")
     if paged and not ragged:
         raise ValueError("paged cache requires ragged decode (pos [B])")
-    if paged and S > 1:
-        raise NotImplementedError(
-            f"paged multi-token forward (speculative verify, fused tick): "
-            f"{TODO_BRANCHES}")
     if cache is not None and not paged and ragged:
         raise NotImplementedError(
             f"dense ragged decode (per-row offsets): {TODO_BRANCHES}")
@@ -313,6 +338,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
 
     for li in range(cfg.n_layers):
         layer = {name: leaf[li] for name, leaf in layers.items()}
+        if layers_hook is not None:
+            layer = layers_hook(layer)
         w = None if wls is None else wls[li]
         h = rms_norm(x, layer["ln1"], eps=cfg.norm_eps,
                      offset=cfg.norm_offset)
@@ -325,19 +352,32 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
         k = apply_rotary(k, cos, sin)
 
         if paged:
-            attn = _paged_decode_attn(
-                q, k, v, cache["pool_k"][li], cache["pool_v"][li], cache,
-                pos, active, w, cfg, attn_impl)
+            attn = _paged_attn(
+                q, k, v, cache["pool_k"][li], cache["pool_v"][li],
+                cache["pool_k_scale"][li] if kvq else None,
+                cache["pool_v_scale"][li] if kvq else None,
+                cache, pos, active, w, cfg, attn_impl)
         elif cache is not None:
             # Write the new kv at pos_offset (clamped like
             # dynamic_update_slice, in place); attend over the full
             # static row — positions past the write are zeros the
-            # causal q_offset mask removes.
+            # causal q_offset mask removes. Int8 rows quantize on write
+            # and the whole row dequantizes to cfg.dtype before
+            # attention (reference transformer.py:612-621).
             lk, lv = cache["k"][li], cache["v"][li]
             start = min(max(pos_offset, 0), lk.shape[1] - S)
-            lk[:, start:start + S] = k.to(lk.dtype)
-            lv[:, start:start + S] = v.to(lv.dtype)
-            attn = attention(q, lk, lv, causal=True, q_offset=pos_offset,
+            end = start + S
+            if kvq:
+                lks, lvs = cache["k_scale"][li], cache["v_scale"][li]
+                lk[:, start:end], lks[:, start:end] = kv_quantize(k)
+                lv[:, start:end], lvs[:, start:end] = kv_quantize(v)
+                kd = kv_dequantize(lk, lks, cfg.dtype)
+                vd = kv_dequantize(lv, lvs, cfg.dtype)
+            else:
+                lk[:, start:end] = k.to(lk.dtype)
+                lv[:, start:end] = v.to(lv.dtype)
+                kd, vd = lk, lv
+            attn = attention(q, kd, vd, causal=True, q_offset=pos_offset,
                              scale=cfg.attn_scale, window=w,
                              attn_softcap=cfg.attn_softcap, impl=attn_impl)
         else:

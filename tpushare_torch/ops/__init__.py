@@ -7,12 +7,13 @@ plain PyTorch version beside it.
 
 from tpushare_torch.ops.attention import attention, mha_reference
 from tpushare_torch.ops.flash_attention import (
-    flash_attention, paged_flash_decode,
+    flash_attention, paged_flash_decode, paged_flash_verify,
 )
 from tpushare_torch.ops.norms import layer_norm, rms_norm
 from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
 
 __all__ = [
     "attention", "mha_reference", "flash_attention", "paged_flash_decode",
+    "paged_flash_verify",
     "layer_norm", "rms_norm", "apply_rotary", "rotary_embedding",
 ]

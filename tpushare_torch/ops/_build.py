@@ -30,7 +30,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-shared",
                            "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("flash_prefill", "paged_decode")
+KERNELS = ("flash_prefill", "paged_decode", "paged_verify")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

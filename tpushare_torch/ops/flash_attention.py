@@ -6,15 +6,24 @@ Counterpart of ``tpushare/ops/flash_attention.py``.
   ``_fa_kernel`` and ``_fa_stream_kernel``); plain version:
   ``mha_reference``.
 - ``paged_flash_decode`` -> ``csrc/paged_decode.cu`` (replaces the
-  Pallas ``_paged_decode_kernel`` for f32/bf16 pages); plain version:
-  ``paged_flash_decode_plain``.
+  Pallas ``_paged_decode_kernel``, f32/bf16 and int8 pages); plain
+  version: ``paged_flash_decode_plain``.
+- ``paged_flash_verify`` -> ``csrc/paged_verify.cu`` (replaces the
+  Pallas ``_paged_verify_kernel``, f32/bf16 and int8 pages); plain
+  version: ``paged_flash_verify_plain``.
 
 Dispatch rule: a wrapper given CPU tensors runs the plain version; given
 CUDA tensors it checks device, dtype, shape and contiguity, launches its
 kernel on the current stream, and raises on anything the kernel does not
 take or on a launch error — never a quiet fallback. Each wrapper counts
-its kernel launches in ``<wrapper>.launches`` (a plain int), so a run
-can show that its main path went through the kernel.
+its kernel launches in ``<wrapper>.launches`` (a plain int; the paged
+wrappers count int8-page launches apart, in ``.launches_int8``), so a
+run can show that its main path went through each kernel variant.
+
+The TPU package gates the paged kernels behind TPU measurements (the
+``TPUSHARE_DECODE_KERNEL`` opt-in for verify, ``PAGED_Q8_KERNEL_MIN_CTX``
+for int8 pages); those are not facts about this card, so on CUDA the
+port always launches.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from tpushare_torch.ops.attention import NEG_INF, mha_reference, window_keep
 
 KERNEL_HEAD_DIMS = (128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_I8 = 2                          # page type code of int8 pages
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -110,95 +120,209 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
-def paged_flash_decode_plain(q: torch.Tensor, pool_k: torch.Tensor,
+def paged_flash_verify_plain(q: torch.Tensor, pool_k: torch.Tensor,
                              pool_v: torch.Tensor, table: torch.Tensor,
                              pos: torch.Tensor, *,
                              scale: Optional[float] = None,
                              window: Optional[int] = None,
-                             attn_softcap: Optional[float] = None
+                             attn_softcap: Optional[float] = None,
+                             k_scale: Optional[torch.Tensor] = None,
+                             v_scale: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
-    """Plain PyTorch version of the paged decode kernel: gather each
-    slot's pages through its table into a dense view, mask positions
-    past ``pos``, outside the window, or under a -1 entry, and run the
-    online-softmax arithmetic (f32, masked p = 0, acc / max(l, 1e-30):
-    a slot with no live position yields 0, as in the kernel)."""
-    B, _, H, D = q.shape
+    """Plain PyTorch version of the paged kernels, for Sq >= 1 query
+    rows per slot: gather each slot's pages through its table into a
+    dense view (int8 pages times their f32 scales, in f32), and let row
+    s of slot b attend positions <= pos[b] + s that lie inside the
+    window and under an allocated (>= 0) entry. Online-softmax
+    conventions of the kernels: f32 throughout, masked p = 0, output
+    acc / max(l, 1e-30), so a row with no live position yields 0."""
+    B, Sq, H, D = q.shape
     nb, bs, Hkv, _ = pool_k.shape
     mb = table.shape[1]
     G = H // Hkv
     scale = D ** -0.5 if scale is None else scale
     safe = table.clamp(min=0).long()
-    kd = pool_k[safe].reshape(B, mb * bs, Hkv, D).float()
-    vd = pool_v[safe].reshape(B, mb * bs, Hkv, D).float()
-    k_pos = torch.arange(mb * bs, device=q.device)[None, :]
-    p = pos.long()[:, None]
-    keep = (table >= 0).repeat_interleave(bs, dim=1) & (k_pos <= p)
+    kd, vd = pool_k[safe].float(), pool_v[safe].float()  # [B, mb, bs, Hkv, D]
+    if k_scale is not None:
+        kd = kd * k_scale[safe].transpose(-1, -2)[..., None]
+        vd = vd * v_scale[safe].transpose(-1, -2)[..., None]
+    kd = kd.reshape(B, mb * bs, Hkv, D)
+    vd = vd.reshape(B, mb * bs, Hkv, D)
+    k_pos = torch.arange(mb * bs, device=q.device)[None, None, :]
+    q_pos = (pos.long()[:, None]
+             + torch.arange(Sq, device=q.device)[None, :])[..., None]
+    keep = (table >= 0).repeat_interleave(bs, dim=1)[:, None, :] \
+        & (k_pos <= q_pos)                                   # [B, Sq, K]
     if window is not None:
-        keep &= window_keep(p, k_pos, window)
-    qg = q[:, 0].reshape(B, Hkv, G, D).float() * scale
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, kd)
+        keep &= window_keep(q_pos, k_pos, window)
+    qg = q.reshape(B, Sq, Hkv, G, D).float() * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kd)
     if attn_softcap is not None:
         s = attn_softcap * torch.tanh(s / attn_softcap)
-    keep = keep[:, None, None, :]
+    keep = keep[:, None, None]
     s = torch.where(keep, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     pr = torch.where(keep, torch.exp(s - m), 0.0)
     l = pr.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhgk,bkhd->bhgd", pr, vd) / l.clamp(min=1e-30)
-    return out.reshape(B, 1, H, D).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", pr, vd) / l.clamp(min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def paged_flash_decode_plain(q: torch.Tensor, pool_k: torch.Tensor,
+                             pool_v: torch.Tensor, table: torch.Tensor,
+                             pos: torch.Tensor, **kw) -> torch.Tensor:
+    """Plain PyTorch version of the paged decode kernel: the Sq = 1
+    case of ``paged_flash_verify_plain`` (same keywords); int8 pages
+    dequantize in f32."""
+    return paged_flash_verify_plain(q, pool_k, pool_v, table, pos, **kw)
+
+
+def _paged_checks(what: str, q, pool_k, pool_v, table, pos, k_scale,
+                  v_scale) -> int:
+    """Validate a paged kernel call on CUDA tensors; returns the page
+    type code (the q type's code, or ``_I8`` for int8 pages)."""
+    quantized = k_scale is not None or v_scale is not None
+    extra = (k_scale, v_scale) if quantized else ()
+    if quantized and (k_scale is None or v_scale is None):
+        raise ValueError(f"{what}: int8 pages need both k_scale and v_scale")
+    _check_cuda(what, q, pool_k, pool_v, table, pos, *extra)
+    B, Sq, H, D = q.shape
+    nb, bs, Hkv, Dk = pool_k.shape
+    if (pool_v.shape != pool_k.shape or Dk != D or H % Hkv
+            or table.ndim != 2 or table.shape[0] != B
+            or pos.shape != (B,)):
+        raise ValueError(
+            f"{what}: shapes q {tuple(q.shape)} pool {tuple(pool_k.shape)} "
+            f"table {tuple(table.shape)} pos {tuple(pos.shape)}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what}: kernel takes f32 or bf16 q, got {q.dtype}")
+    if quantized:
+        if pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8:
+            raise ValueError(f"{what}: scales given, pages must be int8, "
+                             f"got {pool_k.dtype}")
+        for s in extra:
+            if s.dtype != torch.float32 or s.shape != (nb, Hkv, bs):
+                raise ValueError(
+                    f"{what}: scale pages must be f32 [nb, Hkv, bs] = "
+                    f"{(nb, Hkv, bs)}, got {s.dtype} {tuple(s.shape)}")
+    elif pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
+        raise ValueError(f"{what}: kernel takes f32 or bf16 pages matching "
+                         f"q (or int8 pages with scales), got "
+                         f"{q.dtype}/{pool_k.dtype}")
+    if table.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError(f"{what}: table and pos must be int32")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    return _I8 if quantized else _DTYPE_CODE[q.dtype]
+
+
+def _paged_launch(what, lib, fn, q, pool_k, pool_v, table, pos, k_scale,
+                  v_scale, page_code, scale, window, attn_softcap):
+    """Launch one paged kernel (decode or verify: one C signature);
+    returns the output."""
+    B, Sq, H, D = q.shape
+    nb, bs, Hkv, _ = pool_k.shape
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    f = _lib(lib, fn, [_P] * 8 + [_I] * 10 + [_F, _F, _P])
+    code = f(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+             0 if k_scale is None else k_scale.data_ptr(),
+             0 if v_scale is None else v_scale.data_ptr(),
+             table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+             B, Sq, H, Hkv, D, bs, table.shape[1], _DTYPE_CODE[q.dtype],
+             page_code, _window(window),
+             D ** -0.5 if scale is None else float(scale),
+             0.0 if attn_softcap is None else float(attn_softcap),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, what)
+    return out
 
 
 def paged_flash_decode(q: torch.Tensor, pool_k: torch.Tensor,
                        pool_v: torch.Tensor, table: torch.Tensor,
                        pos: torch.Tensor, *, scale: Optional[float] = None,
                        window: Optional[int] = None,
-                       attn_softcap: Optional[float] = None) -> torch.Tensor:
+                       attn_softcap: Optional[float] = None,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Ragged decode attention straight off a paged KV pool.
 
     q [B, 1, H, D]; pool_k/pool_v [n_blocks, bs, Hkv, D] (one layer's
     pool); table [B, max_blocks] int32 (-1 = unallocated); pos [B] int32
     — slot b attends positions <= pos[b] through its table (the new
-    token's KV must already be written at pos[b]). On CUDA: f32 or bf16
-    pages, D in {128, 256}. On CPU: ``paged_flash_decode_plain``.
+    token's KV must already be written at pos[b]). Int8 pools pass
+    ``k_scale``/``v_scale`` f32 [n_blocks, Hkv, bs] (the port's scale
+    page layout, ``models/quant.py``); pages dequantize in f32 after the
+    load. On CUDA: f32 or bf16 q, pages of q's type or int8, D in
+    {128, 256}. On CPU: ``paged_flash_decode_plain``. Launches are
+    counted in ``.launches`` (f32/bf16 pages) and ``.launches_int8``.
     """
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, pool_k, pool_v, table, pos,
                                         scale=scale, window=window,
-                                        attn_softcap=attn_softcap)
-    _check_cuda("paged_flash_decode", q, pool_k, pool_v, table, pos)
-    B, Sq, H, D = q.shape
-    nb, bs, Hkv, Dk = pool_k.shape
-    if (Sq != 1 or pool_v.shape != pool_k.shape or Dk != D or H % Hkv
-            or table.ndim != 2 or table.shape[0] != B
-            or pos.shape != (B,)):
-        raise ValueError(
-            f"paged_flash_decode: shapes q {tuple(q.shape)} pool "
-            f"{tuple(pool_k.shape)} table {tuple(table.shape)} pos "
-            f"{tuple(pos.shape)}")
-    if q.dtype not in _DTYPE_CODE or pool_k.dtype != q.dtype \
-            or pool_v.dtype != q.dtype:
-        raise ValueError(f"paged_flash_decode: kernel takes f32 or bf16 "
-                         f"pages matching q, got {q.dtype}/{pool_k.dtype}")
-    if table.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise ValueError("paged_flash_decode: table and pos must be int32")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_flash_decode: kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {D}")
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
-    fn = _lib("paged_decode", "ts_paged_decode",
-              [_P] * 6 + [_I] * 8 + [_F, _F, _P])
-    code = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-              table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-              B, H, Hkv, D, bs, table.shape[1], _DTYPE_CODE[q.dtype],
-              _window(window),
-              D ** -0.5 if scale is None else float(scale),
-              0.0 if attn_softcap is None else float(attn_softcap),
-              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, "paged_flash_decode")
-    paged_flash_decode.launches += 1
+                                        attn_softcap=attn_softcap,
+                                        k_scale=k_scale, v_scale=v_scale)
+    page = _paged_checks("paged_flash_decode", q, pool_k, pool_v, table, pos,
+                         k_scale, v_scale)
+    if q.shape[1] != 1:
+        raise ValueError(f"paged_flash_decode: Sq must be 1, got "
+                         f"{q.shape[1]} (Sq > 1 is paged_flash_verify)")
+    out = _paged_launch("paged_flash_decode", "paged_decode",
+                        "ts_paged_decode", q, pool_k, pool_v, table, pos,
+                        k_scale, v_scale, page, scale, window, attn_softcap)
+    if page == _I8:
+        paged_flash_decode.launches_int8 += 1
+    else:
+        paged_flash_decode.launches += 1
     return out
 
 
 paged_flash_decode.launches = 0
+paged_flash_decode.launches_int8 = 0
+
+
+def paged_flash_verify(q: torch.Tensor, pool_k: torch.Tensor,
+                       pool_v: torch.Tensor, table: torch.Tensor,
+                       pos: torch.Tensor, *, scale: Optional[float] = None,
+                       window: Optional[int] = None,
+                       attn_softcap: Optional[float] = None,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Multi-token attention straight off a paged KV pool: speculative
+    verify (Sq = gamma * horizon + 1) and the fused admission tick (Sq =
+    the chunk width).
+
+    q [B, Sq, H, D] — slot b's Sq query rows at positions pos[b] ..
+    pos[b] + Sq - 1, whose KV must already be written to the pool; row
+    s attends positions <= pos[b] + s. Pool, table, scales and types as
+    ``paged_flash_decode``. On CUDA any Sq >= 2 (the TPU wrapper's
+    Sq <= 16 cap was a VMEM policy and is not carried over). On CPU:
+    ``paged_flash_verify_plain``. Launches are counted in ``.launches``
+    and ``.launches_int8``.
+    """
+    if q.device.type == "cpu":
+        return paged_flash_verify_plain(q, pool_k, pool_v, table, pos,
+                                        scale=scale, window=window,
+                                        attn_softcap=attn_softcap,
+                                        k_scale=k_scale, v_scale=v_scale)
+    page = _paged_checks("paged_flash_verify", q, pool_k, pool_v, table, pos,
+                         k_scale, v_scale)
+    if q.shape[1] < 2:
+        raise ValueError(f"paged_flash_verify: Sq must be >= 2, got "
+                         f"{q.shape[1]} (Sq = 1 is paged_flash_decode)")
+    out = _paged_launch("paged_flash_verify", "paged_verify",
+                        "ts_paged_verify", q, pool_k, pool_v, table, pos,
+                        k_scale, v_scale, page, scale, window, attn_softcap)
+    if page == _I8:
+        paged_flash_verify.launches_int8 += 1
+    else:
+        paged_flash_verify.launches += 1
+    return out
+
+
+paged_flash_verify.launches = 0
+paged_flash_verify.launches_int8 = 0
