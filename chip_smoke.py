@@ -51,6 +51,31 @@ Phases, one JSON line each, each with its own seconds:
           verify and (b)'s first decode tick are held against the twin;
           every fused tick and round must make exactly one
           device-to-host fetch.
+  slice_moe
+          Mixtral-8x7B at full width and depth, its config built by
+          convert.moe_config_from_hf from the published config.json
+          values; random weights made one layer at a time and quantized
+          as made (int8 attention and experts, bf16 router, norms and
+          embeddings: no bf16 expert tree ever exists). Two servers, one
+          after the other, each over quant.fused_expert_hook, so every
+          MoE layer runs the q8_expert_ffn kernel: (a) MoESlotServer over
+          dense KV rows (max_len 4096), (b) PagedSlotServer(forward_fn=
+          moe.paged_forward). Each admits 3 prompts whole, 2 in
+          256-token chunks by fused ticks, a 4th whole, runs 16 decode
+          ticks (+2 profiled), evicts, and admits a prompt that reuses
+          560 tokens of the 4th's prefix. A twin on the same int8 tree
+          (quant.dequant_hook, attn_impl="reference"), replaying the
+          server's expert choices, holds the logits of every admission,
+          the first fused tick and the first decode tick; beside each
+          reading, the share of real (token, layer) pairs where the twin
+          alone would have chosen another expert set.
+  slice_rows
+          Gemma-2-2B at full width and depth over dense rows
+          (serving.SlotServer, 8 slots, max_len 8192): 5 prompts of
+          200..6000 tokens (the longest in prefill_chunk pieces, two past
+          the 4096 window), one admission finished by a fused tick, 16
+          decode ticks (+2 profiled) through flash_decode, evict; logits
+          held against an attn_impl="reference" twin.
 
 Each slice's server sets the launch counters to 0 just before its run
 and reads them just after; every kernel variant its path runs must have
@@ -60,6 +85,7 @@ true, "device": {...}}``. Any failed check raises (non-zero exit, no
 result line). Without CUDA it exits 2 at once.
 """
 
+import dataclasses
 import functools
 import gc
 import json
@@ -67,6 +93,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 
 # Tolerances, with their reasons.
 # Kernel vs plain, bf16 in and out: both sides do all arithmetic in f32
@@ -84,6 +111,22 @@ ULP_FLOOR = 1e-5
 # rounding flip in one of 18 layers propagates through the bf16
 # residual stream. Sound runs read ~5e-3; the limit is 4x that.
 LOGIT_REL_TOL = 2e-2
+# slice_moe's server vs its twin differ in more than rounding order: the
+# server's expert products are the int8 kernel's (scale after each f32
+# dot, outputs rounded once), the twin's dequant_hook rounds W * s to
+# bf16 first and runs bf16 products. Where the two land on different
+# sides of a top-2 routing boundary a token's FFN output changes
+# outright, and over 32 layers of random weights such flips cascade: a
+# twin routing on its own read up to 0.32 of the largest |logit|, with
+# 3-9% of an admission's (token, layer) pairs routed to another expert
+# set. So the twin replays the server's routes (``Routes``); beside
+# each reading, the share of pairs where the twin alone would have
+# routed otherwise. What is left is rounding, from two sources where the
+# dense slices have one (attention's, and the twin's bf16 expert
+# products on bf16-rounded weights): replayed, the readings ran
+# 0.014-0.0199 at Mixtral's 32 layers (Llama-3-8B's, one source, ran
+# 0.0126-0.0179), so the limit is 1.5x the worst of them.
+MOE_LOGIT_REL_TOL = 3e-2
 
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (H100 SXM)
 H100_HBM_BYTES_S = 3.35e12    # HBM3 rate (H100 SXM)
@@ -690,6 +733,480 @@ def llama_logit_checks(torch, run, ref, mode):
     return out
 
 
+def q8_case(q8, F, torch, dev, flush, name, w, C, shared, act="silu",
+            seed=5, fault=False):
+    """One q8_expert_ffn case at Mixtral width: ``w`` is one layer's
+    int8 expert leaves (wg, sg, wu, su, wd, sd); x [C, Dm] bf16 (one
+    block every expert runs, dense dispatch) or [E, C, Dm] (per-expert
+    queues). With ``fault``, two experts' down-projection scales are
+    swapped and the same check must reject the kernel's output."""
+    wg, sg, wu, su, wd, sd = w
+    E, Dm, Fd = wg.shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (C, Dm) if shared else (E, C, Dm)
+    x = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    got = q8.q8_expert_ffn(x, *w, act=act)
+    want = q8.q8_expert_ffn_reference(x, *w, act=act)
+    torch.cuda.synchronize()
+    cmp = compare(got, want)
+    if not (cmp["ulp_ratio"] <= 1.0):
+        raise AssertionError(f"q8_expert_ffn {name}: {cmp}")
+    fault_ratio = None
+    if fault:
+        bad = sd.clone()
+        bad[[0, 1]] = sd[[1, 0]]
+        fault_ratio = compare(q8.q8_expert_ffn(x, wg, sg, wu, su, wd, bad,
+                                               act=act), want)["ulp_ratio"]
+        if not (fault_ratio > 1.0):
+            raise AssertionError(f"q8_expert_ffn {name}: the check missed "
+                                 f"two swapped expert scales ({fault_ratio})")
+    del got, want
+    iters = 3 if C >= 512 else 10
+    ms = time_ms(lambda: q8.q8_expert_ffn(x, *w, act=act), iters, flush)
+    plain_ms = time_ms(lambda: q8.q8_expert_ffn_reference(x, *w, act=act),
+                       3, flush)
+    act_fn = functools.partial(q8._apply_act, act)
+
+    def library():
+        # dequant_hook's widening, then cuBLAS for the three products.
+        bf = torch.bfloat16
+        wgb, wub, wdb = ((a.float() * s).to(bf) for a, s in
+                         ((wg, sg), (wu, su), (wd, sd)))
+        return torch.matmul(act_fn(torch.matmul(x, wgb))
+                            * torch.matmul(x, wub), wdb)
+
+    library_ms = time_ms(library, 3, flush)
+    tokens = C * (1 if shared else E)          # rows each expert runs
+    flops = 2 * 3 * Dm * Fd * (C * E if shared else tokens)
+    nbytes = (x.numel() * 2 + 3 * E * Dm * Fd + 4 * E * (2 * Fd + Dm)
+              + E * C * Dm * 2)
+    bms, by = bound(flops, nbytes)
+    row = {"phase": "kernels", "kernel": "q8_expert_ffn", "case": name,
+           "E": E, "C": C, "x": "shared" if shared else "per_expert",
+           "Dm": Dm, "F": Fd, "act": act, **cmp,
+           "fault_ulp_ratio": fault_ratio, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library_calls": "widen (dequant_hook math), 3 torch.matmul",
+           "bound_ms": bms, "bound_by": by, "tflops": flops / ms / 1e9,
+           "gb_s": nbytes / ms / 1e6}
+    emit(row)
+    return row
+
+
+def flash_decode_case(fa, torch, np, dev, flush, name, pos, M, H, Hkv, D,
+                      window=None, softcap=None, seed=6, fault=False):
+    """One flash_decode case over contiguous rows [B, M, Hkv, D] at the
+    given positions. ``fault``: the kernel attends pos + 1 (one position
+    too many); the same check must reject it."""
+    B = len(pos)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    k = torch.randn(B, M, Hkv, D, generator=g, device=dev).to(bf)
+    v = torch.randn(B, M, Hkv, D, generator=g, device=dev).to(bf)
+    q = torch.randn(B, 1, H, D, generator=g, device=dev).to(bf)
+    pos_t = torch.as_tensor(np.asarray(pos, np.int32), device=dev)
+    kw = dict(window=window, attn_softcap=softcap)
+    got = fa.flash_decode(q, k, v, pos_t, **kw)
+    want = fa.flash_decode_plain(q, k, v, pos_t, **kw)
+    torch.cuda.synchronize()
+    cmp = compare(got, want)
+    if not (cmp["ulp_ratio"] <= 1.0):
+        raise AssertionError(f"flash_decode {name}: {cmp}")
+    fault_ratio = None
+    if fault:
+        fault_ratio = compare(fa.flash_decode(q, k, v, pos_t + 1, **kw),
+                              want)["ulp_ratio"]
+        if not (fault_ratio > 1.0):
+            raise AssertionError(f"flash_decode {name}: the check missed a "
+                                 f"row attending pos + 1 ({fault_ratio})")
+    ms = time_ms(lambda: fa.flash_decode(q, k, v, pos_t, **kw), 30, flush)
+    plain_ms = time_ms(lambda: fa.flash_decode_plain(q, k, v, pos_t, **kw),
+                       10, flush)
+    p = np.asarray(pos, np.int64)
+    lo = np.maximum(0, p - window + 1) if window else np.zeros_like(p)
+    live = int((np.minimum(p + 1, M) - lo).sum())
+    nbytes = 2 * live * Hkv * D * 2 + 2 * B * H * D * 2 + B * 4
+    flops = 4 * live * H * D
+    bms, by = bound(flops, nbytes)
+    row = {"phase": "kernels", "kernel": "flash_decode", "case": name,
+           "B": B, "M": M, "H": H, "Hkv": Hkv, "D": D, "max_pos": int(p.max()),
+           "live_rows": live, "window": window, "softcap": softcap, **cmp,
+           "fault_ulp_ratio": fault_ratio, "ms": ms, "plain_ms": plain_ms,
+           # SDPA has no softcap: no one PyTorch call computes this.
+           "library_ms": None, "library_calls": None,
+           "bound_ms": bms, "bound_by": by,
+           "gb_s": nbytes / ms / 1e6}
+    emit(row)
+    return row
+
+
+# Mixtral-8x7B as its published config.json gives it
+# (mistralai/Mixtral-8x7B-v0.1).
+MIXTRAL_8X7B = dict(
+    model_type="mixtral", vocab_size=32000, hidden_size=4096,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    intermediate_size=14336, num_local_experts=8, num_experts_per_tok=2,
+    rope_theta=1e6, rms_norm_eps=1e-5, hidden_act="silu",
+    tie_word_embeddings=False, router_aux_loss_coef=0.02)
+
+
+def mixtral_int8_params(torch, quant, cfg, gen, dev):
+    """Random Mixtral-width weights from ``gen``, made one layer (one
+    expert) at a time and quantized as they are made, so no bf16 expert
+    tree ever exists: attention and expert leaves int8 + f32 scales
+    (quant.quantize_weight of the bf16 values, as quantize_params does),
+    router, norms, embed and unembed bf16."""
+    bf = torch.bfloat16
+    L, Dm, Fd, E, V = (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                       cfg.vocab_size)
+
+    def dense(shape, fan_in):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                / math.sqrt(fan_in)).to(bf)
+
+    shapes = {"wq": (Dm, cfg.q_dim), "wk": (Dm, cfg.kv_dim),
+              "wv": (Dm, cfg.kv_dim), "wo": (cfg.q_dim, Dm),
+              "w_gate": (E, Dm, Fd), "w_up": (E, Dm, Fd),
+              "w_down": (E, Fd, Dm)}
+    layers = {}
+    for k, shp in shapes.items():
+        layers[k + "#q8"] = torch.empty((L, *shp), dtype=torch.int8,
+                                        device=dev)
+        layers[k + "#scale"] = torch.empty((L, *shp[:-2], 1, shp[-1]),
+                                           device=dev)
+    for li in range(L):
+        for k, shp in shapes.items():
+            for e in range(E if len(shp) == 3 else 1):
+                idx = (li, e) if len(shp) == 3 else (li,)
+                w = dense(shp[-2:], shp[-2])
+                q, s = quant.quantize_weight(w)
+                layers[k + "#q8"][idx] = q
+                layers[k + "#scale"][idx] = s
+    layers.update(ln1=torch.ones((L, Dm), dtype=bf, device=dev),
+                  ln2=torch.ones((L, Dm), dtype=bf, device=dev),
+                  router=dense((L, Dm, E), Dm))
+    return {"embed": dense((V, Dm), Dm), "layers": layers,
+            "final_norm": torch.ones((Dm,), dtype=bf, device=dev),
+            "unembed": dense((Dm, V), Dm)}
+
+
+def moe_widths(serving, paged, whole, chunked, prefix_hit, chunk, bs,
+               max_len, mb):
+    """Token-block sizes C the two slice_moe servers hand the q8 kernel
+    (dense dispatch: every expert runs all B x S tokens of a forward),
+    from the servers' own padding rules: whole admissions, fused ticks
+    (8 rows x the chunk width), the prefix-hit admission and decode
+    ticks (8 rows)."""
+    rows, pg = {8}, {8}
+    for S in whole:
+        rows.add(min(serving.bucket_len(S), max_len))
+        pg.add(paged.admission_len(S, 0, bs, mb)[1])
+    for S in chunked:
+        for gran, out in ((1, rows), (bs, pg)):
+            done = 0
+            while done < S:
+                done, width = serving.fused_chunk_span(done, S, chunk, None,
+                                                       gran=gran)
+                out.add(8 * width)
+    S, p = prefix_hit
+    rows.add(serving.bucket_len(S - p))
+    cached = p // bs * bs
+    pg.add(paged.admission_len(S, cached, bs, mb)[1] - cached)
+    return sorted(rows), sorted(pg)
+
+
+class Routes:
+    """The MoE router's top-k while one server runs (moe.top_k_lower_index
+    is patched for the run): per forward, every layer's expert ids and
+    the batch rows that carry real tokens, each with its count of real
+    columns (an active decode row 1, an admitting row its chunk's
+    prompt tokens). With ``replay`` (another run's
+    ``calls``), every layer routes its tokens to the experts that run
+    chose, the weights renormalized from this run's own router
+    probabilities; the ids recorded stay this run's own choice, so a
+    replaying twin's record says where it alone would have routed
+    otherwise."""
+
+    def __init__(self, moe, replay=None):
+        self.moe, self.replay, self.calls, self.rows = moe, replay, [], []
+        self.srv = None
+
+    def wrap(self, fn):
+        def call(*a, **kw):
+            import numpy as np
+            srv = self.srv
+            real = {int(r): 1 for r in np.nonzero(srv.active)[0]}
+            for r, st in srv._admissions.items():
+                real[r] = min(st["chunk"], len(st["prompt"]) - st["done"])
+            self.calls.append([])
+            self.rows.append(real)
+            return fn(*a, **kw)
+        return call
+
+    def top_k(self, probs, k):
+        import torch
+        vals, idx = self.orig(probs, k)
+        layers = self.calls[-1]
+        layers.append(idx)
+        if self.replay is None:
+            return vals, idx
+        want = self.replay[len(self.calls) - 1][len(layers) - 1]
+        if want.shape != idx.shape:
+            raise AssertionError("the replaying twin's forwards differ in "
+                                 "shape from the recorded run's")
+        return torch.gather(probs, -1, want), want
+
+    def __enter__(self):
+        self.orig = self.moe.top_k_lower_index
+        self.moe.top_k_lower_index = self.top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k_lower_index = self.orig
+
+
+class ForwardRecorder(RecordingSampler):
+    """RecordingSampler that also keeps, per recorded pick, the index of
+    the forward that produced its logits."""
+
+    def __init__(self, inner, routes):
+        super().__init__(inner)
+        self.routes, self.fwd = routes, []
+
+    def pick(self, logits):
+        if self.record:
+            self.fwd.append(len(self.routes.calls) - 1)
+        return super().pick(logits)
+
+
+def serve_moe(torch, moe, paged, cfg, params, sched, *, kind, hook,
+              attn_impl, replay=None):
+    """Drive one Mixtral server through slice_moe: 3 whole admissions, 2
+    admissions by fused ticks (256-token chunks beside the decode rows),
+    a 4th whole admission, 16 decode ticks (+2 profiled), evict every
+    slot, one admission that reuses >= 512 tokens of a cached prefix.
+    ``kind`` "rows": MoESlotServer over dense KV rows; "paged":
+    PagedSlotServer(forward_fn=moe.paged_forward). ``replay``: a run's
+    routes to follow (``Routes``). Returns streams, the recorded logits
+    with the forward of each, per-forward routes, timings, fetch counts
+    and peak memory."""
+    with Routes(moe, replay) as routes:
+        return _serve_moe(torch, moe, paged, cfg, params, sched, routes,
+                          kind=kind, hook=hook, attn_impl=attn_impl)
+
+
+def _serve_moe(torch, moe, paged, cfg, params, sched, routes, *, kind, hook,
+               attn_impl):
+    import numpy as np
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    common = dict(prefix_cache=True, layers_hook=hook, attn_impl=attn_impl)
+    if kind == "rows":
+        srv = moe.MoESlotServer(params, cfg, n_slots=8,
+                                max_len=sched["max_len"], **common)
+        srv._fwd = routes.wrap(srv._fwd)
+    else:
+        srv = paged.PagedSlotServer(
+            params, cfg, n_slots=8, n_blocks=8 * sched["mb"] + 1,
+            block_size=16, max_blocks_per_slot=sched["mb"],
+            forward_fn=routes.wrap(moe.paged_forward), **common)
+    routes.srv = srv
+    rec = ForwardRecorder(srv._sampler, routes)
+    srv._sampler = rec
+    streams, inputs, fetch = {}, {}, {"fused": [], "tick": []}
+
+    def admit(p):
+        slot = srv.admit(p)
+        streams[slot] = [int(srv.last_token[slot, 0].item())]
+        return slot
+
+    torch.cuda.synchronize()
+    rec.record = True
+    t0 = time.perf_counter()
+    for p in sched["whole"][:3]:
+        admit(p)
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t0
+    fused_ms = []
+    for p in sched["chunked"]:
+        slot = srv.admit_start(p, chunk_tokens=sched["chunk"])
+        while slot in srv._admissions:
+            if fused_ms:
+                rec.record = False
+            else:
+                inputs["fused"] = {s: v[-1] for s, v in streams.items()}
+            f0 = srv.device_fetches
+            t0 = time.perf_counter()
+            with FetchSpy(torch) as spy:
+                out = srv.step(prefill_work=slot)      # ends in its fetch
+            fused_ms.append((time.perf_counter() - t0) * 1e3)
+            fetch["fused"].append((spy.count, srv.device_fetches - f0))
+            for s, t in out.items():
+                streams.setdefault(s, []).append(t)
+    rec.record = True
+    t0 = time.perf_counter()
+    admit(sched["whole"][3])
+    torch.cuda.synchronize()
+    admit_s += time.perf_counter() - t0
+    tick_ms = []
+    inputs["tick"] = {s: v[-1] for s, v in streams.items()}
+    for t in range(sched["ticks"]):
+        f0 = srv.device_fetches
+        t0 = time.perf_counter()
+        with FetchSpy(torch) as spy:
+            out = srv.step()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        fetch["tick"].append((spy.count, srv.device_fetches - f0))
+        rec.record = False
+        for s, tok in out.items():
+            streams[s].append(tok)
+    with DeviceProfile(2) as prof:
+        for _ in range(2):
+            for s, tok in srv.step().items():
+                streams[s].append(tok)
+    for s in [int(x) for x in np.nonzero(srv.active)[0]]:
+        srv.evict(s)
+    rec.record = True
+    t0 = time.perf_counter()
+    slot = admit(sched["prefix_prompt"])
+    torch.cuda.synchronize()
+    prefix_s = time.perf_counter() - t0
+    rec.record = False
+    res = {"streams": streams, "logits": rec.seen, "fwd": rec.fwd,
+           "routes": routes.calls, "route_rows": routes.rows,
+           "inputs": inputs,
+           "prefix_cached_len": srv.last_cached_len,
+           "admit_s": admit_s, "prefix_admit_s": prefix_s,
+           "fused_ms": fused_ms, "tick_ms": tick_ms, "fetch": fetch,
+           "profile": prof.stats, "forwards": len(routes.calls),
+           "fetches": srv.device_fetches,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del srv, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def route_diff(a, b, real):
+    """Share of one forward's real (token, layer) pairs whose top-k
+    expert SET differs between two runs: a one-row forward (an
+    admission) counts every position; a batch forward the real columns
+    of its rows (``Routes``: the junk a padded or idle row computes
+    differs between a kernel server and its reference twin, which read
+    unwritten KV differently)."""
+    n = bad = 0
+    for x, y in zip(a, b):
+        pairs = ([(x, y)] if x.shape[0] == 1 else
+                 [(x[r, :c], y[r, :c]) for r, c in real.items()])
+        for xs, ys in pairs:
+            diff = (xs.sort(-1).values != ys.sort(-1).values).any(-1)
+            n += diff.numel()
+            bad += int(diff.sum().item())
+    return bad / max(n, 1)
+
+
+def served_logit_checks(torch, run, ref, tol, routes=False):
+    """Largest |run - ref| / max |ref| of each recorded logits row: every
+    admission ([1, V] picks) and the first fused and decode ticks' rows
+    whose input token both servers share; with ``routes``, each reading
+    carries the share of (token, layer) pairs whose expert set differs
+    in the forward behind it. Returns (readings, the worst); the
+    caller holds the worst to its limit."""
+    if len(run["logits"]) != len(ref["logits"]):
+        raise AssertionError("the two servers recorded different picks")
+    out = {"admissions": [], "first_fused_tick": [], "first_tick": []}
+    ticks = iter(("fused", "tick"))
+    for i, (a, b) in enumerate(zip(run["logits"], ref["logits"])):
+        if a.shape != b.shape:
+            raise AssertionError("served logits are not shaped alike")
+        if not torch.isfinite(a).all():
+            raise AssertionError("served logits are not finite")
+        f = run["fwd"][i] if routes else None
+        diff = (route_diff(run["routes"][f], ref["routes"][ref["fwd"][i]],
+                           run["route_rows"][f]) if routes else None)
+        if a.shape[0] == 1:
+            rels = [((a - b).abs().max() / b.abs().max()).item()]
+            key = "admissions"
+        else:
+            which = next(ticks)
+            key = "first_fused_tick" if which == "fused" else "first_tick"
+            rels = [((a[s] - b[s]).abs().max() / b[s].abs().max()).item()
+                    for s, t in run["inputs"][which].items()
+                    if ref["inputs"][which].get(s) == t]
+        out[key] += [{"rel": r, "route_diff_share": diff} for r in rels]
+    if not all(out.values()):
+        raise AssertionError(f"too few logits rows compared: "
+                             f"{ {k: len(v) for k, v in out.items()} }")
+    worst = max(r["rel"] for v in out.values() for r in v)
+    return out, worst
+
+
+def serve_rows(torch, serving, cfg, params, sched, *, attn_impl):
+    """Drive Gemma-2-2B through slice_rows on serving.SlotServer (8 slots
+    over dense rows of max_len 8192): 5 whole admissions (the longest in
+    ``prefill_chunk`` pieces), one admission finished by one fused tick,
+    16 decode ticks (+2 profiled), evict."""
+    import numpy as np
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    srv = serving.SlotServer(params, cfg, n_slots=8,
+                             max_len=sched["max_len"],
+                             prefill_chunk=sched["prefill_chunk"],
+                             attn_impl=attn_impl)
+    rec = RecordingSampler(srv._sampler)
+    srv._sampler = rec
+    streams, inputs, fetch = {}, {}, {"fused": [], "tick": []}
+    torch.cuda.synchronize()
+    rec.record = True
+    t0 = time.perf_counter()
+    for p in sched["whole"]:
+        slot = srv.admit(p)
+        streams[slot] = [int(srv.last_token[slot, 0].item())]
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t0
+    inputs["fused"] = {s: v[-1] for s, v in streams.items()}
+    slot = srv.admit_start(sched["fused_prompt"],
+                           chunk_tokens=sched["chunk"])
+    f0 = srv.device_fetches
+    t0 = time.perf_counter()
+    with FetchSpy(torch) as spy:
+        out = srv.step(prefill_work=slot)
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    fetch["fused"].append((spy.count, srv.device_fetches - f0))
+    if slot in srv._admissions:
+        raise AssertionError("the fused tick did not finish its admission")
+    for s, t in out.items():
+        streams.setdefault(s, []).append(t)
+    inputs["tick"] = {s: v[-1] for s, v in streams.items()}
+    tick_ms = []
+    for _ in range(sched["ticks"]):
+        f0 = srv.device_fetches
+        t0 = time.perf_counter()
+        with FetchSpy(torch) as spy:
+            out = srv.step()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        fetch["tick"].append((spy.count, srv.device_fetches - f0))
+        rec.record = False
+        for s, tok in out.items():
+            streams[s].append(tok)
+    with DeviceProfile(2) as prof:
+        for _ in range(2):
+            for s, tok in srv.step().items():
+                streams[s].append(tok)
+    lengths = srv._lengths_np.tolist()
+    for s in [int(x) for x in np.nonzero(srv.active)[0]]:
+        srv.evict(s)
+    res = {"streams": streams, "logits": rec.seen, "inputs": inputs,
+           "admit_s": admit_s, "fused_ms": fused_ms, "tick_ms": tick_ms,
+           "fetch": fetch, "profile": prof.stats, "lengths": lengths,
+           "fetches": srv.device_fetches,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del srv, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -701,11 +1218,12 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from tpushare_torch.models import paged, quant, serving
+    from tpushare_torch.models import convert, moe, paged, quant, serving
     from tpushare_torch.models import transformer as tt
     from tpushare_torch.ops import _build
     fa = importlib.import_module("tpushare_torch.ops.flash_attention")
     attn = importlib.import_module("tpushare_torch.ops.attention")
+    q8 = importlib.import_module("tpushare_torch.ops.q8_expert")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -777,6 +1295,41 @@ def main() -> int:
         _, pos, pages = max((t for t in l_ticks if t[0] == w),
                             key=lambda t: sum(t[1]))
         fused_cases.append((w, pos, pages))
+    # slice_moe: Mixtral-8x7B from its published config. 3 whole
+    # admissions, 2 by fused ticks in 256-token chunks, a 4th whole one
+    # (the rows server's prefix registry keeps the latest admission),
+    # then a prompt that reuses 560 of the 4th's tokens.
+    mcfg = convert.moe_config_from_hf(types.SimpleNamespace(**MIXTRAL_8X7B))
+    mrng = np.random.default_rng(2)
+    m_whole, m_chunked = [64, 300, 700, 1000], [200, 280]
+    m_prompts = [mrng.integers(0, mcfg.vocab_size, n)
+                 for n in m_whole + m_chunked]
+    m_reuse = 560
+    m_sched = {"whole": m_prompts[:4], "chunked": m_prompts[4:],
+               "prefix_prompt": np.concatenate([
+                   m_prompts[3][:m_reuse],
+                   mrng.integers(0, mcfg.vocab_size, 60)]),
+               "chunk": 256, "ticks": 16, "max_len": 4096, "mb": 128}
+    m_rows_c, m_paged_c = moe_widths(
+        serving, paged, m_whole, m_chunked,
+        (len(m_sched["prefix_prompt"]), m_reuse), m_sched["chunk"], bs,
+        m_sched["max_len"], m_sched["mb"])
+    # slice_rows: Gemma-2-2B over dense rows; two prompts past the 4096
+    # window, the longest admitted in prefill_chunk pieces, one more
+    # admission finished by a fused tick.
+    gcfg = tt.gemma2_2b()
+    grng = np.random.default_rng(3)
+    g_len = [200, 700, 1500, 4500, 6000]
+    g_sched = {"whole": [grng.integers(0, gcfg.vocab_size, n)
+                         for n in g_len],
+               "fused_prompt": grng.integers(0, gcfg.vocab_size, 300),
+               "chunk": 512, "ticks": 16, "max_len": 8192,
+               "prefill_chunk": 5000}
+    # flash_decode positions of slice_rows' last timed tick: each whole
+    # slot advanced by the fused tick and 16 ticks, the fused slot by
+    # 16, two idle slots at 0.
+    g_dec_pos = ([n + 1 + g_sched["ticks"] - 1 for n in g_len]
+                 + [300 + g_sched["ticks"] - 1, 0, 0])
 
     t_k = time.perf_counter()
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
@@ -830,7 +1383,37 @@ def main() -> int:
            [(p + gamma) // bs + 1 for p in dec_pos], gamma + 1, 8, 4, 256,
            window=1024, softcap=50.0, share=(2, 5)),
     ]
+    # q8_expert_ffn at Mixtral width on one layer's int8 experts: every
+    # token-block size the slice_moe servers launch (dense dispatch),
+    # a per-expert block at capacity 1.25 of a 512-token block, gelu.
+    gen = torch.Generator(device=dev).manual_seed(4)
+    E, Dm, Fd = mcfg.n_experts, mcfg.d_model, mcfg.d_ff
+    mw = []
+    for shape, fan in (((Dm, Fd), Dm), ((Dm, Fd), Dm), ((Fd, Dm), Fd)):
+        qs = [quant.quantize_weight((torch.randn(
+            *shape, generator=gen, device=dev) / fan ** 0.5).to(
+                torch.bfloat16)) for _ in range(E)]
+        mw += [torch.stack([q for q, _ in qs]),
+               torch.stack([s_ for _, s_ in qs])]
+        del qs
+    m_path_c = sorted(set(m_rows_c) | set(m_paged_c))
+    q8c = functools.partial(q8_case, q8, F, torch, dev, flush)
+    q8_path = [q8c(f"mixtral_c{C}", mw, C, True, fault=C == 8)
+               for C in m_path_c]
+    cap_c = moe.expert_capacity(512, dataclasses.replace(
+        mcfg, capacity_factor=1.25))
+    q8_all = q8_path + [
+        q8c(f"mixtral_per_expert_c{cap_c}", mw, cap_c, False),
+        q8c("mixtral_gelu_c8", mw, 8, True, act="gelu")]
+    del mw
+    fdc = functools.partial(flash_decode_case, fa, torch, np, dev, flush)
+    fdec = [fdc("gemma2_2b_local", g_dec_pos, g_sched["max_len"], 8, 4, 256,
+                window=gcfg.sliding_window, softcap=gcfg.attn_softcap,
+                fault=True),
+            fdc("gemma2_2b_global", g_dec_pos, g_sched["max_len"], 8, 4, 256,
+                softcap=gcfg.attn_softcap)]
     del flush
+    torch.cuda.empty_cache()
     kernels_s = time.perf_counter() - t_k
 
     # -- slice: Gemma-2B at full width over the paged pool -------------
@@ -854,7 +1437,9 @@ def main() -> int:
                  "launches_int8"),
                 ("paged_flash_verify", fa.paged_flash_verify, "launches"),
                 ("paged_flash_verify_int8", fa.paged_flash_verify,
-                 "launches_int8"))
+                 "launches_int8"),
+                ("q8_expert_ffn", q8.q8_expert_ffn, "launches"),
+                ("flash_decode", fa.flash_decode, "launches"))
 
     def zero_counts():
         for _, fn, attr in counters:
@@ -1019,11 +1604,161 @@ def main() -> int:
     del lparams, qparams
     torch.cuda.empty_cache()
 
+    # -- slice_moe: Mixtral-8x7B at full width and depth, int8 experts --
+    t_m = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    t0 = time.perf_counter()
+    mparams = mixtral_int8_params(torch, quant, mcfg, gen, dev)
+    torch.cuda.synchronize()
+    m_init_s = time.perf_counter() - t0
+    m_bytes = sum(t.numel() * t.element_size() for t in
+                  [mparams["embed"], mparams["unembed"],
+                   mparams["final_norm"], *mparams["layers"].values()])
+    m_launches = {}
+    for kind, needed in (
+            ("rows", ("flash_attention", "q8_expert_ffn")),
+            ("paged", ("flash_attention", "q8_expert_ffn",
+                       "paged_flash_decode", "paged_flash_verify"))):
+        kw = dict(kind=kind, attn_impl="auto")
+        mrun, m_launches[kind] = run_path(
+            needed, serve_moe, torch, moe, paged, mcfg, mparams, m_sched,
+            hook=quant.fused_expert_hook(mcfg), **kw)
+        # Every MoE layer of every forward ran the fused int8 kernel.
+        if m_launches[kind]["q8_expert_ffn"] != \
+                mrun["forwards"] * mcfg.n_layers:
+            raise AssertionError(f"slice_moe {kind}: q8_expert_ffn launched "
+                                 f"{m_launches[kind]['q8_expert_ffn']} times "
+                                 f"over {mrun['forwards']} forwards")
+        mref = no_launch(serve_moe, torch, moe, paged, mcfg, mparams,
+                         m_sched, hook=quant.dequant_hook(mcfg),
+                         kind=kind, attn_impl="reference",
+                         replay=mrun["routes"])
+        checks, worst_m = served_logit_checks(torch, mrun, mref,
+                                              MOE_LOGIT_REL_TOL, routes=True)
+        for what, f in mrun["fetch"].items():
+            if any(x != (1, 1) for x in f):
+                raise AssertionError(f"slice_moe {kind}: a {what} made other "
+                                     f"than one fetch: {f}")
+        mtoks = [t for v in mrun["streams"].values() for t in v]
+        if not all(0 <= t < mcfg.vocab_size for t in mtoks):
+            raise AssertionError("a served token is outside [0, V)")
+        if mrun["prefix_cached_len"] < 512:
+            raise AssertionError(f"slice_moe {kind}: the prefix admission "
+                                 f"reused {mrun['prefix_cached_len']} tokens")
+        agree = sum(int(x == y) for s_ in mrun["streams"] for x, y in
+                    zip(mrun["streams"][s_], mref["streams"][s_]))
+        active = len(m_whole) + len(m_chunked)
+        emit({"phase": "slice_moe", "server": kind, "model": "mixtral_8x7b",
+              "params": mcfg.num_params(), "param_gib": m_bytes / 2**30,
+              "init_s": m_init_s, "whole": m_whole, "chunked": m_chunked,
+              "chunk_tokens": m_sched["chunk"],
+              "prefix_cached_len": mrun["prefix_cached_len"],
+              "q8_token_blocks": m_rows_c if kind == "rows" else m_paged_c,
+              "launches": m_launches[kind], "forwards": mrun["forwards"],
+              "logit_rel_err": checks, "logit_rel_err_max": worst_m,
+              "logit_rel_tol": MOE_LOGIT_REL_TOL,
+              "greedy_agreement": agree / len(mtoks),
+              "admit_s": mrun["admit_s"], "ref_admit_s": mref["admit_s"],
+              "prefix_admit_s": mrun["prefix_admit_s"],
+              "fused_ticks": len(mrun["fused_ms"]),
+              "fused_ms_per_tick": mean(mrun["fused_ms"]),
+              "ref_fused_ms_per_tick": mean(mref["fused_ms"]),
+              "ms_per_tick": mean(mrun["tick_ms"]),
+              "ms_per_tick_median": median(mrun["tick_ms"]),
+              "ref_ms_per_tick": mean(mref["tick_ms"]),
+              "tok_s": active * len(mrun["tick_ms"])
+              / (sum(mrun["tick_ms"]) / 1e3),
+              "ref_tok_s": active * len(mref["tick_ms"])
+              / (sum(mref["tick_ms"]) / 1e3),
+              "fetches_per_fused_tick": sorted({f for f, _ in
+                                                mrun["fetch"]["fused"]}),
+              "fetches_per_tick": sorted({f for f, _ in
+                                          mrun["fetch"]["tick"]}),
+              "fetches": mrun["fetches"], "profile": mrun["profile"],
+              "ref_profile": mref["profile"],
+              "peak_mem_gib": mrun["peak_mem_gib"],
+              "ref_peak_mem_gib": mref["peak_mem_gib"],
+              "seconds": time.perf_counter() - t_m, "card": card})
+        if not (worst_m <= MOE_LOGIT_REL_TOL):
+            raise AssertionError(f"slice_moe {kind} logits vs the dequant "
+                                 f"reference twin: {worst_m}")
+        del mrun, mref
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- slice_rows: Gemma-2-2B at full width and depth, dense rows ------
+    t_r = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t0 = time.perf_counter()
+    gparams = tt.init_params(gen, gcfg)
+    torch.cuda.synchronize()
+    g_init_s = time.perf_counter() - t0
+    rrun, r_launches = run_path(("flash_attention", "flash_decode"),
+                                serve_rows, torch, serving, gcfg, gparams,
+                                g_sched, attn_impl="auto")
+    rref = no_launch(serve_rows, torch, serving, gcfg, gparams, g_sched,
+                     attn_impl="reference")
+    r_checks, worst_r = served_logit_checks(torch, rrun, rref,
+                                            LOGIT_REL_TOL)
+    for what, f in rrun["fetch"].items():
+        if any(x != (1, 1) for x in f):
+            raise AssertionError(f"slice_rows: a {what} made other than one "
+                                 f"fetch: {f}")
+    rtoks = [t for v in rrun["streams"].values() for t in v]
+    if not all(0 <= t < gcfg.vocab_size for t in rtoks):
+        raise AssertionError("a served token is outside [0, V)")
+    want_len = [n + len(rrun["streams"][s_]) - 1 for s_, n in
+                enumerate(g_len + [len(g_sched["fused_prompt"])])]
+    if rrun["lengths"][:len(want_len)] != want_len:
+        raise AssertionError(f"slice_rows: lengths {rrun['lengths']} != "
+                             f"prompts + served tokens {want_len}")
+    if max(rrun["lengths"]) <= gcfg.sliding_window:
+        raise AssertionError("slice_rows: no row decoded past the window")
+    agree = sum(int(x == y) for s_ in rrun["streams"] for x, y in
+                zip(rrun["streams"][s_], rref["streams"][s_]))
+    n_act = len(g_len) + 1
+    emit({"phase": "slice_rows", "model": "gemma2_2b",
+          "params": gcfg.num_params(), "init_s": g_init_s,
+          "prompt_lengths": g_len,
+          "fused_prompt": len(g_sched["fused_prompt"]),
+          "prefill_chunk": g_sched["prefill_chunk"],
+          "max_len": g_sched["max_len"], "launches": r_launches,
+          "logit_rel_err": r_checks, "logit_rel_err_max": worst_r,
+          "logit_rel_tol": LOGIT_REL_TOL,
+          "greedy_agreement": agree / len(rtoks),
+          "admit_s": rrun["admit_s"], "ref_admit_s": rref["admit_s"],
+          "fused_ms": rrun["fused_ms"], "ref_fused_ms": rref["fused_ms"],
+          "ms_per_tick": mean(rrun["tick_ms"]),
+          "ms_per_tick_median": median(rrun["tick_ms"]),
+          "ref_ms_per_tick": mean(rref["tick_ms"]),
+          "tok_s": n_act * len(rrun["tick_ms"])
+          / (sum(rrun["tick_ms"]) / 1e3),
+          "ref_tok_s": n_act * len(rref["tick_ms"])
+          / (sum(rref["tick_ms"]) / 1e3),
+          "fetches_per_fused_tick": sorted({f for f, _ in
+                                            rrun["fetch"]["fused"]}),
+          "fetches_per_tick": sorted({f for f, _ in rrun["fetch"]["tick"]}),
+          "fetches": rrun["fetches"], "profile": rrun["profile"],
+          "ref_profile": rref["profile"],
+          "peak_mem_gib": rrun["peak_mem_gib"],
+          "ref_peak_mem_gib": rref["peak_mem_gib"],
+          "seconds": time.perf_counter() - t_r, "card": card})
+    if not (worst_r <= LOGIT_REL_TOL):
+        raise AssertionError(f"slice_rows logits vs reference twin: "
+                             f"{worst_r}")
+    del gparams, rrun, rref
+    torch.cuda.empty_cache()
+
     # The kernels line: one entry per kernel and page type, timed at
     # its largest main-path case; launches summed over the paths' runs.
+    paths = {"slice": launches,
+             **{f"slice_llama_{m}": c for m, c in l_launches.items()},
+             **{f"slice_moe_{m}": c for m, c in m_launches.items()},
+             "slice_rows": r_launches}
+
     def total(name):
-        return launches.get(name, 0) + sum(c[name] for c in
-                                           l_launches.values())
+        return sum(c.get(name, 0) for c in paths.values())
 
     def entry(name, source, replaces, path_cases, all_cases):
         """Times from the variant's largest main-path case; the check
@@ -1033,10 +1768,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "pages": main.get("pages"),
                 "launches": total(name),
-                "launches_by_path": {
-                    "slice": launches.get(name, 0),
-                    **{f"slice_llama_{m}": c[name]
-                       for m, c in l_launches.items()}},
+                "launches_by_path": {p_: c.get(name, 0)
+                                     for p_, c in paths.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in all_cases),
                 "ulp_ratio": max(r["ulp_ratio"] for r in all_cases),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -1059,10 +1792,16 @@ def main() -> int:
               ver[:1 + len(fused_cases)], ver),
         entry("paged_flash_verify_int8", src + "paged_verify.cu",
               ref_fa + "843", ver8, ver8),
+        entry("q8_expert_ffn", src + "q8_expert.cu",
+              "tpushare/ops/q8_expert.py:170", q8_path, q8_all),
+        entry("flash_decode", src + "flash_decode.cu", ref_fa + "483",
+              fdec, fdec),
     ]
     for k in kernels:
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms",
-                    "max_abs_err"):
+        # flash_decode has no library route (SDPA has no softcap).
+        need = ("ms", "plain_ms", "bound_ms", "max_abs_err") + (
+            () if k["name"] == "flash_decode" else ("library_ms",))
+        for key in need:
             if not (isinstance(k[key], float) and math.isfinite(k[key])):
                 raise AssertionError(f"{k['name']}: {key} = {k[key]}")
         if k["launches"] <= 0:

@@ -22,6 +22,7 @@ import torch
 
 fa = importlib.import_module("tpushare_torch.ops.flash_attention")
 attn_mod = importlib.import_module("tpushare_torch.ops.attention")
+q8 = importlib.import_module("tpushare_torch.ops.q8_expert")
 
 pytestmark = pytest.mark.cuda
 
@@ -189,6 +190,90 @@ def test_paged_verify_vs_plain(dev, dtype, int8, Sq, H, Hkv, D, bs, window,
     assert got.dtype == dtype and got.shape == q.shape
     _assert_close(got, want, dtype)
     assert torch.all(got[4] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,H,Hkv,D,window,softcap", [
+    (300, 8, 4, 256, None, None),
+    (300, 8, 4, 256, 100, 50.0),
+    (129, 32, 8, 128, None, None),
+    (77, 4, 4, 128, 30, None),
+])
+def test_flash_decode_vs_plain(dev, dtype, M, H, Hkv, D, window, softcap):
+    """Contiguous rows, ragged positions (0, the last row, a window that
+    bites and one that does not)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    B = 5
+    k = _rand(g, B, M, Hkv, D, dtype=dtype, dev=dev)
+    v = _rand(g, B, M, Hkv, D, dtype=dtype, dev=dev)
+    q = _rand(g, B, 1, H, D, dtype=dtype, dev=dev)
+    pos = torch.tensor([0, M - 1, M // 2, 5, M - 7], dtype=torch.int32,
+                       device=dev)
+    before = fa.flash_decode.launches
+    got = fa.flash_decode(q, k, v, pos, window=window, attn_softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa.flash_decode.launches == before + 1
+    want = fa.flash_decode_plain(q, k, v, pos, window=window,
+                                 attn_softcap=softcap)
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_close(got, want, dtype)
+
+
+def _q8_weights(g, dev, E, Dm, Fd):
+    from tpushare_torch.models.quant import quantize_weight
+    wg, sg = quantize_weight(torch.randn(E, Dm, Fd, generator=g, device=dev)
+                             / Dm ** 0.5)
+    wu, su = quantize_weight(torch.randn(E, Dm, Fd, generator=g, device=dev)
+                             / Dm ** 0.5)
+    wd, sd = quantize_weight(torch.randn(E, Fd, Dm, generator=g, device=dev)
+                             / Fd ** 0.5)
+    return wg, sg, wu, su, wd, sd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("C,shared", [(1, True), (8, True), (37, True),
+                                      (8, False), (37, False)])
+def test_q8_expert_vs_plain(dev, dtype, act, C, shared):
+    g = torch.Generator(device=dev).manual_seed(7)
+    E, Dm, Fd = 4, 256, 384
+    w = _q8_weights(g, dev, E, Dm, Fd)
+    shape = (C, Dm) if shared else (E, C, Dm)
+    x = _rand(g, *shape, dtype=dtype, dev=dev)
+    before = q8.q8_expert_ffn.launches
+    got = q8.q8_expert_ffn(x, *w, act=act)
+    torch.cuda.synchronize()
+    assert q8.q8_expert_ffn.launches == before + 1
+    want = q8.q8_expert_ffn_reference(x, *w, act=act)
+    assert got.dtype == dtype and got.shape == (E, C, Dm)
+    _assert_close(got, want, dtype)
+
+
+def test_q8_and_flash_decode_wrappers_raise(dev):
+    g = torch.Generator(device=dev).manual_seed(8)
+    wg, sg, wu, su, wd, sd = _q8_weights(g, dev, 2, 256, 384)
+    x = torch.zeros((4, 256), device=dev)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        q8.q8_expert_ffn(x.half(), wg, sg, wu, su, wd, sd)
+    with pytest.raises(ValueError, match="int8 weights"):
+        q8.q8_expert_ffn(x, wg.float(), sg, wu.float(), su, wd.float(), sd)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        q8.q8_expert_ffn(
+            x[:, :200].contiguous(), wg[:, :200].contiguous(), sg,
+            wu[:, :200].contiguous(), su, wd[..., :200].contiguous(),
+            sd[..., :200].contiguous())
+    with pytest.raises(ValueError, match="x must be"):
+        q8.q8_expert_ffn(torch.zeros((3, 4, 256), device=dev), wg, sg, wu,
+                         su, wd, sd)
+    q = torch.zeros((2, 1, 4, 128), device=dev)
+    k = torch.zeros((2, 10, 2, 128), device=dev)
+    pos = torch.zeros((2,), device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        fa.flash_decode(q, k, k, pos.long())
+    with pytest.raises(ValueError, match="Sq must be 1"):
+        fa.flash_decode(torch.zeros((2, 2, 4, 128), device=dev), k, k, pos)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        fa.flash_decode(q, k.bfloat16(), k.bfloat16(), pos)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

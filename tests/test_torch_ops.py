@@ -30,7 +30,9 @@ jattn = importlib.import_module("tpushare.ops.attention")
 jfa = importlib.import_module("tpushare.ops.flash_attention")
 jnorms = importlib.import_module("tpushare.ops.norms")
 jrot = importlib.import_module("tpushare.ops.rotary")
+jq8 = importlib.import_module("tpushare.ops.q8_expert")
 tattn = importlib.import_module("tpushare_torch.ops.attention")
+tq8 = importlib.import_module("tpushare_torch.ops.q8_expert")
 tfa = importlib.import_module("tpushare_torch.ops.flash_attention")
 tnorms = importlib.import_module("tpushare_torch.ops.norms")
 trot = importlib.import_module("tpushare_torch.ops.rotary")
@@ -300,6 +302,84 @@ class TestPagedDecodeInt8Plain:
         _close(got, want, atol=1e-6)
 
 
+def _q8_operands(seed, E, C, Dm, Fd, shared, dtype):
+    """x and one layer's int8 expert leaves (quantize_weight of random
+    f32 weights), as numpy arrays."""
+    from tpushare_torch.models.quant import quantize_weight
+    rng = np.random.default_rng(seed)
+    ws = []
+    for shape, fan in (((E, Dm, Fd), Dm), ((E, Dm, Fd), Dm),
+                       ((E, Fd, Dm), Fd)):
+        q, sc = quantize_weight(torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32) / fan ** 0.5))
+        ws += [q.numpy(), sc.numpy()]
+    x = rng.normal(size=(C, Dm) if shared else (E, C, Dm)).astype(np.float32)
+    if dtype == "bf16":
+        x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    return x, ws
+
+
+class TestQ8ExpertPlain:
+    """The port's plain q8 expert FFN against JAX q8_expert_ffn_reference
+    (its parity truth). The JAX reference, not its interpret-mode kernel:
+    the interpreter-parity tests of tests/test_q8_expert.py fail on the
+    CPU, so that path is no oracle. bf16 x: the same bf16
+    values in both, outputs compared in f32 after each side's bf16
+    rounding (one bf16 step apart at most)."""
+
+    @pytest.mark.parametrize("C", [1, 8, 37])
+    @pytest.mark.parametrize("shared", [True, False])
+    @pytest.mark.parametrize("act", ["silu", "gelu"])
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_matches_jax_reference(self, C, shared, act, dtype):
+        x, ws = _q8_operands(60 + C, 3, C, 32, 48, shared, dtype)
+        jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+        tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+        want = jq8.q8_expert_ffn_reference(
+            jnp.asarray(x, jdt), *map(jnp.asarray, ws), act=act)
+        got = tq8.q8_expert_ffn(_t(x).to(tdt), *map(_t, ws), act=act)
+        assert got.dtype == tdt and tuple(got.shape) == (3, C, 32)
+        want = np.asarray(want.astype(jnp.float32))
+        if dtype == "f32":
+            _close(got, want, atol=2e-5)
+        else:
+            d = np.abs(got.float().numpy() - want)
+            assert (d <= 2.0 ** -7 * np.abs(want) + 1e-5).all()
+
+    def test_dispatch_runs_the_plain_version_on_cpu(self):
+        x, ws = _q8_operands(70, 2, 5, 32, 48, True, "f32")
+        before = tq8.q8_expert_ffn.launches
+        got = tq8.q8_expert_dispatch(_t(x), *map(_t, ws))
+        want = tq8.q8_expert_ffn_reference(_t(x), *map(_t, ws))
+        assert torch.equal(got, want)
+        assert tq8.q8_expert_ffn.launches == before
+
+
+class TestFlashDecodePlain:
+    """flash_decode's plain version against the oracle the reference
+    model's dense ragged S = 1 branch builds (transformer.py:599-607):
+    JAX mha_reference with kv_mask = arange(M) <= pos, windowed."""
+
+    @pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2), (8, 2)])
+    @pytest.mark.parametrize("window", [None, 5, 64])
+    @pytest.mark.parametrize("softcap", [None, 20.0])
+    def test_matches_jax_masked_reference(self, H, Hkv, window, softcap):
+        B, M, D = 4, 24, 32
+        q, k, v = _np(80, B, 1, H, D), _np(81, B, M, Hkv, D), \
+            _np(82, B, M, Hkv, D)
+        pos = np.array([0, 23, 11, 6], np.int32)
+        mask = np.arange(M)[None, :] <= pos[:, None]
+        if window is not None:
+            mask &= np.asarray(jattn.window_keep(
+                jnp.asarray(pos[:, None]), jnp.arange(M)[None, :], window))
+        want = jattn.mha_reference(*map(jnp.asarray, (q, k, v)),
+                                   causal=False, kv_mask=jnp.asarray(mask),
+                                   attn_softcap=softcap)
+        got = tfa.flash_decode(_t(q), _t(k), _t(v), _t(pos), window=window,
+                               attn_softcap=softcap)
+        _close(got, want)
+
+
 class TestPortBoundary:
     def test_chain_keys_byte_identical(self):
         prompt = np.random.default_rng(40).integers(0, 50_000, 70)
@@ -329,6 +409,10 @@ class TestPortBoundary:
                     if m.split(".")[0] in ("jax", "jaxlib", "tpushare"):
                         bad.append(f"{os.path.relpath(path, ROOT)}: {m}")
         assert len(files) > 10
+        names = {os.path.relpath(f, ROOT) for f in files}
+        for mod in ("ops/q8_expert.py", "models/moe.py", "models/convert.py",
+                    "models/serving.py", "ops/flash_attention.py"):
+            assert os.path.join("tpushare_torch", mod) in names
         assert bad == []
 
     def test_default_device_raises_without_cuda(self, monkeypatch):
@@ -364,3 +448,17 @@ class TestPortBoundary:
         with pytest.raises(ValueError, match="scale pages"):
             tfa.paged_flash_verify(q5, pool8, pool8, table, pos,
                                    k_scale=scale, v_scale=scale)
+        rows = torch.empty((2, 40, 2, 128), device="meta")
+        with pytest.raises(ValueError, match="int32"):
+            tfa.flash_decode(q, rows, rows, pos.long())
+        with pytest.raises(ValueError, match="Sq must be 1"):
+            tfa.flash_decode(q5, rows, rows, pos)
+        w8 = torch.empty((2, 256, 384), dtype=torch.int8, device="meta")
+        wd8 = torch.empty((2, 384, 256), dtype=torch.int8, device="meta")
+        sg = torch.empty((2, 1, 384), device="meta")
+        sd = torch.empty((2, 1, 256), device="meta")
+        x = torch.empty((4, 256), dtype=torch.float16, device="meta")
+        with pytest.raises(ValueError, match="f32 or bf16"):
+            tq8.q8_expert_ffn(x, w8, sg, w8, sg, wd8, sd)
+        with pytest.raises(ValueError, match="x must be"):
+            tq8.q8_expert_ffn(x[:, :8].float(), w8, sg, w8, sg, wd8, sd)

@@ -514,7 +514,9 @@ class TestRefusals:
         ({"multi_lora": object()}, "A9"),
         ({"mesh": object()}, "A10"),
         ({"kv_quota": object()}, "A5"),
-        ({"forward_fn": object()}, "A8"),
+        # forward_fn itself is ported (paged MoE); speculation under it
+        # is not.
+        ({"forward_fn": object(), "speculative_draft": object()}, "A8"),
         ({"draft_forward_fn": object()}, "A8"),
         ({"host_tier": object()}, "A5"),
         ({"temperature": 0.7}, "A7"),

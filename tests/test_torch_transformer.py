@@ -3,8 +3,10 @@ with the JAX package's, on the CPU in f32, weights carried across by
 ``bridge.params_from_jax``.
 
 Covers forward's ported branches (no cache, dense scalar offset with
-bf16/f32 or int8 rows, paged S=1 and S>1 over plain or int8 pools,
-``layers_hook``), the configs' spots where the two frameworks round
+bf16/f32 or int8 rows, dense ragged S=1 and S>1 over plain or int8
+rows, paged S=1 and S>1 over plain or int8 pools, ``layers_hook``),
+``prefill`` / ``chunked_prefill`` / ``decode_step``, the configs'
+spots where the two frameworks round
 differently (embedding scale, tanh gelu, logits cast), init_params'
 tree, and the branches that must refuse until their ROADMAP item lands.
 Tolerance: 2e-5 abs on f32 logits — the two libraries sum the same
@@ -378,15 +380,91 @@ class TestInt8AndHooks:
         _close(got, want)
 
 
+class TestDenseRagged:
+    """The dense ragged branches over a row cache: S = 1 (continuous-
+    batching decode, through flash_decode's plain version or the masked
+    reference) and S > 1 (the fused tick), bf16/f32 or int8 rows. Row 2
+    sits near max_len: its writes past it must be DROPPED (mode="drop"
+    in the reference), never clamped onto live rows."""
+
+    @pytest.mark.parametrize("int8", [False, True])
+    @pytest.mark.parametrize("S", [1, 3])
+    @pytest.mark.parametrize("name", ["tiny", "gemma2"])
+    @pytest.mark.parametrize("attn_impl", ["auto", "reference"])
+    def test_vs_jax(self, name, S, int8, attn_impl):
+        from tpushare_torch.models import quant as tq
+        jcfg, jp, tcfg, tp = _pair(name, seed=16)
+        L, B, M = jcfg.n_layers, 4, 16
+        rng = np.random.default_rng(17)
+        shape = (L, B, M, jcfg.n_kv_heads, jcfg.head_dim)
+        rows = {k: rng.normal(size=shape).astype(np.float32)
+                for k in ("k", "v")}
+        if int8:
+            tc = {}
+            for k in ("k", "v"):
+                tc[k], tc[k + "_scale"] = tq.kv_quantize(
+                    torch.from_numpy(rows[k]))
+        else:
+            tc = {k: torch.from_numpy(v.copy()) for k, v in rows.items()}
+        jc = {k: jnp.asarray(v.numpy()) for k, v in tc.items()}
+        pos = np.array([0, 7, 15 if S == 1 else 14, 5], np.int32)
+        toks = _tokens(18, B, S, jcfg.vocab_size)
+        want, jcache = jt.forward(jp, jnp.asarray(toks), jcfg, cache=jc,
+                                  pos_offset=jnp.asarray(pos))
+        got, tcache = tt.forward(tp, torch.from_numpy(toks), tcfg, cache=tc,
+                                 pos_offset=torch.from_numpy(pos),
+                                 attn_impl=attn_impl)
+        assert got.shape == want.shape
+        _close(got, want)
+        for k in ("k", "v"):
+            if int8:
+                _close_int8(tcache[k], jcache[k], tcache[k + "_scale"],
+                            jcache[k + "_scale"])
+            else:
+                _close(tcache[k], jcache[k])
+
+    def test_write_past_max_len_is_dropped(self):
+        """Every position of a row at or past max_len: nothing moves."""
+        rows = torch.arange(2 * 5 * 3, dtype=torch.float32).reshape(2, 5, 3)
+        before = rows.clone()
+        vals = -torch.ones((2, 3, 3))
+        tt.drop_write(rows, torch.tensor([[3, 4, 5], [5, 6, 7]]), vals)
+        assert torch.equal(rows[1], before[1])
+        assert torch.equal(rows[0, :3], before[0, :3])
+        assert torch.equal(rows[0, 3:], -torch.ones((2, 3)))
+
+
+class TestPrefillHelpers:
+    @pytest.mark.parametrize("name", ["tiny", "gemma2"])
+    def test_prefill_chunked_and_decode_step(self, name):
+        jcfg, jp, tcfg, tp = _pair(name, seed=19)
+        toks = _tokens(20, 2, 11, jcfg.vocab_size)
+        want, jc = jt.prefill(jp, jnp.asarray(toks), jcfg, max_len=16)
+        got, tc = tt.prefill(tp, torch.from_numpy(toks), tcfg, max_len=16)
+        _close(got, want)
+        _close(tc["k"], jc["k"])
+        want, jc2 = jt.chunked_prefill(jp, jnp.asarray(toks), jcfg,
+                                       max_len=16, chunk=4)
+        got, tc2 = tt.chunked_prefill(tp, torch.from_numpy(toks), tcfg,
+                                      max_len=16, chunk=4)
+        _close(got, want)
+        _close(tc2["v"], jc2["v"])
+        tok = _tokens(21, 2, 1, jcfg.vocab_size)
+        want, _ = jt.decode_step(jp, jnp.asarray(tok), jcfg, jc, 11)
+        got, _ = tt.decode_step(tp, torch.from_numpy(tok), tcfg, tc, 11)
+        _close(got, want)
+
+
 class TestRefusals:
     def test_unported_branches_name_their_roadmap_item(self):
         cfg = tt.tiny()
         tp = tt.init_params(0, cfg, device="cpu")
         tok = torch.zeros((2, 3), dtype=torch.int64)
         dense = tt.init_cache(cfg, 2, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            tt.forward(tp, tok, cfg, cache=dense,
-                       pos_offset=torch.zeros(2, dtype=torch.int32))
+        # The dense ragged branch is ported (ROADMAP A3 done): it runs.
+        logits, _ = tt.forward(tp, tok, cfg, cache=dense,
+                               pos_offset=torch.zeros(2, dtype=torch.int32))
+        assert logits.shape == (2, 3, cfg.vocab_size)
         pool = torch.zeros((cfg.n_layers, 6, 4, 2, 32))
         paged = {"pool_k": pool, "pool_v": pool,
                  "table": torch.zeros((2, 2), dtype=torch.int32)}

@@ -6,9 +6,11 @@ numpy can read — JAX arrays included) and returns the port's params:
 the same nested dict of torch tensors on a given device and dtype.
 A ``quantize_params`` tree bridges too: its ``#q8`` leaves stay int8
 and its ``#scale`` leaves stay f32, whatever ``dtype`` asks for the
-rest. ``config_from_jax`` copies a JAX ``TransformerConfig``'s fields
-into the port's. Neither imports JAX: they read arrays through numpy
-and config fields by name.
+rest; MoE expert stacks ([L, E, ...] leaves, int8 or not) bridge the
+same way. ``config_from_jax`` / ``moe_config_from_jax`` copy a JAX
+``TransformerConfig``'s / ``MoEConfig``'s fields into the port's. None
+imports JAX: they read arrays through numpy and config fields by
+name.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from tpushare_torch import DeviceLike, resolve_device
+from tpushare_torch.models.moe import MoEConfig
 from tpushare_torch.models.transformer import TransformerConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -58,9 +61,17 @@ def params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
     return conv(tree)
 
 
+def _fields_from_jax(cls, cfg):
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls)}
+    kw["dtype"] = _torch_dtype(kw["dtype"])
+    return cls(**kw)
+
+
 def config_from_jax(cfg) -> TransformerConfig:
     """The port's config with every field of a JAX TransformerConfig."""
-    kw = {f.name: getattr(cfg, f.name)
-          for f in dataclasses.fields(TransformerConfig)}
-    kw["dtype"] = _torch_dtype(kw["dtype"])
-    return TransformerConfig(**kw)
+    return _fields_from_jax(TransformerConfig, cfg)
+
+
+def moe_config_from_jax(cfg) -> MoEConfig:
+    """The port's MoEConfig with every field of a JAX MoEConfig."""
+    return _fields_from_jax(MoEConfig, cfg)

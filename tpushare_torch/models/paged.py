@@ -36,7 +36,7 @@ from tpushare_torch.models.quant import (init_cache_q8, pool_scales_to_rows,
                                          scales_to_pool_layout)
 from tpushare_torch.models.serving import (PendingStep, TokenSampler,
                                            fused_chunk_span,
-                                           fused_token_batch)
+                                           fused_token_batch, prompt_host)
 from tpushare_torch.models.spec import SpecDecodeMixin
 from tpushare_torch.models.transformer import (
     TODO_LORA, TODO_MESH, TransformerConfig, forward, init_cache,
@@ -45,7 +45,7 @@ from tpushare_torch.router.chainkeys import chain_keys
 
 # ROADMAP items that port what the port's server still leaves out.
 TODO_QUOTA = "ROADMAP A5 (per-tenant KV quota)"
-TODO_FAMILY = "ROADMAP A8 (paged MoE through forward_fn)"
+TODO_FAMILY = "ROADMAP A8 (MoE speculation: draft_forward_fn)"
 TODO_HOST_TIER = "ROADMAP A5 (host KV tier)"
 
 
@@ -316,13 +316,17 @@ def _paged_cache(pool_k, pool_v, table, active, pool_k_scale, pool_v_scale):
 
 def decode_core(params, tokens, pool_k, pool_v, table, lengths, active,
                 *, cfg: TransformerConfig, attn_impl: str = "auto",
-                layers_hook=None, pool_k_scale=None, pool_v_scale=None):
+                layers_hook=None, pool_k_scale=None, pool_v_scale=None,
+                forward_fn=None):
     """One paged decode step over the pools: tokens [B, 1]; active [B]
     bool. Each layer writes its new KV into its pool slice in place and
     attends through the block table (forward's paged S=1 branch).
-    Returns (logits [B, 1, V], pool_k, pool_v, lengths advanced by 1
-    for active slots)."""
-    logits, _ = forward(params, tokens, cfg,
+    ``forward_fn``: a ``transformer.forward``-shaped callable with a
+    paged branch (``moe.paged_forward`` serves the MoE family over the
+    same pool); default the dense LM's forward. Returns (logits
+    [B, 1, V], pool_k, pool_v, lengths advanced by 1 for active
+    slots)."""
+    logits, _ = (forward_fn or forward)(params, tokens, cfg,
                         cache=_paged_cache(pool_k, pool_v, table, active,
                                            pool_k_scale, pool_v_scale),
                         pos_offset=lengths, attn_impl=attn_impl,
@@ -332,14 +336,16 @@ def decode_core(params, tokens, pool_k, pool_v, table, lengths, active,
 
 def verify_core(params, tokens, pool_k, pool_v, table, lengths, active,
                 *, cfg: TransformerConfig, attn_impl: str = "auto",
-                layers_hook=None, pool_k_scale=None, pool_v_scale=None):
+                layers_hook=None, pool_k_scale=None, pool_v_scale=None,
+                forward_fn=None):
     """Multi-token paged forward (speculative verify, fused tick):
     tokens [B, Sq] are written at positions lengths .. lengths+Sq-1 of
     each active slot (the pools in place) and scored in one forward.
     Returns logits [B, Sq, V]; lengths are NOT advanced (the caller
     decides acceptance first; rejected positions leave stale KV the
-    length mask keeps unattended until it is overwritten)."""
-    logits, _ = forward(params, tokens, cfg,
+    length mask keeps unattended until it is overwritten). ``forward_fn``
+    as ``decode_core``."""
+    logits, _ = (forward_fn or forward)(params, tokens, cfg,
                         cache=_paged_cache(pool_k, pool_v, table, active,
                                            pool_k_scale, pool_v_scale),
                         pos_offset=lengths, attn_impl=attn_impl,
@@ -348,19 +354,19 @@ def verify_core(params, tokens, pool_k, pool_v, table, lengths, active,
 
 
 def prefill_into(params, prompt: torch.Tensor, cfg: TransformerConfig,
-                 cache: PagedCache, slot: int, attn_impl: str = "auto"
-                 ) -> Tuple[torch.Tensor, PagedCache]:
+                 cache: PagedCache, slot: int, attn_impl: str = "auto",
+                 forward_fn=None) -> Tuple[torch.Tensor, PagedCache]:
     """Prefill one prompt [S] and write its KV into the slot's blocks.
     Returns (last-position logits [V], cache). The ``cached_len == 0``
     case of ``prefill_suffix_into``."""
     return prefill_suffix_into(params, prompt, cfg, cache, slot, 0,
-                               attn_impl=attn_impl)
+                               attn_impl=attn_impl, forward_fn=forward_fn)
 
 
 def prefill_suffix_into(params, prompt: torch.Tensor,
                         cfg: TransformerConfig, cache: PagedCache,
                         slot: int, cached_len: int,
-                        attn_impl: str = "auto"
+                        attn_impl: str = "auto", forward_fn=None
                         ) -> Tuple[torch.Tensor, PagedCache]:
     """Prefix-cached prefill: compute KV only for positions >=
     ``cached_len``, attending over the shared prefix gathered from the
@@ -370,7 +376,8 @@ def prefill_suffix_into(params, prompt: torch.Tensor,
     row, comp_len, n_blk = _admission_row(cfg, cache, slot, S, cached_len)
     last, cache, _ = _prefill_chunk(params, prompt, cfg, cache, slot, row,
                                     cached_len, S, n_blk, comp_len,
-                                    chunk=0, attn_impl=attn_impl)
+                                    chunk=0, attn_impl=attn_impl,
+                                    forward_fn=forward_fn)
     return last, cache
 
 
@@ -425,7 +432,8 @@ def _admission_row(cfg: TransformerConfig, cache: PagedCache, slot: int,
 def _prefill_chunk(params, prompt: torch.Tensor, cfg: TransformerConfig,
                    cache: PagedCache, slot: int, row, done: int, end: int,
                    n_blk: int, comp_len: int, chunk: int,
-                   attn_impl: str = "auto", layers_hook=None):
+                   attn_impl: str = "auto", layers_hook=None,
+                   forward_fn=None):
     """Forward prompt positions [done, end) against the admission row
     (which already holds [0, done)) and write this chunk's block rows
     to the pool. Returns (last-position logits [V] on the final chunk
@@ -443,9 +451,9 @@ def _prefill_chunk(params, prompt: torch.Tensor, cfg: TransformerConfig,
     padded = torch.zeros((pad_len,), dtype=prompt.dtype,
                          device=prompt.device)
     padded[:end - done] = prompt[done:end]
-    logits, row = forward(params, padded[None, :], cfg, cache=row,
-                          pos_offset=done, attn_impl=attn_impl,
-                          layers_hook=layers_hook)
+    logits, row = (forward_fn or forward)(
+        params, padded[None, :], cfg, cache=row, pos_offset=done,
+        attn_impl=attn_impl, layers_hook=layers_hook)
     start_blk = done // bs
     end_blk = n_blk if final else end // bs
     ids = cache.block_table[slot, start_blk:end_blk].long()
@@ -461,12 +469,6 @@ def _prefill_chunk(params, prompt: torch.Tensor, cfg: TransformerConfig,
         getattr(cache, pf)[:, ids] = r
     last = logits[0, S - 1 - done] if final else None
     return last, cache, row
-
-
-def _prompt_host(prompt) -> np.ndarray:
-    if isinstance(prompt, torch.Tensor):
-        return prompt.detach().cpu().numpy().astype(np.int64)
-    return np.asarray(prompt, dtype=np.int64)
 
 
 class PagedSlotServer(SpecDecodeMixin):
@@ -486,9 +488,12 @@ class PagedSlotServer(SpecDecodeMixin):
     greedy speculative decoding (``speculative_draft=(params, cfg)``,
     ``gamma``, ``spec_horizon``, ``draft_layers_hook``: the
     ``int8-self`` preset is ``(quant.quantize_params(params, cfg), cfg)``
-    with ``quant.dequant_hook(cfg)``). Still refused, each naming its
-    ROADMAP item: multi_lora, mesh, kv_quota, forward_fn /
-    draft_forward_fn, host_tier, temperature > 0.
+    with ``quant.dequant_hook(cfg)``), and ``forward_fn`` (another
+    family's forward over the same pool: ``moe.paged_forward`` serves the
+    MoE LM; not with ``kv_quant``, whose branches live in the dense
+    LM's forward, as in the reference). Still refused, each naming its
+    ROADMAP item: multi_lora, mesh, kv_quota, draft_forward_fn and
+    speculation under ``forward_fn``, host_tier, temperature > 0.
     """
 
     def __init__(self, params, cfg: TransformerConfig, *, n_slots: int,
@@ -507,16 +512,22 @@ class PagedSlotServer(SpecDecodeMixin):
                 ("multi_lora", multi_lora, TODO_LORA),
                 ("mesh", mesh, TODO_MESH),
                 ("kv_quota", kv_quota, TODO_QUOTA),
-                ("forward_fn", forward_fn, TODO_FAMILY),
                 ("draft_forward_fn", draft_forward_fn, TODO_FAMILY),
+                ("speculative_draft with forward_fn",
+                 speculative_draft if forward_fn else None, TODO_FAMILY),
                 ("host_tier", host_tier, TODO_HOST_TIER)):
             if val is not None:
                 raise NotImplementedError(f"{name}: {todo}")
+        if forward_fn is not None and kv_quant:
+            raise ValueError("forward_fn overrides (paged MoE) do not "
+                             "support kv_quant or multi_lora: those "
+                             "branches live in the dense LM's forward")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.layers_hook = layers_hook
+        self._forward_fn = forward_fn
         self._sampler = TokenSampler(temperature, top_k, top_p, seed)
         # kv_quant lives entirely in the cache (int8 pools + scale
         # pages); every path branches off cache.pool_k_scale.
@@ -578,7 +589,8 @@ class PagedSlotServer(SpecDecodeMixin):
         return {"cfg": self.cfg, "attn_impl": self.attn_impl,
                 "layers_hook": self.layers_hook,
                 "pool_k_scale": c.pool_k_scale,
-                "pool_v_scale": c.pool_v_scale}
+                "pool_v_scale": c.pool_v_scale,
+                "forward_fn": self._forward_fn}
 
     def _draft_kw(self) -> Dict[str, Any]:
         return {"cfg": self.draft_cfg, "attn_impl": self.attn_impl,
@@ -602,7 +614,7 @@ class PagedSlotServer(SpecDecodeMixin):
         admit)."""
         if adapter != -1:
             raise NotImplementedError(f"adapter: {TODO_LORA}")
-        prompt_np = _prompt_host(prompt)
+        prompt_np = prompt_host(prompt)
         if prompt_np.ndim != 1:
             raise ValueError("admit takes a single unbatched prompt")
         candidates = [s for s in range(self.cache.n_slots)
@@ -675,7 +687,8 @@ class PagedSlotServer(SpecDecodeMixin):
         last_logits, self.cache, st["row"] = _prefill_chunk(
             self.params, st["prompt"], self.cfg, self.cache, slot,
             st["row"], st["done"], end, st["n_blk"], st["comp_len"],
-            chunk, attn_impl=self.attn_impl, layers_hook=self.layers_hook)
+            chunk, attn_impl=self.attn_impl, layers_hook=self.layers_hook,
+            forward_fn=self._forward_fn)
         if self.speculative:
             # The draft needs the prompt's KV too, chunked the same way
             # (its pools are written in place through the view).

@@ -2,11 +2,14 @@
 ``tpushare/models/quant.py``.
 
 - Weights: ``quantize_layers`` / ``quantize_params`` store each layer
-  matrix ``k`` [L, In, Out] as ``k#q8`` int8 plus ``k#scale`` f32
-  [L, 1, Out] (symmetric, per output channel: ``s = max(absmax / 127,
-  1e-12)``); ``dequant_hook(cfg)`` is the ``layers_hook`` that widens
-  one layer back to ``cfg.dtype`` inside ``forward`` (a bf16 copy of
-  the layer per call, as in the reference). Norms and the embeddings
+  matrix ``k`` [L, ..., In, Out] as ``k#q8`` int8 plus ``k#scale`` f32
+  [L, ..., 1, Out] (symmetric, per output channel: ``s = max(absmax /
+  127, 1e-12)``; an MoE expert stack [L, E, In, Out] gets [L, E, 1, Out]
+  scales); ``dequant_hook(cfg)`` is the ``layers_hook`` that widens one
+  layer back to ``cfg.dtype`` inside ``forward`` (a bf16 copy of the
+  layer per call, as in the reference). ``fused_expert_hook(cfg)`` is
+  the MoE variant that leaves the expert stacks int8 for the fused
+  kernel (``ops/q8_expert.py``). Norms, the router and the embeddings
   stay full precision and are shared with the source tree.
 - KV: ``kv_quantize`` / ``kv_dequantize`` with per-(position, head)
   scales over the head dim (``s = max(absmax, 1e-12) / 127``) and
@@ -40,6 +43,8 @@ if TYPE_CHECKING:     # transformer imports this module for the KV helpers
 # Layer leaves that get quantized ([L, In, Out]); the rest (norms) pass
 # through.
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# The MoE expert stacks the fused kernel consumes as raw int8.
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down")
 _SUFFIX_Q = "#q8"
 _SUFFIX_S = "#scale"
 
@@ -55,17 +60,17 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def quantize_layers(layers: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
     """Stacked layer tree -> quantized storage tree (``k#q8`` int8 +
-    ``k#scale`` f32 [L, 1, Out] per quantized leaf). Quantizes one
-    layer at a time so a full-width leaf never has more than one
-    layer's f32 copy alive."""
+    ``k#scale`` f32 ``w.shape[:-2] + (1, Out)`` per quantized leaf, any
+    rank). Quantizes one layer at a time so a full-width leaf never has
+    more than one layer's f32 copy alive."""
     out: Dict[str, torch.Tensor] = {}
     for k, w in layers.items():
         if k not in _QUANT_KEYS:
             out[k] = w
             continue
         q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-        s = torch.empty((w.shape[0], 1, w.shape[-1]), dtype=torch.float32,
-                        device=w.device)
+        s = torch.empty(w.shape[:-2] + (1, w.shape[-1]),
+                        dtype=torch.float32, device=w.device)
         for li in range(w.shape[0]):
             q[li], s[li] = quantize_weight(w[li])
         out[k + _SUFFIX_Q] = q
@@ -93,13 +98,54 @@ def dequant_hook(cfg: TransformerConfig):
         out: Dict[str, torch.Tensor] = {}
         for k, v in layer.items():
             if k.endswith(_SUFFIX_Q):
-                base = k[:-len(_SUFFIX_Q)]
-                out[base] = (v.float() * layer[base + _SUFFIX_S]
-                             ).to(cfg.dtype)
+                out[k[:-len(_SUFFIX_Q)]] = _widen(layer, k[:-len(_SUFFIX_Q)],
+                                                  cfg.dtype)
             elif not k.endswith(_SUFFIX_S):
                 out[k] = v
         return out
     return hook
+
+
+def _widen(layer: Dict[str, torch.Tensor], base: str,
+           dtype: torch.dtype) -> torch.Tensor:
+    return (layer[base + _SUFFIX_Q].float() * layer[base + _SUFFIX_S]
+            ).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_expert_hook(cfg):
+    """``layers_hook`` for the fused int8 MoE path: attention leaves
+    widen exactly as ``dequant_hook`` widens them, the expert stacks
+    (``w_gate``/``w_up``/``w_down``) pass through as their ``#q8`` and
+    ``#scale`` leaves, which ``models/moe.py`` feeds to
+    ``ops/q8_expert.py`` — no wide expert copy is made. MoE only: dense
+    int8 trees keep ``dequant_hook``. Memoized per cfg."""
+    def hook(layer: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+        for k, v in layer.items():
+            if k.endswith(_SUFFIX_Q) or k.endswith(_SUFFIX_S):
+                base = k.rsplit("#", 1)[0]
+                if base in _EXPERT_KEYS:
+                    out[k] = v                 # int8 + its kernel scales
+                elif k.endswith(_SUFFIX_Q):
+                    out[base] = _widen(layer, base, cfg.dtype)
+            else:
+                out[k] = v
+        return out
+    return hook
+
+
+def dequant_expert_leaves(layer: Dict[str, torch.Tensor],
+                          dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Widen a layer's int8 leaves with ``dequant_hook``'s math, for the
+    MoE dispatches the fused kernel does not cover."""
+    out = {k: v for k, v in layer.items()
+           if not (k.endswith(_SUFFIX_Q) or k.endswith(_SUFFIX_S))}
+    for k in layer:
+        if k.endswith(_SUFFIX_Q):
+            base = k[:-len(_SUFFIX_Q)]
+            out[base] = _widen(layer, base, dtype)
+    return out
 
 
 def init_cache_q8(cfg: TransformerConfig, batch: int, max_len: int, *,

@@ -7,16 +7,17 @@ unchanged (``models/bridge.py``): a dict of stacked per-layer tensors
 over layers is a Python loop over the stacked leaves; there is no jit —
 PyTorch runs eagerly.
 
-``forward`` ports these cache branches of the reference: no cache
-(training / plain prefill), the dense scalar-offset branch (admission
-prefill into a row cache, reference ``transformer.py:608-633``), and
-the paged branches, S = 1 decode (``:459-533``) and S > 1 (speculative
-verify and the fused admission tick, ``:383-458``) — each over bf16/f32
-or int8 KV (``models/quant.py``) — plus the ``layers_hook`` seam (int8
-weights). The dense ragged branches raise ``NotImplementedError``
-naming the ROADMAP item that ports them. Caches are updated IN PLACE
-(the JAX version returns new arrays and donates the old pools);
-``forward`` returns the same cache dict.
+``forward`` ports every single-device cache branch of the reference:
+no cache (training / plain prefill), the dense scalar-offset branch
+(admission prefill into a row cache, reference ``transformer.py:608-
+633``), the dense ragged branches over per-row offsets, S = 1 decode
+(``:574-607``, through ``flash_decode``) and S > 1 (the fused tick,
+``:534-573``), and the paged branches, S = 1 decode (``:459-533``) and
+S > 1 (speculative verify and the fused admission tick, ``:383-458``)
+— each over bf16/f32 or int8 KV (``models/quant.py``) — plus the
+``layers_hook`` seam (int8 weights). Caches are updated IN PLACE (the
+JAX version returns new arrays and donates the old pools); ``forward``
+returns the same cache dict.
 """
 
 from __future__ import annotations
@@ -26,19 +27,19 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from tpushare_torch import DeviceLike, resolve_device
 from tpushare_torch.models.quant import (kv_dequantize, kv_quantize,
                                          pool_scales_to_rows)
 from tpushare_torch.ops.attention import attention, window_keep
-from tpushare_torch.ops.flash_attention import (paged_flash_decode,
+from tpushare_torch.ops.flash_attention import (flash_decode,
+                                                paged_flash_decode,
                                                 paged_flash_verify)
 from tpushare_torch.ops.norms import rms_norm
+from tpushare_torch.ops.q8_expert import _apply_act as _act
 from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
 
 # ROADMAP items that port what the port still leaves out.
-TODO_BRANCHES = "ROADMAP A3 (dense ragged branches, with B4)"
 TODO_LORA = "ROADMAP A9 (multi-LoRA)"
 TODO_MESH = "ROADMAP A10 (multi-GPU serving)"
 
@@ -192,12 +193,64 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
-def _act(name: str, x: torch.Tensor) -> torch.Tensor:
-    if name == "silu":
-        return F.silu(x)
-    if name == "gelu":
-        return F.gelu(x, approximate="tanh")
-    raise ValueError(f"unknown activation {name!r}")
+def drop_write(rows: torch.Tensor, positions: torch.Tensor,
+               vals: torch.Tensor) -> None:
+    """rows[b, positions[b, j]] = vals[b, j] in place, with writes at
+    positions >= rows.shape[1] DROPPED — the reference's scatter
+    ``mode="drop"`` (a fused tick's junk columns near max_len must
+    vanish, not clamp onto live rows). rows [B, M, ...]; positions
+    [B, S] (increasing along S). A dropped write is redirected onto a
+    write that happens anyway with the same value — the row's column 0
+    when that one lands, else a rewrite of position M-1 with its old
+    value — so the index_put never holds two values for one place and
+    no data-dependent shape (a device sync) is needed."""
+    B, M = rows.shape[:2]
+    pos = positions.long()
+    valid = pos < M
+    b_idx = torch.arange(B, device=rows.device)[:, None].expand_as(pos)
+    col0 = valid[:, :1]
+    tgt = torch.where(col0, pos[:, :1], M - 1)                   # [B, 1]
+    keep_val = torch.where(col0.reshape(B, *([1] * (vals.ndim - 2))),
+                           vals[:, 0].to(rows.dtype), rows[:, M - 1])
+    sel = valid.reshape(*valid.shape, *([1] * (vals.ndim - 2)))
+    v = torch.where(sel, vals.to(rows.dtype), keep_val[:, None])
+    rows[b_idx, torch.where(valid, pos, tgt)] = v
+
+
+def _ragged_attn(q, k, v, lk, lv, lks, lvs, pos, positions, w, cfg,
+                 attn_impl):
+    """Dense ragged branches of the reference (transformer.py:534-607):
+    token j of row b is written at positions[b, j] = pos[b] + j of the
+    row cache, in place, writes past max_len dropped; int8 rows
+    quantize on write and the whole row view dequantizes to cfg.dtype
+    first. S = 1 attends through ``flash_decode`` (the plain masked
+    reference on CPU or with attn_impl "reference"); S > 1 (the fused
+    tick) through ``mha_reference`` with the per-(row, query) mask, as
+    the reference does."""
+    S = q.shape[1]
+    if lks is not None:
+        qk, sk = kv_quantize(k)
+        qv, sv = kv_quantize(v)
+        drop_write(lk, positions, qk)
+        drop_write(lv, positions, qv)
+        drop_write(lks, positions, sk)
+        drop_write(lvs, positions, sv)
+        kd = kv_dequantize(lk, lks, cfg.dtype)
+        vd = kv_dequantize(lv, lvs, cfg.dtype)
+    else:
+        drop_write(lk, positions, k)
+        drop_write(lv, positions, v)
+        kd, vd = lk, lv
+    kw = dict(scale=cfg.attn_scale, attn_softcap=cfg.attn_softcap)
+    if S == 1 and attn_impl != "reference":
+        return flash_decode(q, kd, vd, pos, window=w, **kw)
+    M = kd.shape[1]
+    k_pos = torch.arange(M, device=q.device)[None, None, :]
+    kv_mask = k_pos <= positions[..., None]                    # [B, S, M]
+    if w is not None:
+        kv_mask &= window_keep(positions[..., None], k_pos, w)
+    return attention(q, kd, vd, causal=False, kv_mask=kv_mask,
+                     impl="reference", **kw)
 
 
 def _paged_attn(q, k, v, lk, lv, lks, lvs, cache, pos, active, w, cfg,
@@ -284,6 +337,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     int32 tensor ``pos_offset``: token j of slot b at position
     pos[b] + j, attending through the block table. ``layers_hook`` maps
     each layer's leaves before use (``quant.dequant_hook``).
+    A dense cache with a [B] int32 tensor ``pos_offset``: ragged rows,
+    token j of row b at pos[b] + j (writes past max_len dropped).
     ``attn_impl``: "auto" (the kernels) or "reference" (plain PyTorch).
     """
     if pctx is not None:
@@ -306,9 +361,6 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
             "(k_scale/v_scale or pool_*_scale)")
     if paged and not ragged:
         raise ValueError("paged cache requires ragged decode (pos [B])")
-    if cache is not None and not paged and ragged:
-        raise NotImplementedError(
-            f"dense ragged decode (per-row offsets): {TODO_BRANCHES}")
     if ragged and pos_offset.ndim != 1:
         raise ValueError("tensor pos_offset must be [B] (ragged decode)")
     if not ragged and not isinstance(pos_offset, int):
@@ -317,8 +369,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     if ragged:
         pos = pos_offset
         positions = pos[:, None] + torch.arange(S, device=dev)[None, :]
-        active = cache.get("active")
-        if active is None:
+        active = cache.get("active") if paged else None
+        if paged and active is None:
             active = torch.ones((B,), dtype=torch.bool, device=dev)
     else:
         positions = (pos_offset + torch.arange(S, device=dev))[None, :]
@@ -357,6 +409,12 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
                 cache["pool_k_scale"][li] if kvq else None,
                 cache["pool_v_scale"][li] if kvq else None,
                 cache, pos, active, w, cfg, attn_impl)
+        elif cache is not None and ragged:
+            attn = _ragged_attn(
+                q, k, v, cache["k"][li], cache["v"][li],
+                cache["k_scale"][li] if kvq else None,
+                cache["v_scale"][li] if kvq else None,
+                pos, positions, w, cfg, attn_impl)
         elif cache is not None:
             # Write the new kv at pos_offset (clamped like
             # dynamic_update_slice, in place); attend over the full
@@ -409,3 +467,58 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits, cache
+
+
+def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
+            max_len: int, attn_impl: str = "auto"):
+    """Run the prompt through the model into a fresh row cache:
+    (logits, cache)."""
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    return forward(params, tokens, cfg, cache=cache, pos_offset=0,
+                   attn_impl=attn_impl)
+
+
+def chunked_prefill_loop(fwd, params, tokens: torch.Tensor, cache,
+                         chunk: int, last_pos: int):
+    """THE chunked-prefill loop (``serving.SlotServer.admit`` shares
+    it): ``tokens`` [B, S] through fixed ``chunk`` slices into
+    ``cache``; returns (the logits row at ``last_pos`` [B, V], cache).
+    Only the piece holding ``last_pos`` computes per-position logits;
+    the others run with ``last_logit_only``."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    out = None
+    for i in range(0, tokens.shape[1], chunk):
+        piece = tokens[:, i:i + chunk]
+        if i <= last_pos < i + piece.shape[1]:
+            logits, cache = fwd(params, piece, cache=cache, pos_offset=i)
+            out = logits[:, last_pos - i]
+        else:
+            _, cache = fwd(params, piece, cache=cache, pos_offset=i,
+                           last_logit_only=True)
+    return out, cache
+
+
+def chunked_prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
+                    *, max_len: int, chunk: int = 2048,
+                    attn_impl: str = "auto"):
+    """Prefill a long prompt in fixed-size chunks: (last logits [B, 1, V],
+    cache); the same cache writes and logits as the one-shot prefill."""
+    B, S = tokens.shape
+    if S == 0:
+        raise ValueError("cannot prefill an empty prompt")
+
+    def fwd(p, t, **kw):
+        return forward(p, t, cfg, attn_impl=attn_impl, **kw)
+
+    last, cache = chunked_prefill_loop(
+        fwd, params, tokens,
+        init_cache(cfg, B, max_len, device=tokens.device), chunk, S - 1)
+    return last[:, None], cache
+
+
+def decode_step(params, token: torch.Tensor, cfg: TransformerConfig, cache,
+                offset: int, *, attn_impl: str = "auto"):
+    """One autoregressive step: token [B, 1] at position ``offset``."""
+    return forward(params, token, cfg, cache=cache, pos_offset=offset,
+                   attn_impl=attn_impl)

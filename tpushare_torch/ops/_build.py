@@ -30,7 +30,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-shared",
                            "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("flash_prefill", "paged_decode", "paged_verify")
+KERNELS = ("flash_prefill", "paged_decode", "paged_verify", "q8_expert",
+           "flash_decode")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -47,9 +48,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> str:
-    """Library path keyed by the source, the shared header and the flags."""
+    """Library path keyed by the source, the shared headers and the
+    flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fname in (name + ".cu", "common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
         with open(os.path.join(CSRC, fname), "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")

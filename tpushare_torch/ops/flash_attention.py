@@ -11,6 +11,10 @@ Counterpart of ``tpushare/ops/flash_attention.py``.
 - ``paged_flash_verify`` -> ``csrc/paged_verify.cu`` (replaces the
   Pallas ``_paged_verify_kernel``, f32/bf16 and int8 pages); plain
   version: ``paged_flash_verify_plain``.
+- ``flash_decode`` -> ``csrc/flash_decode.cu`` (replaces the Pallas
+  ``_decode_kernel``: ragged S = 1 decode over contiguous KV rows);
+  plain version: ``flash_decode_plain``, the masked ``mha_reference``
+  of the dense ragged branch.
 
 Dispatch rule: a wrapper given CPU tensors runs the plain version; given
 CUDA tensors it checks device, dtype, shape and contiguity, launches its
@@ -20,10 +24,11 @@ its kernel launches in ``<wrapper>.launches`` (a plain int; the paged
 wrappers count int8-page launches apart, in ``.launches_int8``), so a
 run can show that its main path went through each kernel variant.
 
-The TPU package gates the paged kernels behind TPU measurements (the
-``TPUSHARE_DECODE_KERNEL`` opt-in for verify, ``PAGED_Q8_KERNEL_MIN_CTX``
-for int8 pages); those are not facts about this card, so on CUDA the
-port always launches.
+The TPU package gates these kernels behind TPU measurements (the
+``TPUSHARE_DECODE_KERNEL`` opt-in for verify and contiguous decode,
+``PAGED_Q8_KERNEL_MIN_CTX`` for int8 pages, the ``M % 128`` tiling rule
+of ``decode_eligible``); those are not facts about this card, so on
+CUDA the port always launches.
 """
 
 from __future__ import annotations
@@ -326,3 +331,70 @@ def paged_flash_verify(q: torch.Tensor, pool_k: torch.Tensor,
 
 paged_flash_verify.launches = 0
 paged_flash_verify.launches_int8 = 0
+
+
+def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       pos: torch.Tensor, *, scale: Optional[float] = None,
+                       window: Optional[int] = None,
+                       attn_softcap: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of the contiguous decode kernel: the masked
+    ``mha_reference`` of the dense ragged S = 1 branch (row b keeps
+    positions <= pos[b], windowed), as the reference model builds it."""
+    M = k.shape[1]
+    k_pos = torch.arange(M, device=q.device)[None, :]
+    p = pos.long()[:, None]
+    kv_mask = k_pos <= p
+    if window is not None:
+        kv_mask &= window_keep(p, k_pos, window)
+    return mha_reference(q, k, v, causal=False, kv_mask=kv_mask, scale=scale,
+                         attn_softcap=attn_softcap)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 pos: torch.Tensor, *, scale: Optional[float] = None,
+                 window: Optional[int] = None,
+                 attn_softcap: Optional[float] = None) -> torch.Tensor:
+    """Ragged decode attention over contiguous KV rows.
+
+    q [B, 1, H, D]; k, v [B, M, Hkv, D] (one layer's row cache); pos [B]
+    int32 — row b attends positions <= pos[b] (its new token already
+    written there), the last ``window`` of them when window > 0. On
+    CUDA: f32 or bf16, k and v of q's type, D in {128, 256}, any M. On
+    CPU: ``flash_decode_plain``. Launches are counted in ``.launches``.
+    """
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, pos, scale=scale, window=window,
+                                  attn_softcap=attn_softcap)
+    _check_cuda("flash_decode", q, k, v, pos)
+    B, Sq, H, D = q.shape
+    Bk, M, Hkv, Dk = k.shape
+    if (Sq != 1 or v.shape != k.shape or Bk != B or Dk != D or H % Hkv
+            or pos.shape != (B,)):
+        raise ValueError(f"flash_decode: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} pos "
+                         f"{tuple(pos.shape)} (Sq must be 1)")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"flash_decode: kernel takes f32 or bf16, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if pos.dtype != torch.int32:
+        raise ValueError("flash_decode: pos must be int32")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_decode: kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    fn = _lib("flash_decode", "ts_flash_decode", [_P] * 5 + [_I] * 7
+              + [_F, _F, _P])
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+              out.data_ptr(), B, M, H, Hkv, D, _DTYPE_CODE[q.dtype],
+              _window(window), D ** -0.5 if scale is None else float(scale),
+              0.0 if attn_softcap is None else float(attn_softcap),
+              torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "flash_decode")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0
