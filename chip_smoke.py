@@ -10,7 +10,9 @@ Phases, one JSON line each, each with its own seconds:
 
   env     torch/CUDA versions, the card's name and power limit.
   build   compiles every kernel of the main paths from tpushare_torch/csrc
-          (one nvcc per source, started together) and times it.
+          (one nvcc per source, started together: flash_prefill with its
+          partial mode, flash_bwd, paged_decode, paged_verify,
+          flash_decode, q8_expert) and times it.
   kernels each kernel against its plain PyTorch version on the card, at
           the shapes the two slices below launch: prefill at every
           admission shape (derived from the admission's padding rule,
@@ -76,12 +78,29 @@ Phases, one JSON line each, each with its own seconds:
           the 4096 window), one admission finished by a fused tick, 16
           decode ticks (+2 profiled) through flash_decode, evict; logits
           held against an attn_impl="reference" twin.
+  slice_train
+          Gemma-2-2B at full width and depth (bf16, remat on) trained on
+          one batch of 1 x 8192 (+1) seeded tokens over a one-rank NCCL
+          group and make_mesh({"dp": 1, "sp": 1}). First the gradient
+          twins, before any optimizer state: the gradients of xent_loss
+          through the ring (partial kernel + gradient kernel) and through
+          the single-device path (prefill kernel + gradient kernel), each
+          leaf against autograd through mha_reference (attn_impl
+          "reference") by relative L2. Then one sgd_train_step without a
+          mesh, and trainer.fit of make_adamw_spmd_train_step for 4 steps
+          (the loss must fall), one more step under torch.profiler.
+          The kernels phase adds, for these two kernels: (a) the slice's
+          attention layer (S 8192, 8/4 heads, head_dim 256, softcap 50,
+          window 4096 and global) and (b) a 4-hop ring in Llama-3-8B
+          geometry (4 shards of 2048), partial passes merged by the
+          ring's merge and gradients summed over hops, against their plain
+          versions (faults: k_offset + 1, a zero dsum).
 
-Each slice's server sets the launch counters to 0 just before its run
-and reads them just after; every kernel variant its path runs must have
-launched. Then the card's name and power limit, the ``{"kernels":
-[...]}`` line (one entry per kernel and page type) and last ``{"ok":
-true, "device": {...}}``. Any failed check raises (non-zero exit, no
+The slices and the training runs set the launch counters to 0 just
+before their run and read them just after; every kernel variant its
+path runs must have launched. Then the card's name and power limit,
+the ``{"kernels": [...]}`` line (one entry per kernel and page type)
+and last ``{"ok": true, "device": {...}}``. Any failed check raises (non-zero exit, no
 result line). Without CUDA it exits 2 at once.
 """
 
@@ -90,8 +109,10 @@ import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -106,6 +127,15 @@ import types
 # itself shows). "ulp_ratio" is the worst element's share of its limit.
 ULP_REL = 2.0 ** -7
 ULP_FLOOR = 1e-5
+# The partial pass's unnormalized accumulator and the attention gradient
+# are f32 sums over up to 8192 rows or hops whose terms cancel: an
+# element far below its tensor's scale carries summation-order noise of
+# ~sqrt(n) 2^-24 of the summed magnitudes (~5e-6 at n = 8192; the first
+# full run read 2.5e-6 on the partial's accumulator, 21x the absolute
+# floor), which no fixed floor suits. Their floor is this share of the
+# tensor's largest |element|; the 2^-7 relative term stays, and a planted
+# fault moves elements by the tensor's own scale.
+F32_SUM_FLOOR = 1e-4
 # Served logits, kernel server vs reference server, relative to the
 # largest |logit|: attention outputs round to bf16 in both and a
 # rounding flip in one of 18 layers propagates through the bf16
@@ -127,6 +157,18 @@ LOGIT_REL_TOL = 2e-2
 # 0.014-0.0199 at Mixtral's 32 layers (Llama-3-8B's, one source, ran
 # 0.0126-0.0179), so the limit is 1.5x the worst of them.
 MOE_LOGIT_REL_TOL = 3e-2
+
+# slice_train's gradients against its attn_impl="reference" twin, per
+# leaf, ||got - want|| / ||want||: both run the same bf16 model and round
+# each attention output to bf16 once; they differ in the attention's f32
+# summation order and in the gradient's form (the hand-derived kernel
+# gradient vs autograd through mha_reference), and a rounding flip in one
+# of 26 layers propagates through the bf16 residual stream. The first
+# full run on an H100 read 0.0073-0.0254 over the leaves of both paths
+# (ring and single device, wq the worst); the limit is 2x the worst.
+GRAD_REL_L2_TOL = 5e-2
+TRAIN_SEQ = 8192              # slice_train's sequence (past the 4096 window)
+TRAIN_LR = 3e-4
 
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (H100 SXM)
 H100_HBM_BYTES_S = 3.35e12    # HBM3 rate (H100 SXM)
@@ -174,12 +216,15 @@ def time_ms(fn, iters, flush):
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def compare(got, want):
-    """Kernel output vs its plain version under the bf16 rule above."""
+def compare(got, want, floor_of_max=None):
+    """Kernel output vs its plain version under the bf16 rule above; with
+    ``floor_of_max`` the floor is that share of max |want| (the f32-sum
+    rule)."""
     d = (got.float() - want.float()).abs()
     w = want.float().abs()
+    floor = ULP_FLOOR if floor_of_max is None else floor_of_max * w.max()
     return {"max_abs_err": d.max().item(),
-            "ulp_ratio": (d / (ULP_REL * w + ULP_FLOOR)).max().item(),
+            "ulp_ratio": (d / (ULP_REL * w + floor)).max().item(),
             "rel_to_max": (d.max() / w.max()).item()}
 
 
@@ -840,6 +885,245 @@ def flash_decode_case(fa, torch, np, dev, flush, name, pos, M, H, Hkv, D,
     return row
 
 
+def compare_parts(got, want):
+    """``compare`` under the f32-sum rule over tuples of outputs: the
+    worst of each column."""
+    rows = [compare(a, b, F32_SUM_FLOOR) for a, b in zip(got, want)]
+    return {k: max(r[k] for r in rows) for k in rows[0]}
+
+
+def bf16_inputs(torch, dev, seed, shapes):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+            for s in shapes]
+
+
+def check_case(failures, what, cmp, fault_cmp, fault_name):
+    """The gate and its planted fault: the kernel must pass the
+    per-element rule and the faulted run must fail the same rule. A
+    breach is added to ``failures``: main raises on them before it
+    prints a result, after every reading of the run is out."""
+    if not (cmp["ulp_ratio"] <= 1.0):
+        failures.append(f"{what}: {cmp}")
+    if not (fault_cmp["ulp_ratio"] > 1.0):
+        failures.append(f"{what}: the check missed {fault_name} "
+                        f"({fault_cmp})")
+
+
+def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
+                          D, window, softcap):
+    """Case (a): slice_train's attention layer on one card, q and K/V
+    over the whole sequence (a one-rank ring is one hop at offsets 0).
+    flash_attention_partial against its plain version (fault: k_offset
+    + 1), then flash_attention_bwd from that pass's lse and dsum
+    (fault: a zero dsum, the term a kernel could drop). Both have a
+    softcap, so no PyTorch call computes either (library null)."""
+    q, k, v, do = bf16_inputs(torch, dev, 7, [(1, S, H, D), (1, S, Hkv, D),
+                                               (1, S, Hkv, D), (1, S, H, D)])
+    kw = dict(q_offset=0, k_offset=0, window=window, attn_softcap=softcap)
+    got = fa.flash_attention_partial(q, k, v, **kw)
+    want = fa.flash_attention_partial_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    cmp = compare_parts(got, want)
+    fault = compare_parts(fa.flash_attention_partial(
+        q, k, v, **dict(kw, k_offset=1)), want)
+    check_case(failures, f"flash_attention_partial {name}", cmp, fault,
+               "k_offset + 1")
+    del got
+    acc, m, l = want
+    lse = m + torch.log(l)
+    dsum = fa.softmax_dsum(do, acc / l.transpose(1, 2)[..., None])
+    del want, acc, m, l
+    gotb = fa.flash_attention_bwd(q, k, v, do, lse, dsum, **kw)
+    wantb = fa.flash_attention_bwd_plain(q, k, v, do, lse, dsum, **kw)
+    torch.cuda.synchronize()
+    cmpb = compare_parts(gotb, wantb)
+    faultb = compare_parts(fa.flash_attention_bwd(
+        q, k, v, do, lse, torch.zeros_like(dsum), **kw), wantb)
+    check_case(failures, f"flash_attention_bwd {name}", cmpb, faultb,
+               "a zero dsum")
+    del gotb, wantb
+    pairs = H * causal_pairs(S, S, 0, window)
+    rows = []
+    for kernel, fn, plain, flops, nbytes, c, f in (
+            ("flash_attention_partial",
+             lambda: fa.flash_attention_partial(q, k, v, **kw),
+             lambda: fa.flash_attention_partial_plain(q, k, v, **kw),
+             4 * D * pairs,
+             2 * (S * H * D + 2 * S * Hkv * D) + 4 * (S * H * D + 2 * H * S),
+             cmp, fault),
+            ("flash_attention_bwd",
+             lambda: fa.flash_attention_bwd(q, k, v, do, lse, dsum, **kw),
+             lambda: fa.flash_attention_bwd_plain(q, k, v, do, lse, dsum,
+                                                  **kw),
+             # The five products a gradient needs: s, dp, dv, dq, dk.
+             10 * D * pairs,
+             2 * (2 * S * H * D + 2 * S * Hkv * D) + 4 * 2 * H * S
+             + 4 * (S * H * D + 2 * S * Hkv * D),
+             cmpb, faultb)):
+        bms, by = bound(flops, nbytes)
+        ms = time_ms(fn, 5, flush)
+        row = {"phase": "kernels", "kernel": kernel, "case": name, "S": S,
+               "H": H, "Hkv": Hkv, "D": D, "window": window,
+               "softcap": softcap, **c, "fault_ulp_ratio": f["ulp_ratio"],
+               "ms": ms, "plain_ms": time_ms(plain, 3, flush),
+               "library_ms": None, "library_calls": None, "bound_ms": bms,
+               "bound_by": by, "tflops": flops / ms / 1e9}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def ring_cases(fa, ring, F, torch, dev, flush, failures, n, Sc, H, Hkv,
+               D):
+    """Case (b): a ring of n hops on one card, Llama-3-8B geometry, n
+    shards of Sc positions. Each shard's q runs against each K/V chunk
+    at its offsets (the wholly-future chunks too), merged with the
+    ring's own merge; the merged (acc, m, l) is held against the plain
+    pass over the whole sequence (fault: every k_offset + 1). Then the
+    ring's gradient: dq summed over a shard's hops, dk/dv summed over
+    the shards per chunk, against the plain gradient summed the same way
+    (fault: a zero dsum). Library: SDPA over the whole sequence, forward
+    and (through autograd) backward — no softcap here."""
+    S = n * Sc
+    q, k, v, do = bf16_inputs(torch, dev, 8, [(1, S, H, D), (1, S, Hkv, D),
+                                               (1, S, Hkv, D), (1, S, H, D)])
+    cut = [slice(i * Sc, (i + 1) * Sc) for i in range(n)]
+    qs, ks, vs, dos = ([x[:, c].contiguous() for c in cut]
+                       for x in (q, k, v, do))
+
+    def ring_fwd(fn, shift=0):
+        out = []
+        for i in range(n):
+            st = ring.empty_state(qs[i])
+            for j in range(n):
+                st = ring.merge_partial(st, fn(qs[i], ks[j], vs[j],
+                                               q_offset=i * Sc,
+                                               k_offset=j * Sc + shift))
+            out.append(st)
+        return out
+
+    whole = [fa.flash_attention_partial_plain(qs[i], k, v, q_offset=i * Sc)
+             for i in range(n)]
+    cmp = compare_parts([t for st in ring_fwd(fa.flash_attention_partial)
+                         for t in st], [t for st in whole for t in st])
+    fault = compare_parts([t for st in ring_fwd(fa.flash_attention_partial,
+                                                shift=1) for t in st],
+                          [t for st in whole for t in st])
+    check_case(failures, "flash_attention_partial ring", cmp, fault,
+               "k_offset + 1")
+    lse, dsum = [], []
+    for i, (acc, m, l) in enumerate(whole):
+        lse.append(m + torch.log(l))
+        dsum.append(fa.softmax_dsum(dos[i], acc / l.transpose(1, 2)[..., None]))
+    del whole
+
+    def ring_bwd(fn, zero_dsum=False):
+        dq = [0.0] * n
+        dk, dv = [0.0] * n, [0.0] * n
+        for i in range(n):
+            ds = torch.zeros_like(dsum[i]) if zero_dsum else dsum[i]
+            for j in range(n):
+                a, b, c = fn(qs[i], ks[j], vs[j], dos[i], lse[i], ds,
+                             q_offset=i * Sc, k_offset=j * Sc)
+                dq[i], dk[j], dv[j] = dq[i] + a, dk[j] + b, dv[j] + c
+        return dq + dk + dv
+
+    wantb = ring_bwd(fa.flash_attention_bwd_plain)
+    cmpb = compare_parts(ring_bwd(fa.flash_attention_bwd), wantb)
+    faultb = compare_parts(ring_bwd(fa.flash_attention_bwd, True), wantb)
+    check_case(failures, "flash_attention_bwd ring", cmpb, faultb,
+               "a zero dsum")
+    del wantb
+
+    def all_hops(fn):
+        def run():
+            for i in range(n):
+                for j in range(n):
+                    fn(i, j)
+        return run
+
+    part = all_hops(lambda i, j: fa.flash_attention_partial(
+        qs[i], ks[j], vs[j], q_offset=i * Sc, k_offset=j * Sc))
+    part_plain = all_hops(lambda i, j: fa.flash_attention_partial_plain(
+        qs[i], ks[j], vs[j], q_offset=i * Sc, k_offset=j * Sc))
+    bwd = all_hops(lambda i, j: fa.flash_attention_bwd(
+        qs[i], ks[j], vs[j], dos[i], lse[i], dsum[i], q_offset=i * Sc,
+        k_offset=j * Sc))
+    bwd_plain = all_hops(lambda i, j: fa.flash_attention_bwd_plain(
+        qs[i], ks[j], vs[j], dos[i], lse[i], dsum[i], q_offset=i * Sc,
+        k_offset=j * Sc))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    out_t = sdpa()
+    do_t = do.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), do_t, retain_graph=True), 5, flush)
+    with torch.no_grad():
+        lib_fwd = time_ms(sdpa, 5, flush)
+    pairs = H * causal_pairs(S, S, 0, None)
+    rows = []
+    for kernel, fn, plain, lib, flops, nbytes, c, f in (
+            ("flash_attention_partial", part, part_plain, lib_fwd,
+             4 * D * pairs,
+             2 * (S * H * D + 2 * S * Hkv * D) + 4 * (S * H * D + 2 * H * S),
+             cmp, fault),
+            ("flash_attention_bwd", bwd, bwd_plain, lib_bwd, 10 * D * pairs,
+             2 * (2 * S * H * D + 2 * S * Hkv * D) + 4 * 2 * H * S
+             + 4 * (S * H * D + 2 * S * Hkv * D), cmpb, faultb)):
+        bms, by = bound(flops, nbytes)
+        ms = time_ms(fn, 5, flush)
+        row = {"phase": "kernels", "kernel": kernel,
+               "case": f"llama3_8b_ring{n}x{Sc}", "S": S, "H": H, "Hkv": Hkv,
+               "D": D, "hops": n * n, **c, "fault_ulp_ratio": f["ulp_ratio"],
+               "ms": ms, "plain_ms": time_ms(plain, 3, flush),
+               "library_ms": lib, "library_calls": "SDPA causal, whole "
+               "sequence" + (" (backward through autograd)"
+                             if kernel == "flash_attention_bwd" else ""),
+               "bound_ms": bms, "bound_by": by, "tflops": flops / ms / 1e9}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+class StepClock:
+    """A train step wrapped to keep each call's host-clock ms, ended by a
+    device sync (the step's work is done when the clock stops)."""
+
+    def __init__(self, fn):
+        self.fn, self.ms = fn, []
+
+    def __call__(self, *a, **kw):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*a, **kw)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def tree_keys(tree, prefix=""):
+    """Leaf paths of a nested dict in ``training.tree_leaves`` order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from tree_keys(tree[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k
+
+
+def grad_rel_l2(training, got, want):
+    """Per-leaf ||got - want|| / ||want|| (f32) over two gradient trees."""
+    return {name: ((a.float() - b.float()).norm() / b.float().norm()).item()
+            for name, a, b in zip(tree_keys(want), training.tree_leaves(got),
+                                  training.tree_leaves(want))}
+
+
 # Mixtral-8x7B as its published config.json gives it
 # (mistralai/Mixtral-8x7B-v0.1).
 MIXTRAL_8X7B = dict(
@@ -1216,11 +1500,15 @@ def main() -> int:
     import importlib
 
     import numpy as np
+    import torch.distributed as dist
     import torch.nn.functional as F
 
-    from tpushare_torch.models import convert, moe, paged, quant, serving
+    from tpushare_torch.models import (convert, moe, paged, quant, serving,
+                                       trainer, training)
     from tpushare_torch.models import transformer as tt
     from tpushare_torch.ops import _build
+    from tpushare_torch.parallel import mesh as pmesh
+    ring = importlib.import_module("tpushare_torch.parallel.ring_attention")
     fa = importlib.import_module("tpushare_torch.ops.flash_attention")
     attn = importlib.import_module("tpushare_torch.ops.attention")
     q8 = importlib.import_module("tpushare_torch.ops.q8_expert")
@@ -1412,6 +1700,16 @@ def main() -> int:
                 fault=True),
             fdc("gemma2_2b_global", g_dec_pos, g_sched["max_len"], 8, 4, 256,
                 softcap=gcfg.attn_softcap)]
+    # slice_train's attention layer (a), and a 4-hop ring (b). Their gate
+    # breaches (and slice_train's) are gathered in ``failures``.
+    failures = []
+    part_a, bwd_a = zip(*[attention_layer_cases(
+        fa, torch, dev, flush, failures, f"gemma2_2b_{wn}_s{TRAIN_SEQ}",
+        TRAIN_SEQ, 8, 4, 256, win, gcfg.attn_softcap)
+        for wn, win in (("local", gcfg.sliding_window), ("global", None))])
+    torch.cuda.empty_cache()
+    part_b, bwd_b = ring_cases(fa, ring, F, torch, dev, flush, failures, 4,
+                               2048, 32, 8, 128)
     del flush
     torch.cuda.empty_cache()
     kernels_s = time.perf_counter() - t_k
@@ -1439,7 +1737,10 @@ def main() -> int:
                 ("paged_flash_verify_int8", fa.paged_flash_verify,
                  "launches_int8"),
                 ("q8_expert_ffn", q8.q8_expert_ffn, "launches"),
-                ("flash_decode", fa.flash_decode, "launches"))
+                ("flash_decode", fa.flash_decode, "launches"),
+                ("flash_attention_partial", fa.flash_attention_partial,
+                 "launches"),
+                ("flash_attention_bwd", fa.flash_attention_bwd, "launches"))
 
     def zero_counts():
         for _, fn, attr in counters:
@@ -1750,12 +2051,126 @@ def main() -> int:
     del gparams, rrun, rref
     torch.cuda.empty_cache()
 
+    # -- slice_train: Gemma-2-2B training at full width and depth ---------
+    t_t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t0 = time.perf_counter()
+    tparams = tt.init_params(gen, gcfg)
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, gcfg.vocab_size, (1, TRAIN_SEQ + 1)), device=dev)
+    torch.cuda.synchronize()
+    t_init_s = time.perf_counter() - t0
+    L = gcfg.n_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        # A one-rank NCCL group and a dp1 x sp1 mesh: the SPMD step's
+        # ring is one hop, as the JAX step on one chip is.
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = pmesh.make_mesh({"dp": 1, "sp": 1})
+            inputs, targets = training.shard_batch(tokens, mesh)
+            pctx = tt.ParallelCtx(sp=mesh.get_group("sp"))
+            # Gradient twins first, before any optimizer state exists: the
+            # ring path and the single-device path (kernels) against
+            # autograd through mha_reference on the same params and batch
+            # (on one rank the ring computes the same function).
+            t0 = time.perf_counter()
+            ref_loss, ref_g = no_launch(training.loss_and_grads, tparams,
+                                        inputs, targets, gcfg,
+                                        attn_impl="reference")
+            torch.cuda.synchronize()
+            twin = {"reference": {"loss": ref_loss.item(),
+                                  "s": time.perf_counter() - t0}}
+            for path, kw in (("ring", {"pctx": pctx}), ("single", {})):
+                zero_counts()
+                t0 = time.perf_counter()
+                loss, g = training.loss_and_grads(tparams, inputs, targets,
+                                                  gcfg, **kw)
+                torch.cuda.synchronize()
+                rel = grad_rel_l2(training, g, ref_g)
+                twin[path] = {"loss": loss.item(),
+                              "s": time.perf_counter() - t0,
+                              "launches": read_counts(),
+                              "grad_rel_l2_max": max(rel.values()),
+                              "grad_rel_l2": rel}
+                del g
+            del ref_g
+            gc.collect()
+            torch.cuda.empty_cache()
+            worst_g = max(twin[p_]["grad_rel_l2_max"]
+                          for p_ in ("ring", "single"))
+            emit({"phase": "slice_train_twin", "twin": twin,
+                  "grad_rel_l2_max": worst_g,
+                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+            # One SGD step without pctx: the prefill kernel and its
+            # gradient (from the same params as the single twin).
+            sgd_step = StepClock(training.sgd_train_step)
+            (tparams, sgd_loss), sgd_launches = run_path(
+                ("flash_attention", "flash_attention_bwd"), sgd_step,
+                tparams, tokens, gcfg, lr=TRAIN_LR)
+            # The training run: AdamW over the mesh through trainer.fit.
+            torch.cuda.reset_peak_memory_stats()
+            step = StepClock(training.make_adamw_spmd_train_step(
+                gcfg, mesh, lr=TRAIN_LR))
+            (tparams, state, losses), fit_launches = run_path(
+                ("flash_attention_partial", "flash_attention_bwd"),
+                trainer.fit, step, tparams, training.adamw_init(tparams),
+                [tokens] * 4, steps=4, log_every=0)
+            train_peak = torch.cuda.max_memory_allocated() / 2**30
+            with DeviceProfile(1) as tprof:
+                tparams, state, _ = step(tparams, state, tokens)
+        finally:
+            dist.destroy_process_group()
+    losses = [float(x) for x in losses]
+    emit({"phase": "slice_train", "model": "gemma2_2b",
+          "params": gcfg.num_params(), "init_s": t_init_s,
+          "seq": TRAIN_SEQ, "batch": 1, "remat": gcfg.remat,
+          "mesh": {"dp": 1, "sp": 1}, "lr": TRAIN_LR, "twin": twin,
+          "grad_rel_l2_max": worst_g, "grad_rel_l2_tol": GRAD_REL_L2_TOL,
+          "sgd_loss": float(sgd_loss), "sgd_ms": sgd_step.ms,
+          "sgd_launches": sgd_launches, "adamw_losses": losses,
+          "step_ms": step.ms[:4], "profiled_step_ms": step.ms[4],
+          "step_ms_steady": mean(step.ms[1:4]),
+          "tok_s": TRAIN_SEQ / (mean(step.ms[1:4]) / 1e3),
+          "fit_launches": fit_launches, "peak_mem_gib": train_peak,
+          "profile": tprof.stats,
+          "seconds": time.perf_counter() - t_t, "card": card})
+    if not all(math.isfinite(x) for x in losses + [float(sgd_loss)]):
+        failures.append(f"slice_train: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        failures.append(f"slice_train: the loss did not fall: {losses}")
+    if not (worst_g <= GRAD_REL_L2_TOL):
+        failures.append(f"slice_train gradients vs the reference twin: "
+                        f"{worst_g}")
+    if abs(float(sgd_loss) - twin["single"]["loss"]) > 1e-4 * abs(
+            twin["single"]["loss"]):
+        failures.append(f"slice_train: sgd_train_step's loss "
+                        f"{float(sgd_loss)} is not the twin's "
+                        f"{twin['single']['loss']}")
+    # Every layer's attention ran through the kernels: the ring's partial
+    # pass per layer, again in the remat recompute, and one gradient.
+    want_fit = {"flash_attention_partial": 4 * 2 * L,
+                "flash_attention_bwd": 4 * L, "flash_attention": 0}
+    want_sgd = {"flash_attention": 2 * L, "flash_attention_bwd": L,
+                "flash_attention_partial": 0}
+    for what, got_c, want_c in (("fit", fit_launches, want_fit),
+                                ("sgd", sgd_launches, want_sgd)):
+        if any(got_c[k] != n for k, n in want_c.items()):
+            failures.append(f"slice_train {what} launches {got_c}, "
+                            f"expected {want_c}")
+    del tparams, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # The kernels line: one entry per kernel and page type, timed at
     # its largest main-path case; launches summed over the paths' runs.
     paths = {"slice": launches,
              **{f"slice_llama_{m}": c for m, c in l_launches.items()},
              **{f"slice_moe_{m}": c for m, c in m_launches.items()},
-             "slice_rows": r_launches}
+             "slice_rows": r_launches, "slice_train_sgd": sgd_launches,
+             "slice_train_fit": fit_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in paths.values())
@@ -1796,11 +2211,26 @@ def main() -> int:
               "tpushare/ops/q8_expert.py:170", q8_path, q8_all),
         entry("flash_decode", src + "flash_decode.cu", ref_fa + "483",
               fdec, fdec),
+        dict(entry("flash_attention_partial", src + "flash_prefill.cu",
+                   ref_fa + "453", part_a, part_a + (part_b,)),
+             library_ms_no_softcap=part_b["library_ms"],
+             no_softcap_case=part_b["case"]),
+        dict(entry("flash_attention_bwd", src + "flash_bwd.cu",
+                   ref_fa + "105", bwd_a, bwd_a + (bwd_b,)),
+             note="the gradient of _fa_kernel: the JAX package has no "
+                  "backward kernel (jax 0.9.0 pallas_call registers no "
+                  "transpose)",
+             library_ms_no_softcap=bwd_b["library_ms"],
+             no_softcap_case=bwd_b["case"]),
     ]
+    # These run at softcapped shapes on their main paths, and SDPA has no
+    # softcap: no PyTorch call computes them (library_ms null; the
+    # partial and gradient entries carry their no-softcap ring case's).
+    no_library = ("flash_decode", "flash_attention_partial",
+                  "flash_attention_bwd")
     for k in kernels:
-        # flash_decode has no library route (SDPA has no softcap).
         need = ("ms", "plain_ms", "bound_ms", "max_abs_err") + (
-            () if k["name"] == "flash_decode" else ("library_ms",))
+            () if k["name"] in no_library else ("library_ms",))
         for key in need:
             if not (isinstance(k[key], float) and math.isfinite(k[key])):
                 raise AssertionError(f"{k['name']}: {key} = {k[key]}")
@@ -1808,6 +2238,8 @@ def main() -> int:
             raise AssertionError(f"{k['name']}: no launch on a main path")
     emit({"phase": "seconds", "kernels": kernels_s,
           "total": time.perf_counter() - t_start})
+    if failures:
+        raise AssertionError("failed gates:\n" + "\n".join(failures))
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

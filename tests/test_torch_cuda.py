@@ -369,3 +369,199 @@ def test_tiny_spec_fused_server_kernels_match_reference(dev, kv_quant):
     assert all(n > 0 for n in out["auto"][0]), out["auto"][0]
     assert out["reference"][0] == [0, 0, 0]
     assert all(len(r) == 3 for r in out["auto"][1])
+
+
+def _assert_gate(got, want):
+    """The per-element gate of chip_smoke.py, for f32 results of bf16 or
+    f32 inputs (unnormalized accumulators and gradients): both sides sum
+    the same f32 products in other orders."""
+    d = (got.float() - want.float()).abs()
+    lim = 2.0 ** -7 * want.float().abs() + 1e-5
+    assert bool((d <= lim).all()), (d / lim).max().item()
+
+
+# (B, Sq, Sk, H, Hkv, D, q_offset, k_offset, window, softcap)
+CHUNK_CASES = [
+    (1, 128, 128, 8, 4, 256, 0, 0, None, None),
+    (2, 70, 200, 4, 2, 128, 150, 0, None, None),
+    (1, 64, 96, 8, 8, 128, 192, 96, 40, 30.0),
+    (1, 100, 64, 8, 4, 256, 300, 200, None, 50.0),
+    (1, 64, 64, 4, 1, 128, 0, 64, None, None),       # wholly future
+    (1, 33, 130, 32, 8, 128, 260, 140, 100, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,qo,ko,window,softcap",
+                         CHUNK_CASES)
+def test_flash_partial_vs_plain(dev, dtype, B, Sq, Sk, H, Hkv, D, qo, ko,
+                                window, softcap):
+    g = torch.Generator(device=dev).manual_seed(10)
+    q = _rand(g, B, Sq, H, D, dtype=dtype, dev=dev)
+    k = _rand(g, B, Sk, Hkv, D, dtype=dtype, dev=dev)
+    v = _rand(g, B, Sk, Hkv, D, dtype=dtype, dev=dev)
+    kw = dict(q_offset=qo, k_offset=ko, window=window, attn_softcap=softcap)
+    before = fa.flash_attention_partial.launches
+    got = fa.flash_attention_partial(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_partial.launches == before + 1
+    want = fa.flash_attention_partial_plain(q, k, v, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        _assert_gate(a, b)
+    if ko >= qo + Sq:        # a chunk wholly in the future: empty, no NaN
+        assert float(got[2].abs().max()) == 0.0
+        assert bool((got[1] == attn_mod.NEG_INF).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,qo,ko,window,softcap",
+                         CHUNK_CASES)
+def test_flash_bwd_vs_plain(dev, dtype, B, Sq, Sk, H, Hkv, D, qo, ko,
+                            window, softcap):
+    """The gradient of q against one chunk, from the lse and dsum of
+    attention over every key up to the queries (the chunk is the tail
+    of that range, so its keys may attend or not)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = _rand(g, B, Sq, H, D, dtype=dtype, dev=dev)
+    k = _rand(g, B, ko + Sk, Hkv, D, dtype=dtype, dev=dev)
+    v = _rand(g, B, ko + Sk, Hkv, D, dtype=dtype, dev=dev)
+    do = _rand(g, B, Sq, H, D, dtype=dtype, dev=dev)
+    kw = dict(q_offset=qo, window=window, attn_softcap=softcap)
+    acc, m, l = fa.flash_attention_partial_plain(q, k, v, **kw)
+    out = acc / l.clamp(min=1e-30).transpose(1, 2)[..., None]
+    lse, dsum = m + torch.log(l), fa.softmax_dsum(do, out)
+    ck, cv = k[:, ko:].contiguous(), v[:, ko:].contiguous()
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, ck, cv, do, lse, dsum, k_offset=ko, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, ck, cv, do, lse, dsum,
+                                        k_offset=ko, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        _assert_gate(a, b)
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (48, 30.0)])
+def test_flash_attention_grad_vs_autograd_reference(dev, window, softcap):
+    """Autograd through flash_attention (prefill kernel + gradient
+    kernel) against autograd through mha_reference, f32 on the card."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    shapes = [(1, 96, 8, 128), (1, 160, 2, 128), (1, 160, 2, 128)]
+    x = [_rand(g, *s, dtype=torch.float32, dev=dev).requires_grad_()
+         for s in shapes]
+    do = _rand(g, *shapes[0], dtype=torch.float32, dev=dev)
+    kw = dict(q_offset=64, window=window, attn_softcap=softcap)
+    out = fa.flash_attention(*x, **kw)
+    grads = torch.autograd.grad(out, x, do)
+    ref = attn_mod.mha_reference(*x, **kw)
+    ref_grads = torch.autograd.grad(ref, x, do)
+    _assert_close(out.detach(), ref.detach(), torch.float32)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_partial_and_bwd_wrappers_raise(dev):
+    q = torch.zeros((1, 4, 2, 128), device=dev)
+    with pytest.raises(TypeError, match="Python ints"):
+        fa.flash_attention_partial(q, q, q, k_offset=torch.tensor(0))
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_partial(q[..., :64].contiguous(),
+                                   q[..., :64].contiguous(),
+                                   q[..., :64].contiguous())
+    lse = torch.zeros((1, 2, 4), device=dev)
+    with pytest.raises(ValueError, match="dout must match q"):
+        fa.flash_attention_bwd(q, q, q, q.bfloat16(), lse, lse)
+    with pytest.raises(ValueError, match="lse must be f32"):
+        fa.flash_attention_bwd(q, q, q, q, lse.double(), lse)
+
+
+def test_ring_and_spmd_steps_across_cards(dev, tmp_path):
+    """The ring over NCCL, one card per rank (4 ranks on four cards, 2 on
+    two), through the kernels: ring_attention_sharded's output and q/k/v
+    gradients against the single-card flash_attention through its
+    autograd Function. Then forward under pctx.sp and 2 SGD / 2 AdamW
+    SPMD steps of a small f32 Gemma-2-style model (head_dim 128; dp2 x sp2
+    on four cards, dp1 x sp2 on two) against the single-card steps.
+    Tolerances, f32 on both sides, which sum the same products in other
+    orders (per hop, per shard): attention 1e-4 rel + 1e-5 abs, logits
+    1e-5 rel + 1e-4 abs, losses 1e-5 rel, parameters 2e-5 abs."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 or more NVIDIA GPUs (the ring's NCCL "
+                    "point-to-point path)")
+    import torch_spawn
+    from tpushare_torch.models import training
+    from tpushare_torch.models import transformer as tt
+    from tpushare_torch.ops import _build
+    _build.build_all(("flash_prefill", "flash_bwd"))   # before ranks load
+    world = 4 if n >= 4 else 2
+    rng = np.random.default_rng(20)
+    S, H, Hkv, D = 256 * world, 8, 2, 128
+    arrays = [rng.normal(size=s).astype(np.float32) for s in
+              ((1, S, H, D), (1, S, Hkv, D), (1, S, Hkv, D), (1, S, H, D))]
+    kw = dict(window=300, attn_softcap=30.0)
+    got = torch_spawn.run_ranks(
+        torch_spawn.ring_worker, world, tmp_path,
+        dict(zip(("card_q", "card_k", "card_v", "card_do"), arrays)),
+        [("card", kw)], backend="nccl", timeout=300)
+    q, k, v = (torch.tensor(a, device=dev, requires_grad=True)
+               for a in arrays[:3])
+    out = fa.flash_attention(q, k, v, **kw)
+    out.backward(torch.tensor(arrays[3], device=dev))
+    for name, want in (("out", out), ("dq", q.grad), ("dk", k.grad),
+                       ("dv", v.grad)):
+        np.testing.assert_allclose(got[f"card_{name}"],
+                                   want.detach().cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5)
+
+    cfg = tt.TransformerConfig(
+        vocab_size=1000, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+        head_dim=128, d_ff=512, act="gelu", norm_offset=1.0,
+        embed_scale=True, sliding_window=100, alternate_sliding=True,
+        attn_softcap=30.0, final_softcap=20.0, post_norms=True,
+        dtype=torch.float32)
+    params = tt.init_params(0, cfg, device="cpu")
+    flat = torch_spawn.flatten(params)
+    mu = {k_: rng.normal(size=a.shape).astype(np.float32) * 1e-2
+          for k_, a in flat.items()}
+    nu = {k_: rng.uniform(1e-4, 4e-4, size=a.shape).astype(np.float32)
+          for k_, a in flat.items()}
+    tokens = rng.integers(0, cfg.vocab_size, (2, 256 + 1))
+    inputs = {"tokens": tokens, "count": np.int32(4),
+              **{f"p/{k_}": a for k_, a in flat.items()},
+              **{f"mu/{k_}": a for k_, a in mu.items()},
+              **{f"nu/{k_}": a for k_, a in nu.items()}}
+    sizes = {"dp": 2, "sp": 2} if world == 4 else {"sp": 2}
+    lr, wd = 0.05, 0.01
+    got = torch_spawn.run_ranks(torch_spawn.train_worker, world, tmp_path,
+                                inputs, cfg, sizes, lr, 2, wd,
+                                backend="nccl", timeout=300)
+    tok = torch.tensor(tokens, device=dev)
+    p = torch_spawn.unflatten(inputs, "p/", dev)
+    with torch.no_grad():
+        logits, _ = tt.forward(p, tok[:, :-1], cfg)
+    np.testing.assert_allclose(got["logits"], logits.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    for s in range(2):
+        p, loss = training.sgd_train_step(p, tok, cfg, lr=lr)
+        np.testing.assert_allclose(got[f"sgd_loss{s}"], loss.item(),
+                                   rtol=1e-5)
+    want = torch_spawn.flatten(p)
+    for k_, a in want.items():
+        np.testing.assert_allclose(got[f"sgd/{k_}"], a, rtol=0, atol=2e-5)
+    p = torch_spawn.unflatten(inputs, "p/", dev)
+    state = {"mu": torch_spawn.unflatten(inputs, "mu/", dev),
+             "nu": torch_spawn.unflatten(inputs, "nu/", dev),
+             "count": torch.tensor(4, dtype=torch.int32, device=dev)}
+    for s in range(2):
+        p, state, loss = training.adamw_train_step(p, state, tok, cfg, lr=lr,
+                                                   weight_decay=wd)
+        np.testing.assert_allclose(got[f"adamw_loss{s}"], loss.item(),
+                                   rtol=1e-5)
+    want = torch_spawn.flatten(p)
+    for k_, a in want.items():
+        np.testing.assert_allclose(got[f"adamw/{k_}"], a, rtol=0, atol=2e-5)
+    assert int(got["adamw_count"]) == 6

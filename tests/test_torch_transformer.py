@@ -473,7 +473,7 @@ class TestRefusals:
                 paged, pool_k=pool.to(torch.int8)),
                 pos_offset=torch.zeros(2, dtype=torch.int32))
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            tt.forward(tp, tok, cfg, pctx=object())
+            tt.forward(tp, tok, cfg, pctx=tt.ParallelCtx(tp="tp"))
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             tt.forward(tp, tok, cfg, mlora_idx=torch.zeros(2))
         with pytest.raises(ValueError, match="paged cache"):

@@ -1,0 +1,186 @@
+"""Spawned ranks for the port's sequence-parallel tests: gloo groups on
+the CPU (``tests/test_torch_ring.py``, ``tests/test_torch_train.py``)
+and NCCL groups, one card per rank (``tests/test_torch_cuda.py``).
+
+The children import torch and the port only, never JAX: the parent test
+hands them numpy inputs in an .npz and reads rank 0's results back from
+another. Each child runs one thread and joins a FileStore under the
+test's tmp_path. ``run_ranks`` gives the group a time limit: past it,
+every child is killed and the test fails, so no hang can stall the
+suite.
+"""
+
+import itertools
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+_runs = itertools.count()
+
+
+def run_ranks(target, world, tmp_path, inputs, *args, timeout=150.0,
+              backend="gloo"):
+    """Run ``target(rank, world, inputs, *args)`` on ``world`` spawned
+    ranks of one ``backend`` group (NCCL: rank r on card r); returns
+    rank 0's result dict (numpy)."""
+    name = f"{target.__name__}_{world}_{next(_runs)}"
+    base = os.path.join(str(tmp_path), name)
+    np.savez(base + "_in.npz", **inputs)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(target, r, world, base, backend, args),
+                         daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    if hung:
+        raise AssertionError(f"{name}: ranks {hung} still running after "
+                             f"{timeout} s; killed")
+    errors = []
+    for r, p in enumerate(procs):
+        if p.exitcode != 0:
+            path = f"{base}_err{r}.txt"
+            errors.append(f"rank {r} exit {p.exitcode}:\n"
+                          + (open(path).read() if os.path.exists(path)
+                             else ""))
+    if errors:
+        raise AssertionError(f"{name}:\n" + "\n".join(errors))
+    with np.load(base + "_out.npz") as f:
+        return dict(f)
+
+
+def _rank_main(target, rank, world, base, backend, args):
+    torch.set_num_threads(1)
+    try:
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(
+            backend, store=dist.FileStore(base + ".store", world), rank=rank,
+            world_size=world)
+        with np.load(base + "_in.npz") as f:
+            inputs = dict(f)
+        res = target(rank, world, inputs, *args)
+        if rank == 0:
+            np.savez(base + "_out.npz", **res)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(f"{base}_err{rank}.txt", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _device():
+    """This rank's device: its card in an NCCL group, else the CPU."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def flatten(tree, prefix=""):
+    """Nested dict of arrays/tensors -> {"a/b": numpy}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = (_np(v) if isinstance(v, torch.Tensor)
+                               else np.asarray(v))
+    return out
+
+
+def unflatten(flat, prefix, device="cpu"):
+    """{"<prefix>a/b": numpy} -> nested dict of torch tensors."""
+    out = {}
+    for key, arr in flat.items():
+        if not key.startswith(prefix):
+            continue
+        node = out
+        *path, leaf = key[len(prefix):].split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = torch.tensor(arr, device=device)
+    return out
+
+
+def ring_worker(rank, world, inp, cases):
+    """Each case: ``ring_attention_sharded`` of the whole q, k, v on
+    every rank, backward of sum(out * dout), q/k/v gradients summed over
+    the group (each rank's cover the positions it owns)."""
+    from tpushare_torch.parallel.mesh import make_mesh
+    from tpushare_torch.parallel.ring_attention import ring_attention_sharded
+    mesh = make_mesh({"sp": world})
+    group = mesh.get_group("sp")
+    dev = _device()
+    out = {}
+    for name, kw in cases:
+        q, k, v = (torch.tensor(inp[f"{name}_{x}"], device=dev,
+                                requires_grad=True) for x in "qkv")
+        o = ring_attention_sharded(q, k, v, mesh=mesh, **kw)
+        (o * torch.tensor(inp[f"{name}_do"], device=dev)).sum().backward()
+        out[f"{name}_out"] = _np(o)
+        for x, t in zip("qkv", (q, k, v)):
+            dist.all_reduce(t.grad, group=group)
+            out[f"{name}_d{x}"] = _np(t.grad)
+    return out
+
+
+def train_worker(rank, world, inp, cfg, mesh_sizes, lr, steps, wd):
+    """forward under ``pctx.sp`` (logits gathered to rank 0), then
+    ``steps`` SGD steps (``make_spmd_train_step``) and ``steps`` AdamW
+    steps from the given state (``make_adamw_spmd_train_step``)."""
+    from tpushare_torch.models import training
+    from tpushare_torch.models import transformer as tt
+    from tpushare_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(mesh_sizes)
+    dev = _device()
+    tokens = torch.tensor(inp["tokens"], device=dev)
+    inputs, _ = training.shard_batch(tokens, mesh)
+    pctx = tt.ParallelCtx(sp=mesh.get_group("sp"))
+    with torch.no_grad():
+        logits, _ = tt.forward(unflatten(inp, "p/", dev), inputs, cfg,
+                               pctx=pctx)
+    parts = [torch.empty_like(logits) for _ in range(world)]
+    dist.all_gather(parts, logits.contiguous())
+    dp, sp = mesh["dp"].size(), mesh["sp"].size()
+    rows = [torch.cat(parts[i * sp:(i + 1) * sp], dim=1) for i in range(dp)]
+    out = {"logits": _np(torch.cat(rows, dim=0))}
+
+    params = unflatten(inp, "p/", dev)
+    step = training.make_spmd_train_step(cfg, mesh, lr=lr)
+    for s in range(steps):
+        params, loss = step(params, tokens)
+        out[f"sgd_loss{s}"] = _np(loss)
+    out.update(flatten(params, "sgd/"))
+
+    params = unflatten(inp, "p/", dev)
+    state = {"mu": unflatten(inp, "mu/", dev),
+             "nu": unflatten(inp, "nu/", dev),
+             "count": torch.tensor(inp["count"], dtype=torch.int32,
+                                   device=dev)}
+    astep = training.make_adamw_spmd_train_step(cfg, mesh, lr=lr,
+                                                weight_decay=wd)
+    for s in range(steps):
+        params, state, loss = astep(params, state, tokens)
+        out[f"adamw_loss{s}"] = _np(loss)
+    out.update(flatten(params, "adamw/"))
+    out.update(flatten(state["mu"], "adamw_mu/"))
+    out["adamw_count"] = _np(state["count"])
+    return out

@@ -70,3 +70,42 @@ __device__ __forceinline__ long long ts_floordiv(long long a, long long b) {
 __device__ __forceinline__ float ts_softcap(float s, float cap) {
   return cap > 0.f ? cap * tanhf(s / cap) : s;
 }
+
+// Rows [s0, s0+ROWS) of head hx of a contiguous [B, S, Hx, D] tensor
+// into a [ROWS][D+1] f32 shared tile (the +1 pad keeps column walks free
+// of bank conflicts), times mul; rows past S are zero. NTH threads share
+// the copy, 8 elements (one 16-byte bf16 load) each.
+template <typename T, int D, int ROWS, int NTH>
+__device__ __forceinline__ void ts_load_tile(float* dst, const T* src, int b,
+                                             int s0, int S, int Hx, int hx,
+                                             float mul) {
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += NTH) {
+    const int r = i / CH, c = (i % CH) * 8, s = s0 + r;
+    float v[8];
+    if (s < S) {
+      ts_load8(src + (((size_t)b * S + s) * Hx + hx) * D + c, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dst[r * (D + 1) + c + e] = v[e] * mul;
+  }
+}
+
+// First key (relative to the chunk, rounded down to a tile of BLK) and
+// end (exclusive) that a run of queries at absolute positions
+// [first, last] may attend in a KV chunk of Sk keys starting at absolute
+// position k_offset: causal up to last, window floor from first. The one
+// copy of the live-range rule the prefill, partial and gradient kernels
+// share; an empty range (a chunk wholly in the future) has end <= begin.
+template <int BLK>
+__device__ __forceinline__ void ts_key_range(long long first, long long last,
+                                             int k_offset, int Sk,
+                                             long long w_eff, int& begin,
+                                             int& end) {
+  end = (int)max(0LL, min((long long)Sk, last + 1 - k_offset));
+  const long long lo = first - w_eff + 1 - k_offset;
+  begin = lo > 0 ? (int)min((long long)Sk, (lo / BLK) * BLK) : 0;
+}

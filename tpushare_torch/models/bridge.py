@@ -8,9 +8,11 @@ A ``quantize_params`` tree bridges too: its ``#q8`` leaves stay int8
 and its ``#scale`` leaves stay f32, whatever ``dtype`` asks for the
 rest; MoE expert stacks ([L, E, ...] leaves, int8 or not) bridge the
 same way. ``config_from_jax`` / ``moe_config_from_jax`` copy a JAX
-``TransformerConfig``'s / ``MoEConfig``'s fields into the port's. None
-imports JAX: they read arrays through numpy and config fields by
-name.
+``TransformerConfig``'s / ``MoEConfig``'s fields into the port's.
+``opt_state_from_jax`` carries an AdamW state (``adamw_init`` /
+``apply_adamw``'s mu, nu and count) across, so both packages can train
+on from one non-zero optimizer state. None imports JAX: they read
+arrays through numpy and config fields by name.
 """
 
 from __future__ import annotations
@@ -75,3 +77,17 @@ def config_from_jax(cfg) -> TransformerConfig:
 def moe_config_from_jax(cfg) -> MoEConfig:
     """The port's MoEConfig with every field of a JAX MoEConfig."""
     return _fields_from_jax(MoEConfig, cfg)
+
+
+def opt_state_from_jax(state: Dict[str, Any], *,
+                       device: DeviceLike = None) -> Dict[str, Any]:
+    """A JAX AdamW state {"mu", "nu", "count"} -> the port's
+    (``training.adamw_init`` layout): f32 moment trees and an int32 0-d
+    count, on ``device``."""
+    dev = resolve_device(device)
+    return {"mu": params_from_jax(state["mu"], device=dev,
+                                  dtype=torch.float32),
+            "nu": params_from_jax(state["nu"], device=dev,
+                                  dtype=torch.float32),
+            "count": torch.tensor(int(np.asarray(state["count"])),
+                                  dtype=torch.int32, device=dev)}

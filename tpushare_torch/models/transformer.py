@@ -18,6 +18,14 @@ S > 1 (speculative verify and the fused admission tick, ``:383-458``)
 ``layers_hook`` seam (int8 weights). Caches are updated IN PLACE (the
 JAX version returns new arrays and donates the old pools); ``forward``
 returns the same cache dict.
+
+Training (no cache) is differentiable through the kernels: single
+device through ``flash_attention``'s autograd Function, and sequence
+parallel under ``ParallelCtx(sp=<process group>)`` through
+``parallel.ring_attention`` (reference ``transformer.py:634-643``),
+positions offset by the rank's shard (``:325-326``). ``cfg.remat``
+checkpoints each layer (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of the block, ``:670-671``).
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from tpushare_torch import DeviceLike, resolve_device
 from tpushare_torch.models.quant import (kv_dequantize, kv_quantize,
@@ -38,10 +48,12 @@ from tpushare_torch.ops.flash_attention import (flash_decode,
 from tpushare_torch.ops.norms import rms_norm
 from tpushare_torch.ops.q8_expert import _apply_act as _act
 from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
+from tpushare_torch.parallel.ring_attention import ring_attention
 
 # ROADMAP items that port what the port still leaves out.
 TODO_LORA = "ROADMAP A9 (multi-LoRA)"
 TODO_MESH = "ROADMAP A10 (multi-GPU serving)"
+TODO_ULYSSES = "ROADMAP A12 (Ulysses sequence parallelism)"
 
 
 def layer_windows(cfg: "TransformerConfig") -> Optional[List[int]]:
@@ -53,6 +65,19 @@ def layer_windows(cfg: "TransformerConfig") -> Optional[List[int]]:
         return None
     return [cfg.sliding_window if (not cfg.alternate_sliding or l % 2 == 0)
             else 0 for l in range(cfg.n_layers)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """What the forward pass is manually parallel over (reference
+    ``transformer.py:55-67``, whose fields name mesh axes). ``sp`` holds
+    the ``torch.distributed`` process group the sequence is sharded over
+    (``mesh.get_group("sp")``): attention runs as ring attention across
+    it. ``tp`` (tensor parallelism) and ``sp_impl="a2a"`` (Ulysses) raise
+    until their ROADMAP items land."""
+    tp: Any = None
+    sp: Any = None
+    sp_impl: str = "ring"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +105,7 @@ class TransformerConfig:
     final_softcap: Optional[float] = None  # same on the LM-head logits
     post_norms: bool = False      # Gemma-2 sandwich norms on sublayer outputs
     dtype: torch.dtype = torch.bfloat16
-    remat: bool = True            # kept for config parity; no training yet
+    remat: bool = True            # checkpoint each layer when training
 
     @property
     def q_dim(self) -> int:
@@ -321,7 +346,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
             pos_offset=0,
             attn_impl: str = "auto",
             last_logit_only: bool = False,
-            pctx=None,
+            pctx: Optional[ParallelCtx] = None,
             layers_hook=None,
             mlora_idx: Optional[torch.Tensor] = None,
             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
@@ -340,9 +365,21 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     A dense cache with a [B] int32 tensor ``pos_offset``: ragged rows,
     token j of row b at pos[b] + j (writes past max_len dropped).
     ``attn_impl``: "auto" (the kernels) or "reference" (plain PyTorch).
+    Under ``pctx.sp`` (a process group) tokens are this rank's sequence
+    shard: positions start at rank * S and, with no cache, attention is
+    ring attention over the group (its dense chunk math with
+    attn_impl "reference"). With ``cfg.remat``, grad mode on and no
+    cache, each layer runs under ``torch.utils.checkpoint``.
     """
-    if pctx is not None:
-        raise NotImplementedError(f"ParallelCtx: {TODO_MESH}")
+    pctx = pctx or ParallelCtx()
+    if pctx.tp is not None:
+        raise NotImplementedError(f"tensor parallelism (pctx.tp): "
+                                  f"{TODO_MESH}")
+    if pctx.sp_impl not in ("ring", "a2a"):
+        raise ValueError(f"unknown sp_impl {pctx.sp_impl!r}; 'ring' or "
+                         f"'a2a'")
+    if pctx.sp is not None and pctx.sp_impl == "a2a":
+        raise NotImplementedError(f"sp_impl 'a2a': {TODO_ULYSSES}")
     if mlora_idx is not None or "_mlora" in params["layers"]:
         raise NotImplementedError(f"multi-LoRA rows: {TODO_LORA}")
     B, S = tokens.shape
@@ -374,6 +411,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
             active = torch.ones((B,), dtype=torch.bool, device=dev)
     else:
         positions = (pos_offset + torch.arange(S, device=dev))[None, :]
+    if pctx.sp is not None:
+        positions = positions + dist.get_rank(pctx.sp) * S
     positions = positions.expand(B, S)
     cos, sin = rotary_embedding(positions, Dh, base=cfg.rope_base,
                                 scaling=cfg.rope_scaling,
@@ -388,7 +427,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     wls = layer_windows(cfg)
     layers = params["layers"]
 
-    for li in range(cfg.n_layers):
+    def block(x, li):
         layer = {name: leaf[li] for name, leaf in layers.items()}
         if layers_hook is not None:
             layer = layers_hook(layer)
@@ -438,6 +477,11 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
             attn = attention(q, kd, vd, causal=True, q_offset=pos_offset,
                              scale=cfg.attn_scale, window=w,
                              attn_softcap=cfg.attn_softcap, impl=attn_impl)
+        elif pctx.sp is not None:
+            attn = ring_attention(
+                q, k, v, group=pctx.sp, scale=cfg.attn_scale, window=w,
+                attn_softcap=cfg.attn_softcap,
+                impl="dense" if attn_impl == "reference" else "auto")
         else:
             attn = attention(q, k, v, causal=True, scale=cfg.attn_scale,
                              window=w, attn_softcap=cfg.attn_softcap,
@@ -455,7 +499,16 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
         if cfg.post_norms:
             ff = rms_norm(ff, layer["ln_post_ffw"], eps=cfg.norm_eps,
                           offset=cfg.norm_offset)
-        x = x + ff
+        return x + ff
+
+    # The model has no randomness, so the recompute needs no RNG state.
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    for li in range(cfg.n_layers):
+        if remat:
+            x = checkpoint(block, x, li, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = block(x, li)
 
     if last_logit_only:
         x = x[:, -1:]

@@ -31,7 +31,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-shared",
                            "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("flash_prefill", "paged_decode", "paged_verify", "q8_expert",
-           "flash_decode")
+           "flash_decode", "flash_bwd")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -4,7 +4,15 @@ Counterpart of ``tpushare/ops/flash_attention.py``.
 
 - ``flash_attention`` -> ``csrc/flash_prefill.cu`` (replaces the Pallas
   ``_fa_kernel`` and ``_fa_stream_kernel``); plain version:
-  ``mha_reference``.
+  ``mha_reference``. Differentiable through ``FlashAttentionFn``.
+- ``flash_attention_partial`` -> the partial mode of
+  ``csrc/flash_prefill.cu`` (replaces ``_fa_kernel`` with
+  ``partial=True``: one KV chunk's unnormalized accumulator and softmax
+  stats, for ring attention); plain version:
+  ``flash_attention_partial_plain``.
+- ``flash_attention_bwd`` -> ``csrc/flash_bwd.cu``: the attention
+  gradient (the JAX package has none; its training differentiates the
+  reference paths); plain version: ``flash_attention_bwd_plain``.
 - ``paged_flash_decode`` -> ``csrc/paged_decode.cu`` (replaces the
   Pallas ``_paged_decode_kernel``, f32/bf16 and int8 pages); plain
   version: ``paged_flash_decode_plain``.
@@ -76,6 +84,59 @@ def _window(window: Optional[int]) -> int:
     return window
 
 
+def _scale(D: int, scale: Optional[float]) -> float:
+    return D ** -0.5 if scale is None else float(scale)
+
+
+def _cap(attn_softcap: Optional[float]) -> float:
+    return 0.0 if attn_softcap is None else float(attn_softcap)
+
+
+def _chunk_checks(what: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, *offsets) -> None:
+    """Validate q [B,Sq,H,D] against one KV chunk k, v [B,Sk,Hkv,D] for
+    the prefill-shaped kernels (flash, partial, gradient)."""
+    _check_cuda(what, q, k, v)
+    B, Sq, H, D = q.shape
+    Bk, Sk, Hkv, Dk = k.shape
+    if v.shape != k.shape or Bk != B or Dk != D or H % Hkv:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"{what}: kernel takes f32 or bf16, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    if not all(isinstance(o, int) for o in offsets):
+        raise TypeError(f"{what}: q_offset / k_offset must be Python ints")
+
+
+def _flash_launch(q, k, v, *, q_offset, scale, window, attn_softcap,
+                  with_lse: bool):
+    """Launch the flash prefill kernel: (out in q's type, and the f32
+    [B, H, Sq] log-sum-exp when ``with_lse``, else None)."""
+    _chunk_checks("flash_attention", q, k, v, q_offset)
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if B == 0 or Sq == 0:
+        return out, lse
+    fn = _lib("flash_prefill", "ts_flash_prefill",
+              [_P] * 5 + [_I] * 9 + [_F, _F, _P])
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              0 if lse is None else lse.data_ptr(),
+              B, Sq, Sk, H, Hkv, D, _DTYPE_CODE[q.dtype], q_offset,
+              _window(window), _scale(D, scale), _cap(attn_softcap),
+              torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0,
                     scale: Optional[float] = None,
@@ -87,42 +148,234 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q [B, Sq, H, D]; k, v [B, Sk, Hkv, D]; ``q_offset`` (a Python int)
     is the absolute position of q[0]. On CUDA: f32 or bf16, D in
     {128, 256}, any Sq >= 1 and any Sk. On CPU: ``mha_reference``.
+    When autograd records (grad mode on, q, k or v requiring grad) the
+    call goes through ``FlashAttentionFn``: the same kernel, plus its
+    log-sum-exp, and ``flash_attention_bwd`` for the gradient.
     """
+    kw = dict(q_offset=q_offset, scale=scale, window=window,
+              attn_softcap=attn_softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, q_offset, scale, window,
+                                      attn_softcap)
     if q.device.type == "cpu":
-        return mha_reference(q, k, v, q_offset=q_offset, scale=scale,
-                             window=window, attn_softcap=attn_softcap)
-    _check_cuda("flash_attention", q, k, v)
-    B, Sq, H, D = q.shape
-    Bk, Sk, Hkv, Dk = k.shape
-    if v.shape != k.shape or Bk != B or Dk != D or H % Hkv:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: kernel takes f32 or bf16, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {D}")
-    if not isinstance(q_offset, int):
-        raise TypeError("flash_attention: q_offset must be a Python int")
-    out = torch.empty_like(q)
-    if B == 0 or Sq == 0:
-        return out
-    fn = _lib("flash_prefill", "ts_flash_prefill",
-              [_P] * 4 + [_I] * 9 + [_F, _F, _P])
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              B, Sq, Sk, H, Hkv, D, _DTYPE_CODE[q.dtype], q_offset,
-              _window(window),
-              D ** -0.5 if scale is None else float(scale),
-              0.0 if attn_softcap is None else float(attn_softcap),
-              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, "flash_attention")
-    flash_attention.launches += 1
-    return out
+        return mha_reference(q, k, v, **kw)
+    return _flash_launch(q, k, v, with_lse=False, **kw)[0]
 
 
 flash_attention.launches = 0
+
+
+def softmax_dsum(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """rowsum(dout * out) as f32 [B, H, Sq] from BSHD tensors: the
+    ``dsum`` input of the attention gradient."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its gradient. Forward: the prefill kernel
+    with its log-sum-exp (on CPU tensors the plain partial pass,
+    normalized). Backward: ``flash_attention_bwd`` (its plain version on
+    CPU tensors), its f32 gradients cast to the inputs' types."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, scale, window, attn_softcap):
+        kw = dict(q_offset=q_offset, scale=scale, window=window,
+                  attn_softcap=attn_softcap)
+        if q.device.type == "cpu":
+            acc, m, l = flash_attention_partial_plain(q, k, v, **kw)
+            out = (acc / l.clamp(min=1e-30).transpose(1, 2)[..., None]
+                   ).to(q.dtype)
+            lse = m + torch.log(l)
+        else:
+            out, lse = _flash_launch(q, k, v, with_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, lse,
+                                         softmax_dsum(dout, out), **ctx.kw)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
+
+
+def _chunk_scores(q, k, *, q_offset, k_offset, scale, window, attn_softcap):
+    """Plain scores of q against one KV chunk, grouped [B, Hkv, G, Sq, Sk]
+    f32, with the causal/window keep-mask [Sq, Sk]: the scale multiplies
+    q before the dot, then the softcap, as the kernels do. Returns
+    (scaled grouped q, raw scores, capped scores, keep)."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, D).float() * _scale(D, scale)
+    raw = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    s = raw if attn_softcap is None else \
+        attn_softcap * torch.tanh(raw / attn_softcap)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    k_pos = k_offset + torch.arange(Sk, device=q.device)[None, :]
+    keep = k_pos <= q_pos
+    if window is not None:
+        keep &= window_keep(q_pos, k_pos, window)
+    return qg, raw, s, keep
+
+
+def flash_attention_partial_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, q_offset: int = 0,
+                                  k_offset: int = 0,
+                                  scale: Optional[float] = None,
+                                  window: Optional[int] = None,
+                                  attn_softcap: Optional[float] = None):
+    """Plain version of the partial kernel — the contract of the JAX
+    ``partial_reference`` (and of ring attention's ``chunk_dense``):
+    (acc [B, Sq, H, D] f32 unnormalized, m [B, H, Sq] f32, l [B, H, Sq]
+    f32) of q against one KV chunk at absolute positions ``q_offset`` /
+    ``k_offset``. Masked logits are NEG_INF and masked p is 0 by the mask,
+    so a fully masked row gives m = NEG_INF, l = 0, acc = 0."""
+    B, Sq, H, D = q.shape
+    _, _, s, keep = _chunk_scores(q, k, q_offset=q_offset, k_offset=k_offset,
+                                  scale=scale, window=window,
+                                  attn_softcap=attn_softcap)
+    s = torch.where(keep, s, NEG_INF)
+    m = s.amax(dim=-1)                                 # [B, Hkv, G, Sq]
+    p = torch.where(keep, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return (acc.reshape(B, Sq, H, D), m.reshape(B, H, Sq),
+            l.reshape(B, H, Sq))
+
+
+def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, q_offset: int = 0,
+                            k_offset: int = 0,
+                            scale: Optional[float] = None,
+                            window: Optional[int] = None,
+                            attn_softcap: Optional[float] = None):
+    """One KV chunk's flash pass returning the UNNORMALIZED accumulator
+    and the softmax stats, for cross-chunk merging (ring attention).
+
+    q [B, Sq, H, D]; k, v [B, Sk, Hkv, D]; ``q_offset`` / ``k_offset``
+    (Python ints) are the absolute positions of q[0] and k[0]. Returns
+    (acc [B, Sq, H, D] f32, m [B, H, Sq] f32, l [B, H, Sq] f32) with
+    softmax(...) @ v == acc / l after merging. On CUDA: f32 or bf16, D in
+    {128, 256}, any Sq >= 1 and Sk; the kernel skips key tiles past the
+    causal frontier and below the window. On CPU:
+    ``flash_attention_partial_plain``. Launches in ``.launches``.
+    """
+    kw = dict(q_offset=q_offset, k_offset=k_offset, scale=scale,
+              window=window, attn_softcap=attn_softcap)
+    if q.device.type == "cpu":
+        return flash_attention_partial_plain(q, k, v, **kw)
+    _chunk_checks("flash_attention_partial", q, k, v, q_offset, k_offset)
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((B, Sq, H, D), **f32)
+    m = torch.empty((B, H, Sq), **f32)
+    l = torch.empty((B, H, Sq), **f32)
+    if B == 0 or Sq == 0:
+        return acc, m, l
+    fn = _lib("flash_prefill", "ts_flash_partial",
+              [_P] * 6 + [_I] * 10 + [_F, _F, _P])
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+              m.data_ptr(), l.data_ptr(), B, Sq, Sk, H, Hkv, D,
+              _DTYPE_CODE[q.dtype], q_offset, k_offset, _window(window),
+              _scale(D, scale), _cap(attn_softcap),
+              torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "flash_attention_partial")
+    flash_attention_partial.launches += 1
+    return acc, m, l
+
+
+flash_attention_partial.launches = 0
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor,
+                              lse: torch.Tensor, dsum: torch.Tensor, *,
+                              q_offset: int = 0, k_offset: int = 0,
+                              scale: Optional[float] = None,
+                              window: Optional[int] = None,
+                              attn_softcap: Optional[float] = None):
+    """Plain version of the gradient kernel: (dq [B, Sq, H, D], dk, dv
+    [B, Sk, Hkv, D]), all f32, of q against one KV chunk, given the
+    final per-row ``lse`` = m + log(l) and ``dsum`` = rowsum(dout * out)
+    (both f32 [B, H, Sq]). p = exp(s - lse) where the mask keeps, else 0
+    (by the mask); ds = p (dout.v - dsum) times the softcap factor
+    1 - tanh^2(raw / cap); the scale reaches dq and dk as the forward
+    applies it (to q before the dot); dk and dv sum over each GQA
+    group."""
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qg, raw, s, keep = _chunk_scores(q, k, q_offset=q_offset,
+                                     k_offset=k_offset, scale=scale,
+                                     window=window,
+                                     attn_softcap=attn_softcap)
+    lse_g = lse.reshape(B, Hkv, G, Sq)[..., None]
+    p = torch.where(keep, torch.exp(s - lse_g), 0.0)
+    og = dout.reshape(B, Sq, Hkv, G, D).float()
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, og)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", og, v.float())
+    ds = p * (dp - dsum.reshape(B, Hkv, G, Sq)[..., None])
+    if attn_softcap is not None:
+        t = torch.tanh(raw / attn_softcap)
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * _scale(D, scale)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    return dq.reshape(B, Sq, H, D), dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor,
+                        dsum: torch.Tensor, *, q_offset: int = 0,
+                        k_offset: int = 0, scale: Optional[float] = None,
+                        window: Optional[int] = None,
+                        attn_softcap: Optional[float] = None):
+    """The attention gradient of q against one KV chunk: (dq, dk, dv),
+    f32, the contract of ``flash_attention_bwd_plain``. On CUDA: q, k, v
+    and dout of one type (f32 or bf16), lse and dsum f32 [B, H, Sq], D in
+    {128, 256}; two deterministic passes (dk/dv, then dq), no float
+    atomics. On CPU: the plain version. Launches in ``.launches``.
+    """
+    kw = dict(q_offset=q_offset, k_offset=k_offset, scale=scale,
+              window=window, attn_softcap=attn_softcap)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
+    _chunk_checks("flash_attention_bwd", q, k, v, q_offset, k_offset)
+    _check_cuda("flash_attention_bwd", q, dout, lse, dsum)
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: dout must match q, got "
+                         f"{dout.dtype} {tuple(dout.shape)}")
+    for name, t in (("lse", lse), ("dsum", dsum)):
+        if t.dtype != torch.float32 or t.shape != (B, H, Sq):
+            raise ValueError(f"flash_attention_bwd: {name} must be f32 "
+                             f"{(B, H, Sq)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, **f32)
+    dk = torch.empty(k.shape, **f32)
+    dv = torch.empty(k.shape, **f32)
+    if B == 0 or Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    fn = _lib("flash_bwd", "ts_flash_bwd", [_P] * 9 + [_I] * 10
+              + [_F, _F, _P])
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+              lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+              dv.data_ptr(), B, Sq, Sk, H, Hkv, D, _DTYPE_CODE[q.dtype],
+              q_offset, k_offset, _window(window), _scale(D, scale),
+              _cap(attn_softcap),
+              torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
 
 
 def paged_flash_verify_plain(q: torch.Tensor, pool_k: torch.Tensor,
@@ -238,8 +491,7 @@ def _paged_launch(what, lib, fn, q, pool_k, pool_v, table, pos, k_scale,
              table.data_ptr(), pos.data_ptr(), out.data_ptr(),
              B, Sq, H, Hkv, D, bs, table.shape[1], _DTYPE_CODE[q.dtype],
              page_code, _window(window),
-             D ** -0.5 if scale is None else float(scale),
-             0.0 if attn_softcap is None else float(attn_softcap),
+             _scale(D, scale), _cap(attn_softcap),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, what)
     return out
@@ -389,8 +641,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               + [_F, _F, _P])
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
               out.data_ptr(), B, M, H, Hkv, D, _DTYPE_CODE[q.dtype],
-              _window(window), D ** -0.5 if scale is None else float(scale),
-              0.0 if attn_softcap is None else float(attn_softcap),
+              _window(window), _scale(D, scale), _cap(attn_softcap),
               torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "flash_decode")
     flash_decode.launches += 1
