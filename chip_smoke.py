@@ -110,6 +110,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -194,6 +195,28 @@ def nvidia_smi() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log):
+    """[kernel, registers, spill store bytes, spill load bytes] for each
+    entry function of an nvcc ``-Xptxas -v`` log; the kernel is its
+    mangled name from the namespace on, without the parameter list."""
+    out, name, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = re.sub(r"^.*?_cu_[0-9a-f]+", "", m.group(1))
+            name = re.split(r"E+v", name)[0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append([name, int(m.group(1)), *spill])
+            name, spill = None, (0, 0)
+    return out
 
 
 def time_ms(fn, iters, flush):
@@ -1527,9 +1550,7 @@ def main() -> int:
     logs = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": sorted(logs),
-          "ptxas": {n: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln][:4]
-                    for n, log in logs.items()}})
+          "ptxas": {n: ptxas_summary(log) for n, log in logs.items()}})
 
     # The slices' workloads, fixed first so the kernels phase can test
     # exactly the shapes the slices will launch.

@@ -463,6 +463,109 @@ def test_flash_attention_grad_vs_autograd_reference(dev, window, softcap):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+# Long bf16 cases for the tensor-core bodies (every main path runs bf16):
+# many tiles, both head widths, GQA groups of 1, 2, 4 and 8, ragged
+# lengths, q/k offsets, and windows that straddle a 64-key tile. The f32
+# results (partial accumulator, gradients) are sums over up to 2048 rows
+# and are held to chip_smoke.py's f32-sum gate (floor F32_SUM_FLOOR of
+# the tensor's largest element, the 2^-7 relative term unchanged), the
+# normalized bf16 output to the rule above.
+# (B, Sq, Sk, H, Hkv, D, q_offset, window, softcap)
+TC_PREFILL_CASES = [
+    (1, 1024, 1024, 8, 8, 128, 0, None, None),
+    (1, 2048, 2048, 8, 4, 256, 0, None, 50.0),
+    (1, 1000, 1000, 16, 4, 128, 0, 100, None),
+    (1, 1000, 2048, 32, 4, 128, 1048, None, 30.0),
+    (2, 1024, 1024, 8, 1, 256, 0, 200, 50.0),
+]
+# (B, Sq, Sk, H, Hkv, D, q_offset, k_offset, window, softcap)
+TC_CHUNK_CASES = [
+    (1, 2048, 2048, 8, 8, 128, 2048, 0, None, None),
+    (1, 2048, 2048, 8, 4, 256, 2048, 2048, None, 50.0),
+    (1, 1000, 1024, 16, 4, 128, 1000, 500, 300, None),
+    (1, 1024, 1000, 32, 4, 128, 3000, 1500, None, 30.0),
+    (1, 1024, 1024, 8, 1, 256, 1024, 1024, 200, 50.0),
+]
+
+
+def _assert_sum_gate(got, want):
+    import chip_smoke
+    cmp = chip_smoke.compare(got, want, chip_smoke.F32_SUM_FLOOR)
+    assert cmp["ulp_ratio"] <= 1.0, cmp
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,q_offset,window,softcap",
+                         TC_PREFILL_CASES)
+def test_flash_prefill_tc_long_vs_plain(dev, B, Sq, Sk, H, Hkv, D, q_offset,
+                                        window, softcap):
+    g = torch.Generator(device=dev).manual_seed(13)
+    q = _rand(g, B, Sq, H, D, dtype=torch.bfloat16, dev=dev)
+    k = _rand(g, B, Sk, Hkv, D, dtype=torch.bfloat16, dev=dev)
+    v = _rand(g, B, Sk, Hkv, D, dtype=torch.bfloat16, dev=dev)
+    kw = dict(q_offset=q_offset, window=window, attn_softcap=softcap)
+    got, lse = fa._flash_launch(q, k, v, scale=None, with_lse=True, **kw)
+    want = attn_mod.mha_reference(q, k, v, **kw)
+    _assert_close(got, want, torch.bfloat16)
+    acc, m, l = fa.flash_attention_partial_plain(q, k, v, **kw)
+    _assert_sum_gate(lse, m + torch.log(l))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,qo,ko,window,softcap",
+                         TC_CHUNK_CASES)
+def test_flash_partial_tc_long_vs_plain(dev, B, Sq, Sk, H, Hkv, D, qo, ko,
+                                        window, softcap):
+    g = torch.Generator(device=dev).manual_seed(14)
+    q = _rand(g, B, Sq, H, D, dtype=torch.bfloat16, dev=dev)
+    k = _rand(g, B, Sk, Hkv, D, dtype=torch.bfloat16, dev=dev)
+    v = _rand(g, B, Sk, Hkv, D, dtype=torch.bfloat16, dev=dev)
+    kw = dict(q_offset=qo, k_offset=ko, window=window, attn_softcap=softcap)
+    got = fa.flash_attention_partial(q, k, v, **kw)
+    want = fa.flash_attention_partial_plain(q, k, v, **kw)
+    for a, b in zip(got, want):
+        _assert_sum_gate(a, b)
+
+
+def _bwd_long_inputs(dev, B, Sq, Sk, H, Hkv, D, qo, ko, window, softcap):
+    """q against the chunk k[ko:], with the lse and dsum of attention over
+    every key up to the queries (as test_flash_bwd_vs_plain)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    q = _rand(g, B, Sq, H, D, dtype=torch.bfloat16, dev=dev)
+    k = _rand(g, B, ko + Sk, Hkv, D, dtype=torch.bfloat16, dev=dev)
+    v = _rand(g, B, ko + Sk, Hkv, D, dtype=torch.bfloat16, dev=dev)
+    do = _rand(g, B, Sq, H, D, dtype=torch.bfloat16, dev=dev)
+    kw = dict(q_offset=qo, window=window, attn_softcap=softcap)
+    acc, m, l = fa.flash_attention_partial_plain(q, k, v, **kw)
+    out = acc / l.clamp(min=1e-30).transpose(1, 2)[..., None]
+    lse, dsum = m + torch.log(l), fa.softmax_dsum(do, out)
+    ck, cv = k[:, ko:].contiguous(), v[:, ko:].contiguous()
+    return (q, ck, cv, do, lse, dsum), dict(k_offset=ko, **kw)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,qo,ko,window,softcap",
+                         TC_CHUNK_CASES)
+def test_flash_bwd_tc_long_vs_plain(dev, B, Sq, Sk, H, Hkv, D, qo, ko,
+                                    window, softcap):
+    args, kw = _bwd_long_inputs(dev, B, Sq, Sk, H, Hkv, D, qo, ko, window,
+                                softcap)
+    got = fa.flash_attention_bwd(*args, **kw)
+    want = fa.flash_attention_bwd_plain(*args, **kw)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        _assert_sum_gate(a, b)
+
+
+@pytest.mark.parametrize("case", [TC_CHUNK_CASES[2], TC_CHUNK_CASES[4]])
+def test_flash_bwd_is_deterministic(dev, case):
+    """Two passes and no float atomics: the gradient of the same inputs is
+    bit-equal run to run (the ring returns identical dk/dv to every
+    owner only so)."""
+    args, kw = _bwd_long_inputs(dev, *case)
+    first = fa.flash_attention_bwd(*args, **kw)
+    second = fa.flash_attention_bwd(*args, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_partial_and_bwd_wrappers_raise(dev):
     q = torch.zeros((1, 4, 2, 128), device=dev)
     with pytest.raises(TypeError, match="Python ints"):

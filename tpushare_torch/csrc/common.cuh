@@ -5,6 +5,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
 #include <type_traits>
 
 // Masked logit: large-negative instead of -inf keeps the online
@@ -108,4 +109,30 @@ __device__ __forceinline__ void ts_key_range(long long first, long long last,
   end = (int)max(0LL, min((long long)Sk, last + 1 - k_offset));
   const long long lo = first - w_eff + 1 - k_offset;
   begin = lo > 0 ? (int)min((long long)Sk, (lo / BLK) * BLK) : 0;
+}
+
+// The converse, for the gradient's dk/dv pass: the query rows (relative
+// to q; begin rounded down to a tile of BLK) that can see a key at an
+// absolute position in [kfirst, klast] — causal from the first key,
+// inside the window of the last; end <= begin when none can.
+template <int BLK>
+__device__ __forceinline__ void ts_query_range(long long kfirst,
+                                               long long klast, int q_offset,
+                                               int Sq, long long w_eff,
+                                               int& begin, int& end) {
+  const long long r_lo = max(0LL, kfirst - q_offset);
+  begin = (int)min((long long)Sq, (r_lo / BLK) * BLK);
+  end = (int)max(0LL, min((long long)Sq, klast + w_eff - q_offset));
+}
+
+// The causal/window mask relative to the row: key kc (relative to the
+// chunk) is live for query row r (relative to q) iff kc < Sk and d_lo <
+// kc - r <= d_hi, d_hi = q_offset - k_offset (causal edge), d_lo = d_hi -
+// w_eff (window floor), each clamped to int so the test is 32-bit.
+__device__ __forceinline__ void ts_rel_limits(int q_offset, int k_offset,
+                                              long long w_eff, int& d_lo,
+                                              int& d_hi) {
+  const long long hi = (long long)q_offset - k_offset;
+  d_hi = (int)max((long long)INT_MIN, min((long long)INT_MAX, hi));
+  d_lo = (int)max((long long)INT_MIN, min((long long)INT_MAX, hi - w_eff));
 }
