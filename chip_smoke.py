@@ -25,9 +25,13 @@ Phases, one JSON line each, each with its own seconds:
           could take (bound) and a library route's (SDPA for prefill;
           for the paged kernels: gather the live pages into a dense
           view, dequantize int8, then SDPA with the boolean mask,
-          timed together). Planted faults must fail the same check: an
-          off-by-one causal edge (prefill, verify), a dropped page
-          (decode), two heads' scale pages swapped (int8).
+          timed together; for flash_decode, whose softcap SDPA lacks,
+          SDPA at the same shape without it, a stated proxy). Planted
+          faults must fail the same check: an off-by-one causal edge
+          (prefill, verify), a dropped page (decode), two heads' scale
+          pages swapped (int8). Beside each: the bf16 outputs the kernel
+          rounded the other way from the plain version (flips); q8's
+          two passes' device time.
   slice   Gemma-2B at full width (random bf16 weights from a seeded
           generator) served by PagedSlotServer over the paged KV pool:
           8 prompts of 16..2048 tokens, 32 greedy decode ticks (then 4
@@ -376,6 +380,9 @@ def paged_case(fa, F, torch, np, dev, flush, kernel, name, pos, pages, Sq,
     cmp = compare(got, want)
     if not (cmp["ulp_ratio"] <= 1.0):
         raise AssertionError(f"{kernel} {name}: {cmp}")
+    # bf16 outputs the kernel rounded the other way from the plain
+    # version: int8 KV pages downstream carry such flips further.
+    flips = int((got != want).sum())
     fault_ratio = None
     if fault:
         b = int(pos.argmax())
@@ -453,8 +460,8 @@ def paged_case(fa, F, torch, np, dev, flush, kernel, name, pos, pages, Sq,
            "pages": "int8" if int8 else "bf16", "B": B, "Sq": Sq, "H": H,
            "Hkv": Hkv, "D": D, "bs": bs, "max_pos": int(pos.max()),
            "live_rows": live_rows, "window": window, "softcap": softcap,
-           **cmp, "fault": fault, "fault_ulp_ratio": fault_ratio, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
+           **cmp, "flips": flips, "elements": got.numel(), "fault": fault,
+           "fault_ulp_ratio": fault_ratio, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "library_calls": ("gather, dequantize, SDPA" if int8
                              else "gather, SDPA"),
            "library_err": library_err, "bound_ms": bms, "bound_by": by,
@@ -819,6 +826,7 @@ def q8_case(q8, F, torch, dev, flush, name, w, C, shared, act="silu",
     cmp = compare(got, want)
     if not (cmp["ulp_ratio"] <= 1.0):
         raise AssertionError(f"q8_expert_ffn {name}: {cmp}")
+    flips = int((got != want).sum())   # bf16 outputs rounded the other way
     fault_ratio = None
     if fault:
         bad = sd.clone()
@@ -844,6 +852,11 @@ def q8_case(q8, F, torch, dev, flush, name, w, C, shared, act="silu",
                             * torch.matmul(x, wub), wdb)
 
     library_ms = time_ms(library, 3, flush)
+    # Device time of each of the kernel's two passes (one profiled call).
+    with DeviceProfile(1) as prof:
+        q8.q8_expert_ffn(x, *w, act=act)
+    pass_ms = {k: v for k, v in prof.stats["top_kernels_ms_per_tick"].items()
+               if "q8_pass" in k}
     tokens = C * (1 if shared else E)          # rows each expert runs
     flops = 2 * 3 * Dm * Fd * (C * E if shared else tokens)
     nbytes = (x.numel() * 2 + 3 * E * Dm * Fd + 4 * E * (2 * Fd + Dm)
@@ -852,8 +865,9 @@ def q8_case(q8, F, torch, dev, flush, name, w, C, shared, act="silu",
     row = {"phase": "kernels", "kernel": "q8_expert_ffn", "case": name,
            "E": E, "C": C, "x": "shared" if shared else "per_expert",
            "Dm": Dm, "F": Fd, "act": act, **cmp,
-           "fault_ulp_ratio": fault_ratio, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms,
+           "flips": flips, "elements": E * C * Dm,
+           "fault_ulp_ratio": fault_ratio, "ms": ms, "pass_ms": pass_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
            "library_calls": "widen (dequant_hook math), 3 torch.matmul",
            "bound_ms": bms, "bound_by": by, "tflops": flops / ms / 1e9,
            "gb_s": nbytes / ms / 1e6}
@@ -861,7 +875,7 @@ def q8_case(q8, F, torch, dev, flush, name, w, C, shared, act="silu",
     return row
 
 
-def flash_decode_case(fa, torch, np, dev, flush, name, pos, M, H, Hkv, D,
+def flash_decode_case(fa, F, torch, np, dev, flush, name, pos, M, H, Hkv, D,
                       window=None, softcap=None, seed=6, fault=False):
     """One flash_decode case over contiguous rows [B, M, Hkv, D] at the
     given positions. ``fault``: the kernel attends pos + 1 (one position
@@ -890,6 +904,17 @@ def flash_decode_case(fa, torch, np, dev, flush, name, pos, M, H, Hkv, D,
     ms = time_ms(lambda: fa.flash_decode(q, k, v, pos_t, **kw), 30, flush)
     plain_ms = time_ms(lambda: fa.flash_decode_plain(q, k, v, pos_t, **kw),
                        10, flush)
+    # SDPA has no softcap, so no one PyTorch call computes this; as a
+    # stated proxy, SDPA at the same shape and mask without the softcap.
+    kpos = torch.arange(M, device=dev)
+    pl = pos_t.long()[:, None]
+    mask = kpos <= pl
+    if window:
+        mask &= kpos > pl - window
+    mask = mask[:, None, None]                          # [B, 1, 1, M]
+    kt, vt, qt = k.transpose(1, 2), v.transpose(1, 2), q.transpose(1, 2)
+    proxy_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), 30, flush)
     p = np.asarray(pos, np.int64)
     lo = np.maximum(0, p - window + 1) if window else np.zeros_like(p)
     live = int((np.minimum(p + 1, M) - lo).sum())
@@ -900,8 +925,9 @@ def flash_decode_case(fa, torch, np, dev, flush, name, pos, M, H, Hkv, D,
            "B": B, "M": M, "H": H, "Hkv": Hkv, "D": D, "max_pos": int(p.max()),
            "live_rows": live, "window": window, "softcap": softcap, **cmp,
            "fault_ulp_ratio": fault_ratio, "ms": ms, "plain_ms": plain_ms,
-           # SDPA has no softcap: no one PyTorch call computes this.
            "library_ms": None, "library_calls": None,
+           "library_ms_no_softcap": proxy_ms,
+           "library_no_softcap_calls": "SDPA, same mask, no softcap (proxy)",
            "bound_ms": bms, "bound_by": by,
            "gb_s": nbytes / ms / 1e6}
     emit(row)
@@ -1715,7 +1741,7 @@ def main() -> int:
         q8c(f"mixtral_per_expert_c{cap_c}", mw, cap_c, False),
         q8c("mixtral_gelu_c8", mw, 8, True, act="gelu")]
     del mw
-    fdc = functools.partial(flash_decode_case, fa, torch, np, dev, flush)
+    fdc = functools.partial(flash_decode_case, fa, F, torch, np, dev, flush)
     fdec = [fdc("gemma2_2b_local", g_dec_pos, g_sched["max_len"], 8, 4, 256,
                 window=gcfg.sliding_window, softcap=gcfg.attn_softcap,
                 fault=True),
@@ -2214,6 +2240,9 @@ def main() -> int:
                 "library_calls": main.get("library_calls", "SDPA"),
                 "case": main["case"]}
 
+    def largest(cases):
+        return max(cases, key=lambda r: r["bound_ms"])
+
     src = "tpushare_torch/csrc/"
     ref_fa = "tpushare/ops/flash_attention.py:"
     kernels = [
@@ -2228,10 +2257,13 @@ def main() -> int:
               ver[:1 + len(fused_cases)], ver),
         entry("paged_flash_verify_int8", src + "paged_verify.cu",
               ref_fa + "843", ver8, ver8),
-        entry("q8_expert_ffn", src + "q8_expert.cu",
-              "tpushare/ops/q8_expert.py:170", q8_path, q8_all),
-        entry("flash_decode", src + "flash_decode.cu", ref_fa + "483",
-              fdec, fdec),
+        dict(entry("q8_expert_ffn", src + "q8_expert.cu",
+                   "tpushare/ops/q8_expert.py:170", q8_path, q8_all),
+             pass_ms=largest(q8_path)["pass_ms"]),
+        dict(entry("flash_decode", src + "flash_decode.cu", ref_fa + "483",
+                   fdec, fdec),
+             library_ms_no_softcap=largest(fdec)["library_ms_no_softcap"],
+             library_no_softcap_calls=fdec[0]["library_no_softcap_calls"]),
         dict(entry("flash_attention_partial", src + "flash_prefill.cu",
                    ref_fa + "453", part_a, part_a + (part_b,)),
              library_ms_no_softcap=part_b["library_ms"],

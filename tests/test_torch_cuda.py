@@ -192,6 +192,44 @@ def test_paged_verify_vs_plain(dev, dtype, int8, Sq, H, Hkv, D, bs, window,
     assert torch.all(got[4] == 0)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("Sq,H,Hkv,D,bs,window,softcap", [
+    (512, 32, 8, 128, 16, None, None),
+    (512, 8, 4, 256, 16, 300, 50.0),
+])
+def test_paged_verify_tc_long_vs_plain(dev, int8, Sq, H, Hkv, D, bs, window,
+                                       softcap):
+    """A fused tick's width over long slots whose first pages are shared
+    (a prefix hit), bf16 q: the tensor-core body's gathered walk across
+    many tiles, row tiles and both page types."""
+    from tpushare_torch.models import quant
+    g = torch.Generator(device=dev).manual_seed(16)
+    B, nb, mb, prefix = 3, 400, 128, 20
+    pos = np.array([700, 1200, 0], np.int32)
+    rows_k = _rand(g, nb, bs, Hkv, D, dtype=torch.float32, dev=dev)
+    rows_v = _rand(g, nb, bs, Hkv, D, dtype=torch.float32, dev=dev)
+    sc = {}
+    if int8:
+        (pk, sk), (pv, sv) = quant.kv_quantize(rows_k), quant.kv_quantize(rows_v)
+        sc = {"k_scale": quant.scales_to_pool_layout(sk),
+              "v_scale": quant.scales_to_pool_layout(sv)}
+    else:
+        pk, pv = rows_k.to(torch.bfloat16), rows_v.to(torch.bfloat16)
+    ids = list(np.random.default_rng(3).permutation(nb - 1))
+    table = np.full((B, mb), -1, np.int32)
+    for b in range(B):
+        n = (int(pos[b]) + Sq - 1) // bs + 1
+        table[b, :n] = [ids.pop() for _ in range(n)]
+    table[1, :prefix] = table[0, :prefix]          # a shared prefix
+    q = _rand(g, B, Sq, H, D, dtype=torch.bfloat16, dev=dev)
+    args = (q, pk, pv, torch.as_tensor(table, device=dev),
+            torch.as_tensor(pos, device=dev))
+    kw = dict(window=window, attn_softcap=softcap, **sc)
+    got = fa.paged_flash_verify(*args, **kw)
+    want = fa.paged_flash_verify_plain(*args, **kw)
+    _assert_close(got, want, torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,H,Hkv,D,window,softcap", [
     (300, 8, 4, 256, None, None),
@@ -233,7 +271,8 @@ def _q8_weights(g, dev, E, Dm, Fd):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 @pytest.mark.parametrize("C,shared", [(1, True), (8, True), (37, True),
-                                      (8, False), (37, False)])
+                                      (8, False), (37, False), (130, True),
+                                      (300, True), (130, False)])
 def test_q8_expert_vs_plain(dev, dtype, act, C, shared):
     g = torch.Generator(device=dev).manual_seed(7)
     E, Dm, Fd = 4, 256, 384
@@ -247,6 +286,32 @@ def test_q8_expert_vs_plain(dev, dtype, act, C, shared):
     want = q8.q8_expert_ffn_reference(x, *w, act=act)
     assert got.dtype == dtype and got.shape == (E, C, Dm)
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("C,shared", [(8, True), (8, False), (64, True)])
+def test_q8_expert_mixtral_width_vs_plain(dev, C, shared):
+    """Mixtral-8x7B's widths (d_model 4096, d_ff 14336) on two experts:
+    the bf16 body's full ring depth and both passes' long walks."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    E, Dm, Fd = 2, 4096, 14336
+    w = _q8_weights(g, dev, E, Dm, Fd)
+    x = _rand(g, *((C, Dm) if shared else (E, C, Dm)), dtype=torch.bfloat16,
+              dev=dev)
+    got = q8.q8_expert_ffn(x, *w)
+    want = q8.q8_expert_ffn_reference(x, *w)
+    _assert_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("C,shared", [(8, True), (300, True), (130, False)])
+def test_q8_expert_is_deterministic(dev, C, shared):
+    """Two passes and no float atomics: the same inputs give bit-equal
+    outputs launch to launch."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    E, Dm, Fd = 4, 256, 384
+    w = _q8_weights(g, dev, E, Dm, Fd)
+    x = _rand(g, *((C, Dm) if shared else (E, C, Dm)), dtype=torch.bfloat16,
+              dev=dev)
+    assert torch.equal(q8.q8_expert_ffn(x, *w), q8.q8_expert_ffn(x, *w))
 
 
 def test_q8_and_flash_decode_wrappers_raise(dev):

@@ -115,7 +115,12 @@ def q8_expert_ffn(x: torch.Tensor, wgq: torch.Tensor, wgs: torch.Tensor,
     y = torch.empty((E, C, Dm), dtype=x.dtype, device=x.device)
     if C == 0:
         return y
-    ff = torch.empty((E, C, Fd), dtype=torch.float32, device=x.device)
+    # Scratch between the kernel's two passes: ff in f32 (f32 x), or as
+    # its three bf16 terms (bf16 x; csrc/q8_expert.cu says why three).
+    ff = (torch.empty((E, C, Fd), dtype=torch.float32, device=x.device)
+          if x.dtype == torch.float32 else
+          torch.empty((3, E, C, Fd), dtype=torch.bfloat16,
+                      device=x.device))
     fn = _build.load("q8_expert").ts_q8_expert_ffn
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
