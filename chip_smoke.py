@@ -25,13 +25,20 @@ Phases, one JSON line each, each with its own seconds:
           could take (bound) and a library route's (SDPA for prefill;
           for the paged kernels: gather the live pages into a dense
           view, dequantize int8, then SDPA with the boolean mask,
-          timed together; for flash_decode, whose softcap SDPA lacks,
-          SDPA at the same shape without it, a stated proxy). Planted
+          timed together; where the case has a softcap, which SDPA
+          lacks: flex_attention under torch.compile, timed in the flex
+          phase below, and for flash_decode SDPA at the same shape
+          without the softcap beside it, a stated proxy; the same for
+          slice_train's global layer below). Planted
           faults must fail the same check: an off-by-one causal edge
           (prefill, verify), a dropped page (decode), two heads' scale
           pages swapped (int8). Beside each: the bf16 outputs the kernel
           rounded the other way from the plain version (flips); q8's
-          two passes' device time.
+          two passes' device time. Decode cases must give equal bits on
+          two launches, and add their split count, the device time of
+          the split and merge kernels and a call's host time. Every
+          kernel time is device time only: the stream is held in a
+          device spin until the timed loop is enqueued (time_ms).
   slice   Gemma-2B at full width (random bf16 weights from a seeded
           generator) served by PagedSlotServer over the paged KV pool:
           8 prompts of 16..2048 tokens, 32 greedy decode ticks (then 4
@@ -99,6 +106,13 @@ Phases, one JSON line each, each with its own seconds:
           geometry (4 shards of 2048), partial passes merged by the
           ring's merge and gradients summed over hops, against their plain
           versions (faults: k_offset + 1, a zero dsum).
+  flex    the softcapped cases' library call, flex_attention under
+          torch.compile with the softcap as its score_mod and the mask
+          as its block mask, on the kernels phase's inputs; it runs
+          after the slices so that no compile runs ahead of their
+          timings. Each case's time, distance from the plain version
+          and compile seconds (also on the seconds line) fill its
+          kernels row's library columns.
 
 The slices and the training runs set the launch counters to 0 just
 before their run and read them just after; every kernel variant its
@@ -226,21 +240,158 @@ def ptxas_summary(log):
 def time_ms(fn, iters, flush):
     """Mean device time of ``fn`` over ``iters`` launches, each timed
     alone with CUDA events after the 50 MB L2 is overwritten (a
-    serving tick finds each layer's KV cold)."""
+    serving tick finds each layer's KV cold).
+
+    The stream first spins on the device (torch.cuda._sleep) until the
+    host has enqueued every iteration, so each event pair brackets
+    device work only. Without it the device idles between the start
+    event and the kernel while the host runs the wrapper's checks and
+    its ctypes call, which can take longer than a 10-30 us kernel. The
+    spin is sized from one iteration's host time and lengthened (at
+    most twice) until an event recorded after it is still pending once
+    the loop is enqueued."""
     import torch
     fn()
     torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        flush.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
+    t0 = time.perf_counter()
+    flush.zero_()
+    fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    cycles = int(iters * host_s * 4e9) + 2 ** 20
+    for _ in range(3):
+        pairs = []
+        torch.cuda._sleep(cycles)
+        gate = torch.cuda.Event()
+        gate.record()
+        for _ in range(iters):
+            flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        covered = not gate.query()
+        torch.cuda.synchronize()
+        if covered:
+            break
+        cycles *= 4
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def host_us(fn):
+    """Host microseconds one call of ``fn`` takes to return (the
+    wrapper's checks, allocations and launches; the device runs on),
+    the mean of 20 calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / 20 * 1e6
+
+
+def kernel_ms(fn, *names):
+    """Device ms a call of ``fn`` spends in each kernel whose name holds
+    one of ``names`` (torch.profiler, mean of 10 calls)."""
+    fn()
+    with DeviceProfile(10) as prof:
+        for _ in range(10):
+            fn()
+    return {k: v for k, v in prof.stats["top_kernels_ms_per_tick"].items()
+            if any(n in k for n in names)}
+
+
+@functools.lru_cache(maxsize=None)
+def flex_fn(torch):
+    """torch.compile of torch.nn.attention.flex_attention: the one
+    PyTorch call that computes a softcapped, masked attention (timed as
+    a yardstick; the port never calls it). Each new shape, mask or
+    score function compiles once; the caller times that apart. The
+    recompile limit is raised so that no case falls back to eager
+    unnoticed."""
+    from torch.nn.attention.flex_attention import flex_attention
+    torch._dynamo.config.cache_size_limit = 64
+    return torch.compile(flex_attention, dynamic=False)
+
+
+def flex_library(torch, dev, flush, name, q, k, v, softcap, mask_mod, Sq,
+                 want, iters, *, lse=False, grad=None, prep=None):
+    """Time flex_attention under torch.compile on q [B, Sq, H, D] and
+    k, v [B, Sk, Hkv, D] (``prep``: a function of no arguments timed
+    with the call that returns k, v, e.g. a page gather), with the
+    softcap as its score_mod and ``mask_mod`` as its block mask.
+    ``lse``: forward with the log-sum-exp; ``grad`` = (do, (dq, dk,
+    dv)): time the backward from do instead. Returns (library_ms, its
+    max |distance| from ``want`` (or from the plain gradients), compile
+    seconds, error text or None)."""
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask
+        fn = flex_fn(torch)
+        B, Sk = k.shape[0], k.shape[1]
+        bm = create_block_mask(mask_mod, B, None, Sq, Sk, device=dev)
+        cap = float(softcap)
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return cap * torch.tanh(score / cap)
+
+        qt = q.transpose(1, 2)
+        if grad is not None:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            do = grad[0].transpose(1, 2)
+        t0 = time.perf_counter()
+        if grad is None:
+            def call():
+                kk, vv = prep() if prep else (k, v)
+                return fn(qt, kk.transpose(1, 2), vv.transpose(1, 2),
+                          score_mod=score_mod, block_mask=bm,
+                          enable_gqa=True, return_lse=lse)
+            out = call()
+            out = (out[0] if lse else out).transpose(1, 2)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+        else:
+            o = fn(qt, kt, vt, score_mod=score_mod, block_mask=bm,
+                   enable_gqa=True)
+
+            def call():
+                return torch.autograd.grad(o, (qt, kt, vt), do,
+                                           retain_graph=True)
+            got = call()
+            torch.cuda.synchronize()
+            err = max((a.transpose(1, 2).float() - b.float()).abs().max()
+                      .item() for a, b in zip(got, grad[1]))
+        compile_s = time.perf_counter() - t0
+        return time_ms(call, iters, flush), err, compile_s, None
+    except Exception as e:  # a yardstick only: record why, gate nothing
+        return None, None, None, f"{name}: {type(e).__name__}: {e}"[:600]
+
+
+# flex_library calls held until after the slices: (row, call).
+FLEX_LATER = []
+
+
+def flex_later(row, *args, **kw):
+    """Queue ``flex_library(*args, **kw)`` for the flex phase, which
+    fills ``row``'s library columns."""
+    FLEX_LATER.append((row, functools.partial(flex_library, *args, **kw)))
+
+
+def run_flex_later():
+    """The flex phase: run every queued flex_library call in order,
+    fill its row and emit one line per case."""
+    while FLEX_LATER:
+        row, call = FLEX_LATER.pop(0)
+        (row["library_ms"], row["library_err"], row["flex_compile_s"],
+         row["library_error"]) = call()
+        emit({"phase": "flex", "kernel": row["kernel"], "case": row["case"],
+              **{k: row[k] for k in ("library_ms", "library_err",
+                                     "library_error", "flex_compile_s")}})
 
 
 def compare(got, want, floor_of_max=None):
@@ -345,7 +496,10 @@ def paged_case(fa, F, torch, np, dev, flush, kernel, name, pos, pages, Sq,
     kv_quant pool holds them. ``fault``: "page" drops one live page of
     the longest slot, "causal" runs the kernel one position late (row s
     attends pos + s + 1), "scale" swaps two heads' scale pages on the
-    longest slot's pages; the same check must reject each."""
+    longest slot's pages; the same check must reject each. Decode cases
+    add the split count, the device time of the split and merge
+    kernels, the host time of a call, and require two launches to give
+    equal bits."""
     from tpushare_torch.models.quant import kv_quantize, scales_to_pool_layout
     B, mb = len(pos), mb or nb
     rng = np.random.default_rng(seed)
@@ -405,9 +559,23 @@ def paged_case(fa, F, torch, np, dev, flush, kernel, name, pos, pages, Sq,
         if not (fault_ratio > 1.0):
             raise AssertionError(f"{kernel} {name}: the check missed the "
                                  f"planted {fault} fault ({fault_ratio})")
+    decode = kernel == "paged_flash_decode"
+
+    def run():
+        return kern(q, pool_k, pool_v, table_t, pos_t, **kw)
+    extra = {}
+    if decode:
+        if not torch.equal(run(), got):
+            raise AssertionError(f"{kernel} {name}: two launches on the "
+                                 f"same inputs differ")
+        extra = {"splits": fa.decode_splits(
+                     B, H, Hkv, mb * bs, torch.cuda.get_device_properties(
+                         dev).multi_processor_count),
+                 "bit_equal": True,
+                 "kernel_ms": kernel_ms(run, "split_kernel", "merge_kernel"),
+                 "host_us": host_us(run)}
     big = Sq * H >= 1024
-    ms = time_ms(lambda: kern(q, pool_k, pool_v, table_t, pos_t, **kw),
-                 10 if big else 50, flush)
+    ms = time_ms(run, 10 if big else 50, flush)
     plain_ms = time_ms(lambda: plain(q, pool_k, pool_v, table_t, pos_t, **kw),
                        5 if big else 10, flush)
     # The work these inputs need: (row, key) pairs the mask keeps, and
@@ -426,46 +594,70 @@ def paged_case(fa, F, torch, np, dev, flush, kernel, name, pos, pages, Sq,
     flops = 4 * D * H * pairs
     bms, by = bound(flops, nbytes)
     library_ms = library_err = None
+    # The library route: gather the live pages into a dense view (int8
+    # pages dequantized), then one SDPA with the boolean mask; with a
+    # softcap, which SDPA lacks, flex_attention with the softcap as its
+    # score_mod and the same mask as its block mask.
+    n = int(max(pages))
+    tbl = table_t[:, :n].clamp(min=0).long()
+    alloc = (table_t[:, :n] >= 0).repeat_interleave(bs, dim=1)  # [B, K]
+
+    def gather():
+        kd, vd = pool_k[tbl], pool_v[tbl]           # [B, n, bs, Hkv, D]
+        if int8:
+            kd = (kd.float() * scl["k_scale"][tbl].transpose(-1, -2)
+                  [..., None]).to(bf)
+            vd = (vd.float() * scl["v_scale"][tbl].transpose(-1, -2)
+                  [..., None]).to(bf)
+        return (kd.reshape(B, n * bs, Hkv, D), vd.reshape(B, n * bs, Hkv, D))
+
+    rows = torch.as_tensor(keep.any(axis=2), device=dev)  # [B, Sq]
     if softcap is None:
-        # The library route: gather the live pages into a dense view
-        # (int8 pages dequantized), then one SDPA with the boolean mask.
-        n = int(max(pages))
-        tbl = table_t[:, :n].clamp(min=0).long()
         kpos = torch.arange(n * bs, device=dev)
         qp = pos_t.long()[:, None, None] + torch.arange(Sq, device=dev)[:, None]
-        mask = (kpos <= qp) & (table_t[:, :n] >= 0).repeat_interleave(
-            bs, dim=1)[:, None, :]
+        mask = (kpos <= qp) & alloc[:, None, :]
         if window:
             mask &= kpos > qp - window
         mask = mask[:, None]                            # [B, 1, Sq, K]
 
         def library():
-            kd, vd = pool_k[tbl], pool_v[tbl]           # [B, n, bs, Hkv, D]
-            if int8:
-                kd = (kd.float() * scl["k_scale"][tbl].transpose(-1, -2)
-                      [..., None]).to(bf)
-                vd = (vd.float() * scl["v_scale"][tbl].transpose(-1, -2)
-                      [..., None]).to(bf)
-            kd = kd.reshape(B, n * bs, Hkv, D).transpose(1, 2)
-            vd = vd.reshape(B, n * bs, Hkv, D).transpose(1, 2)
+            kd, vd = gather()
             return F.scaled_dot_product_attention(
-                q.transpose(1, 2), kd, vd, attn_mask=mask,
-                enable_gqa=True).transpose(1, 2)
+                q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True).transpose(1, 2)
 
-        rows = torch.as_tensor(keep.any(axis=2), device=dev)  # [B, Sq]
         lib = library()
         library_err = (lib.float() - want.float()).abs()[rows].max().item()
         library_ms = time_ms(library, 5 if big else 10, flush)
+        library_calls = ("gather, dequantize, SDPA" if int8
+                         else "gather, SDPA")
+    else:
+        pl = pos_t.long()
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            keep_ = (kv_idx <= pl[b] + q_idx) & alloc[b, kv_idx]
+            if window:
+                keep_ = keep_ & (kv_idx > pl[b] + q_idx - window)
+            return keep_
+
+        library_calls = ("gather, " + ("dequantize, " if int8 else "")
+                         + "flex_attention (torch.compile; softcap "
+                         "score_mod, block mask)")
     row = {"phase": "kernels", "kernel": kernel, "case": name,
            "pages": "int8" if int8 else "bf16", "B": B, "Sq": Sq, "H": H,
            "Hkv": Hkv, "D": D, "bs": bs, "max_pos": int(pos.max()),
            "live_rows": live_rows, "window": window, "softcap": softcap,
            **cmp, "flips": flips, "elements": got.numel(), "fault": fault,
-           "fault_ulp_ratio": fault_ratio, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "library_calls": ("gather, dequantize, SDPA" if int8
-                             else "gather, SDPA"),
-           "library_err": library_err, "bound_ms": bms, "bound_by": by,
-           "gb_s": nbytes / ms / 1e6}
+           "fault_ulp_ratio": fault_ratio, "ms": ms, **extra,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_calls": library_calls, "library_err": library_err,
+           "library_error": None, "flex_compile_s": None,
+           "bound_ms": bms, "bound_by": by, "gb_s": nbytes / ms / 1e6}
+    if softcap is not None:
+        kd, vd = gather()
+        flex_later(row, torch, dev, flush, f"{kernel} {name}", q, kd, vd,
+                   softcap, mask_mod, Sq, want, 5 if big else 10,
+                   prep=gather)
     emit(row)
     return row
 
@@ -879,7 +1071,9 @@ def flash_decode_case(fa, F, torch, np, dev, flush, name, pos, M, H, Hkv, D,
                       window=None, softcap=None, seed=6, fault=False):
     """One flash_decode case over contiguous rows [B, M, Hkv, D] at the
     given positions. ``fault``: the kernel attends pos + 1 (one position
-    too many); the same check must reject it."""
+    too many); the same check must reject it. Two launches must give
+    equal bits; the row adds the split count, the split and merge
+    kernels' device time and a call's host time."""
     B = len(pos)
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
@@ -901,16 +1095,35 @@ def flash_decode_case(fa, F, torch, np, dev, flush, name, pos, M, H, Hkv, D,
         if not (fault_ratio > 1.0):
             raise AssertionError(f"flash_decode {name}: the check missed a "
                                  f"row attending pos + 1 ({fault_ratio})")
-    ms = time_ms(lambda: fa.flash_decode(q, k, v, pos_t, **kw), 30, flush)
+
+    def run():
+        return fa.flash_decode(q, k, v, pos_t, **kw)
+    if not torch.equal(run(), got):
+        raise AssertionError(f"flash_decode {name}: two launches on the "
+                             f"same inputs differ")
+    splits = fa.decode_splits(B, H, Hkv, M, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    split_ms = kernel_ms(run, "split_kernel", "merge_kernel")
+    call_us = host_us(run)
+    ms = time_ms(run, 30, flush)
     plain_ms = time_ms(lambda: fa.flash_decode_plain(q, k, v, pos_t, **kw),
                        10, flush)
-    # SDPA has no softcap, so no one PyTorch call computes this; as a
-    # stated proxy, SDPA at the same shape and mask without the softcap.
+    # The one PyTorch call: flex_attention with the softcap as its
+    # score_mod and the row's live range as its block mask.
+    pl = pos_t.long()
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        keep = kv_idx <= pl[b]
+        if window:
+            keep = keep & (kv_idx > pl[b] - window)
+        return keep
+
+    # Beside it, SDPA at the same shape and mask without the softcap (a
+    # stated proxy).
     kpos = torch.arange(M, device=dev)
-    pl = pos_t.long()[:, None]
-    mask = kpos <= pl
+    mask = kpos <= pl[:, None]
     if window:
-        mask &= kpos > pl - window
+        mask &= kpos > pl[:, None] - window
     mask = mask[:, None, None]                          # [B, 1, 1, M]
     kt, vt, qt = k.transpose(1, 2), v.transpose(1, 2), q.transpose(1, 2)
     proxy_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -924,12 +1137,20 @@ def flash_decode_case(fa, F, torch, np, dev, flush, name, pos, M, H, Hkv, D,
     row = {"phase": "kernels", "kernel": "flash_decode", "case": name,
            "B": B, "M": M, "H": H, "Hkv": Hkv, "D": D, "max_pos": int(p.max()),
            "live_rows": live, "window": window, "softcap": softcap, **cmp,
-           "fault_ulp_ratio": fault_ratio, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": None, "library_calls": None,
+           "fault_ulp_ratio": fault_ratio, "ms": ms, "splits": splits,
+           "bit_equal": True, "kernel_ms": split_ms, "host_us": call_us,
+           "plain_ms": plain_ms,
+           "library_ms": None,
+           "library_calls": "flex_attention (torch.compile; softcap "
+                            "score_mod, block mask)",
+           "library_err": None, "library_error": None,
+           "flex_compile_s": None,
            "library_ms_no_softcap": proxy_ms,
            "library_no_softcap_calls": "SDPA, same mask, no softcap (proxy)",
            "bound_ms": bms, "bound_by": by,
            "gb_s": nbytes / ms / 1e6}
+    flex_later(row, torch, dev, flush, f"flash_decode {name}", q, k, v,
+               softcap, mask_mod, 1, want, 30)
     emit(row)
     return row
 
@@ -960,13 +1181,16 @@ def check_case(failures, what, cmp, fault_cmp, fault_name):
 
 
 def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
-                          D, window, softcap):
+                          D, window, softcap, flex=False):
     """Case (a): slice_train's attention layer on one card, q and K/V
     over the whole sequence (a one-rank ring is one hop at offsets 0).
     flash_attention_partial against its plain version (fault: k_offset
     + 1), then flash_attention_bwd from that pass's lse and dsum
     (fault: a zero dsum, the term a kernel could drop). Both have a
-    softcap, so no PyTorch call computes either (library null)."""
+    softcap, which SDPA lacks; with ``flex`` (the global case) their
+    library times are flex_attention's under torch.compile (forward
+    with the lse; its backward), queued for the flex phase, else
+    null."""
     q, k, v, do = bf16_inputs(torch, dev, 7, [(1, S, H, D), (1, S, Hkv, D),
                                                (1, S, Hkv, D), (1, S, H, D)])
     kw = dict(q_offset=0, k_offset=0, window=window, attn_softcap=softcap)
@@ -981,7 +1205,8 @@ def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
     del got
     acc, m, l = want
     lse = m + torch.log(l)
-    dsum = fa.softmax_dsum(do, acc / l.transpose(1, 2)[..., None])
+    out = acc / l.transpose(1, 2)[..., None]
+    dsum = fa.softmax_dsum(do, out)
     del want, acc, m, l
     gotb = fa.flash_attention_bwd(q, k, v, do, lse, dsum, **kw)
     wantb = fa.flash_attention_bwd_plain(q, k, v, do, lse, dsum, **kw)
@@ -991,7 +1216,7 @@ def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
         q, k, v, do, lse, torch.zeros_like(dsum), **kw), wantb)
     check_case(failures, f"flash_attention_bwd {name}", cmpb, faultb,
                "a zero dsum")
-    del gotb, wantb
+    del gotb
     pairs = H * causal_pairs(S, S, 0, window)
     rows = []
     for kernel, fn, plain, flops, nbytes, c, f in (
@@ -1016,10 +1241,30 @@ def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
                "H": H, "Hkv": Hkv, "D": D, "window": window,
                "softcap": softcap, **c, "fault_ulp_ratio": f["ulp_ratio"],
                "ms": ms, "plain_ms": time_ms(plain, 3, flush),
-               "library_ms": None, "library_calls": None, "bound_ms": bms,
+               "library_ms": None,
+               "library_calls": "flex_attention (torch.compile; softcap "
+                                "score_mod, causal block mask)"
+                                + ("; forward with the lse"
+                                   if kernel == "flash_attention_partial"
+                                   else "; its backward") if flex else None,
+               "library_err": None, "library_error": None,
+               "flex_compile_s": None, "bound_ms": bms,
                "bound_by": by, "tflops": flops / ms / 1e9}
-        emit(row)
         rows.append(row)
+    if flex:
+        def mask_mod(b, h, q_idx, kv_idx):
+            keep = kv_idx <= q_idx
+            if window:
+                keep = keep & (kv_idx > q_idx - window)
+            return keep
+        flex_later(rows[0], torch, dev, flush,
+                   f"flash_attention_partial {name}", q, k, v, softcap,
+                   mask_mod, S, out, 5, lse=True)
+        flex_later(rows[1], torch, dev, flush, f"flash_attention_bwd {name}",
+                   q, k, v, softcap, mask_mod, S, None, 5, grad=(do, wantb))
+    del wantb, out
+    for row in rows:
+        emit(row)
     return rows
 
 
@@ -1564,6 +1809,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # flex_attention's compiled kernels are cached inside the checkout.
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(_build.BUILD_DIR, sub))
     dev = torch.device("cuda")
     card = nvidia_smi()
     t_start = time.perf_counter()
@@ -1752,7 +2001,7 @@ def main() -> int:
     failures = []
     part_a, bwd_a = zip(*[attention_layer_cases(
         fa, torch, dev, flush, failures, f"gemma2_2b_{wn}_s{TRAIN_SEQ}",
-        TRAIN_SEQ, 8, 4, 256, win, gcfg.attn_softcap)
+        TRAIN_SEQ, 8, 4, 256, win, gcfg.attn_softcap, flex=win is None)
         for wn, win in (("local", gcfg.sliding_window), ("global", None))])
     torch.cuda.empty_cache()
     part_b, bwd_b = ring_cases(fa, ring, F, torch, dev, flush, failures, 4,
@@ -2211,6 +2460,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    t_f = time.perf_counter()
+    run_flex_later()
+    flex_s = time.perf_counter() - t_f
+
     # The kernels line: one entry per kernel and page type, timed at
     # its largest main-path case; launches summed over the paths' runs.
     paths = {"slice": launches,
@@ -2276,9 +2529,10 @@ def main() -> int:
              library_ms_no_softcap=bwd_b["library_ms"],
              no_softcap_case=bwd_b["case"]),
     ]
-    # These run at softcapped shapes on their main paths, and SDPA has no
-    # softcap: no PyTorch call computes them (library_ms null; the
-    # partial and gradient entries carry their no-softcap ring case's).
+    # These run at softcapped shapes on their main paths, which SDPA
+    # lacks: their library call is flex_attention under torch.compile,
+    # null (with the error text in the case's row) where it does not
+    # compile; the SDPA readings without the softcap stay beside it.
     no_library = ("flash_decode", "flash_attention_partial",
                   "flash_attention_bwd")
     for k in kernels:
@@ -2289,7 +2543,10 @@ def main() -> int:
                 raise AssertionError(f"{k['name']}: {key} = {k[key]}")
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on a main path")
-    emit({"phase": "seconds", "kernels": kernels_s,
+    emit({"phase": "seconds", "kernels": kernels_s, "flex": flex_s,
+          "flex_compile": {f"{r['kernel']} {r['case']}": r["flex_compile_s"]
+                           for r in dec + fdec + list(part_a) + list(bwd_a)
+                           if r.get("flex_compile_s") is not None},
           "total": time.perf_counter() - t_start})
     if failures:
         raise AssertionError("failed gates:\n" + "\n".join(failures))

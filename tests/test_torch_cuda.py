@@ -82,6 +82,12 @@ def test_flash_prefill_vs_plain(dev, dtype, B, Sq, Sk, H, Hkv, D, q_offset,
     (32, 8, 128, 16, None, None),
     (4, 2, 128, 8, 20, 30.0),
     (8, 4, 128, 24, None, 50.0),
+    # GQA groups off the main paths (S > 1 at these shapes): g 3 pads to
+    # 4 heads, g 24 takes three blocks of 8 per kv head, g 12 one of 8
+    # and one of 4.
+    (12, 4, 128, 16, 40, 50.0),
+    (24, 1, 256, 16, None, None),
+    (12, 1, 128, 24, None, None),
 ])
 def test_paged_decode_vs_plain(dev, dtype, H, Hkv, D, bs, window, softcap):
     g = torch.Generator(device=dev).manual_seed(1)
@@ -236,6 +242,9 @@ def test_paged_verify_tc_long_vs_plain(dev, int8, Sq, H, Hkv, D, bs, window,
     (300, 8, 4, 256, 100, 50.0),
     (129, 32, 8, 128, None, None),
     (77, 4, 4, 128, 30, None),
+    (300, 12, 4, 128, 100, 50.0),    # g 3, 24 and 12, as in the paged test
+    (300, 24, 1, 256, None, None),
+    (300, 12, 1, 128, None, None),
 ])
 def test_flash_decode_vs_plain(dev, dtype, M, H, Hkv, D, window, softcap):
     """Contiguous rows, ragged positions (0, the last row, a window that
@@ -255,6 +264,118 @@ def test_flash_decode_vs_plain(dev, dtype, M, H, Hkv, D, window, softcap):
                                  attn_softcap=softcap)
     assert got.dtype == dtype and got.shape == q.shape
     _assert_close(got, want, dtype)
+
+
+def _splits(dev, B, H, Hkv, max_rows):
+    """The split count the decode wrappers launch on this card."""
+    return fa.decode_splits(B, H, Hkv, max_rows, torch.cuda.
+                            get_device_properties(dev).multi_processor_count)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 4096])
+def test_flash_decode_long_rows_across_splits(dev, dtype, window):
+    """M 8192 with Gemma-2-2B's heads: slots whose live range ends one
+    before, on and one past an edge where every split holds the same
+    number of tiles, the last row, 4096 (the window's width) and 0; the
+    4096 window's floor falls inside a split."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    B, M, H, Hkv, D = 6, 8192, 8, 4, 256
+    S = _splits(dev, B, H, Hkv, M)
+    assert S > 1
+    edge = S * fa.DECODE_TILE_ROWS * (7000 // (S * fa.DECODE_TILE_ROWS))
+    pos = torch.tensor([edge - 2, edge - 1, edge, M - 1, 4096, 0],
+                       dtype=torch.int32, device=dev)
+    k = _rand(g, B, M, Hkv, D, dtype=dtype, dev=dev)
+    v = _rand(g, B, M, Hkv, D, dtype=dtype, dev=dev)
+    q = _rand(g, B, 1, H, D, dtype=dtype, dev=dev)
+    got = fa.flash_decode(q, k, v, pos, window=window, attn_softcap=50.0)
+    want = fa.flash_decode_plain(q, k, v, pos, window=window,
+                                 attn_softcap=50.0)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_decode_one_slot_one_kv_head_most_splits(dev, int8):
+    """B 1 and Hkv 1 (Gemma-2B's geometry, one slot): the most splits
+    a grid takes, over a long slot with a -1 page in its range and bs
+    24 (pages and tiles out of step)."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    bs, nb, mb = 24, 400, 300
+    pos = [5000, 0, 0, 0, 0]
+    q, pk, pv, table, pos_t, sc = _paged_inputs(
+        g, dev, torch.bfloat16, 5, 1, 8, 1, 256, bs, nb, mb, pos, int8=int8)
+    q, table, pos_t = q[:1].contiguous(), table[:1].clone(), pos_t[:1]
+    table[0, 77] = -1
+    assert _splits(dev, 1, 8, 1, mb * bs) >= 100
+    got = fa.paged_flash_decode(q, pk, pv, table, pos_t, **sc)
+    want = fa.paged_flash_decode_plain(q, pk, pv, table, pos_t, **sc)
+    torch.cuda.synchronize()
+    _assert_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,window", [(16, None), (24, 1000), (16, 333)])
+def test_paged_decode_int8_across_splits(dev, dtype, bs, window):
+    """Int8 pages with Llama-3-8B's heads over slots of thousands of
+    positions, so each slot's walk spans several splits; windows whose
+    floor falls inside a split."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    pos = [3000, 1500, 63, 2047, 0]
+    q, pk, pv, table, pos_t, sc = _paged_inputs(
+        g, dev, dtype, 5, 1, 32, 8, 128, bs, 700, 200, pos, int8=True)
+    assert _splits(dev, 5, 32, 8, 200 * bs) > 1
+    got = fa.paged_flash_decode(q, pk, pv, table, pos_t, window=window,
+                                **sc)
+    want = fa.paged_flash_decode_plain(q, pk, pv, table, pos_t,
+                                       window=window, **sc)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    assert torch.all(got[4] == 0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_decode_filled_card_takes_one_split(dev, int8):
+    """B x Hkv >= the card's SMs: one split, the kernel writes the
+    output itself (no merge)."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    B, H, Hkv, D, bs = 34, 32, 8, 128, 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B = max(B, -(-sms // Hkv))
+    pos = [(37 * b) % 900 for b in range(B)]
+    q, pk, pv, table, pos_t, sc = _paged_inputs(
+        g, dev, torch.bfloat16, B, 1, H, Hkv, D, bs, 2000, 60, pos,
+        int8=int8)
+    assert _splits(dev, B, H, Hkv, 60 * bs) == 1
+    got = fa.paged_flash_decode(q, pk, pv, table, pos_t, **sc)
+    want = fa.paged_flash_decode_plain(q, pk, pv, table, pos_t, **sc)
+    torch.cuda.synchronize()
+    _assert_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["paged", "paged_int8", "rows"])
+def test_decode_is_deterministic(dev, kind):
+    """Two launches on the same inputs give equal bits: the splits are
+    merged in split order."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    if kind == "rows":
+        B, M = 4, 8192
+        k = _rand(g, B, M, 4, 256, dtype=torch.bfloat16, dev=dev)
+        q = _rand(g, B, 1, 8, 256, dtype=torch.bfloat16, dev=dev)
+        pos = torch.tensor([8191, 5000, 17, 0], dtype=torch.int32,
+                           device=dev)
+
+        def run():
+            return fa.flash_decode(q, k, k * 0.5, pos, attn_softcap=50.0)
+    else:
+        q, pk, pv, table, pos_t, sc = _paged_inputs(
+            g, dev, torch.bfloat16, 5, 1, 8, 1, 256, 16, 700, 200,
+            [3000, 1500, 63, 2047, 0], int8=kind == "paged_int8")
+
+        def run():
+            return fa.paged_flash_decode(q, pk, pv, table, pos_t, **sc)
+    assert torch.equal(run(), run())
 
 
 def _q8_weights(g, dev, E, Dm, Fd):

@@ -24,6 +24,11 @@ Counterpart of ``tpushare/ops/flash_attention.py``.
   plain version: ``flash_decode_plain``, the masked ``mha_reference``
   of the dense ragged branch.
 
+The two decode kernels share one split-KV walk (``csrc/decode_tile.cuh``):
+``decode_splits`` picks how many blocks share each slot's KV walk, the
+wrapper allocates the splits' f32 partials with ``torch.empty``, and its
+one C call launches the split kernel and, past one split, their merge.
+
 Dispatch rule: a wrapper given CPU tensors runs the plain version; given
 CUDA tensors it checks device, dtype, shape and contiguity, launches its
 kernel on the current stream, and raises on anything the kernel does not
@@ -42,6 +47,7 @@ CUDA the port always launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -52,6 +58,11 @@ from tpushare_torch.ops.attention import NEG_INF, mha_reference, window_keep
 KERNEL_HEAD_DIMS = (128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _I8 = 2                          # page type code of int8 pages
+# The decode walk (csrc/decode_tile.cuh): positions per tile, and query
+# heads one block holds (a larger GQA group takes several blocks).
+DECODE_TILE_ROWS = 32
+DECODE_GROUP = 8
+H100_SMS = 132
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,6 +93,40 @@ def _window(window: Optional[int]) -> int:
         raise TypeError(f"window must be a Python int or None on the "
                         f"kernel path, got {type(window).__name__}")
     return window
+
+
+def decode_splits(B: int, H: int, Hkv: int, max_rows: int,
+                  sms: int = H100_SMS) -> int:
+    """How many splits the decode walk cuts each (slot, kv head) into,
+    from the shapes alone: enough that the grid of B x Hkv x ceil(g / 8)
+    x S blocks covers the card's ``sms`` SMs about twice, at most one
+    split per tile of the longest slot a cache can hold (``max_rows``: M
+    for rows, mb * bs for a paged pool), and 1 once B x Hkv blocks fill
+    the card. The kernel cuts each slot's live range into that many
+    tile-aligned pieces on the device (csrc/decode_tile.cuh)."""
+    blocks = B * Hkv * -(-(H // Hkv) // DECODE_GROUP)
+    if blocks >= sms:
+        return 1
+    tiles = -(-max_rows // DECODE_TILE_ROWS)
+    return max(1, min(-(-2 * sms // blocks), tiles))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_split_args(q: torch.Tensor, Hkv: int, max_rows: int):
+    """(S, scratch, its pointer) of one decode launch: the splits' f32
+    partials [B, H, S, D] and (m, l) [B, H, S, 2] in one ``torch.empty``
+    (held by the caller until the launch is enqueued), none when S = 1."""
+    B, _, H, D = q.shape
+    S = decode_splits(B, H, Hkv, max_rows, _sm_count(q.device.index or 0))
+    if S == 1:
+        return S, None, 0
+    scratch = torch.empty(B * H * S * (D + 2), dtype=torch.float32,
+                          device=q.device)
+    return S, scratch, scratch.data_ptr()
 
 
 def _scale(D: int, scale: Optional[float]) -> float:
@@ -476,22 +521,28 @@ def _paged_checks(what: str, q, pool_k, pool_v, table, pos, k_scale,
 
 
 def _paged_launch(what, lib, fn, q, pool_k, pool_v, table, pos, k_scale,
-                  v_scale, page_code, scale, window, attn_softcap):
-    """Launch one paged kernel (decode or verify: one C signature);
-    returns the output."""
+                  v_scale, page_code, scale, window, attn_softcap,
+                  split=False):
+    """Launch one paged kernel (decode or verify: one C signature, to
+    which decode, ``split``, adds its split count and scratch); returns
+    the output."""
     B, Sq, H, D = q.shape
     nb, bs, Hkv, _ = pool_k.shape
     out = torch.empty_like(q)
     if B == 0:
         return out
-    f = _lib(lib, fn, [_P] * 8 + [_I] * 10 + [_F, _F, _P])
+    tail, types = (), []
+    if split:
+        S, scratch, ptr = _decode_split_args(q, Hkv, table.shape[1] * bs)
+        tail, types = (S, ptr), [_I, _P]
+    f = _lib(lib, fn, [_P] * 8 + [_I] * 10 + [_F, _F] + types + [_P])
     code = f(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
              0 if k_scale is None else k_scale.data_ptr(),
              0 if v_scale is None else v_scale.data_ptr(),
              table.data_ptr(), pos.data_ptr(), out.data_ptr(),
              B, Sq, H, Hkv, D, bs, table.shape[1], _DTYPE_CODE[q.dtype],
              page_code, _window(window),
-             _scale(D, scale), _cap(attn_softcap),
+             _scale(D, scale), _cap(attn_softcap), *tail,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, what)
     return out
@@ -529,7 +580,8 @@ def paged_flash_decode(q: torch.Tensor, pool_k: torch.Tensor,
                          f"{q.shape[1]} (Sq > 1 is paged_flash_verify)")
     out = _paged_launch("paged_flash_decode", "paged_decode",
                         "ts_paged_decode", q, pool_k, pool_v, table, pos,
-                        k_scale, v_scale, page, scale, window, attn_softcap)
+                        k_scale, v_scale, page, scale, window, attn_softcap,
+                        split=True)
     if page == _I8:
         paged_flash_decode.launches_int8 += 1
     else:
@@ -637,11 +689,12 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    S, scratch, ptr = _decode_split_args(q, Hkv, M)
     fn = _lib("flash_decode", "ts_flash_decode", [_P] * 5 + [_I] * 7
-              + [_F, _F, _P])
+              + [_F, _F, _I, _P, _P])
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
               out.data_ptr(), B, M, H, Hkv, D, _DTYPE_CODE[q.dtype],
-              _window(window), _scale(D, scale), _cap(attn_softcap),
+              _window(window), _scale(D, scale), _cap(attn_softcap), S, ptr,
               torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "flash_decode")
     flash_decode.launches += 1
