@@ -49,6 +49,33 @@ Phases, one JSON line each, each with its own seconds:
           warms cuBLAS and the allocator first. A second server on the
           same weights with attn_impl="reference" checks the logits of
           every admission (both waves) and of each wave's first tick.
+  slice_engine
+          the serving engine (tpushare_torch/cli/serve.py) built by
+          build_engine(build_parser().parse_args(argv)), the argv a pod
+          runs, at Gemma-2B's full width and depth (8 slots), serving on
+          127.0.0.1:0 over real HTTP; two engines in turn, each stopped
+          and freed before the next. (A) greedy, overlapped tick: 8
+          concurrent completions of 16..2048 tokens, 32 tokens each; two
+          stream, an attached reader on one (same Idempotency-Key)
+          drops after 8 events and resumes with ?from=8 (an owner's
+          drop would cancel by contract); one is retried with its key;
+          two share a 1024-token prefix. Each stream is held against a
+          PagedSlotServer on the engine's weights driven directly: where
+          two part, the direct run's top-two logit gap there must be
+          within LOGIT_REL_TOL of its largest |logit| (a counted flip).
+          /stats must show a prefix hit and one fetch per tick. (B)
+          sampled speculation (int8-self, gamma 4, temperature 0.8,
+          top-k 64, top-p 0.95, seed 0): the same 8 prompts enqueued in
+          one fixed order before the engine starts, twice, on two
+          engines: identical streams, every token in the vocabulary,
+          an accept rate in (0, 1], one fetch per round. Each engine:
+          ms per tick (round) with every slot decoding and a profiled
+          16-tick window on the running engine, TTFT per request, the
+          direct server's ms per tick beside A's, the sampler's device
+          ms (greedy and sampled pick, a round's stochastic cores).
+          Then the sampler's law: 2^16 draws per row of one seeded
+          [8, 256128] logits tensor against softmax(filter_logits) on
+          the CPU, by TV; a planted fault (no top-p mask) must fail.
   slice_llama
           Llama-3-8B at full width (random bf16 weights, no cut in depth
           or width) through two servers, each against an
@@ -1785,6 +1812,559 @@ def serve_rows(torch, serving, cfg, params, sched, *, attn_impl):
     return res
 
 
+# -- slice_engine: the serving engine over real HTTP ---------------------
+
+# Engine A's streams against the directly driven server: where two part,
+# the direct run's top-two logit gap at that position must lie within the
+# served-logits gate (LOGIT_REL_TOL of the largest |logit|), the margin a
+# rounding flip between two batch compositions can cross; counted as
+# flips.
+# The sampler's law on the card: 2^16 draws per row; the TV distance to
+# the filtered softmax computed by the plain CPU path. The null TV of
+# 2^16 draws over <= 64 tokens is ~0.012; the limit is 2.5x that. The
+# planted fault (no top-p mask) at top_p 0.7 moves ~0.3 of the mass.
+SAMPLER_DRAWS = 1 << 16
+SAMPLER_TV_TOL = 0.03
+ENGINE_ARGV = ["--preset", "gemma_2b", "--n-slots", "8", "--n-blocks",
+               "1024", "--block-size", "16", "--port", "0", "--seed", "0"]
+ENGINE_B_ARGV = ["--draft-preset", "int8-self", "--gamma", "4",
+                 "--temperature", "0.8", "--top-k", "64", "--top-p", "0.95"]
+
+
+class TickClock:
+    """Wraps an engine's ``_tick``: the wall ms of every tick that ran a
+    dispatch (work_ticks moved) with the count of active slots, and an
+    event set once ``work_ticks`` reaches ``until``."""
+
+    def __init__(self, eng):
+        import threading
+        self.eng, self.ms, self.active = eng, [], []
+        self.until, self.reached = None, threading.Event()
+        inner = eng._tick
+
+        def tick(gen=None):
+            w0 = eng._stats["work_ticks"]
+            t0 = time.perf_counter()
+            inner(gen)
+            if eng._stats["work_ticks"] > w0:
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                self.active.append(len(eng._active))
+            if self.until is not None and \
+                    eng._stats["work_ticks"] >= self.until:
+                self.reached.set()
+        eng._tick = tick
+
+    def full_ms(self, n_slots):
+        """Tick ms over the ticks that ran with every slot decoding."""
+        return [m for m, a in zip(self.ms, self.active) if a >= n_slots]
+
+
+def http_post(port, body, idem=None, timeout=600):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    headers = {"Content-Type": "application/json"}
+    if idem:
+        headers["Idempotency-Key"] = idem
+    conn.request("POST", "/v1/completions", json.dumps(body).encode(),
+                 headers)
+    return conn, conn.getresponse()
+
+
+def http_json(port, method, path, body=None, idem=None, timeout=600):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        headers = {"Content-Type": "application/json"}
+        if idem:
+            headers["Idempotency-Key"] = idem
+        conn.request(method, path,
+                     None if body is None else json.dumps(body).encode(),
+                     headers)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"{}")
+    finally:
+        conn.close()
+
+
+def sse_frames(resp, limit=None):
+    """Token frames (raw bytes, the resume comparison surface) and
+    events of an SSE response, reading up to ``limit`` token events."""
+    frames, events, buf = [], [], b""
+    while limit is None or len(frames) < limit:
+        line = resp.readline()
+        if not line:
+            break
+        buf += line
+        if line == b"\n":
+            raw = buf.strip()
+            buf = b""
+            for ln in raw.splitlines():
+                if ln.startswith(b"data: "):
+                    ev = json.loads(ln[len(b"data: "):])
+                    events.append(ev)
+                    if "token" in ev:
+                        frames.append(raw + b"\n\n")
+            if events and ("done" in events[-1] or "error" in events[-1]):
+                break
+    return frames, events
+
+
+def engine_a_requests(port, prompts, max_tokens):
+    """Engine A's traffic, all concurrent: 8 completions, #5 and #6
+    streaming (#5 with an Idempotency-Key; an attached reader on its key
+    drops after 8 events and resumes with ?from=8, and an attached
+    reader never cancels), #7 posted once #5 streams (it shares #5's
+    1024-token prefix), #2 retried with its key once done. Returns
+    {index: tokens}, the ids, the resume frames and the retry check."""
+    import threading
+    out, ids, frames, errors = {}, {}, {}, []
+    started = threading.Event()
+
+    def blocking(i, idem=None):
+        st, body = http_json(port, "POST", "/v1/completions",
+                             {"prompt": prompts[i].tolist(),
+                              "max_tokens": max_tokens}, idem=idem)
+        if st != 200:
+            errors.append((i, st, body))
+            return
+        out[i], ids[i] = body["tokens"], body["id"]
+
+    def streaming(i, idem=None):
+        conn, resp = http_post(port, {"prompt": prompts[i].tolist(),
+                                      "max_tokens": max_tokens,
+                                      "stream": True}, idem=idem)
+        ids[i] = resp.getheader("X-Request-Id")
+        fr, ev = sse_frames(resp, limit=1)
+        if i == 5:
+            started.set()
+        more, ev2 = sse_frames(resp)
+        conn.close()
+        fr += more
+        ev += ev2
+        if not ev or ev[-1].get("done") is not True:
+            errors.append((i, "stream", ev[-1:] if ev else None))
+        frames[i] = fr
+        out[i] = [e["token"] for e in ev if "token" in e]
+
+    threads = [threading.Thread(target=blocking, args=(i,),
+                                kwargs={"idem": "a-2"} if i == 2 else {})
+               for i in range(5)]
+    threads += [threading.Thread(target=streaming, args=(5, "a-5")),
+                threading.Thread(target=streaming, args=(6,))]
+    for t in threads:
+        t.start()
+    if not started.wait(600):
+        raise AssertionError("engine A: request 5 never streamed")
+    # The attached reader: same key, same body; drops after 8 events.
+    conn, resp = http_post(port, {"prompt": prompts[5].tolist(),
+                                  "max_tokens": max_tokens, "stream": True},
+                           idem="a-5")
+    dropped, _ = sse_frames(resp, limit=8)
+    drop_id = resp.getheader("X-Request-Id")
+    conn.close()
+    last = threading.Thread(target=blocking, args=(7,))
+    last.start()
+    for t in threads + [last]:
+        t.join(600)
+    if errors:
+        raise AssertionError(f"engine A requests failed: {errors}")
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("GET", f"/v1/completions/{drop_id}?from=8")
+    resp = conn.getresponse()
+    resumed, _ = sse_frames(resp)
+    conn.close()
+    st, retry = http_json(port, "POST", "/v1/completions",
+                          {"prompt": prompts[2].tolist(),
+                           "max_tokens": max_tokens}, idem="a-2")
+    return {"tokens": out, "ids": ids, "frames": frames,
+            "dropped": dropped, "drop_id": drop_id, "resumed": resumed,
+            "retry": (st, retry)}
+
+
+def direct_run(torch, paged, cfg, params, prompts, order, n_tokens,
+               n_blocks, bs):
+    """The engine's prompts through a PagedSlotServer on the same
+    weights, driven directly in the engine's admission order: each
+    stream's tokens and, per position, the logits row it was picked
+    from, and the ms of each decode tick with every slot active."""
+    srv = paged.PagedSlotServer(params, cfg, n_slots=8, n_blocks=n_blocks,
+                                block_size=bs, prefix_cache=True)
+    rec = RecordingSampler(srv._sampler)
+    srv._sampler = rec
+    rec.record = True
+    streams, rows, slot_of = {}, {}, {}
+    for i in order:
+        slot = srv.admit_start(prompts[i])
+        streams[i] = [srv.admit_step(slot)]
+        rows[i] = [rec.seen[-1][0]]
+        slot_of[slot] = i
+    tick_ms = []
+    for _ in range(n_tokens - 1):
+        n0 = len(rec.seen)
+        t0 = time.perf_counter()
+        out = srv.step()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        logits = rec.seen[n0]
+        for s, tok in out.items():
+            streams[slot_of[s]].append(tok)
+            rows[slot_of[s]].append(logits[s])
+        del rec.seen[:]
+    for s in list(slot_of):
+        srv.evict(s)
+    del srv, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return streams, rows, tick_ms
+
+
+def stream_flips(got, want, rows, tol):
+    """Compare two token streams; where they part, the want side's
+    top-two logit gap at that position must be within ``tol`` of its
+    largest |logit|. Returns the flip (position, gap share) or None;
+    raises on a parting the gate does not cover."""
+    for pos, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        row = rows[pos]
+        top2 = row.topk(2).values
+        share = float((top2[0] - top2[1]) / row.abs().max())
+        if share > tol:
+            raise AssertionError(f"stream parts at {pos} ({a} vs {b}) with "
+                                 f"a top-two gap of {share:.4f} of the "
+                                 f"largest |logit| (gate {tol})")
+        return pos, share
+    if len(got) != len(want):
+        raise AssertionError(f"stream lengths {len(got)} vs {len(want)}")
+    return None
+
+
+def profile_engine_window(eng, clock, n):
+    """``DeviceProfile`` of ``n`` dispatches of a running engine (the
+    engine thread ticks; the window opens and closes on the caller's)."""
+    # The new bound first, then the clear: a tick between the two can no
+    # longer set the event for the old bound.
+    clock.until = eng._stats["work_ticks"] + n
+    clock.reached.clear()
+    with DeviceProfile(n) as prof:
+        if not clock.reached.wait(600):
+            raise AssertionError("engine made no progress in its window")
+    clock.until = None
+    return prof.stats
+
+
+def engine_window(serve_mod, eng, clock, prompts, max_tokens, n):
+    """The engine's own ms per tick with every slot decoding, then a
+    profiled window of ``n`` ticks: 8 fresh requests submitted directly
+    to the running engine."""
+    reqs = [serve_mod._Request(p.tolist(), max_tokens, None)
+            for p in prompts]
+    clock.ms.clear()
+    clock.active.clear()
+    for r in reqs:
+        if not eng.submit(r):
+            raise AssertionError("engine queue full")
+    while len(eng._active) < len(reqs):
+        if any(r.done.wait(0.01) for r in reqs):
+            break
+    # n timed ticks with every slot active, then n profiled ones.
+    clock.until = eng._stats["work_ticks"] + n
+    clock.reached.clear()
+    clock.reached.wait(600)
+    prof = profile_engine_window(eng, clock, n)
+    for r in reqs:
+        if not r.done.wait(600) or r.error:
+            raise AssertionError(f"window request failed: {r.error}")
+    return clock.full_ms(len(reqs))[:n], prof
+
+
+def engine_b_run(serve_mod, argv, prompts, max_tokens):
+    """Engine B over real HTTP in a fixed admission order: the handler
+    threads enqueue the 8 requests one at a time (each waits until the
+    previous sits in the queue) before the engine starts, so two engines
+    built with one seed see the same schedule. Returns the engine (still
+    running), its clock and {index: tokens}."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    eng = serve_mod.build_engine(serve_mod.build_parser().parse_args(argv))
+    clock = TickClock(eng)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                serve_mod.make_handler(eng, 600.0))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+    out, errors = {}, []
+
+    def post(i):
+        st, body = http_json(port, "POST", "/v1/completions",
+                             {"prompt": prompts[i].tolist(),
+                              "max_tokens": max_tokens})
+        if st != 200:
+            errors.append((i, st, body))
+        else:
+            out[i] = (body["tokens"], body["id"])
+
+    threads = []
+    for i in range(len(prompts)):
+        t = threading.Thread(target=post, args=(i,))
+        t.start()
+        threads.append(t)
+        t_wait = time.perf_counter()
+        while eng._pending.qsize() < i + 1:
+            if time.perf_counter() - t_wait > 60:
+                raise AssertionError("a request never reached the queue")
+            time.sleep(0.001)
+    t0 = time.perf_counter()
+    eng.start()
+    for t in threads:
+        t.join(600)
+    wall_s = time.perf_counter() - t0
+    if errors or len(out) != len(prompts):
+        raise AssertionError(f"engine B requests failed: {errors}")
+    return eng, httpd, clock, out, wall_s
+
+
+def sampler_law(torch, tgen, logits, configs, draws, chunk):
+    """Draw ``draws`` samples per row of ``logits`` [R, V] (on the card)
+    with ``tgen.sample_logits``, ``chunk`` copies of each row per call;
+    per row, the TV distance of the draws from ``softmax(filter_logits)``
+    computed by the plain CPU path. ``configs``: one (temperature, top_k,
+    top_p, sample_top_p) per row (sample_top_p is what the sampler
+    under test applies: the planted fault passes None)."""
+    R, V = logits.shape
+    tv = []
+    for r, (temp, k, p, p_s) in enumerate(configs):
+        want = torch.softmax(tgen.filter_logits(
+            logits[r:r + 1].cpu(), temp, top_k=k, top_p=p).double(), -1)[0]
+        counts = torch.zeros(V, dtype=torch.int64, device=logits.device)
+        gen = torch.Generator(device=logits.device).manual_seed(100 + r)
+        x = logits[r:r + 1].expand(chunk, V)
+        ones = torch.ones(chunk, dtype=torch.int64, device=logits.device)
+        for _ in range(draws // chunk):
+            toks = tgen.sample_logits(x, gen, temperature=temp, top_k=k,
+                                      top_p=p_s)
+            counts.index_add_(0, toks, ones)
+        hist = counts.double().cpu() / (draws // chunk * chunk)
+        tv.append(0.5 * float((hist - want).abs().sum()))
+    return tv
+
+
+def sampler_costs(torch, serving, spec, flush, V, gamma):
+    """Device ms of a tick's sampler on [8, V] f32 logits (greedy and
+    engine B's sampled config) and of a speculative round's stochastic
+    cores ([8, V] draft draws x gamma, [8, gamma + 1, V] acceptance)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    logits = torch.randn(8, V, generator=gen, device="cuda") * 2
+    tl = torch.randn(8, gamma + 1, V, generator=gen, device="cuda") * 2
+    kw = dict(temperature=0.8, top_k=64, top_p=0.95)
+    greedy = serving.TokenSampler(device="cuda")
+    sampled = serving.TokenSampler(seed=1, device="cuda", **kw)
+    g2 = torch.Generator(device="cuda").manual_seed(2)
+    base = torch.zeros(8, dtype=torch.int32, device="cuda")
+    drafts, q = spec.draft_sample_core(logits, g2, **kw)
+    qd = q[:, None].expand(8, gamma, V).contiguous()
+    dr = drafts[:, None].expand(8, gamma).contiguous()
+
+    def round_cores():
+        for _ in range(gamma):
+            spec.draft_sample_core(logits, g2, **kw)
+        spec.spec_accept_core(tl, dr, qd, g2, base, cap=1 << 20, **kw)
+
+    return {"greedy_pick_ms": time_ms(lambda: greedy.pick(logits), 20,
+                                      flush),
+            "sampled_pick_ms": time_ms(lambda: sampled.pick(logits), 20,
+                                       flush),
+            "spec_round_cores_ms": time_ms(round_cores, 5, flush)}
+
+
+def slice_engine(torch, np, paged, serving, cfg, dev, card, run_path,
+                 failures):
+    """The slice_engine phase (see the module docstring): returns the
+    launch counts of engine A's and engine B's HTTP runs; gate breaches
+    go to ``failures``."""
+    import importlib
+    V = cfg.vocab_size
+    bs = 16
+    serve_mod = importlib.import_module("tpushare_torch.cli.serve")
+    tgen = importlib.import_module("tpushare_torch.models.generate")
+    tspec = importlib.import_module("tpushare_torch.models.spec")
+    erng = np.random.default_rng(6)
+    e_len = [16, 100, 255, 511, 700, 1100, 1500, 2048]
+    e_prompts = [erng.integers(0, cfg.vocab_size, n) for n in e_len]
+    e_prompts[7] = np.concatenate([e_prompts[5][:1024], erng.integers(
+        0, cfg.vocab_size, e_len[7] - 1024)])      # shares #5's prefix
+    e_tokens, e_window = 32, 16
+    w_prompts = [erng.integers(0, cfg.vocab_size, 64) for _ in range(8)]
+
+    def engine_a():
+        eng = serve_mod.build_engine(
+            serve_mod.build_parser().parse_args(ENGINE_ARGV))
+        clock = TickClock(eng)
+        httpd = serve_mod.serve(eng, port=0, timeout_s=600.0)
+        t0 = time.perf_counter()
+        res = engine_a_requests(httpd.server_address[1],
+                                e_prompts, e_tokens)
+        res["wall_s"] = time.perf_counter() - t0
+        return eng, httpd, clock, res
+
+    (eng, httpd, clock, a_res), a_launches = run_path(
+        ("flash_attention", "paged_flash_decode"), engine_a)
+    _, a_stats = http_json(httpd.server_address[1], "GET", "/stats")
+    reqs = {i: eng.request_by_id(rid) for i, rid in a_res["ids"].items()}
+    a_ttft = [(reqs[i].t_first - reqs[i].t_submit) * 1e3 for i in range(8)]
+    order = sorted(reqs, key=lambda i: reqs[i].seq)
+    a_win_ms, a_prof = engine_window(serve_mod, eng, clock, w_prompts,
+                                     3 * e_window, e_window)
+    e_params = eng.srv.params
+    httpd.shutdown()
+    eng.stop()
+    del eng, httpd, clock, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_streams, d_rows, d_tick_ms = direct_run(
+        torch, paged, cfg, e_params, e_prompts, order, e_tokens, 1024, bs)
+    del e_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    a_flips = {}
+    for i in range(8):
+        got = a_res["tokens"][i]
+        if len(got) != e_tokens or not all(0 <= t < V for t in got):
+            failures.append(f"slice_engine A: stream {i} is {got}")
+            continue
+        try:
+            flip = stream_flips(got, d_streams[i], d_rows[i], LOGIT_REL_TOL)
+        except AssertionError as e:
+            failures.append(f"slice_engine A: stream {i}: {e}")
+            continue
+        if flip is not None:
+            a_flips[i] = flip
+    del d_rows
+    if a_res["dropped"] != a_res["frames"][5][:8] or \
+            a_res["resumed"] != a_res["frames"][5][8:]:
+        failures.append("slice_engine A: the resumed stream's events are "
+                        "not the uninterrupted ones")
+    st, retry = a_res["retry"]
+    if st != 200 or retry.get("id") != a_res["ids"][2] or \
+            retry.get("tokens") != a_res["tokens"][2]:
+        failures.append(f"slice_engine A: the idempotent retry answered "
+                        f"{st} {retry}")
+    if not a_stats["prefix_hit_tokens"] > 0:
+        failures.append("slice_engine A: no prefix hit")
+    if a_stats["device_fetches"] != a_stats["work_ticks"]:
+        failures.append(f"slice_engine A: {a_stats['device_fetches']} "
+                        f"fetches in {a_stats['work_ticks']} ticks")
+    emit({"phase": "slice_engine", "engine": "A", "argv": ENGINE_ARGV,
+          "prompt_lengths": e_len, "max_tokens": e_tokens,
+          "launches": a_launches, "flips": a_flips,
+          "streams_equal": 8 - len(a_flips),
+          "resumed_frames": len(a_res["resumed"]),
+          "ttft_ms": a_ttft, "http_wall_s": a_res["wall_s"],
+          "tok_s": 8 * e_tokens / a_res["wall_s"],
+          "ms_per_tick": mean(a_win_ms),
+          "ms_per_tick_median": median(a_win_ms), "tick_ms": a_win_ms,
+          "decode_tok_s": 8 / (mean(a_win_ms) / 1e3),
+          "direct_ms_per_tick": mean(d_tick_ms),
+          "direct_ms_per_tick_median": median(d_tick_ms),
+          "direct_tick_ms": d_tick_ms,
+          "host_cost_ms_per_tick": mean(a_win_ms) - mean(d_tick_ms),
+          "host_cost_ms_per_tick_median": median(a_win_ms)
+          - median(d_tick_ms),
+          "profile": a_prof, "prefix_hit_tokens":
+          a_stats["prefix_hit_tokens"],
+          "fetches_per_tick": a_stats["fetches_per_tick"],
+          "work_ticks": a_stats["work_ticks"],
+          "host_gap_ms": a_stats["host_gap_ms"], "card": card})
+
+    b_argv = ENGINE_ARGV + ENGINE_B_ARGV
+    b_runs = []
+    for rep in range(2):
+        if rep == 0:
+            (eng, httpd, clock, b_out, b_wall), b_launches = run_path(
+                ("flash_attention", "paged_flash_decode",
+                 "paged_flash_verify"), engine_b_run, serve_mod, b_argv,
+                e_prompts, e_tokens)
+        else:
+            eng, httpd, clock, b_out, b_wall = engine_b_run(
+                serve_mod, b_argv, e_prompts, e_tokens)
+        b_stats = eng.stats()
+        run_b = {"tokens": [b_out[i][0] for i in range(8)],
+                 "wall_s": b_wall, "stats": b_stats}
+        if rep == 0:
+            reqs = {i: eng.request_by_id(b_out[i][1]) for i in range(8)}
+            run_b["ttft_ms"] = [(reqs[i].t_first - reqs[i].t_submit) * 1e3
+                                for i in range(8)]
+            run_b["win_ms"], run_b["profile"] = engine_window(
+                serve_mod, eng, clock, w_prompts, 12 * e_window, e_window)
+            run_b["window_spec"] = eng.stats()["speculative"]
+            del reqs
+        b_runs.append(run_b)
+        httpd.shutdown()
+        eng.stop()
+        del eng, httpd, clock
+        gc.collect()
+        torch.cuda.empty_cache()
+    b1, b2 = b_runs
+    b_toks = [t for s in b1["tokens"] + b2["tokens"] for t in s]
+    rate = b1["stats"]["speculative"]["spec_accept_rate"]
+    if b1["tokens"] != b2["tokens"]:
+        failures.append("slice_engine B: two engines on one seed served "
+                        "different streams")
+    if not all(0 <= t < V for t in b_toks) or \
+            any(len(s) != e_tokens for s in b1["tokens"]):
+        failures.append("slice_engine B: a token outside [0, V) or a "
+                        "short stream")
+    if rate is None or not 0 < rate <= 1:
+        failures.append(f"slice_engine B: spec_accept_rate {rate}")
+    for b in b_runs:
+        if b["stats"]["device_fetches"] != b["stats"]["work_ticks"]:
+            failures.append(f"slice_engine B: {b['stats']['device_fetches']}"
+                            f" fetches in {b['stats']['work_ticks']} rounds")
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    costs = sampler_costs(torch, serving, tspec, flush, V, 4)
+    del flush
+    emit({"phase": "slice_engine", "engine": "B", "argv": b_argv,
+          "launches": b_launches, "reproduced": b1["tokens"] == b2["tokens"],
+          "spec_accept_rate": rate,
+          "spec_rounds": b1["stats"]["speculative"]["spec_rounds"],
+          "after_window": b1["window_spec"],
+          "mean_tokens_per_round":
+              b1["stats"]["speculative"]["mean_tokens_per_round"],
+          "ttft_ms": b1["ttft_ms"], "http_wall_s": [b1["wall_s"],
+                                                    b2["wall_s"]],
+          "tok_s": 8 * e_tokens / b1["wall_s"],
+          "ms_per_round": mean(b1["win_ms"]),
+          "ms_per_round_median": median(b1["win_ms"]),
+          "round_ms": b1["win_ms"],
+          "profile": b1["profile"],
+          "fetches_per_round": [b["stats"]["fetches_per_tick"]
+                                for b in b_runs],
+          "sampler": costs, "card": card})
+
+    # The sampler's law on the card: 2^16 draws per row of one seeded
+    # [8, V] f32 logits tensor, rows 0-3 at engine B's filters, rows 4-7
+    # at top_p 0.7; the fault skips the top-p mask on rows 4-7.
+    t_s = time.perf_counter()
+    s_logits = torch.randn(8, V, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(8))
+    served, tight = (0.8, 64, 0.95, 0.95), (0.8, 64, 0.7, 0.7)
+    law_tv = sampler_law(torch, tgen, s_logits, [served] * 4 + [tight] * 4,
+                         SAMPLER_DRAWS, 512)
+    fault_tv = sampler_law(torch, tgen, s_logits[4:],
+                           [tight[:3] + (None,)] * 4, SAMPLER_DRAWS, 512)
+    del s_logits
+    torch.cuda.empty_cache()
+    if not max(law_tv) <= SAMPLER_TV_TOL:
+        failures.append(f"slice_engine sampler law: TV {law_tv}")
+    if not min(fault_tv) > SAMPLER_TV_TOL:
+        failures.append(f"slice_engine sampler law: the planted fault "
+                        f"passed, TV {fault_tv}")
+    emit({"phase": "slice_engine_sampler", "draws_per_row": SAMPLER_DRAWS,
+          "filters": [list(c[:3]) for c in [served] * 4 + [tight] * 4],
+          "tv": law_tv, "tv_tol": SAMPLER_TV_TOL, "fault_tv": fault_tv,
+          "seconds": time.perf_counter() - t_s, "card": card})
+    return a_launches, b_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2119,6 +2699,12 @@ def main() -> int:
           "seconds": time.perf_counter() - t_g, "card": card})
     del params, run, ref
     torch.cuda.empty_cache()
+
+    # -- slice_engine: the serving engine over real HTTP ----------------
+    t_e = time.perf_counter()
+    a_launches, b_launches = slice_engine(torch, np, paged, serving, cfg,
+                                          dev, card, run_path, failures)
+    engine_s = time.perf_counter() - t_e
 
     # -- slice_llama: Llama-3-8B at full width, speculative + fused + int8
     t_l = time.perf_counter()
@@ -2466,7 +3052,8 @@ def main() -> int:
 
     # The kernels line: one entry per kernel and page type, timed at
     # its largest main-path case; launches summed over the paths' runs.
-    paths = {"slice": launches,
+    paths = {"slice": launches, "slice_engine_a": a_launches,
+             "slice_engine_b": b_launches,
              **{f"slice_llama_{m}": c for m, c in l_launches.items()},
              **{f"slice_moe_{m}": c for m, c in m_launches.items()},
              "slice_rows": r_launches, "slice_train_sgd": sgd_launches,
@@ -2543,7 +3130,8 @@ def main() -> int:
                 raise AssertionError(f"{k['name']}: {key} = {k[key]}")
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on a main path")
-    emit({"phase": "seconds", "kernels": kernels_s, "flex": flex_s,
+    emit({"phase": "seconds", "kernels": kernels_s, "engine": engine_s,
+          "flex": flex_s,
           "flex_compile": {f"{r['kernel']} {r['case']}": r["flex_compile_s"]
                            for r in dec + fdec + list(part_a) + list(bwd_a)
                            if r.get("flex_compile_s") is not None},

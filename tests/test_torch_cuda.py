@@ -854,3 +854,48 @@ def test_ring_and_spmd_steps_across_cards(dev, tmp_path):
     for k_, a in want.items():
         np.testing.assert_allclose(got[f"adamw/{k_}"], a, rtol=0, atol=2e-5)
     assert int(got["adamw_count"]) == 6
+
+
+def test_tiny_engine_on_the_card(dev):
+    """A tiny bf16 engine on the card answers one HTTP request; its tick
+    runs in inference mode on the engine thread, and both attention
+    kernels launched from it."""
+    import http.client
+    import json
+    from tpushare_torch.cli import serve as serve_mod
+    from tpushare_torch.models import transformer as tt
+    cfg = tt.TransformerConfig(vocab_size=1000, d_model=256, n_layers=2,
+                               n_heads=4, n_kv_heads=2, head_dim=128,
+                               d_ff=512)
+    eng = serve_mod.ServeEngine(tt.init_params(0, cfg), cfg, n_slots=2,
+                                n_blocks=64, idle_sleep_s=0.001,
+                                chaos_spec="")
+    seen = []
+    real = eng.srv.step_async
+
+    def spy(*a, **kw):
+        seen.append((torch.is_inference_mode_enabled(),
+                     torch.cuda.current_device()))
+        return real(*a, **kw)
+
+    eng.srv.step_async = spy
+    fa.flash_attention.launches = fa.paged_flash_decode.launches = 0
+    httpd = serve_mod.serve(eng, port=0, timeout_s=120)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          httpd.server_address[1],
+                                          timeout=120)
+        conn.request("POST", "/v1/completions",
+                     json.dumps({"prompt": list(range(1, 40)),
+                                 "max_tokens": 6}))
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+    finally:
+        httpd.shutdown()
+        eng.stop()
+    assert resp.status == 200 and len(body["tokens"]) == 6
+    assert all(0 <= t < cfg.vocab_size for t in body["tokens"])
+    assert seen and all(inf for inf, _ in seen)
+    assert fa.flash_attention.launches > 0
+    assert fa.paged_flash_decode.launches > 0

@@ -427,8 +427,14 @@ class TestSampler:
         assert got.tolist()[1] == -1
 
     def test_temperature_refuses(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            tserving.TokenSampler(temperature=0.7)
+        """Temperature no longer refuses (sampling is ported): the
+        sampler draws in-vocabulary tokens off its own seeded generator
+        and never reads a global one."""
+        logits = torch.randn(5, 17, generator=torch.Generator().manual_seed(0))
+        picks = [tserving.TokenSampler(temperature=0.7, seed=3).pick(logits)
+                 for _ in range(2)]
+        assert picks[0].tolist() == picks[1].tolist()
+        assert all(0 <= t < 17 for t in picks[0].tolist())
 
 
 def _quantized_server(**kw):
@@ -513,29 +519,35 @@ class TestRefusals:
     @pytest.mark.parametrize("kw,item", [
         ({"multi_lora": object()}, "A9"),
         ({"mesh": object()}, "A10"),
-        ({"kv_quota": object()}, "A5"),
         # forward_fn itself is ported (paged MoE); speculation under it
         # is not.
         ({"forward_fn": object(), "speculative_draft": object()}, "A8"),
         ({"draft_forward_fn": object()}, "A8"),
-        ({"host_tier": object()}, "A5"),
-        ({"temperature": 0.7}, "A7"),
+        ({"host_tier": object()}, "A5b"),
     ])
     def test_unported_options(self, kw, item):
         with pytest.raises(NotImplementedError, match=item):
             _small_server(**kw)
 
     def test_stochastic_speculation_refuses(self):
-        cfg = bridge.config_from_jax(jt.tiny(remat=False))
-        with pytest.raises(NotImplementedError, match="A7"):
-            tspec.draft_sample_core(None)
-        with pytest.raises(NotImplementedError, match="A7"):
-            tspec.spec_accept_core(None)
+        """Stochastic speculation no longer refuses (ported): the cores
+        run and a temperature > 0 int8-self server serves rounds whose
+        tokens stay in the vocabulary."""
         params, cfg, qparams = _quantized_server()
-        with pytest.raises(NotImplementedError, match="A7"):
-            tpaged.PagedSlotServer(params, cfg, n_slots=2, n_blocks=8,
-                                   device="cpu", temperature=0.5,
-                                   speculative_draft=(qparams, cfg))
+        srv = tpaged.PagedSlotServer(params, cfg, n_slots=2, n_blocks=8,
+                                     device="cpu", temperature=0.5,
+                                     speculative_draft=(qparams, cfg),
+                                     draft_layers_hook=tquant.dequant_hook(
+                                         cfg))
+        slot = srv.admit(np.arange(5))
+        toks = srv.step()[slot]
+        assert 1 <= len(toks) <= srv.gamma + 1
+        assert all(0 <= t < cfg.vocab_size for t in toks)
+        tok, q = tspec.draft_sample_core(torch.zeros(1, 6),
+                                         torch.Generator(),
+                                         temperature=1.0)
+        assert 0 <= int(tok) < 6 and torch.allclose(q, torch.full_like(
+            q, 1 / 6))
 
     def test_adapters_refuse(self):
         srv, _ = _small_server()

@@ -44,9 +44,8 @@ from tpushare_torch.models.transformer import (
 from tpushare_torch.router.chainkeys import chain_keys
 
 # ROADMAP items that port what the port's server still leaves out.
-TODO_QUOTA = "ROADMAP A5 (per-tenant KV quota)"
 TODO_FAMILY = "ROADMAP A8 (MoE speculation: draft_forward_fn)"
-TODO_HOST_TIER = "ROADMAP A5 (host KV tier)"
+TODO_HOST_TIER = "ROADMAP A5b (host KV tier and migration)"
 
 
 class SlotCapacityExceeded(RuntimeError):
@@ -63,6 +62,19 @@ class PoolExhausted(RuntimeError):
     """Transient pool/slot pressure: the pool (or the slot array)
     cannot hold this admission right now, but blocks free as
     generations complete."""
+
+
+class QuotaExceeded(PoolExhausted):
+    """A per-tenant KV-block quota verdict (``slo.quota``), not
+    pool-wide pressure: ``kind`` is "ceiling" (the tenant's own burst
+    cap) or "reserve" (the admission would dig into another tenant's
+    floor); ``need`` is the fresh-block count refused."""
+
+    def __init__(self, msg: str, *, kind: str, tenant: str, need: int):
+        super().__init__(msg)
+        self.kind = kind
+        self.tenant = tenant
+        self.need = need
 
 
 @dataclasses.dataclass
@@ -491,9 +503,13 @@ class PagedSlotServer(SpecDecodeMixin):
     with ``quant.dequant_hook(cfg)``), and ``forward_fn`` (another
     family's forward over the same pool: ``moe.paged_forward`` serves the
     MoE LM; not with ``kv_quant``, whose branches live in the dense
-    LM's forward, as in the reference). Still refused, each naming its
-    ROADMAP item: multi_lora, mesh, kv_quota, draft_forward_fn and
-    speculation under ``forward_fn``, host_tier, temperature > 0.
+    LM's forward, as in the reference), sampling (temperature, top-k,
+    top-p; stochastic speculation by the exact rejection rule), and
+    ``kv_quota`` (a ``slo.KvQuota``: fresh blocks charged to the
+    admitting tenant at admission, shared prefix hits free, growth
+    charged, every charge refunded on evict). Still refused, each
+    naming its ROADMAP item: multi_lora, mesh, draft_forward_fn and
+    speculation under ``forward_fn``, host_tier.
     """
 
     def __init__(self, params, cfg: TransformerConfig, *, n_slots: int,
@@ -511,7 +527,6 @@ class PagedSlotServer(SpecDecodeMixin):
         for name, val, todo in (
                 ("multi_lora", multi_lora, TODO_LORA),
                 ("mesh", mesh, TODO_MESH),
-                ("kv_quota", kv_quota, TODO_QUOTA),
                 ("draft_forward_fn", draft_forward_fn, TODO_FAMILY),
                 ("speculative_draft with forward_fn",
                  speculative_draft if forward_fn else None, TODO_FAMILY),
@@ -528,7 +543,8 @@ class PagedSlotServer(SpecDecodeMixin):
         self.attn_impl = attn_impl
         self.layers_hook = layers_hook
         self._forward_fn = forward_fn
-        self._sampler = TokenSampler(temperature, top_k, top_p, seed)
+        self._sampler = TokenSampler(temperature, top_k, top_p, seed,
+                                     device=self.device)
         # kv_quant lives entirely in the cache (int8 pools + scale
         # pages); every path branches off cache.pool_k_scale.
         self.cache = init_paged_cache(
@@ -545,6 +561,12 @@ class PagedSlotServer(SpecDecodeMixin):
         self._active_dev = torch.zeros((n_slots,), dtype=torch.bool,
                                        device=self.device)      # mirror
         self._admissions: Dict[int, Dict[str, Any]] = {}
+        # Per-tenant KV-block quotas (None = unquota'd pool). The server
+        # is the ledger's one writer; _slot_charge holds each slot's
+        # balance so the refund at evict is exact. Host state only.
+        self.kv_quota = kv_quota
+        self._slot_tenant: Dict[int, str] = {}
+        self._slot_charge: Dict[int, int] = {}
         self.last_token = torch.zeros((n_slots, 1), dtype=torch.int64,
                                       device=self.device)
         # Speculative decoding: the draft keeps its own pools, bf16 even
@@ -556,7 +578,8 @@ class PagedSlotServer(SpecDecodeMixin):
         self.spec_horizon = spec_horizon
         if self.speculative:
             self._spec_init(gamma=gamma, spec_horizon=spec_horizon,
-                            temperature=temperature)
+                            temperature=temperature, top_k=top_k,
+                            top_p=top_p)
             self.draft_params, self.draft_cfg = speculative_draft
             if self.draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share a vocab")
@@ -596,22 +619,25 @@ class PagedSlotServer(SpecDecodeMixin):
         return {"cfg": self.draft_cfg, "attn_impl": self.attn_impl,
                 "layers_hook": self.draft_layers_hook}
 
-    def admit(self, prompt, adapter: int = -1) -> int:
+    def admit(self, prompt, adapter: int = -1,
+              tenant: Optional[str] = None) -> int:
         """Reserve blocks for ``prompt`` [S], prefill them, return the
-        slot. Raises PoolExhausted when slots or pool blocks run out."""
-        slot = self.admit_start(prompt, adapter=adapter)
+        slot. Raises PoolExhausted when slots or pool blocks run out,
+        QuotaExceeded when ``tenant``'s KV quota refuses them."""
+        slot = self.admit_start(prompt, adapter=adapter, tenant=tenant)
         while self.admit_step(slot) is None:
             pass
         return slot
 
     def admit_start(self, prompt, adapter: int = -1,
-                    chunk_tokens: Optional[int] = None) -> int:
+                    chunk_tokens: Optional[int] = None,
+                    tenant: Optional[str] = None) -> int:
         """Reserve a slot and all its blocks for ``prompt`` without
         prefilling yet; drive the prefill with admit_step() or with
         fused ticks (``step(prefill_work=slot)``). With ``chunk_tokens``
         the prompt prefills in block-aligned chunks, each attending over
         the admission's row (bit-identical KV to a whole-prompt
-        admit)."""
+        admit). ``tenant`` is the KV-quota principal (None = "default")."""
         if adapter != -1:
             raise NotImplementedError(f"adapter: {TODO_LORA}")
         prompt_np = prompt_host(prompt)
@@ -625,9 +651,11 @@ class PagedSlotServer(SpecDecodeMixin):
         # A slot that retired at capacity still owns its blocks;
         # release them before reuse or they leak.
         if (self.cache.host_table()[slot] >= 0).any():
+            self._refund_slot(slot)
             self.cache = release(self.cache, slot)
         S = int(prompt_np.shape[0])
         bs = self.cache.block_size
+        tenant = tenant or "default"
         if self.prefix_cache:
             keys = chain_keys(prompt_np, bs, S // bs)
             self.cache, cached_len, blocks = admit_prefix(
@@ -638,6 +666,25 @@ class PagedSlotServer(SpecDecodeMixin):
         else:
             self.cache = admit(self.cache, slot, S)
             cached_len, keys, blocks = 0, None, None
+        if self.kv_quota is not None:
+            # Charge the FRESH allocation only (prefix hits share blocks
+            # their first writer paid for). The verdict sees the
+            # post-admission pool (admit_verdict subtracts ``fresh``); a
+            # refusal rolls the host-side reservation back intact.
+            fresh = blocks_needed(S + 1, bs) - cached_len // bs
+            verdict = self.kv_quota.admit_verdict(
+                tenant, fresh, reclaimable_blocks(self.cache) + fresh)
+            if verdict is not None:
+                kind, msg = verdict
+                self.cache = release(self.cache, slot)
+                if self.prefix_cache:
+                    self.prefix_hit_tokens -= cached_len
+                    self.prefix_prompt_tokens -= S
+                raise QuotaExceeded(msg, kind=kind, tenant=tenant,
+                                    need=fresh)
+            self.kv_quota.charge(tenant, fresh)
+            self._slot_charge[slot] = fresh
+        self._slot_tenant[slot] = tenant
         chunk = chunk_tokens if chunk_tokens else S
         chunk = max(bs, -(-chunk // bs) * bs)     # round UP to blocks
         row, comp_len, n_blk = _admission_row(
@@ -737,6 +784,14 @@ class PagedSlotServer(SpecDecodeMixin):
         ids = alloc_blocks(self.cache, len(slots))
         for b in ids:
             self.cache.refs[b] = 1
+        if self.kv_quota is not None:
+            # Growth is charged, never refused (a refusal would poison a
+            # whole batched tick); over-ceiling growth marks the tenant
+            # and the engine aims its next preemption there.
+            for slot in slots:
+                t = self._slot_tenant.get(slot, "default")
+                self.kv_quota.charge(t, 1)
+                self._slot_charge[slot] = self._slot_charge.get(slot, 0) + 1
         if slots:
             table[slots, bis] = ids
             dev = self.device
@@ -931,10 +986,30 @@ class PagedSlotServer(SpecDecodeMixin):
         """Chunked admissions in flight."""
         return len(self._admissions)
 
+    @property
+    def admission_slots(self):
+        """Slots with an in-flight chunked admission (the engine evicts
+        any it is not tracking after a mid-admission fault)."""
+        return list(self._admissions)
+
+    def _refund_slot(self, slot: int) -> None:
+        """Return the slot's whole KV-quota charge to its tenant: the one
+        refund point, paired with the admission and growth charges."""
+        charged = self._slot_charge.pop(slot, 0)
+        tenant = self._slot_tenant.pop(slot, None)
+        if self.kv_quota is not None and tenant is not None:
+            self.kv_quota.refund(tenant, charged)
+
+    def slot_tenants(self) -> Dict[int, str]:
+        """Live slot -> tenant view (the engine's preemption targeting)."""
+        return dict(self._slot_tenant)
+
     def evict(self, slot: int) -> None:
         """Free the slot's blocks back to the pool (refcounted and
-        LRU-retained when published). Safe mid-admission."""
+        LRU-retained when published) and refund its quota charge. Safe
+        mid-admission."""
         self.active[slot] = False
         self._sync_active()
         self._admissions.pop(slot, None)
+        self._refund_slot(slot)
         self.cache = release(self.cache, slot)

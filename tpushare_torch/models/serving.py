@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from tpushare_torch import DeviceLike, resolve_device
-from tpushare_torch.models.generate import TODO_SAMPLING, sample_logits
+from tpushare_torch.models.generate import sample_logits
 
 
 def bucket_len(n: int, floor: int = 16) -> int:
@@ -62,22 +62,29 @@ def fused_token_batch(last_token: torch.Tensor, prompt: torch.Tensor,
 
 
 class TokenSampler:
-    """Per-server sampling state. Greedy only in this slice;
-    ``temperature > 0`` (and top-k/top-p) raise until ROADMAP A7."""
+    """Per-server sampling state: the sampling config plus ONE explicit
+    ``torch.Generator`` on the server's device, seeded from ``seed``, so
+    slot streams are reproducible for a given (seed, admission order).
+    It replaces the reference's (seed, draw-counter) key stream; the
+    speculative cores draw from the same ``generator``."""
 
     def __init__(self, temperature: float = 0.0, top_k=None, top_p=None,
-                 seed: int = 0):
-        if temperature > 0.0 or top_k is not None or top_p is not None:
-            raise NotImplementedError(f"stochastic sampling: "
-                                      f"{TODO_SAMPLING}")
+                 seed: int = 0, device: DeviceLike = "cpu"):
         self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
         self.seed = seed
+        self.generator = torch.Generator(device=torch.device(device))
+        self.generator.manual_seed(seed)
 
     def pick(self, logits: torch.Tensor) -> torch.Tensor:
-        """[B, V] logits -> [B] token ids, on the logits' device. A NaN
-        logits row picks -1 (invalid by construction): bare argmax
-        would launder a poisoned row into a plausible in-vocab id."""
-        tok = sample_logits(logits, temperature=self.temperature)
+        """[B, V] logits -> [B] token ids on the logits' device, greedy
+        when temperature == 0. A NaN logits row picks -1 (invalid by
+        construction): bare argmax or a draw would launder a poisoned
+        row into a plausible in-vocab id."""
+        tok = sample_logits(logits, self.generator,
+                            temperature=self.temperature, top_k=self.top_k,
+                            top_p=self.top_p)
         bad = torch.isnan(logits).any(dim=-1)
         return torch.where(bad, torch.full_like(tok, -1), tok)
 
@@ -146,10 +153,11 @@ class SlotServer:
     Host/device split as in the reference: the host owns the active
     bitmap and an exact mirror of the lengths, so every tick makes ONE
     device-to-host transfer, the token fetch in ``PendingStep.finalize``.
-    Ported: greedy sampling, whole admission (bucket-padded, or in
-    ``prefill_chunk`` pieces), chunked admission (``admit_start`` /
-    ``admit_step``), the fused tick (``step(prefill_work=slot)``),
-    ``kv_quant`` (int8 rows) and ``layers_hook`` (int8 weights).
+    Ported: sampling (greedy, temperature, top-k, top-p), whole
+    admission (bucket-padded, or in ``prefill_chunk`` pieces), chunked
+    admission (``admit_start`` / ``admit_step``), the fused tick
+    (``step(prefill_work=slot)``), ``kv_quant`` (int8 rows) and
+    ``layers_hook`` (int8 weights).
     ``multi_lora`` and ``mesh`` raise, naming their ROADMAP item.
     Rows are updated in place (the reference rebinds new arrays)."""
 
@@ -185,7 +193,8 @@ class SlotServer:
         self._active_dev = torch.zeros((n_slots,), dtype=torch.bool,
                                        device=self.device)
         self._admissions: Dict[int, Dict[str, Any]] = {}
-        self._sampler = TokenSampler(temperature, top_k, top_p, seed)
+        self._sampler = TokenSampler(temperature, top_k, top_p, seed,
+                                     device=self.device)
         self._prefill_chunk = prefill_chunk
 
     def _family(self, kv_quant: bool):
