@@ -76,6 +76,40 @@ Phases, one JSON line each, each with its own seconds:
           Then the sampler's law: 2^16 draws per row of one seeded
           [8, 256128] logits tensor against softmax(filter_logits) on
           the CPU, by TV; a planted fault (no top-p mask) must fail.
+  slice_kv_economy
+          the host KV tier, cross-replica migration and the router, at
+          Gemma-2B's full width and depth (8 slots, 256 blocks of 16,
+          --host-kv-bytes 2 GiB), engines built by build_engine(argv).
+          (A) one tiered engine serves a 1124-token warm-up twice (cold,
+          then a prefix hit: A's admission shapes), A (1124 tokens,
+          recomputed), four 1480-token fillers whose admissions demote
+          A's chain to the host tier, A again (promoted from host
+          memory), four more fillers, a prefetch of A's chain (the
+          overlapped tick's side-stream upload, called on the engine
+          thread) and A a third time (promoted from the staged copy); an
+          engine on the same argv without the tier (it never evicts)
+          serves the warm-up twice and A three times (device prefix
+          hits). One request at a time: the three A streams must equal
+          the oracle's bit for bit, demotions and promotions > 0, each
+          promoted admission reuses >= 1024 tokens, the prefetch's
+          blocks are all taken, one fetch per tick; again with
+          --kv-quant (int8 pages and their scale pages). (B)
+          two tiered engines share the card behind the port's router on
+          127.0.0.1:0; replica 0 serves 8 warm prompts sharing a
+          1024-token prefix, drains, and 8 follow-ups on the prefix storm
+          the router, which instructs replica 1 to pull the chain (POST
+          /kv/migrate from replica 0's GET /kv/blocks): every answer a
+          200 equal to an untiered engine that served the same warm
+          prompts and follow-ups, or a clean 503; the router's
+          migrations and migrated blocks > 0, replica 1's migrations_in
+          and promotions > 0, its fetches per tick <= 1; then the pull
+          the router would instruct for a second chain replica 0 holds,
+          posted to replica 1 once its rates are measured (its decision
+          is printed, not gated). Printed: bytes
+          per channel (d2h, h2d, net), the crossover estimator's
+          measured rates and decisions, the TTFT of the promoted and the
+          recomputed admission, nvidia-smi's memory with both replicas
+          up, and the launch counts.
   slice_llama
           Llama-3-8B at full width (random bf16 weights, no cut in depth
           or width) through two servers, each against an
@@ -2365,6 +2399,322 @@ def slice_engine(torch, np, paged, serving, cfg, dev, card, run_path,
     return a_launches, b_launches
 
 
+KV_TIER_BYTES = 2 << 30
+KV_ARGV = ["--preset", "gemma_2b", "--n-slots", "8", "--n-blocks", "256",
+           "--block-size", "16", "--port", "0", "--seed", "0"]
+
+
+def gpu_memory():
+    """nvidia-smi's reading of the card's used memory and of each
+    process's (MiB)."""
+    def q(args):
+        out = subprocess.run(["nvidia-smi", *args, "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        return out.stdout.strip().splitlines() if out.returncode == 0 \
+            else [f"nvidia-smi failed: {out.stderr.strip()}"]
+    return {"card": q(["--query-gpu=memory.used,memory.total"]),
+            "processes": q(["--query-compute-apps=pid,used_memory"])}
+
+
+def engine_bytes(eng):
+    """Device bytes an engine holds: weights and KV pools."""
+    import torch
+    c = eng.srv.cache
+    pools = [c.pool_k, c.pool_v, c.pool_k_scale, c.pool_v_scale]
+    leaves, stack = [], [eng.srv.params]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, torch.Tensor):
+            leaves.append(x)
+    return {"weights": sum(t.nbytes for t in leaves),
+            "pools": sum(t.nbytes for t in pools if t is not None)}
+
+
+def tier_report(stats):
+    """Bytes per channel, measured rates and decisions of one engine's
+    host tier (its /stats block)."""
+    ht = stats["host_tier"]
+    cx = ht["crossover"]
+    return {"channels": cx["channels"], "prefill": cx["prefill"],
+            "decisions": cx["decisions"],
+            **{k: ht[k] for k in ("demotions", "promotions", "migrations_in",
+                                  "evictions", "demote_failures",
+                                  "promote_failures", "blocks_resident",
+                                  "bytes_resident", "prefetch_hit_rate")}}
+
+
+def kv_request(eng, port, prompt, max_tokens):
+    """One completion over HTTP: (tokens, cached_prefix, TTFT ms)."""
+    st, body = http_json(port, "POST", "/v1/completions",
+                         {"prompt": prompt.tolist(),
+                          "max_tokens": max_tokens})
+    if st != 200:
+        raise AssertionError(f"slice_kv_economy: request answered {st} "
+                             f"{body}")
+    req = eng.request_by_id(body["id"])
+    return (body["tokens"], body["cached_prefix"],
+            (req.t_first - req.t_submit) * 1e3)
+
+
+def kv_demote_promote(serve_mod, torch, prompts, extra, failures, card):
+    """Phase (A) on one argv variant. The tiered engine serves the
+    warm-up W twice (a cold admission, then a device prefix hit: the
+    shapes A's admissions take), A (a 1024-token prefix + 100,
+    recomputed), fillers that demote A's chain to the host tier, A again
+    (promoted from host memory), fillers again, a prefetch of A's chain
+    on the engine thread (the overlapped tick's side-stream upload), and
+    A a third time (promoted from the staged copy). The oracle engine,
+    same argv without the tier (it never evicts), serves W, W and A three
+    times (device prefix hits). One request at a time, so the streams
+    compare bit for bit."""
+    warm, a, fillers = prompts
+    out = {}
+    for name, argv in (
+            ("tier", KV_ARGV + extra + ["--host-kv-bytes",
+                                         str(KV_TIER_BYTES)]),
+            ("oracle", KV_ARGV + extra)):
+        eng = serve_mod.build_engine(serve_mod.build_parser().parse_args(
+            argv))
+        httpd = serve_mod.serve(eng, port=0, timeout_s=600.0)
+        port = httpd.server_address[1]
+        run = {"warm": [kv_request(eng, port, warm, 8)
+                        for _ in range(2)],
+               "a1": kv_request(eng, port, a, 32)}
+        tier = eng._host_tier
+        if tier is not None:
+            run["fillers"] = [kv_request(eng, port, f, 8)[1]
+                              for f in fillers[:4]]
+            run["demoted_before_a2"] = tier.demotions
+        run["a2"] = kv_request(eng, port, a, 32)
+        if tier is not None:
+            for f in fillers[4:]:
+                kv_request(eng, port, f, 8)
+            run["staged"] = eng._engine_call(
+                lambda: eng.srv.prefetch_prefix(a))
+            run["prefetch_hits_before_a3"] = tier.prefetch_hits
+        run["a3"] = kv_request(eng, port, a, 32)
+        run["stats"] = eng.stats()
+        if tier is not None:
+            run["prefetch_hits"] = tier.prefetch_hits \
+                - run["prefetch_hits_before_a3"]
+        run["bytes"] = engine_bytes(eng)
+        httpd.shutdown()
+        eng.stop()
+        del eng, httpd, tier
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = run
+    t, o = out["tier"], out["oracle"]
+    tag = "slice_kv_economy A" + (" kv_quant" if extra else "")
+    ht = t["stats"]["host_tier"]
+    for key in ("a1", "a2", "a3"):
+        if t[key][0] != o[key][0]:
+            failures.append(f"{tag}: {key} stream {t[key][0]} differs from "
+                            f"the never-evicted engine's {o[key][0]}")
+        if key != "a1" and (t[key][1] < 1024 or t[key][1] != o[key][1]):
+            failures.append(f"{tag}: {key} reused {t[key][1]} tokens "
+                            f"(oracle {o[key][1]})")
+    if not (ht["demotions"] > 0 and ht["promotions"] > 0):
+        failures.append(f"{tag}: demotions {ht['demotions']}, promotions "
+                        f"{ht['promotions']}")
+    if not (t["staged"] > 0 and t["prefetch_hits"] == t["staged"]):
+        failures.append(f"{tag}: prefetch staged {t['staged']} blocks, "
+                        f"the admission took {t['prefetch_hits']}")
+    for name in out:
+        st = out[name]["stats"]
+        if st["device_fetches"] != st["work_ticks"]:
+            failures.append(f"{tag} {name}: {st['device_fetches']} fetches "
+                            f"in {st['work_ticks']} ticks")
+    emit({"phase": "slice_kv_economy", "part": "A",
+          "kv_quant": bool(extra), "argv": KV_ARGV + extra,
+          "host_kv_bytes": KV_TIER_BYTES,
+          "streams_equal": {k: t[k][0] == o[k][0]
+                            for k in ("a1", "a2", "a3")},
+          "cached_prefix": {k: t[k][1] for k in ("a1", "a2", "a3")},
+          "oracle_cached_prefix": {k: o[k][1] for k in ("a1", "a2", "a3")},
+          "ttft_ms": {"recomputed": t["a1"][2],
+                      "promoted_host_upload": t["a2"][2],
+                      "promoted_prefetched": t["a3"][2],
+                      "oracle_recomputed": o["a1"][2],
+                      "oracle_device_hit": [o["a2"][2], o["a3"][2]],
+                      "warm_up": [w[2] for w in t["warm"]]},
+          "filler_cached_prefix": t["fillers"],
+          "demoted_before_promotion": t["demoted_before_a2"],
+          "prefetch_staged": t["staged"],
+          "prefetch_hits": t["prefetch_hits"],
+          "tier": tier_report(t["stats"]),
+          "fetches_per_tick": {k: out[k]["stats"]["fetches_per_tick"]
+                               for k in out},
+          "engine_bytes": t["bytes"], "card": card})
+
+
+def kv_migration(serve_mod, torch, np, prompts, failures, card):
+    """Phase (B): two tiered engines on the one card behind the port's
+    router; replica 0 is warmed with 8 prompts sharing a 1024-token
+    prefix, drained, and a storm of 8 follow-ups on the same prefix goes
+    through the router, which instructs replica 1 to pull the chain
+    (POST /kv/migrate). The oracle: one engine, same argv without the
+    tier, serving the warm prompts and then the follow-ups."""
+    import importlib
+    router_mod = importlib.import_module("tpushare_torch.router")
+    daemon = importlib.import_module("tpushare_torch.router.daemon")
+    warm, follow, probe = prompts
+
+    def storm(port, ps, max_tokens):
+        import threading
+        res = [None] * len(ps)
+
+        def go(i):
+            try:
+                res[i] = http_json(port, "POST", "/v1/completions",
+                                   {"prompt": ps[i].tolist(),
+                                    "max_tokens": max_tokens})
+            except Exception as e:          # noqa: BLE001 — lost
+                res[i] = (None, {"error": str(e)})
+        ts = [threading.Thread(target=go, args=(i,)) for i in range(len(ps))]
+        for t_ in ts:
+            t_.start()
+        for t_ in ts:
+            t_.join(600)
+        return res
+
+    eng = serve_mod.build_engine(serve_mod.build_parser().parse_args(
+        KV_ARGV))
+    httpd = serve_mod.serve(eng, port=0, timeout_s=600.0)
+    port = httpd.server_address[1]
+    o_warm = storm(port, warm, 8)
+    want = storm(port, follow, 32)
+    o_stats = eng.stats()
+    httpd.shutdown()
+    eng.stop()
+    del eng, httpd
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(r[0] != 200 for r in o_warm + want):
+        raise AssertionError("slice_kv_economy B: the oracle failed")
+
+    reps = []
+    mem = {"before": gpu_memory(), "allocated_before":
+           torch.cuda.memory_allocated()}
+    for _ in range(2):
+        eng = serve_mod.build_engine(serve_mod.build_parser().parse_args(
+            KV_ARGV + ["--host-kv-bytes", str(KV_TIER_BYTES)]))
+        httpd = serve_mod.serve(eng, port=0, timeout_s=600.0)
+        reps.append((eng, httpd, httpd.server_address[1]))
+    urls = [f"http://127.0.0.1:{p}" for _, _, p in reps]
+    router = router_mod.Router(urls, poll_interval_s=0.1,
+                               breaker_threshold=3, retry_budget=2,
+                               shed_wait_s=1.0, migrate_min_blocks=2,
+                               request_timeout_s=600.0)
+    rhttpd = daemon.serve_router(router, "127.0.0.1", 0)
+    try:
+        warm_res = storm(reps[0][2], warm + [probe], 8)
+        if any(r[0] != 200 for r in warm_res):
+            raise AssertionError("slice_kv_economy B: replica 0's warm-up "
+                                 "failed")
+        router.poll_once()
+        reps[0][0].begin_drain()
+        router.poll_once()
+        mem["two_replicas"] = gpu_memory()
+        mem["allocated_two_replicas"] = torch.cuda.memory_allocated()
+        mem["engine_bytes"] = [engine_bytes(e) for e, _, _ in reps]
+        t0 = time.perf_counter()
+        got = storm(rhttpd.server_address[1], follow, 32)
+        storm_s = time.perf_counter() - t0
+        # The sink's decision once its net and prefill rates are
+        # measured: the pull the router would instruct for a second
+        # chain replica 0 holds (no completion rides on it).
+        keys = router_mod.chain_keys_hex(probe, 16, 64)
+        _, probe_out = http_json(reps[1][2], "POST", "/kv/migrate",
+                                 {"source": urls[0], "keys": keys})
+        rstats = router.stats()
+        r_stats = [e.stats() for e, _, _ in reps]
+    finally:
+        rhttpd.shutdown()
+        router.stop()
+        for e, h, _ in reps:
+            h.shutdown()
+            e.stop()
+        del reps
+        gc.collect()
+        torch.cuda.empty_cache()
+    exact = clean_503 = 0
+    bad = []
+    for i, (w, g) in enumerate(zip(want, got)):
+        if g[0] == 200 and g[1].get("tokens") == w[1]["tokens"]:
+            exact += 1
+        elif g[0] == 503:
+            clean_503 += 1
+        else:
+            bad.append((i, g[0], g[1].get("tokens", g[1])))
+    ht1 = r_stats[1]["host_tier"]
+    if bad:
+        failures.append(f"slice_kv_economy B: answers not equal to the "
+                        f"oracle's nor a clean 503: {bad}")
+    if not (rstats["migrations_instructed"] > 0
+            and rstats["migrated_blocks"] > 0):
+        failures.append(f"slice_kv_economy B: router instructed "
+                        f"{rstats['migrations_instructed']}, migrated "
+                        f"{rstats['migrated_blocks']} blocks")
+    if not (ht1["migrations_in"] > 0 and ht1["promotions"] > 0):
+        failures.append(f"slice_kv_economy B: replica 1 migrations_in "
+                        f"{ht1['migrations_in']}, promotions "
+                        f"{ht1['promotions']}")
+    if not (r_stats[1]["fetches_per_tick"] or 0) <= 1.0:
+        failures.append(f"slice_kv_economy B: replica 1 fetches_per_tick "
+                        f"{r_stats[1]['fetches_per_tick']}")
+    emit({"phase": "slice_kv_economy", "part": "B",
+          "argv": KV_ARGV + ["--host-kv-bytes", str(KV_TIER_BYTES)],
+          "requests": len(follow), "token_exact": exact,
+          "clean_503": clean_503,
+          "cached_prefix": [g[1].get("cached_prefix") for g in got],
+          "oracle_cached_prefix": [w[1]["cached_prefix"] for w in want],
+          "storm_s": storm_s, "measured_pull": probe_out,
+          "router": {k: rstats[k] for k in (
+              "migrations_instructed", "migrations_failed",
+              "migrated_blocks", "affinity_hits", "retries", "shed")},
+          "replica_tiers": [tier_report(s) for s in r_stats],
+          "fetches_per_tick": [s["fetches_per_tick"] for s in r_stats],
+          "oracle_fetches_per_tick": o_stats["fetches_per_tick"],
+          "memory": mem, "card": card})
+
+
+def slice_kv_economy(torch, np, cfg, card, run_path, failures):
+    """The slice_kv_economy phase (see the module docstring): returns
+    the launch counts of (A) bf16, (A) kv_quant and (B); gate breaches
+    go to ``failures``."""
+    import importlib
+    serve_mod = importlib.import_module("tpushare_torch.cli.serve")
+    rng = np.random.default_rng(9)
+    V = cfg.vocab_size
+    warm = rng.integers(0, V, 1124)
+    a = rng.integers(0, V, 1124)
+    # 1480 + 8 decoded tokens fit the blocks an admission reserves: no
+    # filler grows on the decode path, where reclaims destroy (as in the
+    # reference) instead of demoting.
+    fillers = [rng.integers(0, V, 1480) for _ in range(8)]
+    launches = {}
+    for name, extra, needed in (
+            ("a", [], ("flash_attention", "paged_flash_decode")),
+            ("a_kv_quant", ["--kv-quant"],
+             ("flash_attention", "paged_flash_decode_int8"))):
+        _, launches[name] = run_path(
+            needed, kv_demote_promote, serve_mod, torch,
+            (warm, a, fillers), extra, failures, card)
+    bprefix = rng.integers(0, V, 1024)
+    b_warm = [np.concatenate([bprefix, rng.integers(0, V, 64)])
+              for _ in range(8)]
+    b_follow = [np.concatenate([bprefix, rng.integers(0, V, 64)])
+                for _ in range(8)]
+    b_probe = rng.integers(0, V, 1088)
+    _, launches["b"] = run_path(
+        ("flash_attention", "paged_flash_decode"), kv_migration, serve_mod,
+        torch, np, (b_warm, b_follow, b_probe), failures, card)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2705,6 +3055,11 @@ def main() -> int:
     a_launches, b_launches = slice_engine(torch, np, paged, serving, cfg,
                                           dev, card, run_path, failures)
     engine_s = time.perf_counter() - t_e
+
+    # -- slice_kv_economy: the host KV tier, migration and the router ---
+    t_k = time.perf_counter()
+    kv_launches = slice_kv_economy(torch, np, cfg, card, run_path, failures)
+    kv_economy_s = time.perf_counter() - t_k
 
     # -- slice_llama: Llama-3-8B at full width, speculative + fused + int8
     t_l = time.perf_counter()
@@ -3054,6 +3409,7 @@ def main() -> int:
     # its largest main-path case; launches summed over the paths' runs.
     paths = {"slice": launches, "slice_engine_a": a_launches,
              "slice_engine_b": b_launches,
+             **{f"slice_kv_economy_{m}": c for m, c in kv_launches.items()},
              **{f"slice_llama_{m}": c for m, c in l_launches.items()},
              **{f"slice_moe_{m}": c for m, c in m_launches.items()},
              "slice_rows": r_launches, "slice_train_sgd": sgd_launches,
@@ -3131,6 +3487,7 @@ def main() -> int:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on a main path")
     emit({"phase": "seconds", "kernels": kernels_s, "engine": engine_s,
+          "kv_economy": kv_economy_s,
           "flex": flex_s,
           "flex_compile": {f"{r['kernel']} {r['case']}": r["flex_compile_s"]
                            for r in dec + fdec + list(part_a) + list(bwd_a)

@@ -899,3 +899,56 @@ def test_tiny_engine_on_the_card(dev):
     assert seen and all(inf for inf, _ in seen)
     assert fa.flash_attention.launches > 0
     assert fa.paged_flash_decode.launches > 0
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_host_tier_roundtrip_on_the_card(dev, kv_quant):
+    """A tiny bf16 pool on the card demotes a chain to the page-locked
+    host arena, promotes it back (host upload) and, after a second
+    eviction, from a side-stream prefetch: the greedy streams equal a
+    never-evicted server's, the arena is pinned, and the estimator's
+    d2h and h2d rates come from the copies' CUDA events."""
+    from tpushare_torch.models import kvtier, paged
+    from tpushare_torch.models import transformer as tt
+    cfg = tt.TransformerConfig(vocab_size=1000, d_model=256, n_layers=2,
+                               n_heads=4, n_kv_heads=2, head_dim=128,
+                               d_ff=512)
+    params = tt.init_params(0, cfg)
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 1000, 53)
+    fillers = [rng.integers(0, 1000, 53) for _ in range(8)]
+
+    def mk(tier, nb):
+        return paged.PagedSlotServer(params, cfg, n_slots=2, n_blocks=nb,
+                                     block_size=16, prefix_cache=True,
+                                     kv_quant=kv_quant, host_tier=tier)
+
+    def decode(srv, slot, n=8):
+        out = [int(srv.last_token[slot, 0])]
+        while len(out) < n:
+            out.append(srv.step()[slot])
+        return out
+
+    big = mk(None, 64)
+    want = decode(big, big.admit(a))
+    tier = kvtier.HostKvTier(16 << 20)
+    srv = mk(tier, 12)
+    assert tier.arena.buf.is_pinned()
+    srv.evict(srv.admit(a))
+    for f in fillers[:4]:
+        srv.evict(srv.admit(f))
+    slot = srv.admit(a)
+    assert srv.last_cached_len == 48 and decode(srv, slot) == want
+    srv.evict(slot)
+    for f in fillers[4:]:
+        srv.evict(srv.admit(f))
+    staged = srv.prefetch_prefix(a)
+    hits = tier.prefetch_hits
+    slot = srv.admit(a)
+    assert staged == 3 and tier.prefetch_hits - hits == 3
+    assert decode(srv, slot) == want
+    torch.cuda.synchronize()
+    snap = tier.snapshot()
+    assert snap["demotions"] > 0 and snap["promotions"] >= 6
+    for ch in ("d2h", "h2d"):
+        assert snap["crossover"]["channels"][ch]["bytes_per_s"] > 0

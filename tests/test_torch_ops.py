@@ -411,7 +411,10 @@ class TestPortBoundary:
         assert len(files) > 10
         names = {os.path.relpath(f, ROOT) for f in files}
         for mod in ("ops/q8_expert.py", "models/moe.py", "models/convert.py",
-                    "models/serving.py", "ops/flash_attention.py"):
+                    "models/serving.py", "ops/flash_attention.py",
+                    "models/kvtier.py", "router/core.py",
+                    "router/daemon.py", "router/smoke.py",
+                    "router/offload_smoke.py", "utils/profiling.py"):
             assert os.path.join("tpushare_torch", mod) in names
         assert bad == []
 

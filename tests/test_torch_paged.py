@@ -523,7 +523,6 @@ class TestRefusals:
         # is not.
         ({"forward_fn": object(), "speculative_draft": object()}, "A8"),
         ({"draft_forward_fn": object()}, "A8"),
-        ({"host_tier": object()}, "A5b"),
     ])
     def test_unported_options(self, kw, item):
         with pytest.raises(NotImplementedError, match=item):

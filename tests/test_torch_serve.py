@@ -502,8 +502,7 @@ def test_build_engine_same_system_exit(argv):
 
 def test_unported_flags_name_their_roadmap_item():
     for argv, item in ((["--mesh", "tp=2"], "A10"),
-                       (["--process-view", "2"], "A10"),
-                       (["--host-kv-bytes", "1024"], "A5b")):
+                       (["--process-view", "2"], "A10")):
         args = tserve.build_parser().parse_args(argv + ["--device", "cpu"])
         with pytest.raises(NotImplementedError, match=item):
             tserve.build_engine(args)
@@ -512,17 +511,30 @@ def test_unported_flags_name_their_roadmap_item():
 
 
 def test_kv_endpoints_answer_501():
-    eng = _engine("torch")
-    httpd = tserve.serve(eng, port=0, timeout_s=HTTP_TIMEOUT)
-    port = httpd.server_address[1]
-    try:
-        st, body = _get(port, "/kv/blocks?keys=ab")
-        assert st == 501 and b"A5b" in body
-        st, body = _post(port, {"source": "http://x", "keys": ["ab"]},
-                         path="/kv/migrate")
-        assert st == 501 and "A5b" in body["error"]
-    finally:
-        _shutdown(httpd, eng)
+    """The endpoints answered 501 until the host tier was ported; now
+    both engines answer alike without a tier: /kv/blocks omits unknown
+    keys, /kv/migrate reports no tier, a malformed body is a 400."""
+    answers = {}
+    for which in ("torch", "jax"):
+        eng = _engine(which)
+        httpd = (tserve if which == "torch" else jserve).serve(
+            eng, port=0, timeout_s=HTTP_TIMEOUT)
+        port = httpd.server_address[1]
+        try:
+            st, body = _get(port, "/kv/blocks?keys=ab")
+            got = [(st, json.loads(body))]
+            got.append(_post(port, {"source": "http://x", "keys": ["ab"]},
+                             path="/kv/migrate"))
+            got.append(_post(port, {"source": "http://x", "keys": []},
+                             path="/kv/migrate")[0])
+            answers[which] = got
+        finally:
+            _shutdown(httpd, eng)
+    assert answers["torch"] == answers["jax"]
+    assert answers["torch"][0] == (200, {"block_size": 4, "blocks": {}})
+    assert answers["torch"][1] == (200, {"migrated": 0,
+                                         "decision": "no_tier"})
+    assert answers["torch"][2] == 400
 
 
 def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):

@@ -1,4 +1,5 @@
-"""The port's copies of the JAX package's host-only modules, held equal to
+"""The port's copies of the JAX package's host-only modules (``slo/``,
+``durable/``, ``chaos/``, ``router/``, ``utils/``), held equal to
 their originals (the rule that keeps ``tpushare_torch`` free of any
 ``tpushare`` import, as ``router/chainkeys.py`` is held today).
 
@@ -43,7 +44,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["slo/__init__.py", "slo/tiers.py", "slo/stats.py", "slo/quota.py",
           "slo/sched.py", "durable/__init__.py", "durable/journal.py",
           "chaos/__init__.py", "chaos/injector.py", "utils/ownership.py",
-          "utils/atomicio.py"]
+          "utils/atomicio.py", "router/__init__.py", "router/chainkeys.py",
+          "router/core.py", "router/daemon.py"]
 TENANTS = ["acme", "bg", "default", "other"]
 QUOTA_TEXT = "acme=4:10,bg=0:6,default=2:"
 SETTINGS = settings(max_examples=40, deadline=None, derandomize=True,
@@ -60,7 +62,11 @@ def _code(path, rename=False):
                 and isinstance(body[0].value.value, str)):
             node.body = body[1:] or [ast.Pass()]
     text = ast.dump(tree)
-    return text.replace("tpushare_torch", "tpushare") if rename else text
+    if not rename:
+        return text
+    # The port's console scripts are named tpushare-torch-*.
+    return text.replace("tpushare_torch", "tpushare").replace(
+        "tpushare-torch-", "tpushare-")
 
 
 @pytest.mark.parametrize("rel", COPIES)

@@ -48,9 +48,17 @@ API (token ids in, token ids out — tokenization is the caller's):
   POST /mesh/chip       -> an unsharded engine's chip IS its whole
                            domain: unhealthy drains, healthy undrains
   POST /mesh/host       -> 400: no process-aware mesh (ROADMAP A10)
-  GET /kv/blocks, POST /kv/migrate
-                        -> 501: the host KV tier and migration wait for
-                           ROADMAP A5b
+  GET /kv/blocks?keys=<hex>,<hex>
+                        -> raw KV block payloads by chain digest (the
+                           migration source): {"block_size": bs,
+                           "blocks": {hex: {field: {"dtype", "shape",
+                           "b64"}}}}, the reference's wire format; keys
+                           it no longer holds are omitted
+  POST /kv/migrate      {"source": url, "keys": [hex, ...],
+                         "tenant": str (optional)}
+                        -> pull a sibling's chain into this replica's
+                           host tier (--host-kv-bytes): {"migrated": N,
+                           "decision": "transfer"|"recompute"|"no_tier"}
 
 Failure domains: a NaN token quarantines its slot; an exception out of
 a tick (a kernel wrapper's included) quarantines every in-flight slot;
@@ -68,9 +76,16 @@ on its own: a kernel that fails is a tick fault like any other.
 ``chaos`` exercises every path deterministically (--chaos-spec /
 TPUSHARE_CHAOS).
 
-Not in the port yet, each refused naming its ROADMAP item: the host KV
-tier and migration (A5b), meshes, process views, reshard checkpoints
-and gangs (A10), multi-LoRA (A9).
+Host KV tier (--host-kv-bytes): blocks an admission reclaims are
+demoted to page-locked host memory, tier-resident chains are promoted
+back (prefetched on a side stream inside the overlapped tick's flight
+window), and siblings' chains land through /kv/migrate. Handler threads
+never touch pool tensors or the tier's host slots being written: the
+device-resident part of /kv/blocks and every landing run on the engine
+thread between ticks (``_engine_call``).
+
+Not in the port yet, each refused naming its ROADMAP item: meshes,
+process views, reshard checkpoints and gangs (A10), multi-LoRA (A9).
 """
 
 from __future__ import annotations
@@ -102,7 +117,6 @@ from tpushare_torch.slo import (DEFAULT_TIER, KvQuota, TickScheduler,
                                 tier_rank)
 from tpushare_torch.utils import ownership as _ownership
 
-TODO_HOST_TIER = "ROADMAP A5b (host KV tier and migration)"
 TODO_MESH = "ROADMAP A10 (multi-GPU serving)"
 TODO_LORA = "ROADMAP A9 (multi-LoRA)"
 
@@ -110,6 +124,47 @@ TODO_LORA = "ROADMAP A9 (multi-LoRA)"
 # --prefill-chunk-force (the reference engine's floor, kept so the two
 # daemons take the same argv; not yet measured on an NVIDIA card).
 PREFILL_CHUNK_FLOOR = 512
+
+
+# Wire names of the pool dtypes: numpy's names, as the reference engine
+# writes them (``str(arr.dtype)``), so blocks migrate between the two
+# packages; decoded with ``torch.frombuffer`` (no ml_dtypes needed for
+# bfloat16).
+_WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.float16: "float16", torch.int8: "int8"}
+
+
+def _wire_leaf(t: torch.Tensor) -> Dict[str, Any]:
+    """One block leaf as ``{"dtype", "shape", "b64"}`` of its raw
+    bytes (C order)."""
+    import base64
+    raw = t.contiguous().view(torch.uint8).numpy().tobytes()
+    return {"dtype": _WIRE_DTYPES[t.dtype], "shape": list(t.shape),
+            "b64": base64.b64encode(raw).decode()}
+
+
+def _unwire_block(rec, layout) -> Optional[Dict[str, torch.Tensor]]:
+    """A ``/kv/blocks`` record decoded to host tensors, or None unless
+    it holds exactly this pool's leaves with its shapes and dtypes."""
+    import base64
+    fields = [pf for pf, _, _ in layout]
+    if not isinstance(rec, dict) or set(rec) != set(fields):
+        return None
+    out = {}
+    for pf, shape, dtype in layout:
+        leaf = rec[pf]
+        if (not isinstance(leaf, dict)
+                or leaf.get("dtype") != _WIRE_DTYPES.get(dtype)
+                or tuple(leaf.get("shape") or ()) != tuple(shape)):
+            return None
+        try:
+            raw = bytearray(base64.b64decode(leaf["b64"]))
+        except (KeyError, TypeError, ValueError):
+            return None
+        if len(raw) != int(np.prod(shape)) * dtype.itemsize:
+            return None
+        out[pf] = torch.frombuffer(raw, dtype=dtype).reshape(shape)
+    return out
 
 
 class _EngineSuperseded(Exception):
@@ -396,8 +451,7 @@ class ServeEngine:
                 ("reshard_checkpoint", reshard_checkpoint, TODO_MESH),
                 ("num_processes > 1", num_processes > 1 or None, TODO_MESH),
                 ("gang", gang, TODO_MESH),
-                ("multi_lora", multi_lora, TODO_LORA),
-                ("host_kv_bytes", host_kv_bytes or None, TODO_HOST_TIER)):
+                ("multi_lora", multi_lora, TODO_LORA)):
             if val is not None:
                 raise NotImplementedError(f"{name}: {todo}")
         if kv not in (None, "rows", "paged"):
@@ -581,6 +635,37 @@ class ServeEngine:
         self._fault_token_fetch = self._chaos.point("engine.token_fetch")
         self._fault_admit = self._chaos.point("engine.admit")
         self._fault_kill = self._chaos.point("process.kill")
+        # Host KV offload tier: cold paged blocks demote to host memory
+        # under this byte budget instead of being destroyed, admissions
+        # promote tier-resident chains back (prefetched in the overlap
+        # window), and sibling replicas land migrated chains here via
+        # POST /kv/migrate. 0 = no tier.
+        self._host_tier = None
+        if host_kv_bytes:
+            if not self._has_pool:
+                raise ValueError(
+                    "host_kv_bytes needs the paged KV pool (dense "
+                    "MoE rows have no blocks to demote; serve "
+                    "--kv paged)")
+            if not use_prefix:
+                raise ValueError(
+                    "host_kv_bytes needs prefix_cache: demoted "
+                    "blocks are keyed (and promoted) by their chain "
+                    "digests, which only the prefix cache computes")
+            from tpushare_torch.models.kvtier import HostKvTier
+            from tpushare_torch.models.paged import attach_host_tier
+            self._host_tier = HostKvTier(int(host_kv_bytes),
+                                         quota=self._kv_quota)
+            self._host_tier.fault_demote = self._chaos.point("kv.demote")
+            self._host_tier.fault_promote = \
+                self._chaos.point("kv.promote")
+            attach_host_tier(self.srv.cache, self._host_tier)
+        # Overlap-window prefetch failures (best effort: the admission
+        # pays its own upload instead): counted, never raised.
+        self._prefetch_errors = 0
+        # Work a handler thread hands the engine thread (the pool reads
+        # of /kv/blocks, migrated landings): served between ticks.
+        self._engine_calls: "queue.Queue" = queue.Queue()
         # Per-tick deadline (ms): a tick running longer counts a
         # breach (the hang-detection signal operators alert on).
         self._tick_deadline_ms = tick_deadline_ms or None
@@ -1233,8 +1318,205 @@ class ServeEngine:
                 continue
         else:
             keys = []
+        if self._host_tier is not None:
+            # Host-tier chains gossip too: the router may send affinity
+            # (and siblings migration pulls) for chains only the tier
+            # holds; admission promotes them back on the hit.
+            dev = set(keys)
+            keys += [k for k in self._host_tier.keys_hex()
+                     if k not in dev]
         return {"kv": self.kv, "block_size": cache.block_size,
                 "keys": keys}
+
+    # -- host tier: block serving and migration ------------------------
+    def _engine_call(self, fn, timeout_s: float = 30.0):
+        """Run ``fn`` on the engine thread between ticks (inside
+        ``_on_device()``) and return its result, or raise TimeoutError.
+        Before the engine starts the caller runs it itself: nothing else
+        touches the server then."""
+        if not self._started:
+            with self._on_device():
+                return fn()
+        box: Dict[str, Any] = {}
+        done = threading.Event()
+        self._engine_calls.put((fn, box, done))
+        if not done.wait(timeout_s):
+            raise TimeoutError("engine thread did not serve the call")
+        if "error" in box:
+            raise box["error"]
+        return box["out"]
+
+    def _serve_engine_calls(self) -> None:
+        """Serve every queued ``_engine_call`` (engine thread, between
+        ticks). A failing call answers its caller; the tick goes on."""
+        while True:
+            try:
+                fn, box, done = self._engine_calls.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                box["out"] = fn()
+            except Exception as e:          # noqa: BLE001 — answered
+                box["error"] = e
+            done.set()
+
+    def _read_pool_blocks(self, keys: List[bytes]):
+        """Engine thread: copy the device-resident published blocks of
+        ``keys`` to host memory — one gather per pool leaf and one
+        asynchronous copy into page-locked memory on a card. Returns
+        ({key: {field: host tensor}}, the copy's CUDA event or None).
+        Keys the pool no longer holds are omitted."""
+        from tpushare_torch.models.paged import _row_pairs
+        cache = self.srv.cache
+        found = [(k, cache.index[k]) for k in keys if k in cache.index]
+        if not found:
+            return {}, None
+        ids = torch.tensor([b for _, b in found], device=self.device)
+        cuda = self.device.type == "cuda"
+        host, event = {}, None
+        for pf, _ in _row_pairs(cache.pool_k_scale is not None):
+            g = getattr(cache, pf).index_select(1, ids).transpose(0, 1)
+            dst = torch.empty(g.shape, dtype=g.dtype, pin_memory=cuda)
+            dst.copy_(g, non_blocking=True)
+            host[pf] = dst
+        if cuda:
+            event = torch.cuda.Event()
+            event.record()
+        return ({k: {pf: t[i] for pf, t in host.items()}
+                 for i, (k, _) in enumerate(found)}, event)
+
+    def kv_blocks(self, keys_hex: List[str]) -> Dict[str, Any]:
+        """Raw KV block payloads by chain digest — the replica-to-replica
+        migration SOURCE (GET /kv/blocks). Tier-resident blocks are
+        answered from host memory (a private copy); device-resident
+        published blocks are copied by the engine thread between ticks
+        (``_engine_call``): a handler never reads a pool tensor. Missing
+        or raced keys are OMITTED — a partial answer is the gossip
+        staleness contract: the puller lands the contiguous prefix it
+        got and recomputes the rest."""
+        if not self._has_pool:
+            return {"block_size": None, "blocks": {}}
+        datas: Dict[str, Any] = {}
+        want: List[bytes] = []
+        for kh in keys_hex:
+            try:
+                key = bytes.fromhex(kh)
+            except ValueError:
+                continue
+            data = (self._host_tier.copy_out(key)
+                    if self._host_tier is not None else None)
+            if data is None:
+                want.append(key)
+            else:
+                datas[kh] = data
+        if want:
+            try:
+                dev, event = self._engine_call(
+                    lambda: self._read_pool_blocks(want))
+            except Exception:               # noqa: BLE001 — omitted
+                dev, event = {}, None
+            if event is not None:
+                event.synchronize()
+            for key, data in dev.items():
+                datas[key.hex()] = data
+        out: Dict[str, Any] = {}
+        for kh in keys_hex:
+            if kh in datas:
+                out[kh] = {pf: _wire_leaf(t) for pf, t in datas[kh].items()}
+        return {"block_size": self.srv.cache.block_size, "blocks": out}
+
+    def _land_migrated(self, items, tenant: Optional[str]):
+        """Engine thread: copy decoded migrated blocks into tier slots
+        (a contiguous prefix only). Returns (landed, bytes)."""
+        from tpushare_torch.models.paged import host_arena
+        tier = self._host_tier
+        arena = host_arena(self.srv.cache)
+        landed = moved = 0
+        for key, data in items:
+            slot = arena.acquire()
+            if slot is None:
+                break
+            arena.wait_on_host(slot)
+            payload = arena.payload(slot)
+            for pf, t in data.items():
+                payload[pf].copy_(t)
+            if not tier.put(key, payload, tenant=tenant,
+                            tokens=self.srv.cache.block_size,
+                            kind="migrate"):
+                arena.release(slot)
+                break
+            landed += 1
+            moved += arena.block_bytes
+        return landed, moved
+
+    def kv_migrate(self, source_url: str, keys_hex: List[str],
+                   tenant: Optional[str] = None) -> Dict[str, Any]:
+        """Pull published chain blocks from a sibling replica into the
+        host tier (POST /kv/migrate). The crossover estimator's ``net``
+        channel decides first (bytes-to-move vs tokens-to-prefill at
+        measured rates); payloads are validated leaf by leaf against
+        this engine's OWN pool shapes and dtypes; only a CONTIGUOUS
+        chain prefix lands, on the engine thread. Every failure —
+        refusal, transport error, stale sibling, malformed leaf —
+        degrades to local recompute."""
+        if self._host_tier is None:
+            return {"migrated": 0, "decision": "no_tier"}
+        import http.client
+        import urllib.parse
+
+        from tpushare_torch.models.paged import host_arena
+        cache = self.srv.cache
+        arena = host_arena(cache)
+        est = self._host_tier.estimator
+        if est.decide("net", arena.block_bytes * len(keys_hex),
+                      cache.block_size * len(keys_hex)) == "recompute":
+            return {"migrated": 0, "decision": "recompute",
+                    "requested": len(keys_hex)}
+        u = urllib.parse.urlsplit(source_url)
+        t0 = time.perf_counter()
+        try:
+            conn = http.client.HTTPConnection(u.hostname, u.port or 80,
+                                              timeout=10.0)
+            try:
+                conn.request("GET",
+                             "/kv/blocks?keys=" + ",".join(keys_hex))
+                resp = conn.getresponse()
+                if resp.status != 200:
+                    raise OSError(f"source answered {resp.status}")
+                payload = json.loads(resp.read())
+            finally:
+                conn.close()
+        except Exception as e:              # noqa: BLE001 — clean miss
+            return {"migrated": 0, "decision": "transfer",
+                    "requested": len(keys_hex), "error": str(e)}
+        dt = time.perf_counter() - t0
+        if payload.get("block_size") != cache.block_size:
+            return {"migrated": 0, "decision": "transfer",
+                    "requested": len(keys_hex),
+                    "error": "block_size mismatch"}
+        blocks = payload.get("blocks") or {}
+        items = []
+        for kh in keys_hex:
+            data = _unwire_block(blocks.get(kh), arena.layout)
+            if data is None:
+                break                       # contiguous prefix only
+            try:
+                key = bytes.fromhex(kh)
+            except ValueError:
+                break
+            items.append((key, data))
+        landed = moved = 0
+        if items:
+            try:
+                landed, moved = self._engine_call(
+                    lambda: self._land_migrated(items, tenant))
+            except Exception as e:          # noqa: BLE001 — clean miss
+                return {"migrated": 0, "decision": "transfer",
+                        "requested": len(keys_hex), "error": str(e)}
+        if moved:
+            est.observe_transfer("net", moved, dt)
+        return {"migrated": landed, "decision": "transfer",
+                "requested": len(keys_hex)}
 
     def state(self) -> str:
         """running | draining | restarting | shutting_down | dead — a
@@ -1395,9 +1677,15 @@ class ServeEngine:
                                  if self._overlap_tick else None),
             "host_gap_ms": (_gap_percentiles(list(self._host_gap_ms))
                             if self._overlap_tick else None),
-            # Host KV offload tier: none in the port (ROADMAP A5b).
-            "host_tier": None,
-            "host_prefetch_errors": None,
+            # Host KV offload tier: null-not-0 when none is configured
+            # (no offload plane, not an idle one); the nested crossover
+            # block cites every input of the transfer-vs-recompute
+            # policy (measured channel rates, bytes, tokens, decisions).
+            "host_tier": (self._host_tier.snapshot()
+                          if self._host_tier is not None else None),
+            "host_prefetch_errors": (self._prefetch_errors
+                                     if self._host_tier is not None
+                                     else None),
         })
         if self._has_pool:
             # Host mirrors only: the free list, the LRU and the table.
@@ -1832,6 +2120,7 @@ class ServeEngine:
         recovery, deadline accounting. Split from _loop so tests can
         drive the recovery machinery synchronously."""
         self._fire_kill_chaos()
+        self._serve_engine_calls()
         t0 = time.monotonic()
         self._stats["ticks"] += 1
         # Published BEFORE the tick runs: a genuinely wedged tick
@@ -2033,6 +2322,19 @@ class ServeEngine:
             "ledger": (quota.ledger_view()
                        if quota is not None else None),
         }
+        if self._host_tier is not None and head is not None:
+            # Host-tier prefetch: stage the head request's tier-resident
+            # chain on the card NOW, on a side stream, so its admission's
+            # promotion consumes an upload that rode this tick's dispatch
+            # in flight. Host-to-device only: still zero fetches in this
+            # stage. Best effort: a failure leaves the admission to pay
+            # its own upload (or recompute).
+            try:
+                self.srv.prefetch_prefix(
+                    np.asarray(head.prompt, np.int32),
+                    adapter=getattr(head, "adapter", -1))
+            except Exception:               # noqa: BLE001 — counted
+                self._prefetch_errors += 1
 
     def _complete_admission(self, slot: int, tok: int) -> None:
         """An admission's final chunk ran (fused or serial): its first
@@ -2618,10 +2920,15 @@ def make_handler(engine: ServeEngine, timeout_s: float):
             elif self.path.startswith("/v1/completions/"):
                 self._resume_stream()
             elif self.path.startswith("/kv/blocks"):
-                # The migration source waits for the host tier; it
-                # would also read pool tensors the engine thread
-                # mutates in place.
-                self._json(501, {"error": f"/kv/blocks: {TODO_HOST_TIER}"})
+                # Migration source: raw block payloads by chain digest
+                # to a pulling sibling. Keys it no longer holds are
+                # omitted — partial answers ARE the gossip-staleness
+                # contract.
+                import urllib.parse as _up
+                qs = _up.parse_qs(_up.urlparse(self.path).query)
+                keys = [k for k in
+                        (qs.get("keys", [""])[0] or "").split(",") if k]
+                self._json(200, engine.kv_blocks(keys))
             else:
                 self._json(404, {"error": "not found"})
 
@@ -2736,7 +3043,38 @@ def make_handler(engine: ServeEngine, timeout_s: float):
                                  "state": engine.state()})
                 return
             if self.path == "/kv/migrate":
-                self._json(501, {"error": f"/kv/migrate: {TODO_HOST_TIER}"})
+                # Migration sink: the router instructs this replica to
+                # pull a published chain from a sibling into its host
+                # tier ahead of the proxied admission. Failures answer
+                # 200 with migrated=0 — migration is an optimization;
+                # local recompute is the default path either way.
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    body = json.loads(self.rfile.read(n) or b"{}")
+                    if not isinstance(body, dict):
+                        raise ValueError("body must be a JSON object")
+                    src = body.get("source")
+                    keys = body.get("keys")
+                    if not isinstance(src, str) or not src:
+                        raise ValueError(
+                            "source must be a replica base URL")
+                    if (not isinstance(keys, list) or not keys
+                            or not all(isinstance(k, str)
+                                       for k in keys)):
+                        raise ValueError(
+                            "keys must be a non-empty list of hex "
+                            "chain digests")
+                    tn = body.get("tenant")
+                    if tn is not None and (not isinstance(tn, str)
+                                           or not tn):
+                        raise ValueError(
+                            "tenant must be a non-empty string")
+                except (KeyError, ValueError, TypeError,
+                        json.JSONDecodeError) as e:
+                    self._json(400, {"error": str(e)})
+                    return
+                self._json(200, engine.kv_migrate(src, keys,
+                                                  tenant=tn))
                 return
             if self.path != "/v1/completions":
                 self._json(404, {"error": "not found"})
@@ -3021,8 +3359,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "grants a 'default'-tenant quota when no flag "
                          "names one")
     ap.add_argument("--host-kv-bytes", type=int, default=0,
-                    help=f"host-RAM KV offload tier budget in bytes: "
-                         f"{TODO_HOST_TIER}")
+                    help="host-RAM KV offload tier budget in bytes: "
+                         "cold paged blocks DEMOTE to page-locked host "
+                         "memory instead of being destroyed, and "
+                         "promote back (prefetched in the overlap "
+                         "window) on a prefix hit; also the landing "
+                         "zone for cross-replica block migration "
+                         "(POST /kv/migrate). 0 = no tier. Needs the "
+                         "paged pool + prefix cache")
     return ap
 
 
@@ -3129,9 +3473,7 @@ def build_engine(args) -> ServeEngine:
     for flag, val, todo in (
             ("--mesh", args.mesh, TODO_MESH),
             ("--process-view", getattr(args, "process_view", 0) > 1,
-             TODO_MESH),
-            ("--host-kv-bytes", getattr(args, "host_kv_bytes", 0),
-             TODO_HOST_TIER)):
+             TODO_MESH)):
         if val:
             raise NotImplementedError(f"{flag}: {todo}")
     common = dict(
@@ -3153,6 +3495,7 @@ def build_engine(args) -> ServeEngine:
         journal_fsync=getattr(args, "journal_fsync", "tick"),
         tick_wedge_ms=(getattr(args, "tick_wedge_ms", 0) or None),
         overlap_tick=(getattr(args, "overlap_tick", "on") == "on"),
+        host_kv_bytes=getattr(args, "host_kv_bytes", 0),
         device=device)
     if args.model_family == "moe":
         from tpushare_torch.models import moe, quant

@@ -16,6 +16,10 @@ batching slot server. Counterpart of ``tpushare/models/paged.py``.
 - kv_quant pools: int8 K/V pages plus f32 scale pages
   [L, n_blocks, Hkv, bs] (the port's layout, ``models/quant.py``);
   shared prefix blocks carry their scales along.
+- Host tier (``models/kvtier.py``): with one attached, a published block
+  an ADMISSION reclaims is demoted to host memory first, and a later
+  admission whose chain misses the device index but hits the tier
+  promotes it back instead of recomputing it.
 
 Where the JAX version returns new arrays (and donates the old pools to
 the jitted step), the port updates the device tensors IN PLACE; the
@@ -25,13 +29,16 @@ functions still return the cache for the same call shapes.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpushare_torch import DeviceLike, resolve_device
+from tpushare_torch.models.kvtier import CopySpan, HostBlockArena, Payload
 from tpushare_torch.models.quant import (init_cache_q8, pool_scales_to_rows,
                                          scales_to_pool_layout)
 from tpushare_torch.models.serving import (PendingStep, TokenSampler,
@@ -45,7 +52,6 @@ from tpushare_torch.router.chainkeys import chain_keys
 
 # ROADMAP items that port what the port's server still leaves out.
 TODO_FAMILY = "ROADMAP A8 (MoE speculation: draft_forward_fn)"
-TODO_HOST_TIER = "ROADMAP A5b (host KV tier and migration)"
 
 
 class SlotCapacityExceeded(RuntimeError):
@@ -98,6 +104,18 @@ class PagedCache:
         default_factory=collections.OrderedDict)
     table_np: Optional[np.ndarray] = None
     lengths_np: Optional[np.ndarray] = None
+    # Host offload tier (models/kvtier.HostKvTier or None), shared like
+    # the other host state. A published block reclaimed from the
+    # zero-ref LRU under ADMISSION pressure is demoted to it instead of
+    # destroyed, and a later admission whose chain misses the device
+    # index but hits the tier promotes the blocks back. Growth-path
+    # reclaims (_grow_active, inside the step) still destroy, as in the
+    # reference: no copy runs inside a decode tick, a fused tick or a
+    # speculative round.
+    host_tier: Optional[Any] = None
+    # blk -> tenant that paid for the block's first write: a demotion
+    # charges the tier's byte ledger to it.
+    owners: Dict[int, str] = dataclasses.field(default_factory=dict)
 
     @property
     def n_slots(self) -> int:
@@ -246,6 +264,113 @@ def _unref(cache: PagedCache, blk: int) -> None:
         cache.free.append(blk)
 
 
+def block_layout(cache: PagedCache) -> List[Tuple[str, tuple, Any]]:
+    """(field, shape, dtype) of every pool leaf of one block, shaped
+    like ``pool[:, blk]``: what a tier payload holds."""
+    out = []
+    for pf, _ in _row_pairs(cache.pool_k_scale is not None):
+        pool = getattr(cache, pf)
+        out.append((pf, tuple(pool.shape[:1] + pool.shape[2:]),
+                    pool.dtype))
+    return out
+
+
+def attach_host_tier(cache: PagedCache, tier) -> None:
+    """Attach ``tier`` to the pool and allocate its host arena once:
+    room for the whole byte budget, plus one pool's worth of blocks in
+    flight (an admission's demotions are copied before the tier's puts
+    evict older entries), plus one for a migrated landing."""
+    cache.host_tier = tier
+    if tier is None or tier.arena is not None:
+        return
+    layout = block_layout(cache)
+    block_bytes = sum(int(np.prod(shape)) * dtype.itemsize
+                      for _, shape, dtype in layout)
+    n_slots = (tier.budget_bytes // block_bytes
+               + cache.pool_k.shape[1] + 2)
+    tier.arena = HostBlockArena(layout, n_slots, cache.pool_k.device)
+
+
+def host_arena(cache: PagedCache) -> HostBlockArena:
+    """The attached tier's arena (allocated here for a tier assigned
+    straight to ``cache.host_tier``)."""
+    if cache.host_tier.arena is None:
+        attach_host_tier(cache, cache.host_tier)
+    return cache.host_tier.arena
+
+
+def _demote_blocks(cache: PagedCache, blks: List[int]) -> None:
+    """Copy published blocks to the host tier before a reclaim destroys
+    them: each block first passes the crossover policy (``d2h``) and the
+    ``kv.demote`` chaos slot — a block that fails either is dropped, the
+    plain eviction. The survivors go in ONE gathered copy: a gather of
+    every pool leaf into one staging tensor on the card, then one
+    asynchronous copy per block into its arena slot, the copies timed by
+    CUDA events. The gather is enqueued before the admission's own writes on
+    the same stream, so it reads the blocks before their new owner
+    overwrites them; no host wait."""
+    tier = cache.host_tier
+    arena = host_arena(cache)
+    bs = cache.block_size
+    picked: List[Tuple[int, bytes]] = []
+    for blk in blks:
+        key = cache.chains.get(blk)
+        if key is None:
+            continue
+        if tier.estimator.decide("d2h", arena.block_bytes, bs) \
+                == "recompute":
+            continue
+        if tier.fault_demote is not None:
+            try:
+                tier.fault_demote()
+            except Exception:
+                tier.demote_failures += 1
+                continue
+        picked.append((blk, key))
+    slots: List[int] = []
+    for _ in picked:
+        s = arena.acquire()
+        if s is None:
+            break
+        slots.append(s)
+    if not slots:
+        return
+    # A full arena keeps the newest blocks, as sequential puts would.
+    picked = picked[len(picked) - len(slots):]
+    dev = cache.pool_k.device
+    stream = torch.cuda.current_stream(dev) if arena.cuda else None
+    if stream is not None:
+        arena.wait_on_stream(slots, stream)
+    ids = torch.tensor([b for b, _ in picked], device=dev)
+    rows = torch.empty((len(picked), arena.slot_bytes), dtype=torch.uint8,
+                       device=dev)
+    for pf, view in arena.leaves(rows).items():
+        view.copy_(getattr(cache, pf).index_select(1, ids).transpose(0, 1))
+    # The d2h channel times the copies over the bus, not the gather.
+    span = CopySpan(dev, stream)
+    for i, s in enumerate(slots):
+        arena.buf[s].copy_(rows[i], non_blocking=True)
+    arena.fence(slots, span.close(tier.estimator, "d2h",
+                                  len(slots) * arena.block_bytes))
+    for (blk, key), s in zip(picked, slots):
+        if not tier.put(key, arena.payload(s), tenant=cache.owners.get(blk),
+                        tokens=bs, kind="demote"):
+            arena.release(s)
+
+
+def demote_for_alloc(cache: PagedCache, need: int) -> None:
+    """Demote the zero-ref LRU blocks an allocation of ``need`` is about
+    to reclaim (oldest first, the order alloc_blocks consumes them).
+    Pure copy: the reclaim still runs through alloc_blocks unchanged, so
+    a failed or refused demotion degrades to destroy-and-recompute."""
+    if cache.host_tier is None:
+        return
+    shortfall = need - len(cache.free)
+    if shortfall <= 0:
+        return
+    _demote_blocks(cache, list(cache.lru)[:shortfall])
+
+
 def admit_prefix(cache: PagedCache, slot: int, prompt: np.ndarray,
                  keys: Optional[List[bytes]] = None
                  ) -> Tuple[PagedCache, int, List[int]]:
@@ -253,7 +378,11 @@ def admit_prefix(cache: PagedCache, slot: int, prompt: np.ndarray,
     chain matches the prompt's prefix. Returns (cache, cached_len,
     blocks): the caller prefills only positions >= cached_len.
     Matching stops at (S-1)//bs full blocks, so the tail block decode
-    writes into is always fresh, and at the first chain miss."""
+    writes into is always fresh, and at the first chain miss. With a
+    host tier attached the match continues into the tier: consecutive
+    tier-resident chain blocks are PROMOTED into freshly allocated pool
+    blocks (a host-to-device copy, never a fetch) and count toward
+    cached_len."""
     S = int(prompt.shape[0])
     bs = cache.block_size
     need_total = blocks_needed(S + 1, bs)
@@ -261,29 +390,112 @@ def admit_prefix(cache: PagedCache, slot: int, prompt: np.ndarray,
         raise ValueError(f"{S} tokens exceed slot capacity")
     if keys is None:
         keys = chain_keys(prompt, bs, (S - 1) // bs)
+    tier = cache.host_tier
+    if tier is not None:
+        tier.last_promoted_n = 0
     matched: List[int] = []
     for key in keys[:(S - 1) // bs]:
         blk = cache.index.get(key)
         if blk is None:
             break
         matched.append(blk)
+    # Continue into the tier; stop at a key the device index holds after
+    # all (a stale tier copy would publish a duplicate chain) and at the
+    # tier's own gate (chaos, the crossover policy, not resident).
+    promote_keys: List[bytes] = []
+    if tier is not None:
+        for key in keys[len(matched):(S - 1) // bs]:
+            if key in cache.index:
+                break
+            if not tier.begin_promote(key, tokens=bs):
+                break
+            promote_keys.append(key)
     # Pin the matched blocks BEFORE allocating: an unpinned match on
     # the zero-ref LRU could be handed out as "fresh".
     for b in matched:
         cache.refs[b] = cache.refs.get(b, 0) + 1
         cache.lru.pop(b, None)
     try:
-        fresh = alloc_blocks(cache, need_total - len(matched))
-    except PoolExhausted:
+        n_need = need_total - len(matched)
+        # Demote what this allocation is about to reclaim: eviction
+        # becomes demotion, on this path only.
+        demote_for_alloc(cache, n_need)
+        fresh = alloc_blocks(cache, n_need)
+    except RuntimeError:
         for b in reversed(matched):          # leaf-first, as release()
             _unref(cache, b)
         raise
     for b in fresh:
         cache.refs[b] = 1
+    n_landed = 0
+    if promote_keys:
+        n_landed = _land_promoted(cache, promote_keys,
+                                  fresh[:len(promote_keys)])
+        tier.last_promoted_n = n_landed
     row = matched + fresh
     cache.set_row(slot, row)
     _set_length(cache, slot, S)
-    return cache, len(matched) * bs, row
+    return cache, (len(matched) + n_landed) * bs, row
+
+
+def _land_promoted(cache: PagedCache, keys: List[bytes],
+                   blk_ids: List[int]) -> int:
+    """Write promoted tier blocks into freshly allocated pool blocks and
+    publish them; returns how many landed. Host-to-device only: one
+    asynchronous copy per block from its arena slot (a prefetched block
+    is already on the card: a device copy after the prefetch's event),
+    then one scatter per pool leaf. An entry that vanished or fails
+    validation breaks the chain there; the caller prefills the rest.
+    The uploads (not the scatter) are timed for the ``h2d`` channel."""
+    tier = cache.host_tier
+    arena = host_arena(cache)
+    shapes = {pf: shape for pf, shape, _ in arena.layout}
+    datas = []
+    for key in keys:
+        data, staged = tier.take_promote(key)
+        if (data is None or set(data) != set(shapes)
+                or any(tuple(data[pf].shape) != shapes[pf]
+                       for pf in shapes)):
+            break
+        datas.append((data, staged))
+    if not datas:
+        return 0
+    n = len(datas)
+    dev = cache.pool_k.device
+    stream = torch.cuda.current_stream(dev) if arena.cuda else None
+    host_slots = [d.slot for d, staged in datas
+                  if not staged and getattr(d, "slot", None) is not None]
+    if stream is not None:
+        arena.wait_on_stream(host_slots, stream)
+        for d, staged in datas:
+            if staged and getattr(d, "event", None) is not None:
+                stream.wait_event(d.event)
+    span = CopySpan(dev, stream)
+    rows = torch.empty((n, arena.slot_bytes), dtype=torch.uint8, device=dev)
+    views = arena.leaves(rows)
+    host_bytes = 0
+    for i, (d, staged) in enumerate(datas):
+        src = getattr(d, "row", None)
+        if src is not None:
+            rows[i].copy_(src, non_blocking=True)
+            if staged and stream is not None:
+                src.record_stream(stream)    # allocated on the side stream
+        else:
+            for pf in shapes:
+                views[pf][i].copy_(d[pf], non_blocking=True)
+        if not staged:
+            host_bytes += sum(int(t.nbytes) for t in d.values())
+    if host_bytes:
+        arena.fence(host_slots,
+                    span.close(tier.estimator, "h2d", host_bytes))
+    ids = torch.tensor(blk_ids[:n], device=dev)
+    for pf, view in views.items():
+        getattr(cache, pf)[:, ids] = view.transpose(0, 1)
+    for key, blk in zip(keys[:n], blk_ids[:n]):
+        if key not in cache.index and blk not in cache.chains:
+            cache.index[key] = blk
+            cache.chains[blk] = key
+    return n
 
 
 def publish_prefix(cache: PagedCache, blocks: List[int],
@@ -507,9 +719,12 @@ class PagedSlotServer(SpecDecodeMixin):
     top-p; stochastic speculation by the exact rejection rule), and
     ``kv_quota`` (a ``slo.KvQuota``: fresh blocks charged to the
     admitting tenant at admission, shared prefix hits free, growth
-    charged, every charge refunded on evict). Still refused, each
-    naming its ROADMAP item: multi_lora, mesh, draft_forward_fn and
-    speculation under ``forward_fn``, host_tier.
+    charged, every charge refunded on evict), and ``host_tier`` (a
+    ``kvtier.HostKvTier``: admissions demote the published blocks they
+    reclaim and promote tier-resident chains; ``prefetch_prefix`` stages
+    a prompt's tier blocks on the card ahead of its admission). Still
+    refused, each naming its ROADMAP item: multi_lora, mesh,
+    draft_forward_fn and speculation under ``forward_fn``.
     """
 
     def __init__(self, params, cfg: TransformerConfig, *, n_slots: int,
@@ -529,8 +744,7 @@ class PagedSlotServer(SpecDecodeMixin):
                 ("mesh", mesh, TODO_MESH),
                 ("draft_forward_fn", draft_forward_fn, TODO_FAMILY),
                 ("speculative_draft with forward_fn",
-                 speculative_draft if forward_fn else None, TODO_FAMILY),
-                ("host_tier", host_tier, TODO_HOST_TIER)):
+                 speculative_draft if forward_fn else None, TODO_FAMILY)):
             if val is not None:
                 raise NotImplementedError(f"{name}: {todo}")
         if forward_fn is not None and kv_quant:
@@ -551,6 +765,11 @@ class PagedSlotServer(SpecDecodeMixin):
             cfg, n_slots=n_slots, n_blocks=n_blocks, block_size=block_size,
             max_blocks_per_slot=max_blocks_per_slot, kv_quant=kv_quant,
             device=self.device)
+        if host_tier is not None:
+            attach_host_tier(self.cache, host_tier)
+        # Side stream of the host tier's prefetch uploads (made on the
+        # first prefetch on a card).
+        self._h2d_stream = None
         # Device->host transfers made by admissions and ticks.
         self.device_fetches = 0
         self.prefix_cache = prefix_cache
@@ -666,12 +885,16 @@ class PagedSlotServer(SpecDecodeMixin):
         else:
             self.cache = admit(self.cache, slot, S)
             cached_len, keys, blocks = 0, None, None
+        tier = self.cache.host_tier if self.prefix_cache else None
+        promoted = tier.last_promoted_n if tier is not None else 0
         if self.kv_quota is not None:
             # Charge the FRESH allocation only (prefix hits share blocks
             # their first writer paid for). The verdict sees the
             # post-admission pool (admit_verdict subtracts ``fresh``); a
             # refusal rolls the host-side reservation back intact.
-            fresh = blocks_needed(S + 1, bs) - cached_len // bs
+            # Promoted tier landings count as cached_len for prefill but
+            # are fresh device blocks the tenant pays for.
+            fresh = blocks_needed(S + 1, bs) - cached_len // bs + promoted
             verdict = self.kv_quota.admit_verdict(
                 tenant, fresh, reclaimable_blocks(self.cache) + fresh)
             if verdict is not None:
@@ -685,6 +908,12 @@ class PagedSlotServer(SpecDecodeMixin):
             self.kv_quota.charge(tenant, fresh)
             self._slot_charge[slot] = fresh
         self._slot_tenant[slot] = tenant
+        if tier is not None:
+            # This tenant is the quota principal of every freshly
+            # allocated block: a later demotion charges the tier's byte
+            # ledger to it.
+            for b in blocks[cached_len // bs - promoted:]:
+                self.cache.owners[int(b)] = tenant
         chunk = chunk_tokens if chunk_tokens else S
         chunk = max(bs, -(-chunk // bs) * bs)     # round UP to blocks
         row, comp_len, n_blk = _admission_row(
@@ -731,6 +960,12 @@ class PagedSlotServer(SpecDecodeMixin):
                     st["done"])
             st["row_stale"] = False
         end = min(S, st["done"] + chunk)
+        done0 = st["done"]
+        # Crossover-estimator feed: the final chunk's span ends at the
+        # blocking token fetch below (device time included); mid-chunk
+        # spans are launch-only and bias the measured prefill rate HIGH,
+        # i.e. the policy toward recompute, as in the reference.
+        t0 = time.perf_counter()
         last_logits, self.cache, st["row"] = _prefill_chunk(
             self.params, st["prompt"], self.cfg, self.cache, slot,
             st["row"], st["done"], end, st["n_blk"], st["comp_len"],
@@ -746,7 +981,11 @@ class PagedSlotServer(SpecDecodeMixin):
                 attn_impl=self.attn_impl,
                 layers_hook=self.draft_layers_hook)
         st["done"] = end
+        tier = self.cache.host_tier
         if end < S:
+            if tier is not None:
+                tier.estimator.observe_prefill(
+                    end - done0, time.perf_counter() - t0)
             return None
         del self._admissions[slot]
         if self.prefix_cache:
@@ -757,7 +996,87 @@ class PagedSlotServer(SpecDecodeMixin):
         self.active[slot] = True
         self._sync_active()
         self.device_fetches += 1
-        return int(nxt.item())
+        tok = int(nxt.item())
+        if tier is not None:
+            tier.estimator.observe_prefill(
+                end - done0, time.perf_counter() - t0)
+        return tok
+
+    def prefetch_prefix(self, prompt_np: np.ndarray,
+                        adapter: int = -1) -> int:
+        """Stage the host-tier part of ``prompt_np``'s chain on the card
+        AHEAD of its admission: the engine calls this inside the
+        overlapped tick's flight window, so the upload runs on a side
+        stream beside the dispatch in flight, and the admission's
+        promotion finds the blocks on the card (waiting only on the
+        upload's event). Host-to-device only: no fetch. Returns the
+        number of chain blocks staged.
+
+        Mirrors admit_prefix's walk: the device-matched prefix needs no
+        upload, the consecutive tier run after it stages, the first
+        miss (or an index hit after the run started) ends it. Stale
+        stages are dropped here."""
+        tier = self.cache.host_tier
+        if tier is None or not self.prefix_cache:
+            return 0
+        if adapter != -1:
+            raise NotImplementedError(f"adapter: {TODO_LORA}")
+        prompt_np = prompt_host(prompt_np)
+        bs = self.cache.block_size
+        S = int(prompt_np.shape[0])
+        keys = chain_keys(prompt_np, bs, (S - 1) // bs)
+        staged: List[bytes] = []
+        todo = []
+        for key in keys[:(S - 1) // bs]:
+            if key in self.cache.index:
+                if staged:
+                    break
+                continue
+            data = tier.get(key)
+            if data is None:
+                break
+            if key not in tier.staged:
+                todo.append((key, data))
+            staged.append(key)
+        if todo:
+            self._stage_uploads(tier, todo)
+        tier.clear_staged(keep=staged)
+        return len(staged)
+
+    def _stage_uploads(self, tier, todo) -> None:
+        """One upload of the tier blocks in ``todo`` into a staging
+        tensor on the card, on the side stream, closed by one event that
+        the consuming admission waits on."""
+        arena = host_arena(self.cache)
+        rows_src = [d.row if getattr(d, "row", None) is not None else None
+                    for _, d in todo]
+        slots = [d.slot for _, d in todo
+                 if getattr(d, "slot", None) is not None]
+        event, stream = None, None
+        if arena.cuda:
+            if self._h2d_stream is None:
+                self._h2d_stream = torch.cuda.Stream(self.device)
+            stream = self._h2d_stream
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            if stream is not None:
+                arena.wait_on_stream(slots, stream)
+            rows = torch.empty((len(todo), arena.slot_bytes),
+                               dtype=torch.uint8, device=self.device)
+            views = arena.leaves(rows)
+            for i, (_, d) in enumerate(todo):
+                if rows_src[i] is not None:
+                    rows[i].copy_(rows_src[i], non_blocking=True)
+                else:
+                    for pf, v in views.items():
+                        v[i].copy_(d[pf], non_blocking=True)
+            if stream is not None:
+                event = torch.cuda.Event()
+                event.record(stream)
+        arena.fence(slots, event)
+        for i, (key, _) in enumerate(todo):
+            tier.stage(key, Payload(arena.leaves(rows[i]), row=rows[i],
+                                    event=event))
 
     def _grow_active(self, extra: int = 0) -> None:
         """Allocate the blocks active slots need through position

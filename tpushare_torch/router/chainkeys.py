@@ -28,3 +28,11 @@ def chain_keys(prompt: np.ndarray, block_size: int, n_full: int,
         h.update(toks[i * block_size:(i + 1) * block_size].tobytes())
         keys.append(h.digest())
     return keys
+
+
+def chain_keys_hex(tokens, block_size: int, n_full: int,
+                   salt: bytes = b"") -> List[str]:
+    """Router-side spelling: a plain token-id list in, hex digests out
+    (the ``/prefixes`` wire format is hex so the keys survive JSON)."""
+    return [k.hex() for k in chain_keys(
+        np.asarray(tokens, np.int32), block_size, n_full, salt=salt)]
