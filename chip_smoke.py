@@ -110,6 +110,31 @@ Phases, one JSON line each, each with its own seconds:
           measured rates and decisions, the TTFT of the promoted and the
           recomputed admission, nvidia-smi's memory with both replicas
           up, and the launch counts.
+  slice_colocate
+          the plugin's NVIDIA half and BASELINE's co-location run
+          (tpushare_torch/tools/colocate.py). (A) NvmlBackend's topology
+          through ChainBackend's cross-check against TorchBackend, held
+          to nvidia-smi (uuid, name, total) and to floor(total / GiB)
+          fake devices. (B) the port's Allocator on its single-card fast
+          path through Allocator.allocate for grants of the whole card,
+          16 + 16 and 8 GiB: NVIDIA_VISIBLE_DEVICES names the card,
+          TPUSHARE_HBM_LIMIT_BYTES = units x 2^30, the _DEV env the
+          card's units, the card's device nodes; then an assumed pod
+          naming a card the node lacks gets the no-gpu-has- poison, which
+          read_tenant_env refuses. (C) A-B-A: BERT-base (bf16, 8 x 128,
+          random weights from seed 0) in tenant processes under those
+          envs, solo (the whole card), two of 16 GiB, solo again, 6 s
+          serve and sat windows each: colocated_pct, the solo variance,
+          credible, sat per stream, breaches, memory, the solo serve
+          window's idle share; gates: 0 breaches, one pooled output bit
+          for bit across every tenant, the solo pooled output within
+          POOLED_BF16_TOL of the f32 forward through mha_reference. (D)
+          a HOG (8 GiB) walks 256 MiB steps past its grant beside a
+          STEADY tenant (16 GiB): it must stop by its grant plus a step,
+          and the planted HOG (enforcement off, isolation disabled) must
+          walk past it. No speed is gated. BERT's attention (head_dim
+          64, non-causal) takes mha_reference: no kernel of ours runs
+          here.
   slice_llama
           Llama-3-8B at full width (random bf16 weights, no cut in depth
           or width) through two servers, each against an
@@ -195,6 +220,7 @@ import sys
 import tempfile
 import time
 import types
+from unittest import mock
 
 # Tolerances, with their reasons.
 # Kernel vs plain, bf16 in and out: both sides do all arithmetic in f32
@@ -2715,6 +2741,195 @@ def slice_kv_economy(torch, np, cfg, card, run_path, failures):
     return launches
 
 
+class AssumedPod:
+    """A pod manager whose one candidate is an extender-assumed pod of
+    ``units`` naming card ``idx`` (absent on a one-card node)."""
+
+    def __init__(self, units, idx):
+        from tpushare_torch.k8s.types import Pod
+        from tpushare_torch.plugin import const
+        self.pod = Pod({
+            "metadata": {"name": "assumed", "namespace": "default",
+                         "uid": "uid-assumed", "annotations": {
+                             const.ANN_RESOURCE_INDEX: str(idx),
+                             const.ANN_ASSUME_TIME: str(time.time_ns()),
+                             const.ANN_ASSIGNED_FLAG: "false"}},
+            "spec": {"nodeName": "node-1", "containers": [
+                {"name": "c0", "resources": {"limits": {
+                    const.RESOURCE_NAME: units}}}]},
+            "status": {"phase": "Pending"}})
+
+    def get_candidate_pods(self):
+        return [self.pod]
+
+
+def colocate_discovery(failures, card):
+    """(A) NVML's topology through ChainBackend's cross-check against
+    torch, held to nvidia-smi; the fake-device count."""
+    from tpushare_torch.plugin.backend import (ChainBackend, TorchBackend,
+                                               topology_to_json)
+    from tpushare_torch.plugin.devices import expand_devices
+    from tpushare_torch.plugin.nvmldisc import (Nvml, NvmlBackend,
+                                                load_library)
+    chain = ChainBackend([NvmlBackend(), TorchBackend()])
+    topo = chain.probe()
+    with Nvml(load_library()) as nv:
+        names = [nv.name(nv.handle(c.index)) for c in topo.chips]
+    out = subprocess.run(["nvidia-smi", "--query-gpu=uuid,name,memory.total",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    smi = [[f.strip() for f in line.split(",")]
+           for line in out.stdout.strip().splitlines()]
+    devmap = expand_devices(topo)
+    got = [[c.uuid, n, str(c.hbm_bytes >> 20)]
+           for c, n in zip(topo.chips, names)]
+    if getattr(chain._active, "name", None) != "nvml":
+        failures.append(f"slice_colocate A: {chain._active} answered, "
+                        f"not NVML")
+    if chain.checked_against != "torch" or chain.disagreement:
+        failures.append(f"slice_colocate A: cross-check against torch: "
+                        f"{chain.checked_against}, {chain.disagreement}")
+    if got != smi:
+        failures.append(f"slice_colocate A: NVML {got} vs nvidia-smi {smi}")
+    units = {c.index: c.hbm_bytes >> 30 for c in topo.chips}
+    if devmap.units_per_chip != units:
+        failures.append(f"slice_colocate A: {devmap.units_per_chip} fake "
+                        f"devices per card, floor(total / GiB) is {units}")
+    emit({"phase": "slice_colocate", "part": "A",
+          "topology": json.loads(topology_to_json(topo)), "names": names,
+          "nvidia_smi": smi, "cross_check": chain.checked_against,
+          "disagreement": chain.disagreement,
+          "torch_total_memory": TorchBackend().probe().chips[0].hbm_bytes,
+          "fake_devices": len(devmap.devices), "card": card})
+    return topo
+
+
+def colocate_allocate(colocate, topo, failures, card):
+    """(B) The port's Allocator on its single-card fast path, through
+    ``Allocator.allocate`` on the kubelet's messages, for the whole
+    card, 16 + 16 and the hog's 8; then the poison path: an assumed pod
+    naming a card this node lacks."""
+    from tpushare_torch.plugin import const
+    from tpushare_torch.utils.tenant import AllocationError, read_tenant_env
+    alloc, devmap = colocate.single_card_allocator(topo, const.GIB)
+    chip = topo.chips[0]
+    whole = devmap.units_per_chip[chip.index]
+    grants = {}
+    for name, units in (("solo", whole), ("co_0", 16), ("co_1", 16),
+                        ("hog", 8)):
+        r = colocate.allocate(alloc, devmap, units)
+        envs = dict(r.envs)
+        grants[name] = {"envs": envs,
+                        "devices": [d.host_path for d in r.devices]}
+        want = {const.ENV_NVIDIA_VISIBLE_DEVICES: str(chip.index),
+                const.ENV_HBM_LIMIT_BYTES: str(units << 30),
+                const.ENV_RESOURCE_BY_DEV: str(whole),
+                const.ENV_RESOURCE_BY_CONTAINER: str(units)}
+        bad = {k: envs.get(k) for k, v in want.items() if envs.get(k) != v}
+        nodes = [chip.device_path, *topo.shared_device_paths]
+        if bad or grants[name]["devices"] != nodes:
+            failures.append(f"slice_colocate B {name}: {bad}, devices "
+                            f"{grants[name]['devices']} (want {nodes})")
+    missing = max(c.index for c in topo.chips) + 1
+    palloc, pmap = colocate.single_card_allocator(
+        topo, const.GIB, podmgr=AssumedPod(8, missing))
+    poison = dict(colocate.allocate(palloc, pmap, 8).envs)
+    with mock.patch.dict(os.environ, poison):
+        try:
+            read_tenant_env()
+            raised = None
+        except AllocationError as e:
+            raised = str(e)
+    if not (poison.get(const.ENV_NVIDIA_VISIBLE_DEVICES, "").startswith(
+            "no-gpu-has-8GiB") and raised):
+        failures.append(f"slice_colocate B: poison {poison}, "
+                        f"read_tenant_env raised {raised}")
+    emit({"phase": "slice_colocate", "part": "B", "units_per_card": whole,
+          "grants": grants, "poison": poison,
+          "poison_read_tenant_env": raised, "card": card})
+    return {name: g["envs"] for name, g in grants.items()}
+
+
+def slice_colocate(failures, card):
+    """The slice_colocate phase (see the module docstring)."""
+    import importlib
+    colocate = importlib.import_module("tpushare_torch.tools.colocate")
+    topo = colocate_discovery(failures, card)
+    envs = colocate_allocate(colocate, topo, failures, card)
+    args = colocate.build_parser().parse_args([])
+    # (C) A-B-A: solo (the whole card), two tenants of 16 GiB, solo.
+    rec = colocate.measure(envs["solo"], envs["co_0"], args,
+                           log=lambda s: emit({"phase": "slice_colocate",
+                                               "part": "C",
+                                               **json.loads(s)}))
+    w = rec["windows"]
+    tenants = [w["solo_a1"], *w["colocated"], w["solo_a2"]]
+    digests = {t["pooled_sha256"] for t in tenants}
+    if len(digests) != 1:
+        failures.append(f"slice_colocate C: pooled outputs differ across "
+                        f"tenants: {digests}")
+    for t in tenants:
+        if t["hbm_breaches"] or not t["pooled_finite"]:
+            failures.append(f"slice_colocate C: stream {t['stream']} "
+                            f"breaches {t['hbm_breaches']}, finite "
+                            f"{t['pooled_finite']}")
+    err = w["solo_a1"]["pooled_vs_f32_max_abs"]
+    if not err <= colocate.POOLED_BF16_TOL:
+        failures.append(f"slice_colocate C: solo pooled vs the f32 twin "
+                        f"{err} > {colocate.POOLED_BF16_TOL}")
+    emit({"phase": "slice_colocate", "part": "C", "model": "bert_base",
+          "batch": 8, "seq": 128, "seconds": args.seconds,
+          "colocated_pct": rec["colocated_pct"],
+          "solo_variance_pct": rec["solo_variance_pct"],
+          "credible": rec["credible"],
+          "refusal_reasons": rec["refusal_reasons"],
+          "sat_colocated_pct": rec["sat_colocated_pct"],
+          "serve_tokens_per_sec": {
+              "solo_a1": w["solo_a1"]["serve_tokens_per_sec"],
+              "colocated": [t["serve_tokens_per_sec"]
+                            for t in w["colocated"]],
+              "solo_a2": w["solo_a2"]["serve_tokens_per_sec"]},
+          "sat_tokens_per_sec": {
+              "solo_a1": w["solo_a1"]["sat_tokens_per_sec"],
+              "colocated": [t["sat_tokens_per_sec"] for t in w["colocated"]],
+              "solo_a2": w["solo_a2"]["sat_tokens_per_sec"]},
+          "mfu_pct": {"solo_a1": w["solo_a1"].get("mfu_pct"),
+                      "colocated": [t.get("mfu_pct")
+                                    for t in w["colocated"]]},
+          "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+          "breaches": [t["hbm_breaches"] for t in tenants],
+          "memory_reserved": [t["memory_reserved"] for t in tenants],
+          "nvml_processes": [t["nvml_processes"] for t in tenants],
+          "pooled_vs_f32_max_abs": err,
+          "pooled_tol": colocate.POOLED_BF16_TOL,
+          "pooled_bit_equal": len(digests) == 1,
+          "solo_profile": w["solo_a1"].get("profile"), "card": card})
+    # (D) Isolation: the HOG (8 GiB) beside STEADY (16 GiB), then the
+    # planted fault, the HOG with enforcement off and isolation disabled.
+    iso = colocate.isolation(envs["hog"], envs["co_0"], args)
+    planted = colocate.planted_hog(envs["hog"], args)
+    hog, step = iso["hog"], iso["hog"]["step_bytes"]
+    if not (hog["stopped_by"] in ("OutOfMemoryError", "SoftHbmOom")
+            and hog["memory_reserved_at_stop"] <= hog["limit_bytes"] + step):
+        failures.append(f"slice_colocate D: the HOG stopped by "
+                        f"{hog['stopped_by']} at "
+                        f"{hog['memory_reserved_at_stop']} reserved")
+    if planted["stopped_by"] is not None \
+            or not planted["held_bytes"] > planted["limit_bytes"] + step:
+        failures.append(f"slice_colocate D: the planted HOG stopped by "
+                        f"{planted['stopped_by']} at "
+                        f"{planted['held_bytes']}: the gate cannot fail")
+    if iso["steady"]["hbm_breaches"]:
+        failures.append(f"slice_colocate D: STEADY breached "
+                        f"{iso['steady']['hbm_breaches']} times")
+    emit({"phase": "slice_colocate", "part": "D", "hog": hog,
+          "planted": planted,
+          "steady_tokens_per_sec": iso["steady_tokens_per_sec"],
+          "steady_windows": iso["steady"]["windows"],
+          "steady_memory_reserved": iso["steady"]["memory_reserved"],
+          "card": card})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3060,6 +3275,16 @@ def main() -> int:
     t_k = time.perf_counter()
     kv_launches = slice_kv_economy(torch, np, cfg, card, run_path, failures)
     kv_economy_s = time.perf_counter() - t_k
+
+    # -- slice_colocate: the plugin's NVIDIA half, two BERT-base tenants -
+    # The tenants are processes of their own: this one holds no cached
+    # blocks while they run. BERT's attention (head_dim 64, non-causal)
+    # takes mha_reference, so no kernel of ours is on this path.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    slice_colocate(failures, card)
+    colocate_s = time.perf_counter() - t_c
 
     # -- slice_llama: Llama-3-8B at full width, speculative + fused + int8
     t_l = time.perf_counter()
@@ -3487,7 +3712,7 @@ def main() -> int:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on a main path")
     emit({"phase": "seconds", "kernels": kernels_s, "engine": engine_s,
-          "kv_economy": kv_economy_s,
+          "kv_economy": kv_economy_s, "colocate": colocate_s,
           "flex": flex_s,
           "flex_compile": {f"{r['kernel']} {r['case']}": r["flex_compile_s"]
                            for r in dec + fdec + list(part_a) + list(bwd_a)

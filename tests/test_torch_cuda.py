@@ -15,6 +15,10 @@ on long rows whose outputs are small (the floor covers elements near
 """
 
 import importlib
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -952,3 +956,94 @@ def test_host_tier_roundtrip_on_the_card(dev, kv_quant):
     assert snap["demotions"] > 0 and snap["promotions"] >= 6
     for ch in ("d2h", "h2d"):
         assert snap["crossover"]["channels"][ch]["bytes_per_s"] > 0
+
+
+# -- the plugin's NVIDIA half (discovery, the in-pod memory guard) --------
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _tenant_child(code, env):
+    """Run ``code`` in a fresh interpreter (its own CUDA init) with the
+    pod env ``env`` and no inherited card selection; its last stdout
+    line, parsed as JSON."""
+    child = {k: v for k, v in os.environ.items()
+             if k not in ("CUDA_VISIBLE_DEVICES", "TPUSHARE_HBM_ENFORCE",
+                          "CTPU_DISABLE")}
+    child.update(env, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", code], env=child, cwd=_REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_nvml_discovery_matches_torch(dev):
+    """NVML's cards are torch's: count, uuids, generation, and NVML's
+    total within the card's reserved memory above torch's total_memory; the
+    ChainBackend cross-check reads torch and finds no disagreement."""
+    from tpushare_torch.plugin.backend import ChainBackend, TorchBackend
+    from tpushare_torch.plugin.devices import expand_devices
+    from tpushare_torch.plugin.nvmldisc import NvmlBackend
+    topo = NvmlBackend().probe()
+    n = torch.cuda.device_count()
+    assert topo.chip_count == n
+    for c in topo.chips:
+        props = torch.cuda.get_device_properties(c.index)
+        assert c.uuid == f"GPU-{props.uuid}"
+        assert 0 <= c.hbm_bytes - props.total_memory < 1 << 30
+        assert c.device_path.startswith("/dev/nvidia")
+    dm = expand_devices(topo)
+    assert dm.units_per_chip == {c.index: c.hbm_bytes >> 30
+                                 for c in topo.chips}
+    chain = ChainBackend([NvmlBackend(), TorchBackend()])
+    assert chain.probe() == topo
+    assert chain.checked_against == "torch" and chain.disagreement is None
+
+
+def test_memory_fraction_stops_an_allocation_past_the_grant(dev):
+    """A tenant under a 2 GiB grant: walking 256 MiB allocations raises
+    torch.OutOfMemoryError before its reserved bytes pass the grant;
+    with CTPU_DISABLE=true the same walk passes it."""
+    code = (
+        "import json, torch\n"
+        "from tpushare_torch.utils.tenant import apply_tenant_limits, "
+        "tenant_device\n"
+        "spec = apply_tenant_limits(enforce='off')\n"
+        "dev = tenant_device()\n"
+        "held, err = [], None\n"
+        "try:\n"
+        "    while len(held) < 12:\n"
+        "        held.append(torch.ones(1 << 26, device=dev))\n"
+        "except torch.OutOfMemoryError as e:\n"
+        "    err = type(e).__name__\n"
+        "print(json.dumps({'held': len(held) << 28, 'err': err,\n"
+        "    'reserved': torch.cuda.memory_reserved(dev)}))\n")
+    env = {"NVIDIA_VISIBLE_DEVICES": "0",
+           "TPUSHARE_HBM_LIMIT_BYTES": str(2 << 30)}
+    got = _tenant_child(code, env)
+    assert got["err"] == "OutOfMemoryError"
+    assert got["reserved"] <= 2 << 30 and got["held"] <= 2 << 30
+    free = _tenant_child(code, dict(env, CTPU_DISABLE="true"))
+    assert free["err"] is None and free["held"] == 12 << 28
+
+
+def test_tenant_grant_mirrors_across_cards(dev):
+    """In a bare process on a host of several cards, a grant of the last
+    card is mirrored into CUDA_VISIBLE_DEVICES (as its UUID): torch then
+    sees one card, the one NVML numbers as granted."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 or more NVIDIA GPUs")
+    from tpushare_torch.plugin.nvmldisc import Nvml, load_library
+    with Nvml(load_library()) as nv:
+        last = nv.count() - 1
+        want = nv.uuid(nv.handle(last))
+    code = (
+        "import json, os, torch\n"
+        "from tpushare_torch.utils.tenant import apply_tenant_limits\n"
+        "apply_tenant_limits(enforce='off')\n"
+        "print(json.dumps({'n': torch.cuda.device_count(), 'uuid': 'GPU-' "
+        "+ str(torch.cuda.get_device_properties(0).uuid), 'cvd': "
+        "os.environ.get('CUDA_VISIBLE_DEVICES')}))\n")
+    got = _tenant_child(code, {"NVIDIA_VISIBLE_DEVICES": str(last)})
+    assert got["n"] == 1
+    assert got["cvd"] == want and got["uuid"] == want

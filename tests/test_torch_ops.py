@@ -414,7 +414,10 @@ class TestPortBoundary:
                     "models/serving.py", "ops/flash_attention.py",
                     "models/kvtier.py", "router/core.py",
                     "router/daemon.py", "router/smoke.py",
-                    "router/offload_smoke.py", "utils/profiling.py"):
+                    "router/offload_smoke.py", "utils/profiling.py",
+                    "plugin/allocate.py", "plugin/nvmldisc.py",
+                    "deviceplugin/rpc.py", "k8s/client.py",
+                    "models/bert.py", "tools/colocate.py"):
             assert os.path.join("tpushare_torch", mod) in names
         assert bad == []
 

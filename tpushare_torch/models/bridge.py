@@ -9,9 +9,11 @@ and its ``#scale`` leaves stay f32, whatever ``dtype`` asks for the
 rest; MoE expert stacks ([L, E, ...] leaves, int8 or not) bridge the
 same way. ``config_from_jax`` / ``moe_config_from_jax`` copy a JAX
 ``TransformerConfig``'s / ``MoEConfig``'s fields into the port's.
-``opt_state_from_jax`` carries an AdamW state (``adamw_init`` /
-``apply_adamw``'s mu, nu and count) across, so both packages can train
-on from one non-zero optimizer state. None imports JAX: they read
+``bert_params_from_jax`` / ``bert_config_from_jax`` do the same for
+``tpushare.models.bert``'s encoder. ``opt_state_from_jax`` carries an
+AdamW state (``adamw_init`` / ``apply_adamw``'s mu, nu and count)
+across, so both packages can train on from one non-zero optimizer
+state. None imports JAX: they read
 arrays through numpy and config fields by name.
 """
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from tpushare_torch import DeviceLike, resolve_device
+from tpushare_torch.models.bert import BertConfig
 from tpushare_torch.models.moe import MoEConfig
 from tpushare_torch.models.transformer import TransformerConfig
 
@@ -77,6 +80,21 @@ def config_from_jax(cfg) -> TransformerConfig:
 def moe_config_from_jax(cfg) -> MoEConfig:
     """The port's MoEConfig with every field of a JAX MoEConfig."""
     return _fields_from_jax(MoEConfig, cfg)
+
+
+def bert_config_from_jax(cfg) -> BertConfig:
+    """The port's BertConfig with every field of a JAX BertConfig."""
+    return _fields_from_jax(BertConfig, cfg)
+
+
+def bert_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
+                         dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """A JAX ``bert.init_params`` tree (``embed``, ``layers`` stacked
+    over L, ``pooler``) -> the port's ``models.bert`` params."""
+    missing = {"embed", "layers", "pooler"} - set(tree)
+    if missing:
+        raise ValueError(f"not a BERT params tree: missing {sorted(missing)}")
+    return params_from_jax(tree, device=device, dtype=dtype)
 
 
 def opt_state_from_jax(state: Dict[str, Any], *,
