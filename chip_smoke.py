@@ -135,6 +135,31 @@ Phases, one JSON line each, each with its own seconds:
           walk past it. No speed is gated. BERT's attention (head_dim
           64, non-causal) takes mha_reference: no kernel of ours runs
           here.
+  slice_plugin
+          BASELINE.md's demo/binpack-1 dry-run on the card through the
+          port's control plane (tpushare_torch/tools/binpack.py): (A)
+          the daemon (python -m tpushare_torch.plugin.daemon
+          --health-check --metrics-port, no fake env) discovers the card
+          through NVML, registers with a kubelet simulator, lists
+          floor(total / GiB) Healthy devices, patches the node, answers
+          /healthz and /metrics; (B) the manifest's 3 x 2 GiB pods and
+          two 16 GiB Gemma-2B pods through the extender's /filter and
+          /bind and Allocate over gRPC: all on the card, the envs, the
+          device nodes, ASSIGNED, inspect at 38 of 79 GiB; (C) the
+          manifest's command under each binpack pod's env; each serving
+          pod calls apply_tenant_limits() and runs the port's engine
+          (--preset gemma_2b --seed 0) in its own process, 4 greedy
+          completions of the slice prompts (16, 511, 1024, 2048 tokens)
+          each: streams equal across the two, peak memory_reserved
+          within 16 GiB, no OutOfMemoryError, exit 0, flash_attention
+          and paged_flash_decode launched in each (their counts, read
+          in the tenant at exit, are this path's launches); (D) health
+          churn through TPUSHARE_HEALTH_ERRFILES and tenant 0's /drain:
+          a quiet control window, then a bumped counter, every device
+          Unhealthy within two 5 s polls, 503 with /healthz 200,
+          Healthy again, /undrain, the 16-token prompt served equal to
+          before; (E) the health sources the daemon logged (AER, NVML's
+          XID events) and any XID seen.
   slice_llama
           Llama-3-8B at full width (random bf16 weights, no cut in depth
           or width) through two servers, each against an
@@ -209,6 +234,7 @@ result line). Without CUDA it exits 2 at once.
 """
 
 import dataclasses
+import faulthandler
 import functools
 import gc
 import json
@@ -2930,7 +2956,46 @@ def slice_colocate(failures, card):
           "card": card})
 
 
+def slice_plugin(failures, card):
+    """The slice_plugin phase (see the module docstring); returns the
+    two serving tenants' kernel launches, summed."""
+    import importlib
+    binpack = importlib.import_module("tpushare_torch.tools.binpack")
+    args = binpack.build_parser().parse_args([])
+    rec = binpack.run(args, log=lambda s: emit({
+        "phase": "slice_plugin", **json.loads(s), "card": card}))
+    failures += [f"slice_plugin {f}" for f in rec["failures"]]
+    tenants = rec["C"]["tenants"]
+    launches = {}
+    for t in tenants:
+        for name, n in t.get("launches", {}).items():
+            launches[name] = launches.get(name, 0) + n
+    emit({"phase": "slice_plugin", "part": "summary",
+          "register_s": rec["A"]["register_s"],
+          "filter_bind_ms": {n: v["filter_ms"] + v["bind_ms"]
+                             for n, v in rec["B"]["schedule"].items()},
+          "allocate_ms": {n: g["allocate_ms"]
+                          for n, g in rec["B"]["grants"].items()},
+          "tenant_ready_s": rec["C"]["tenant_ready_s"],
+          **{k: [t.get(k) for t in tenants]
+             for k in ("ttft_ms", "ms_per_token", "max_memory_reserved",
+                       "max_memory_allocated")},
+          "launches": launches, "detect_s": rec["D"].get("detect_s"),
+          "recover_s": rec["D"].get("recover_s"),
+          "xid_source": rec["E"]["xid_source"],
+          "xid_wait_errors": rec["E"]["xid_wait_errors"],
+          "default_sources": rec["E"]["default_sources"],
+          "failures": rec["failures"], "seconds": rec["seconds"],
+          "card": card})
+    return launches
+
+
 def main() -> int:
+    # A crash in native code (the card's driver, a kernel, NVML) leaves
+    # every thread's Python stack on stderr, here and in the processes
+    # the phases start.
+    faulthandler.enable()
+    os.environ.setdefault("PYTHONFAULTHANDLER", "1")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3286,6 +3351,14 @@ def main() -> int:
     slice_colocate(failures, card)
     colocate_s = time.perf_counter() - t_c
 
+    # -- slice_plugin: the daemon, the extender, two Gemma-2B tenants ----
+    # Every piece is a process of its own (the tenants hold 16 GiB each).
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_p = time.perf_counter()
+    p_launches = slice_plugin(failures, card)
+    plugin_s = time.perf_counter() - t_p
+
     # -- slice_llama: Llama-3-8B at full width, speculative + fused + int8
     t_l = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -3638,7 +3711,7 @@ def main() -> int:
              **{f"slice_llama_{m}": c for m, c in l_launches.items()},
              **{f"slice_moe_{m}": c for m, c in m_launches.items()},
              "slice_rows": r_launches, "slice_train_sgd": sgd_launches,
-             "slice_train_fit": fit_launches}
+             "slice_train_fit": fit_launches, "slice_plugin": p_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in paths.values())
@@ -3713,7 +3786,7 @@ def main() -> int:
             raise AssertionError(f"{k['name']}: no launch on a main path")
     emit({"phase": "seconds", "kernels": kernels_s, "engine": engine_s,
           "kv_economy": kv_economy_s, "colocate": colocate_s,
-          "flex": flex_s,
+          "plugin": plugin_s, "flex": flex_s,
           "flex_compile": {f"{r['kernel']} {r['case']}": r["flex_compile_s"]
                            for r in dec + fdec + list(part_a) + list(bwd_a)
                            if r.get("flex_compile_s") is not None},

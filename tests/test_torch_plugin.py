@@ -95,10 +95,9 @@ def test_verbatim_copy_equals_original(rel):
 
 @pytest.mark.parametrize("rel,cls,gone,new", [
     # The env half: NVIDIA_VISIBLE_DEVICES in place of the TPU_* env
-    # and its bounds; the extender's synthesized mesh is not ported.
+    # and its bounds.
     ("plugin/topology.py", None,
-     {"tpu_env_for_chips", "submesh_dims", "default_mesh",
-      "synthesize_topology"}, {"gpu_env_for_cards"}),
+     {"tpu_env_for_chips"}, {"gpu_env_for_cards"}),
     # Three methods change (the selector, the poison, the stale check's
     # import of the extender's accounting); the class itself is not
     # compared whole.

@@ -2,9 +2,10 @@
 check reads it: the port's copies of ``node_chip_count``,
 ``node_total_mem`` and ``chip_free`` (``tpushare/extender/core.py``) and
 of ``pod_device_usage`` and ``is_active_pod``
-(``tpushare/cli/inspect.py``). The plugin and the extender must agree on
-what free means, so there is one implementation of it; a test holds
-these copies to the originals. The extender itself is not ported.
+(``tpushare/cli/inspect.py``). The plugin, the extender
+(``extender/core.py``) and ``cli/inspect.py`` must agree on what free
+means, so this is their one implementation; a test holds these copies to
+the originals.
 """
 
 from __future__ import annotations

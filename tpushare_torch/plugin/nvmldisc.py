@@ -14,6 +14,12 @@ card whose bus id NVML does not report, as on some virtualized hosts,
 gets NUMA node 0), then ``nvmlShutdown``. Any other failed call raises
 ``NvmlError``.
 
+The health watch's XID source (``plugin/health.py``) adds NVML's event
+calls: ``nvmlEventSetCreate``, ``nvmlDeviceGetSupportedEventTypes``,
+``nvmlDeviceRegisterEvents`` (``nvmlEventTypeXidCriticalError``),
+``nvmlEventSetWait_v2`` (``NVML_ERROR_TIMEOUT``: no event) and
+``nvmlEventSetFree``.
+
 ``Nvml`` is the thin typed layer over the library; tests inject a fake
 object with the same C call surface (pointer arguments written through
 ``.contents``, string buffers through ``.value``).
@@ -32,6 +38,10 @@ from tpushare_torch.plugin.backend import (NVIDIA_SHARED_NODES, Backend,
 
 LIBRARY = "libnvidia-ml.so.1"
 NVML_SUCCESS = 0
+NVML_ERROR_NOT_SUPPORTED = 3
+NVML_ERROR_TIMEOUT = 10
+#: ``nvmlEventTypeXidCriticalError``
+EVENT_XID_CRITICAL = 0x8
 _BUF = 96                                # NVML_DEVICE_UUID_V2_BUFFER_SIZE
 
 
@@ -65,6 +75,17 @@ class NvmlError(RuntimeError):
 
 
 _HANDLE = ctypes.c_void_p
+_EVENT_SET = ctypes.c_void_p
+
+
+class NvmlEventData(ctypes.Structure):
+    """``nvmlEventData_t``."""
+    _fields_ = [("device", _HANDLE), ("eventType", ctypes.c_ulonglong),
+                ("eventData", ctypes.c_ulonglong),
+                ("gpuInstanceId", ctypes.c_uint),
+                ("computeInstanceId", ctypes.c_uint)]
+
+
 _SIGNATURES = {
     "nvmlInit_v2": [],
     "nvmlShutdown": [],
@@ -79,6 +100,13 @@ _SIGNATURES = {
     "nvmlDeviceGetComputeRunningProcesses_v3": [
         _HANDLE, ctypes.POINTER(ctypes.c_uint),
         ctypes.POINTER(NvmlProcessInfo)],
+    "nvmlEventSetCreate": [ctypes.POINTER(_EVENT_SET)],
+    "nvmlDeviceGetSupportedEventTypes": [_HANDLE,
+                                         ctypes.POINTER(ctypes.c_ulonglong)],
+    "nvmlDeviceRegisterEvents": [_HANDLE, ctypes.c_ulonglong, _EVENT_SET],
+    "nvmlEventSetWait_v2": [_EVENT_SET, ctypes.POINTER(NvmlEventData),
+                            ctypes.c_uint],
+    "nvmlEventSetFree": [_EVENT_SET],
 }
 
 
@@ -186,6 +214,40 @@ class Nvml:
                         h, ctypes.pointer(n), arr))
         return [(arr[i].pid, arr[i].usedGpuMemory) for i in range(n.value)]
 
+    def event_set(self):
+        """A new event set (free it with ``free_event_set``)."""
+        s = _EVENT_SET()
+        self._check("nvmlEventSetCreate",
+                    self.lib.nvmlEventSetCreate(ctypes.pointer(s)))
+        return s
+
+    def supported_events(self, h) -> int:
+        """The event types the card can report (a bit mask)."""
+        n = ctypes.c_ulonglong()
+        self._check("nvmlDeviceGetSupportedEventTypes",
+                    self.lib.nvmlDeviceGetSupportedEventTypes(
+                        h, ctypes.pointer(n)))
+        return n.value
+
+    def register_events(self, h, types: int, event_set) -> None:
+        self._check("nvmlDeviceRegisterEvents",
+                    self.lib.nvmlDeviceRegisterEvents(h, types, event_set))
+
+    def wait_event(self, event_set,
+                   timeout_ms: int = 0) -> Optional[NvmlEventData]:
+        """The next event of the set, or None when none came within
+        ``timeout_ms`` (``NVML_ERROR_TIMEOUT``)."""
+        data = NvmlEventData()
+        rc = self.lib.nvmlEventSetWait_v2(event_set, ctypes.pointer(data),
+                                          timeout_ms)
+        if rc == NVML_ERROR_TIMEOUT:
+            return None
+        self._check("nvmlEventSetWait_v2", rc)
+        return data
+
+    def free_event_set(self, event_set) -> None:
+        self.lib.nvmlEventSetFree(event_set)
+
 
 class NvmlBackend(Backend):
     """Discover the host's cards through NVML. ``lib`` injects a library
@@ -199,6 +261,10 @@ class NvmlBackend(Backend):
         self._lib = lib
         self._dev_root = dev_root
         self._pci_root = pci_root
+
+    @property
+    def pci_root(self) -> str:
+        return self._pci_root
 
     def library(self):
         if self._lib is None:

@@ -2,7 +2,9 @@
 ``tpushare/plugin/topology.py``.
 
 Kept as they are: ``choose_submesh``, ``contiguous_submeshes``,
-``topology_annotation``, ``topology_from_annotation`` and
+``submesh_dims``, ``topology_annotation``, ``topology_from_annotation``,
+``default_mesh`` and ``synthesize_topology`` (the extender's placement
+fallback for a node without the topology annotation), and
 ``preferred_fake_devices`` (GetPreferredAllocation).
 Over a host of cards the mesh is ``(n, 1, 1)`` (plugin/backend.py):
 NVSwitch joins every pair, so the mesh only orders preference.
@@ -71,6 +73,16 @@ def choose_submesh(topo: HostTopology, k: int,
     return None
 
 
+def submesh_dims(topo: HostTopology, chip_indices: Sequence[int]) -> Tuple[int, int, int]:
+    """Bounding-box dims of the chosen chips inside the host mesh."""
+    coords = [topo.chip_by_index(i).coords for i in chip_indices]
+    spans = []
+    for axis in range(3):
+        vals = [c[axis] for c in coords]
+        spans.append(max(vals) - min(vals) + 1)
+    return tuple(spans)
+
+
 def gpu_env_for_cards(topo: HostTopology, indices: Sequence[int]) -> Dict[str, str]:
     """Container env selecting a card set: ``{NVIDIA_VISIBLE_DEVICES:
     "0,2"}``, indices sorted and joined by commas as the reference
@@ -110,6 +122,28 @@ def topology_from_annotation(value: str) -> Optional[HostTopology]:
                             mesh=mesh, chips=chips)
     except (ValueError, KeyError, TypeError):
         return None
+
+
+def default_mesh(count: int) -> Tuple[int, int, int]:
+    """Standard single-host mesh shape for a chip count: the squarest
+    (w, h, 1) factorization (the JAX package's TPU host shapes, 4 -> 2x2,
+    8 -> 2x4; over cards it only orders the extender's preference)."""
+    w = 1
+    for cand in range(1, int(count ** 0.5) + 1):
+        if count % cand == 0:
+            w = cand
+    return (w, count // w, 1)
+
+
+def synthesize_topology(count: int) -> HostTopology:
+    """Placement-only fallback topology for nodes that predate the
+    topology annotation: default mesh, row-major chip coords."""
+    w, h, d = default_mesh(max(count, 1))
+    chips = tuple(
+        Chip(index=i, uuid=f"syn-{i}", hbm_bytes=0, cores=1,
+             coords=(i % w, (i // w) % h, i // (w * h)))
+        for i in range(max(count, 1)))
+    return HostTopology(generation="", mesh=(w, h, d), chips=chips)
 
 
 def preferred_fake_devices(devmap: DeviceMap, topo: HostTopology,
