@@ -76,6 +76,18 @@ Phases, one JSON line each, each with its own seconds:
           Then the sampler's law: 2^16 draws per row of one seeded
           [8, 256128] logits tensor against softmax(filter_logits) on
           the CPU, by TV; a planted fault (no top-p mask) must fail.
+          Every engine is stopped through stop_engine: the next one is
+          built only when ServeEngine.live_threads() is empty. (C)
+          multi-LoRA: engine A's argv, the engine given a bank of 4
+          rank-16 adapters on wq and wv (A as lora.init_lora draws it,
+          B drawn non-zero, one seeded generator); the 8 prompts posted
+          at once with adapters [-1, 0, 1, 2, 3, -1, 0, 1]. Each stream
+          is held against a PagedSlotServer over merge_lora(base,
+          adapter) (the base for -1) by the A rule; the bank served
+          directly keeps its logits within LOGIT_REL_TOL of each twin's
+          largest |logit| up to where their streams part; one fetch per
+          tick. Then engine A's window (8 fresh 64-token prompts, each
+          with its adapter): ms per tick and a profile beside A's.
   slice_kv_economy
           the host KV tier, cross-replica migration and the router, at
           Gemma-2B's full width and depth (8 slots, 256 blocks of 16,
@@ -193,6 +205,29 @@ Phases, one JSON line each, each with its own seconds:
           the first fused tick and the first decode tick; beside each
           reading, the share of real (token, layer) pairs where the twin
           alone would have chosen another expert set.
+  slice_moe_spec
+          MoE int8-self speculation at Mixtral-8x7B's full width, depth
+          cut to 12 of 32 layers (a bf16 target and its int8 draft take
+          ~2.9 + 1.45 GB a layer; 32 would be ~139 GB): random bf16
+          weights from a seeded generator, the draft quantize_params of
+          them served through fused_expert_hook. ServeEngine(
+          model_family="moe", kv="paged", speculative_draft=...) over
+          HTTP: 4 concurrent greedy completions (64..1000 tokens, 32
+          new each, gamma 4), each stream held against a plain paged MoE
+          server on the same weights by the A rule at
+          MOE_LOGIT_REL_TOL; then the same at temperature 0.8. Gates:
+          flash_attention, paged_flash_decode, paged_flash_verify and
+          q8_expert_ffn launched, one fetch per round, an accept rate in
+          (0, 1]. Records: ms per round beside the plain server's ms per
+          tick, accept rate, peak memory_reserved. Then the routings
+          dropless, expert_choice and a2a (capacity 1.25, one card)
+          through a direct paged server on the int8 tree: 4 admissions,
+          8 ticks under the fetch spy (one fetch each), 2 profiled
+          (device ms per layer); the inputs layer 0 gave the expert
+          products at the first admission and the first tick are held
+          per element against the plain version (q8_expert_ffn against
+          its reference; dropless's grouped GEMM against one matmul per
+          expert).
   slice_rows
           Gemma-2-2B at full width and depth over dense rows
           (serving.SlotServer, 8 slots, max_len 8192): 5 prompts of
@@ -810,13 +845,21 @@ class DeviceProfile:
         return self
 
     def __exit__(self, *exc):
+        self.stop(*exc)
+        if exc[0] is None:
+            self.summarize()
+
+    def stop(self, *exc):
+        """Close the window: drain the card, stop the trace (cheap; the
+        events are parsed later, in ``summarize``)."""
         import torch
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - self.t0) * 1e3
-        self.prof.__exit__(*exc)
-        if exc[0] is not None:
-            return
-        n, by_name = self.n, {}
+        self.wall_ms = (time.perf_counter() - self.t0) * 1e3
+        self.prof.__exit__(*(exc or (None, None, None)))
+
+    def summarize(self):
+        import torch
+        n, wall_ms, by_name = self.n, self.wall_ms, {}
         for evt in self.prof.key_averages():
             if evt.device_type != torch.autograd.DeviceType.CUDA:
                 continue
@@ -1945,6 +1988,20 @@ class TickClock:
         return [m for m, a in zip(self.ms, self.active) if a >= n_slots]
 
 
+def stop_engine(httpd, eng):
+    """Shut the HTTP server, then the engine: ServeEngine.stop() joins
+    every thread it started (within its bound), and the next engine is
+    never built over one still running."""
+    if httpd is not None:
+        httpd.shutdown()
+        httpd.server_close()
+    eng.stop()
+    alive = eng.live_threads()
+    if alive:
+        raise AssertionError(f"engine threads still running after stop(): "
+                             f"{alive}")
+
+
 def http_post(port, body, idem=None, timeout=600):
     import http.client
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
@@ -2069,19 +2126,24 @@ def engine_a_requests(port, prompts, max_tokens):
 
 
 def direct_run(torch, paged, cfg, params, prompts, order, n_tokens,
-               n_blocks, bs):
+               n_blocks, bs, adapters=None, **srv_kw):
     """The engine's prompts through a PagedSlotServer on the same
     weights, driven directly in the engine's admission order: each
     stream's tokens and, per position, the logits row it was picked
-    from, and the ms of each decode tick with every slot active."""
-    srv = paged.PagedSlotServer(params, cfg, n_slots=8, n_blocks=n_blocks,
-                                block_size=bs, prefix_cache=True)
+    from, and the ms of each decode tick with every slot active.
+    ``adapters``: {prompt index: bank index} for a ``multi_lora``
+    server; ``srv_kw`` the server's other options (8 slots unless
+    given)."""
+    srv_kw.setdefault("n_slots", 8)
+    srv = paged.PagedSlotServer(params, cfg, n_blocks=n_blocks,
+                                block_size=bs, prefix_cache=True, **srv_kw)
     rec = RecordingSampler(srv._sampler)
     srv._sampler = rec
     rec.record = True
     streams, rows, slot_of = {}, {}, {}
     for i in order:
-        slot = srv.admit_start(prompts[i])
+        slot = srv.admit_start(prompts[i], **(
+            {} if adapters is None else {"adapter": adapters[i]}))
         streams[i] = [srv.admit_step(slot)]
         rows[i] = [rec.seen[-1][0]]
         slot_of[slot] = i
@@ -2126,25 +2188,47 @@ def stream_flips(got, want, rows, tol):
 
 
 def profile_engine_window(eng, clock, n):
-    """``DeviceProfile`` of ``n`` dispatches of a running engine (the
-    engine thread ticks; the window opens and closes on the caller's)."""
+    """``DeviceProfile`` of at least ``n`` dispatches of a running engine.
+    The profiler is entered and left ON THE ENGINE THREAD, between ticks
+    (``ServeEngine._engine_call``), so the thread that launches the
+    window's kernels is the one that traces them: with the profiler
+    entered on this thread while the engine thread launched, 3 of 20
+    runs of slice_engine alone died of a segmentation fault inside
+    engine B's launches (the faulthandler stacks of the crash hunt).
+    The window's tick count is read on the engine thread at its end."""
+    prof, start = DeviceProfile(n), {}
+
+    def begin():
+        prof.__enter__()
+        start["ticks"] = eng._stats["work_ticks"]
+
+    def end():
+        prof.n = max(1, eng._stats["work_ticks"] - start["ticks"])
+        prof.stop()
+
+    eng._engine_call(begin, timeout_s=600)
     # The new bound first, then the clear: a tick between the two can no
     # longer set the event for the old bound.
-    clock.until = eng._stats["work_ticks"] + n
+    clock.until = start["ticks"] + n
     clock.reached.clear()
-    with DeviceProfile(n) as prof:
-        if not clock.reached.wait(600):
-            raise AssertionError("engine made no progress in its window")
+    if eng._stats["work_ticks"] >= clock.until:
+        clock.reached.set()
+    if not clock.reached.wait(600):
+        raise AssertionError("engine made no progress in its window")
+    eng._engine_call(end, timeout_s=600)
     clock.until = None
+    prof.summarize()            # the events' parse, off the engine thread
     return prof.stats
 
 
-def engine_window(serve_mod, eng, clock, prompts, max_tokens, n):
+def engine_window(serve_mod, eng, clock, prompts, max_tokens, n,
+                  adapters=None):
     """The engine's own ms per tick with every slot decoding, then a
     profiled window of ``n`` ticks: 8 fresh requests submitted directly
-    to the running engine."""
-    reqs = [serve_mod._Request(p.tolist(), max_tokens, None)
-            for p in prompts]
+    to the running engine (each with its bank index in ``adapters``)."""
+    adapters = adapters or [-1] * len(prompts)
+    reqs = [serve_mod._Request(p.tolist(), max_tokens, None, adapter=a)
+            for p, a in zip(prompts, adapters)]
     clock.ms.clear()
     clock.active.clear()
     for r in reqs:
@@ -2262,22 +2346,29 @@ def sampler_costs(torch, serving, spec, flush, V, gamma):
             "spec_round_cores_ms": time_ms(round_cores, 5, flush)}
 
 
+def engine_prompts(np, cfg):
+    """slice_engine's 8 prompts (16..2048 tokens; #7 shares #5's first
+    1024), their lengths, and the generator that drew them."""
+    erng = np.random.default_rng(6)
+    e_len = [16, 100, 255, 511, 700, 1100, 1500, 2048]
+    e_prompts = [erng.integers(0, cfg.vocab_size, n) for n in e_len]
+    e_prompts[7] = np.concatenate([e_prompts[5][:1024], erng.integers(
+        0, cfg.vocab_size, e_len[7] - 1024)])      # shares #5's prefix
+    return e_len, e_prompts, erng
+
+
 def slice_engine(torch, np, paged, serving, cfg, dev, card, run_path,
                  failures):
     """The slice_engine phase (see the module docstring): returns the
-    launch counts of engine A's and engine B's HTTP runs; gate breaches
-    go to ``failures``."""
+    launch counts of engine A's and engine B's HTTP runs and engine A's
+    ms per tick; gate breaches go to ``failures``."""
     import importlib
     V = cfg.vocab_size
     bs = 16
     serve_mod = importlib.import_module("tpushare_torch.cli.serve")
     tgen = importlib.import_module("tpushare_torch.models.generate")
     tspec = importlib.import_module("tpushare_torch.models.spec")
-    erng = np.random.default_rng(6)
-    e_len = [16, 100, 255, 511, 700, 1100, 1500, 2048]
-    e_prompts = [erng.integers(0, cfg.vocab_size, n) for n in e_len]
-    e_prompts[7] = np.concatenate([e_prompts[5][:1024], erng.integers(
-        0, cfg.vocab_size, e_len[7] - 1024)])      # shares #5's prefix
+    e_len, e_prompts, erng = engine_prompts(np, cfg)
     e_tokens, e_window = 32, 16
     w_prompts = [erng.integers(0, cfg.vocab_size, 64) for _ in range(8)]
 
@@ -2301,8 +2392,7 @@ def slice_engine(torch, np, paged, serving, cfg, dev, card, run_path,
     a_win_ms, a_prof = engine_window(serve_mod, eng, clock, w_prompts,
                                      3 * e_window, e_window)
     e_params = eng.srv.params
-    httpd.shutdown()
-    eng.stop()
+    stop_engine(httpd, eng)
     del eng, httpd, clock, reqs
     gc.collect()
     torch.cuda.empty_cache()
@@ -2384,8 +2474,7 @@ def slice_engine(torch, np, paged, serving, cfg, dev, card, run_path,
             run_b["window_spec"] = eng.stats()["speculative"]
             del reqs
         b_runs.append(run_b)
-        httpd.shutdown()
-        eng.stop()
+        stop_engine(httpd, eng)
         del eng, httpd, clock
         gc.collect()
         torch.cuda.empty_cache()
@@ -2448,7 +2537,453 @@ def slice_engine(torch, np, paged, serving, cfg, dev, card, run_path,
           "filters": [list(c[:3]) for c in [served] * 4 + [tight] * 4],
           "tv": law_tv, "tv_tol": SAMPLER_TV_TOL, "fault_tv": fault_tv,
           "seconds": time.perf_counter() - t_s, "card": card})
-    return a_launches, b_launches
+    return a_launches, b_launches, mean(a_win_ms)
+
+
+# -- slice_engine C: multi-LoRA over Gemma-2B ----------------------------
+
+LORA_ADAPTERS = [-1, 0, 1, 2, 3, -1, 0, 1]   # per engine prompt
+LORA_RANK = 16
+
+
+def lora_bank(torch, lora, cfg, dev, n=4, seed=9):
+    """``n`` rank-16 adapters on wq and wv from one seeded generator: A
+    as ``init_lora`` draws it, B drawn too (N(0, 1/4r)), so each adapter
+    moves the logits; and their stacked bank."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ads = []
+    for _ in range(n):
+        ad = lora.init_lora(gen, cfg, LORA_RANK, ("wq", "wv"))
+        for ab in ad.values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=gen, device=dev) \
+                * (0.5 / math.sqrt(LORA_RANK))
+        ads.append(ad)
+    return ads, lora.stack_adapters(ads)
+
+
+def post_all(port, bodies):
+    """POST every body at once (one thread each); returns {index: (status,
+    answer)}."""
+    import threading
+    out = {}
+
+    def post(i):
+        out[i] = http_json(port, "POST", "/v1/completions", bodies[i])
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return out
+
+
+def slice_engine_lora(torch, np, paged, cfg, dev, card, run_path, failures,
+                      a_ms_per_tick):
+    """slice_engine part C (see the module docstring): engine A's argv
+    with a bank of 4 adapters; returns the launch counts of its run."""
+    import importlib
+    serve_mod = importlib.import_module("tpushare_torch.cli.serve")
+    lora = importlib.import_module("tpushare_torch.models.lora")
+    V, e_tokens, e_window = cfg.vocab_size, 32, 16
+    _, e_prompts, erng = engine_prompts(np, cfg)
+    w_prompts = [erng.integers(0, cfg.vocab_size, 64) for _ in range(8)]
+    ads, bank = lora_bank(torch, lora, cfg, dev)
+
+    def engine_c():
+        # Engine A's argv through build_engine, the engine given the
+        # bank (the CLI has no adapter flag; the reference's neither).
+        eng = serve_mod.build_engine(
+            serve_mod.build_parser().parse_args(ENGINE_ARGV),
+            multi_lora=bank)
+        clock = TickClock(eng)
+        httpd = serve_mod.serve(eng, port=0, timeout_s=600.0)
+        t0 = time.perf_counter()
+        ans = post_all(httpd.server_address[1], [
+            {"prompt": p.tolist(), "max_tokens": e_tokens, "adapter": a}
+            for p, a in zip(e_prompts, LORA_ADAPTERS)])
+        wall = time.perf_counter() - t0
+        bad = {i: a for i, a in ans.items() if a[0] != 200}
+        if bad:
+            stop_engine(httpd, eng)
+            raise AssertionError(f"slice_engine C requests failed: {bad}")
+        reqs = {i: eng.request_by_id(a[1]["id"]) for i, a in ans.items()}
+        res = {"tokens": {i: a[1]["tokens"] for i, a in ans.items()},
+               "order": sorted(reqs, key=lambda i: reqs[i].seq),
+               "ttft_ms": [(reqs[i].t_first - reqs[i].t_submit) * 1e3
+                           for i in range(8)],
+               "stats": eng.stats(), "http_tick_ms": clock.full_ms(8),
+               "wall_s": wall}
+        # Engine A's window (the same 8 fresh 64-token prompts), each
+        # request with its adapter: ms per tick like A's, and a profile.
+        res["tick_ms"], res["profile"] = engine_window(
+            serve_mod, eng, clock, w_prompts, 3 * e_window, e_window,
+            LORA_ADAPTERS)
+        res["params"] = {**eng.srv.params, "layers": {
+            k: v for k, v in eng.srv.params["layers"].items()
+            if k != "_mlora"}}
+        del reqs
+        stop_engine(httpd, eng)
+        return res
+
+    res, c_launches = run_path(("flash_attention", "paged_flash_decode"),
+                               engine_c)
+    base = res.pop("params")
+    gc.collect()
+    torch.cuda.empty_cache()
+    order = res["order"]
+    # The bank served directly (same admission order): the logits the
+    # engine's streams were picked from, beside each adapter's twin.
+    b_streams, b_rows, b_tick_ms = direct_run(
+        torch, paged, cfg, base, e_prompts, order, e_tokens, 1024, 16,
+        adapters=dict(enumerate(LORA_ADAPTERS)), multi_lora=bank)
+    flips, rels = {}, {}
+    for a in sorted(set(LORA_ADAPTERS)):
+        idx = [i for i in order if LORA_ADAPTERS[i] == a]
+        twin = base if a < 0 else lora.merge_lora(base, ads[a])
+        d_streams, d_rows, _ = direct_run(torch, paged, cfg, twin, e_prompts,
+                                          idx, e_tokens, 1024, 16)
+        del twin
+        for i in idx:
+            got = res["tokens"][i]
+            if len(got) != e_tokens or not all(0 <= t < V for t in got):
+                failures.append(f"slice_engine C: stream {i} is {got}")
+                continue
+            try:
+                flip = stream_flips(got, d_streams[i], d_rows[i],
+                                    LOGIT_REL_TOL)
+            except AssertionError as e:
+                failures.append(f"slice_engine C: stream {i} (adapter {a}):"
+                                f" {e}")
+                continue
+            if flip is not None:
+                flips[i] = flip
+            # The bank's logits against the twin's, up to where the two
+            # direct streams part (the same inputs before it).
+            n = next((k for k, (x, y) in enumerate(zip(b_streams[i],
+                                                       d_streams[i]))
+                      if x != y), e_tokens)
+            rels[i] = max(float((b_rows[i][k] - d_rows[i][k]).abs().max()
+                                / d_rows[i][k].abs().max())
+                          for k in range(max(n, 1)))
+        del d_rows
+        gc.collect()
+    del b_rows
+    torch.cuda.empty_cache()
+    worst = max(rels.values()) if rels else None
+    if worst is None or not worst <= LOGIT_REL_TOL:
+        failures.append(f"slice_engine C: bank logits vs the merged twins "
+                        f"{rels}")
+    st = res["stats"]
+    if st["device_fetches"] != st["work_ticks"]:
+        failures.append(f"slice_engine C: {st['device_fetches']} fetches in "
+                        f"{st['work_ticks']} ticks")
+    emit({"phase": "slice_engine", "engine": "C", "argv": ENGINE_ARGV,
+          "bank": {"adapters": len(ads), "rank": LORA_RANK,
+                   "targets": ["wq", "wv"]},
+          "adapters": LORA_ADAPTERS, "launches": c_launches,
+          "flips": flips, "streams_equal": 8 - len(flips),
+          "logit_rel_err": rels, "logit_rel_err_max": worst,
+          "logit_rel_tol": LOGIT_REL_TOL,
+          "ttft_ms": res["ttft_ms"], "http_wall_s": res["wall_s"],
+          "ms_per_tick": mean(res["tick_ms"]),
+          "ms_per_tick_median": median(res["tick_ms"]),
+          "tick_ms": res["tick_ms"], "profile": res["profile"],
+          "http_ms_per_tick": (mean(res["http_tick_ms"])
+                               if res["http_tick_ms"] else None),
+          "engine_a_ms_per_tick": a_ms_per_tick,
+          "direct_bank_ms_per_tick": mean(b_tick_ms),
+          "fetches_per_tick": st["fetches_per_tick"],
+          "work_ticks": st["work_ticks"], "card": card})
+    return c_launches
+
+
+# -- slice_moe_spec: MoE int8-self speculation at Mixtral width -----------
+
+MS_LAYERS = 12                   # of Mixtral-8x7B's 32: the depth cut
+MS_LENGTHS = [64, 300, 700, 1000]
+MS_TOKENS, MS_GAMMA, MS_SLOTS = 32, 4, 4
+
+
+def moe_spec_schedule(paged):
+    """The slice's pool: blocks per slot for its longest prompt, its
+    tokens and a round's block, and the pool that holds every slot."""
+    mb = paged.blocks_needed(max(MS_LENGTHS) + MS_TOKENS + MS_GAMMA + 2, 16)
+    return mb, MS_SLOTS * mb + 1
+
+
+def mixtral_bf16_params(torch, cfg, gen, dev):
+    """Random bf16 weights at Mixtral width from ``gen``, one (layer,
+    expert) at a time into stacked leaves (no f32 copy of a stack)."""
+    bf = torch.bfloat16
+    L, Dm, Fd, E, V = (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                       cfg.vocab_size)
+    shapes = {"wq": (Dm, cfg.q_dim), "wk": (Dm, cfg.kv_dim),
+              "wv": (Dm, cfg.kv_dim), "wo": (cfg.q_dim, Dm),
+              "router": (Dm, E), "w_gate": (E, Dm, Fd),
+              "w_up": (E, Dm, Fd), "w_down": (E, Fd, Dm)}
+    layers = {k: torch.empty((L, *shp), dtype=bf, device=dev)
+              for k, shp in shapes.items()}
+    for li in range(L):
+        for k, shp in shapes.items():
+            for e in range(E if len(shp) == 3 else 1):
+                idx = (li, e) if len(shp) == 3 else (li,)
+                layers[k][idx] = (torch.randn(*shp[-2:], generator=gen,
+                                              device=dev)
+                                  / math.sqrt(shp[-2])).to(bf)
+    layers.update(ln1=torch.ones((L, Dm), dtype=bf, device=dev),
+                  ln2=torch.ones((L, Dm), dtype=bf, device=dev))
+
+    def dense(shape):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                / math.sqrt(Dm)).to(bf)
+
+    return {"embed": dense((V, Dm)), "layers": layers,
+            "final_norm": torch.ones((Dm,), dtype=bf, device=dev),
+            "unembed": dense((Dm, V))}
+
+
+def moe_spec_engine(torch, serve_mod, paged, quant, params, qparams, cfg,
+                    dev, prompts, temperature):
+    """One MoE int8-self speculative engine (paged) over HTTP: the 4
+    prompts posted at once, 32 tokens each."""
+    mb, nb = moe_spec_schedule(paged)
+    torch.cuda.reset_peak_memory_stats()
+    eng = serve_mod.ServeEngine(
+        params, cfg, model_family="moe", kv="paged", n_slots=MS_SLOTS,
+        n_blocks=nb, block_size=16, max_blocks_per_slot=mb,
+        speculative_draft=(qparams, cfg),
+        draft_layers_hook=quant.fused_expert_hook(cfg), gamma=MS_GAMMA,
+        temperature=temperature, seed=0, device=dev)
+    clock = TickClock(eng)
+    httpd = serve_mod.serve(eng, port=0, timeout_s=600.0)
+    t0 = time.perf_counter()
+    ans = post_all(httpd.server_address[1], [
+        {"prompt": p.tolist(), "max_tokens": MS_TOKENS} for p in prompts])
+    wall = time.perf_counter() - t0
+    bad = {i: a for i, a in ans.items() if a[0] != 200}
+    if bad:
+        stop_engine(httpd, eng)
+        raise AssertionError(f"slice_moe_spec requests failed: {bad}")
+    reqs = {i: eng.request_by_id(a[1]["id"]) for i, a in ans.items()}
+    res = {"tokens": {i: a[1]["tokens"] for i, a in ans.items()},
+           "order": sorted(reqs, key=lambda i: reqs[i].seq),
+           "ttft_ms": [(reqs[i].t_first - reqs[i].t_submit) * 1e3
+                       for i in range(len(prompts))],
+           "stats": eng.stats(), "round_ms": clock.full_ms(MS_SLOTS),
+           "wall_s": wall,
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+    del reqs
+    stop_engine(httpd, eng)
+    return res
+
+
+def moe_routing_run(torch, moe, paged, quant, q8, cfg, qparams, prompts,
+                    routing, run_path, failures, card):
+    """One routing through a direct paged server at the slice's width on
+    the int8 tree (fused_expert_hook): 4 whole admissions, 8 ticks
+    under the fetch spy, 2 profiled. The queue-shaped routings launch
+    q8_expert_ffn on [E, C, Dm] queues; dropless widens (the reference's
+    warning) and runs grouped products. The kernel (or grouped GEMM) is
+    held against its plain version per element on the inputs the first
+    admission's and the first tick's layer 0 gave it."""
+    import warnings
+    cfg_r = dataclasses.replace(cfg, routing=routing, capacity_factor=(
+        1.25 if routing == "a2a" else None))
+    mb, nb = moe_spec_schedule(paged)
+    seen, capture = [], [False]
+    orig_q8, orig_grp = moe._q8_expert_mlps, moe._grouped_products
+
+    def q8_spy(x_e, layer, c):
+        if capture[0]:
+            seen.append(("q8", x_e, {k: layer[k] for k in layer
+                                     if k.startswith("w_")}))
+            capture[0] = False
+        return orig_q8(x_e, layer, c)
+
+    def grp_spy(x, w, offs, e_s):
+        if capture[0]:
+            seen.append(("grouped", x, w, offs, e_s))
+            capture[0] = False
+        return orig_grp(x, w, offs, e_s)
+
+    def run():
+        srv = paged.PagedSlotServer(
+            qparams, cfg_r, n_slots=MS_SLOTS, n_blocks=nb, block_size=16,
+            max_blocks_per_slot=mb, prefix_cache=True,
+            forward_fn=moe.paged_forward,
+            layers_hook=quant.fused_expert_hook(cfg_r))
+        fetch, tick_ms = [], []
+        for i, p in enumerate(prompts):
+            capture[0] = i == 0
+            srv.admit(p)
+        for t in range(8):
+            capture[0] = t == 0
+            t0 = time.perf_counter()
+            with FetchSpy(torch) as spy:
+                out = srv.step()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            fetch.append(spy.count)
+            if not all(0 <= tok < cfg.vocab_size for tok in out.values()):
+                raise AssertionError(f"{routing}: a token outside [0, V)")
+        with DeviceProfile(2) as prof:
+            for _ in range(2):
+                srv.step()
+        del srv
+        return fetch, tick_ms, prof.stats
+
+    moe._q8_expert_mlps, moe._grouped_products = q8_spy, grp_spy
+    try:
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            needed = ("flash_attention", "paged_flash_decode") + (
+                () if routing == "dropless" else ("q8_expert_ffn",))
+            (fetch, tick_ms, prof), launches = run_path(needed, run)
+    finally:
+        moe._q8_expert_mlps, moe._grouped_products = orig_q8, orig_grp
+    checks = []
+    for item in seen:
+        if item[0] == "q8":
+            _, x_e, w = item
+            leaves = [w[f"{k}#{s}"] for k in ("w_gate", "w_up", "w_down")
+                      for s in ("q8", "scale")]
+            got = q8.q8_expert_ffn(x_e, *leaves, act=cfg.act)
+            want = q8.q8_expert_ffn_reference(x_e, *leaves, act=cfg.act)
+            what = f"q8_expert_ffn {tuple(x_e.shape)}"
+        else:
+            _, x, w, offs, e_s = item
+            got = orig_grp(x, w, offs, e_s)
+            want = moe._per_expert_products(x, w, e_s)
+            route = ("_grouped_mm" if moe._grouped_mm_fits(x, w)
+                     else "per expert")
+            what = f"grouped {route} {tuple(x.shape)}x{tuple(w.shape)}"
+        torch.cuda.synchronize()
+        cmp = compare(got, want)
+        checks.append({"what": what, **cmp})
+        if not cmp["ulp_ratio"] <= 1.0:
+            failures.append(f"slice_moe_spec {routing}: {what} vs its plain "
+                            f"version: {cmp}")
+    del seen
+    if len(checks) != 2:
+        failures.append(f"slice_moe_spec {routing}: {len(checks)} "
+                        f"kernel inputs captured, expected 2")
+    if any(f != 1 for f in fetch):
+        failures.append(f"slice_moe_spec {routing}: fetches per tick "
+                        f"{fetch}")
+    dropless_warned = any("dropless" in str(w.message) for w in warned)
+    if routing == "dropless" and not dropless_warned:
+        failures.append("slice_moe_spec dropless: the int8 widening did "
+                        "not warn")
+    emit({"phase": "slice_moe_spec", "routing": routing,
+          "capacity_factor": cfg_r.capacity_factor, "layers": cfg.n_layers,
+          "launches": launches, "checks": checks,
+          "fetches_per_tick": sorted(set(fetch)),
+          "ms_per_tick": mean(tick_ms),
+          "device_ms_per_layer": prof["device_ms_per_tick"] / cfg.n_layers,
+          "profile": prof, "widen_warning": dropless_warned, "card": card})
+    return launches
+
+
+def slice_moe_spec(torch, np, moe, paged, quant, q8, mcfg, dev, card,
+                   run_path, failures):
+    """The slice_moe_spec phase (see the module docstring): returns the
+    launch counts of each run."""
+    import importlib
+    serve_mod = importlib.import_module("tpushare_torch.cli.serve")
+    cfg = dataclasses.replace(mcfg, n_layers=MS_LAYERS)
+    V = cfg.vocab_size
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, V, n) for n in MS_LENGTHS]
+    mb, nb = moe_spec_schedule(paged)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = mixtral_bf16_params(torch, cfg, gen, dev)
+    qparams = quant.quantize_params(params, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = {name: sum(t.numel() * t.element_size() for t in
+                              [tree["embed"], tree["unembed"],
+                               *tree["layers"].values()])
+                    for name, tree in (("target", params),
+                                       ("draft", qparams))}
+    launches = {}
+    greedy, launches["greedy"] = run_path(
+        ("flash_attention", "paged_flash_decode", "paged_flash_verify",
+         "q8_expert_ffn"), moe_spec_engine, torch, serve_mod, paged, quant,
+        params, qparams, cfg, dev, prompts, 0.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_streams, d_rows, d_tick_ms = direct_run(
+        torch, paged, cfg, params, prompts, greedy["order"], MS_TOKENS, nb,
+        16, forward_fn=moe.paged_forward, n_slots=MS_SLOTS,
+        max_blocks_per_slot=mb)
+    flips = {}
+    for i in range(len(prompts)):
+        got = greedy["tokens"][i]
+        if len(got) != MS_TOKENS or not all(0 <= t < V for t in got):
+            failures.append(f"slice_moe_spec: stream {i} is {got}")
+            continue
+        try:
+            flip = stream_flips(got, d_streams[i], d_rows[i],
+                                MOE_LOGIT_REL_TOL)
+        except AssertionError as e:
+            failures.append(f"slice_moe_spec: greedy stream {i}: {e}")
+            continue
+        if flip is not None:
+            flips[i] = flip
+    del d_rows
+    sampled = moe_spec_engine(torch, serve_mod, paged, quant, params,
+                              qparams, cfg, dev, prompts, 0.8)
+    for name, r in (("greedy", greedy), ("sampled", sampled)):
+        st = r["stats"]
+        rate = st["speculative"]["spec_accept_rate"]
+        if st["device_fetches"] != st["work_ticks"]:
+            failures.append(f"slice_moe_spec {name}: {st['device_fetches']} "
+                            f"fetches in {st['work_ticks']} rounds")
+        if rate is None or not 0 < rate <= 1:
+            failures.append(f"slice_moe_spec {name}: accept rate {rate}")
+    s_toks = [t for v in sampled["tokens"].values() for t in v]
+    if not all(0 <= t < V for t in s_toks) or any(
+            len(v) != MS_TOKENS for v in sampled["tokens"].values()):
+        failures.append("slice_moe_spec sampled: a token outside [0, V) or "
+                        "a short stream")
+    for name, r in (("greedy", greedy), ("sampled", sampled)):
+        spec = r["stats"]["speculative"]
+        emit({"phase": "slice_moe_spec", "engine": name,
+              "model": "mixtral_8x7b", "layers": cfg.n_layers,
+              "reduced": {"n_layers": [32, MS_LAYERS]},
+              "weight_bytes": weight_bytes, "init_s": init_s,
+              "prompt_lengths": MS_LENGTHS, "max_tokens": MS_TOKENS,
+              "gamma": MS_GAMMA, "temperature": 0.0 if name == "greedy"
+              else 0.8, "launches": launches.get(name),
+              "flips": flips if name == "greedy" else None,
+              "streams_equal": (len(prompts) - len(flips)
+                                if name == "greedy" else None),
+              "spec_accept_rate": spec["spec_accept_rate"],
+              "spec_rounds": spec["spec_rounds"],
+              "mean_tokens_per_round": spec["mean_tokens_per_round"],
+              "ttft_ms": r["ttft_ms"], "http_wall_s": r["wall_s"],
+              "ms_per_round": mean(r["round_ms"]) if r["round_ms"] else None,
+              "round_ms": r["round_ms"],
+              "plain_ms_per_tick": mean(d_tick_ms),
+              "fetches_per_round": r["stats"]["fetches_per_tick"],
+              "peak_memory_reserved": r["peak_reserved_bytes"],
+              "card": card})
+    del sampled, greedy
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for routing in ("dropless", "expert_choice", "a2a"):
+        launches[routing] = moe_routing_run(
+            torch, moe, paged, quant, q8, cfg, qparams, prompts, routing,
+            run_path, failures, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 KV_TIER_BYTES = 2 << 30
@@ -2552,8 +3087,7 @@ def kv_demote_promote(serve_mod, torch, prompts, extra, failures, card):
             run["prefetch_hits"] = tier.prefetch_hits \
                 - run["prefetch_hits_before_a3"]
         run["bytes"] = engine_bytes(eng)
-        httpd.shutdown()
-        eng.stop()
+        stop_engine(httpd, eng)
         del eng, httpd, tier
         gc.collect()
         torch.cuda.empty_cache()
@@ -2639,8 +3173,7 @@ def kv_migration(serve_mod, torch, np, prompts, failures, card):
     o_warm = storm(port, warm, 8)
     want = storm(port, follow, 32)
     o_stats = eng.stats()
-    httpd.shutdown()
-    eng.stop()
+    stop_engine(httpd, eng)
     del eng, httpd
     gc.collect()
     torch.cuda.empty_cache()
@@ -2687,8 +3220,7 @@ def kv_migration(serve_mod, torch, np, prompts, failures, card):
         rhttpd.shutdown()
         router.stop()
         for e, h, _ in reps:
-            h.shutdown()
-            e.stop()
+            stop_engine(h, e)
         del reps
         gc.collect()
         torch.cuda.empty_cache()
@@ -3137,7 +3669,14 @@ def main() -> int:
                      f"llama3_8b_sq{Sq}_sk{Sk}_off{off}", Sq, Sk, 32, 8,
                      128, q_offset=off)
         for Sq, Sk, off in l_shapes]
-    pre = pre_g + pre_l + [
+    # slice_moe_spec (Mixtral width: 32/8 heads, head_dim 128): each
+    # whole admission's padded row.
+    ms_mb, ms_nb = moe_spec_schedule(paged)
+    ms_comp = [paged.admission_len(n, 0, bs, ms_mb)[1] for n in MS_LENGTHS]
+    pre_m = [prefill_case(fa, attn, F, torch, dev, flush,
+                          f"mixtral_sq{c}_sk{c}_off0", c, c, 32, 8, 128,
+                          q_offset=0) for c in sorted(set(ms_comp))]
+    pre = pre_g + pre_l + pre_m + [
         prefill_case(fa, attn, F, torch, dev, flush,
                      "gemma2_window_softcap", 512, 1024, 8, 4, 256,
                      q_offset=512, window=256, softcap=50.0),
@@ -3152,6 +3691,16 @@ def main() -> int:
            dec_pages, 1, 8, 4, 256, window=1024, softcap=50.0,
            share=(2, 5)),
     ]
+    # slice_moe_spec's round: draft steps and the target's verify at the
+    # positions each slot reaches once every prompt is in (4 slots).
+    ms_pos = [n + 1 for n in MS_LENGTHS]
+    ms_pages = [(p + gamma) // bs + 1 for p in ms_pos]
+    dec_m = [pc("paged_flash_decode", "mixtral_spec_draft_b4",
+                [p + gamma - 1 for p in ms_pos], ms_pages, 1, 32, 8, 128,
+                nb=ms_nb, mb=ms_mb)]
+    ver_m = [pc("paged_flash_verify", "mixtral_spec_verify_sq5", ms_pos,
+                ms_pages, gamma + 1, 32, 8, 128, nb=ms_nb, mb=ms_mb)]
+    dec += dec_m
     dec8 = [
         pc("paged_flash_decode", "llama3_8b_kvq_b8", l_base,
            [n // bs + 1 for n in l_base], 1, 32, 8, 128, nb=l_blocks,
@@ -3169,7 +3718,7 @@ def main() -> int:
                           f"llama3_8b_fused_sq{w}{tag}", pos, pages, w,
                           32, 8, 128, nb=l_blocks, mb=l_mb, int8=int8,
                           fault=None if int8 else "causal"))
-    ver += [
+    ver += ver_m + [
         pc("paged_flash_verify", "gemma2b_sq5", dec_pos,
            [(p + gamma) // bs + 1 for p in dec_pos], gamma + 1, 8, 1, 256,
            share=(2, 5)),
@@ -3190,7 +3739,10 @@ def main() -> int:
         mw += [torch.stack([q for q, _ in qs]),
                torch.stack([s_ for _, s_ in qs])]
         del qs
-    m_path_c = sorted(set(m_rows_c) | set(m_paged_c))
+    # slice_moe_spec's int8 draft: its decode rows (one per slot) and its
+    # whole admissions' padded rows, every expert on the shared block.
+    m_path_c = sorted(set(m_rows_c) | set(m_paged_c) | {MS_SLOTS}
+                      | set(ms_comp))
     q8c = functools.partial(q8_case, q8, F, torch, dev, flush)
     q8_path = [q8c(f"mixtral_c{C}", mw, C, True, fault=C == 8)
                for C in m_path_c]
@@ -3332,9 +3884,15 @@ def main() -> int:
 
     # -- slice_engine: the serving engine over real HTTP ----------------
     t_e = time.perf_counter()
-    a_launches, b_launches = slice_engine(torch, np, paged, serving, cfg,
-                                          dev, card, run_path, failures)
+    a_launches, b_launches, a_ms = slice_engine(
+        torch, np, paged, serving, cfg, dev, card, run_path, failures)
     engine_s = time.perf_counter() - t_e
+
+    # -- slice_engine C: multi-LoRA over Gemma-2B ------------------------
+    t_c = time.perf_counter()
+    c_launches = slice_engine_lora(torch, np, paged, cfg, dev, card,
+                                   run_path, failures, a_ms)
+    engine_lora_s = time.perf_counter() - t_c
 
     # -- slice_kv_economy: the host KV tier, migration and the router ---
     t_k = time.perf_counter()
@@ -3523,6 +4081,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- slice_moe_spec: MoE int8-self speculation, the routings ---------
+    t_ms = time.perf_counter()
+    ms_launches = slice_moe_spec(torch, np, moe, paged, quant, q8, mcfg, dev,
+                                 card, run_path, failures)
+    moe_spec_s = time.perf_counter() - t_ms
+
     # -- slice_rows: Gemma-2-2B at full width and depth, dense rows ------
     t_r = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -3706,7 +4270,8 @@ def main() -> int:
     # The kernels line: one entry per kernel and page type, timed at
     # its largest main-path case; launches summed over the paths' runs.
     paths = {"slice": launches, "slice_engine_a": a_launches,
-             "slice_engine_b": b_launches,
+             "slice_engine_b": b_launches, "slice_engine_c": c_launches,
+             **{f"slice_moe_spec_{m}": c for m, c in ms_launches.items()},
              **{f"slice_kv_economy_{m}": c for m, c in kv_launches.items()},
              **{f"slice_llama_{m}": c for m, c in l_launches.items()},
              **{f"slice_moe_{m}": c for m, c in m_launches.items()},
@@ -3741,14 +4306,14 @@ def main() -> int:
     ref_fa = "tpushare/ops/flash_attention.py:"
     kernels = [
         dict(entry("flash_attention", src + "flash_prefill.cu",
-                   ref_fa + "105", pre_g + pre_l, pre),
+                   ref_fa + "105", pre_g + pre_l + pre_m, pre),
              also_replaces=ref_fa + "180"),
         entry("paged_flash_decode", src + "paged_decode.cu", ref_fa + "659",
-              dec[:2], dec),
+              dec[:2] + dec_m, dec),
         entry("paged_flash_decode_int8", src + "paged_decode.cu",
               ref_fa + "659", dec8, dec8),
         entry("paged_flash_verify", src + "paged_verify.cu", ref_fa + "843",
-              ver[:1 + len(fused_cases)], ver),
+              ver[:1 + len(fused_cases)] + ver_m, ver),
         entry("paged_flash_verify_int8", src + "paged_verify.cu",
               ref_fa + "843", ver8, ver8),
         dict(entry("q8_expert_ffn", src + "q8_expert.cu",
@@ -3785,6 +4350,7 @@ def main() -> int:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on a main path")
     emit({"phase": "seconds", "kernels": kernels_s, "engine": engine_s,
+          "engine_lora": engine_lora_s, "moe_spec": moe_spec_s,
           "kv_economy": kv_economy_s, "colocate": colocate_s,
           "plugin": plugin_s, "flex": flex_s,
           "flex_compile": {f"{r['kernel']} {r['case']}": r["flex_compile_s"]

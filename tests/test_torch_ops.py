@@ -417,7 +417,8 @@ class TestPortBoundary:
                     "router/offload_smoke.py", "utils/profiling.py",
                     "plugin/allocate.py", "plugin/nvmldisc.py",
                     "deviceplugin/rpc.py", "k8s/client.py",
-                    "models/bert.py", "tools/colocate.py"):
+                    "models/bert.py", "tools/colocate.py",
+                    "models/lora.py"):
             assert os.path.join("tpushare_torch", mod) in names
         assert bad == []
 

@@ -517,12 +517,7 @@ class TestPortedOptions:
 
 class TestRefusals:
     @pytest.mark.parametrize("kw,item", [
-        ({"multi_lora": object()}, "A9"),
         ({"mesh": object()}, "A10"),
-        # forward_fn itself is ported (paged MoE); speculation under it
-        # is not.
-        ({"forward_fn": object(), "speculative_draft": object()}, "A8"),
-        ({"draft_forward_fn": object()}, "A8"),
     ])
     def test_unported_options(self, kw, item):
         with pytest.raises(NotImplementedError, match=item):
@@ -549,6 +544,10 @@ class TestRefusals:
             q, 1 / 6))
 
     def test_adapters_refuse(self):
+        """Without a bank only adapter -1 passes: another index, or a
+        bool, is the reference's ValueError, before any slot is taken."""
         srv, _ = _small_server()
-        with pytest.raises(NotImplementedError, match="A9"):
-            srv.admit(np.arange(4), adapter=0)
+        for bad, words in ((0, "out of range"), (True, "must be an int")):
+            with pytest.raises(ValueError, match=words):
+                srv.admit(np.arange(4), adapter=bad)
+        assert not srv.active.any() and not srv._admissions

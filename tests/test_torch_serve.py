@@ -506,8 +506,6 @@ def test_unported_flags_name_their_roadmap_item():
         args = tserve.build_parser().parse_args(argv + ["--device", "cpu"])
         with pytest.raises(NotImplementedError, match=item):
             tserve.build_engine(args)
-    with pytest.raises(NotImplementedError, match="A9"):
-        _engine("torch", multi_lora=object())
 
 
 def test_kv_endpoints_answer_501():
@@ -645,3 +643,60 @@ def test_moe_int8_experts_engine_serves():
         assert all(0 <= t < eng.srv.cfg.vocab_size for t in reqs[0].tokens)
         eng.stop()
     assert len(outs["fused"]) == len(outs["dequant"]) == 5
+
+
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_stop_joins_every_thread_it_started():
+    """stop() leaves no thread of the engine running: the supervisor
+    and the engine thread (here after a lethal error made the
+    supervisor start a second one) are joined before it returns."""
+    eng = _engine("torch", max_engine_restarts=2, restart_backoff_s=0.01)
+    real, died = eng._loop_once, threading.Event()
+
+    def once(gen=None):
+        if not died.is_set():
+            died.set()
+            raise SystemExit("lethal")      # kills engine-0 outright
+        return real(gen)
+
+    eng._loop_once = once
+    httpd = tserve.serve(eng, port=0, timeout_s=HTTP_TIMEOUT)
+    try:
+        st, body = _post(httpd.server_address[1],
+                         {"prompt": [1, 2, 3], "max_tokens": 4})
+        assert st == 200 and len(body["tokens"]) == 4
+        assert eng.stats()["engine_restarts"] == 1
+        started = [eng._supervisor, eng._thread]
+        assert eng.live_threads() == ["engine-supervisor", "engine-1"]
+    finally:
+        _shutdown(httpd, eng)
+    assert eng.live_threads() == []
+    assert not any(t.is_alive() for t in started)
+
+
+def test_stop_names_a_wedged_engine_thread(capsys, monkeypatch):
+    """A tick that does not return within stop()'s bound: stop() says
+    so (stderr and /stats last_error) and live_threads() names it,
+    instead of returning as if the engine were down."""
+    eng = _engine("torch")
+    release, entered = threading.Event(), threading.Event()
+
+    def wedged(gen=None):
+        entered.set()
+        release.wait(HTTP_TIMEOUT)
+
+    eng._loop_once = wedged
+    eng.start()
+    assert entered.wait(HTTP_TIMEOUT)
+    monkeypatch.setattr(tserve, "STOP_JOIN_S", 0.2)
+    eng.stop()
+    try:
+        assert "engine-0" in eng.live_threads()
+        assert "wedged" in eng.stats()["last_error"]
+        assert "wedged" in capsys.readouterr().err
+    finally:
+        release.set()
+        eng._thread.join(HTTP_TIMEOUT)
+        eng._supervisor.join(HTTP_TIMEOUT)
+    assert eng.live_threads() == []

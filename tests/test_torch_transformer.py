@@ -474,7 +474,8 @@ class TestRefusals:
                 pos_offset=torch.zeros(2, dtype=torch.int32))
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
             tt.forward(tp, tok, cfg, pctx=tt.ParallelCtx(tp="tp"))
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            tt.forward(tp, tok, cfg, mlora_idx=torch.zeros(2))
+        # mlora_idx without a bank is ignored, as in the reference.
+        assert torch.equal(tt.forward(tp, tok, cfg, mlora_idx=torch.zeros(
+            2, dtype=torch.int64))[0], tt.forward(tp, tok, cfg)[0])
         with pytest.raises(ValueError, match="paged cache"):
             tt.forward(tp, tok[:, :1], cfg, cache=paged, pos_offset=0)

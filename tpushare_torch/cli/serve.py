@@ -17,8 +17,9 @@ API (token ids in, token ids out — tokenization is the caller's):
 
   POST /v1/completions  {"prompt": [int, ...], "max_tokens": N,
                          "eos": int (optional),
-                         "adapter": -1 (multi-LoRA waits for ROADMAP
-                                        A9: any other index is a 400),
+                         "adapter": i (optional multi-LoRA bank index,
+                                       -1 = base model; a bool or an
+                                       index outside the bank is a 400),
                          "stream": bool (optional),
                          "tier": str, "tenant": str (optional)}
       -> {"id": rid, "tokens": [int, ...], "cached_prefix": C}
@@ -85,7 +86,7 @@ device-resident part of /kv/blocks and every landing run on the engine
 thread between ticks (``_engine_call``).
 
 Not in the port yet, each refused naming its ROADMAP item: meshes,
-process views, reshard checkpoints and gangs (A10), multi-LoRA (A9).
+process views, reshard checkpoints and gangs (A10).
 """
 
 from __future__ import annotations
@@ -118,7 +119,10 @@ from tpushare_torch.slo import (DEFAULT_TIER, KvQuota, TickScheduler,
 from tpushare_torch.utils import ownership as _ownership
 
 TODO_MESH = "ROADMAP A10 (multi-GPU serving)"
-TODO_LORA = "ROADMAP A9 (multi-LoRA)"
+
+# How long stop() waits, in all, for the threads an engine started: a
+# tick is tens to hundreds of ms, so a thread alive after this is wedged.
+STOP_JOIN_S = 30.0
 
 # The smallest chunked-admission size the daemon accepts without
 # --prefill-chunk-force (the reference engine's floor, kept so the two
@@ -303,6 +307,21 @@ class _MoEServerAdapter:
         return self._inner.speculative
 
     @property
+    def gamma(self):
+        return self._inner.gamma
+
+    @property
+    def spec_horizon(self):
+        return self._inner.spec_horizon
+
+    @property
+    def spec_rounds(self):
+        return self._inner.spec_rounds
+
+    def spec_accept_rate(self):
+        return self._inner.spec_accept_rate()
+
+    @property
     def last_cached_len(self):
         return self._inner.last_cached_len
 
@@ -413,7 +432,7 @@ class ServeEngine:
                  max_blocks_per_slot: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  kv_quant: bool = False,
-                 multi_lora=None,
+                 multi_lora=None, mlora_scale: float = 1.0,
                  temperature: float = 0.0, top_k=None, top_p=None,
                  seed: int = 0, idle_sleep_s: float = 0.005,
                  max_queue: int = 64,
@@ -450,8 +469,7 @@ class ServeEngine:
                 ("draft_param_specs", draft_param_specs, TODO_MESH),
                 ("reshard_checkpoint", reshard_checkpoint, TODO_MESH),
                 ("num_processes > 1", num_processes > 1 or None, TODO_MESH),
-                ("gang", gang, TODO_MESH),
-                ("multi_lora", multi_lora, TODO_LORA)):
+                ("gang", gang, TODO_MESH)):
             if val is not None:
                 raise NotImplementedError(f"{name}: {todo}")
         if kv not in (None, "rows", "paged"):
@@ -489,7 +507,7 @@ class ServeEngine:
         if model_family == "moe" and kv == "paged":
             from tpushare_torch.models.moe import paged_forward
             from tpushare_torch.models.paged import PagedSlotServer
-            if kv_quant:
+            if kv_quant or multi_lora is not None:
                 raise ValueError(
                     "model_family='moe' does not support kv_quant/"
                     "multi_lora (dense-LM features; pass layers_hook="
@@ -510,6 +528,7 @@ class ServeEngine:
             unsupported = {
                 "kv_quant": kv_quant,
                 "max_blocks_per_slot": max_blocks_per_slot is not None,
+                "multi_lora": multi_lora is not None,
             }
             bad = [k for k, v in unsupported.items() if v]
             if bad:
@@ -542,6 +561,7 @@ class ServeEngine:
                 block_size=block_size,
                 max_blocks_per_slot=max_blocks_per_slot,
                 prefix_cache=use_prefix, kv_quant=kv_quant,
+                multi_lora=multi_lora, mlora_scale=mlora_scale,
                 temperature=temperature, top_k=top_k, top_p=top_p,
                 seed=seed, layers_hook=layers_hook,
                 speculative_draft=speculative_draft, gamma=gamma,
@@ -733,12 +753,13 @@ class ServeEngine:
         self._next_pick_plan = None
         self._engine_gen = 0
         self._thread = threading.Thread(target=self._loop, args=(0,),
-                                        daemon=True)
+                                        name="engine-0", daemon=True)
         # The loop supervisor owns the engine thread's lifecycle: it
         # (re)starts _loop with backoff when a lethal error kills the
         # thread and gives up — /healthz goes red — after
         # max_engine_restarts.
         self._supervisor = threading.Thread(target=self._supervise,
+                                            name="engine-supervisor",
                                             daemon=True)
         self._started = False
         # Opt-in runtime ownership checks (TPUSHARE_OWNERSHIP_CHECKS=1):
@@ -1199,7 +1220,7 @@ class ServeEngine:
             self._engine_gen += 1
             self._thread = threading.Thread(
                 target=self._loop, args=(self._engine_gen,),
-                daemon=True)
+                name=f"engine-{self._engine_gen}", daemon=True)
 
     def _join_or_watchdog(self) -> bool:
         """Wait for the engine thread to die — or, with
@@ -1240,19 +1261,37 @@ class ServeEngine:
                 return True
 
     def stop(self) -> None:
+        """Stop the engine: every thread it started (the supervisor and
+        the engine thread it runs) is joined within ``STOP_JOIN_S`` in
+        all. A thread still alive after that is wedged: stop() says so
+        on stderr and in ``/stats`` ``last_error``, leaves the slot
+        server to it, and ``live_threads()`` names it — so a caller
+        never builds the next engine over a live one unknowingly."""
         self._stop.set()
         if not self._started:               # never started: nothing to
             with self._on_device():         # join, just drain
                 self._fail_all("server shutting down")
             self._close_journal()
             return
-        self._supervisor.join(timeout=5)
+        timeout_s = STOP_JOIN_S
+        deadline = time.monotonic() + timeout_s
+        self._supervisor.join(timeout=timeout_s)
+        # The supervisor exits once the engine thread it last started
+        # is observed dead, but a restart in flight can hand over a
+        # newer one: join whichever is current, within what is left.
+        self._thread.join(timeout=max(0.0, deadline - time.monotonic()))
         self._adopt_ownership()
-        if self._thread.is_alive() or self._supervisor.is_alive():
+        alive = self.live_threads()
+        if alive:
             # Engine is wedged mid-step: do NOT touch srv/_active from
             # this thread (two threads mutating the slot server's host
             # state can double-free pool blocks — silent KV reuse).
             # Fail only the queue; active handlers hit their timeout.
+            msg = (f"stop: {', '.join(alive)} still running after "
+                   f"{timeout_s:g} s (wedged)")
+            self._stats["last_error"] = msg
+            print(f"tpushare-torch-serve: {msg}", file=sys.stderr,
+                  flush=True)
             self._drain_pending("server shutting down")
             self._close_journal()
             return
@@ -1263,6 +1302,12 @@ class ServeEngine:
         with self._on_device():
             self._fail_all("server shutting down")
         self._close_journal()
+
+    def live_threads(self) -> List[str]:
+        """Names of the threads this engine started that are still
+        alive (empty once stop() has joined them)."""
+        return [t.name for t in (self._supervisor, self._thread)
+                if t.is_alive()]
 
     def _close_journal(self) -> None:
         """Flush + close after the final terminal records (a clean
@@ -1820,14 +1865,6 @@ class ServeEngine:
     def _admit_popped(self, req: _Request) -> bool:
         srv = self.srv
         if req.cancelled:               # client gave up while queued
-            req.finish()
-            return True
-        if req.adapter not in (-1, None):
-            # No adapter bank in the port: the reference's out-of-range
-            # verdict (400), naming the item that ports the bank.
-            req.error = f"adapter {req.adapter}: {TODO_LORA}"
-            req.status = 400
-            self._stats["rejected"] += 1
             req.finish()
             return True
         chunked = (self._prefill_chunk is not None
@@ -3413,14 +3450,15 @@ def resolve_tenant_quotas(flag_text: str):
     return quotas or None
 
 
-def build_engine(args) -> ServeEngine:
+def build_engine(args, **engine_kw) -> ServeEngine:
     """Build the engine exactly as ``tpushare-torch-serve`` would from
     parsed args, the CLI's validation guards included (the same
     SystemExit texts as the reference daemon for the same bad argv).
     Weights are the port's ``init_params`` from a generator seeded with
     ``--seed`` (real checkpoints load through the API: ServeEngine).
     Without ``--device`` the engine runs on the CUDA card and exits
-    naming it when there is none."""
+    naming it when there is none. ``engine_kw`` are further
+    ``ServeEngine`` options that have no flag (``multi_lora=bank``)."""
     if (args.prefill_chunk and args.prefill_chunk < PREFILL_CHUNK_FLOOR
             and not args.prefill_chunk_force):
         print(f"WARNING: --prefill-chunk {args.prefill_chunk} is below "
@@ -3496,7 +3534,7 @@ def build_engine(args) -> ServeEngine:
         tick_wedge_ms=(getattr(args, "tick_wedge_ms", 0) or None),
         overlap_tick=(getattr(args, "overlap_tick", "on") == "on"),
         host_kv_bytes=getattr(args, "host_kv_bytes", 0),
-        device=device)
+        device=device, **engine_kw)
     if args.model_family == "moe":
         from tpushare_torch.models import moe, quant
         moe_kv = args.kv or "rows"

@@ -10,7 +10,9 @@ rest; MoE expert stacks ([L, E, ...] leaves, int8 or not) bridge the
 same way. ``config_from_jax`` / ``moe_config_from_jax`` copy a JAX
 ``TransformerConfig``'s / ``MoEConfig``'s fields into the port's.
 ``bert_params_from_jax`` / ``bert_config_from_jax`` do the same for
-``tpushare.models.bert``'s encoder. ``opt_state_from_jax`` carries an
+``tpushare.models.bert``'s encoder. ``adapters_from_jax`` carries a
+LoRA adapter tree (``lora.init_lora``) or a stacked multi-LoRA bank
+(``lora.stack_adapters``) across. ``opt_state_from_jax`` carries an
 AdamW state (``adamw_init`` / ``apply_adamw``'s mu, nu and count)
 across, so both packages can train on from one non-zero optimizer
 state. None imports JAX: they read
@@ -94,6 +96,19 @@ def bert_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
     missing = {"embed", "layers", "pooler"} - set(tree)
     if missing:
         raise ValueError(f"not a BERT params tree: missing {sorted(missing)}")
+    return params_from_jax(tree, device=device, dtype=dtype)
+
+
+def adapters_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
+                      dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """A JAX LoRA adapter tree ({name: {"a": [L, d_in, r], "b": [L, r,
+    d_out]}}) or a stacked bank (the same with [L, NA, ...] leaves) ->
+    the port's ``models.lora`` layout on ``device`` (each leaf keeps its
+    dtype unless ``dtype`` says otherwise)."""
+    for name, ab in tree.items():
+        if not isinstance(ab, dict) or set(ab) != {"a", "b"}:
+            raise ValueError(f"not a LoRA adapter tree: {name!r} holds "
+                             f"{sorted(ab) if isinstance(ab, dict) else ab}")
     return params_from_jax(tree, device=device, dtype=dtype)
 
 

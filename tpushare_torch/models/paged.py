@@ -41,17 +41,14 @@ from tpushare_torch import DeviceLike, resolve_device
 from tpushare_torch.models.kvtier import CopySpan, HostBlockArena, Payload
 from tpushare_torch.models.quant import (init_cache_q8, pool_scales_to_rows,
                                          scales_to_pool_layout)
-from tpushare_torch.models.serving import (PendingStep, TokenSampler,
-                                           fused_chunk_span,
+from tpushare_torch.models.serving import (MultiLoraSlots, PendingStep,
+                                           TokenSampler, fused_chunk_span,
                                            fused_token_batch, prompt_host)
 from tpushare_torch.models.spec import SpecDecodeMixin
 from tpushare_torch.models.transformer import (
-    TODO_LORA, TODO_MESH, TransformerConfig, forward, init_cache,
+    TODO_MESH, TransformerConfig, forward, init_cache,
 )
 from tpushare_torch.router.chainkeys import chain_keys
-
-# ROADMAP items that port what the port's server still leaves out.
-TODO_FAMILY = "ROADMAP A8 (MoE speculation: draft_forward_fn)"
 
 
 class SlotCapacityExceeded(RuntimeError):
@@ -541,39 +538,42 @@ def _paged_cache(pool_k, pool_v, table, active, pool_k_scale, pool_v_scale):
 def decode_core(params, tokens, pool_k, pool_v, table, lengths, active,
                 *, cfg: TransformerConfig, attn_impl: str = "auto",
                 layers_hook=None, pool_k_scale=None, pool_v_scale=None,
-                forward_fn=None):
+                forward_fn=None, mlora_idx=None, mlora_scale: float = 1.0):
     """One paged decode step over the pools: tokens [B, 1]; active [B]
     bool. Each layer writes its new KV into its pool slice in place and
     attends through the block table (forward's paged S=1 branch).
     ``forward_fn``: a ``transformer.forward``-shaped callable with a
     paged branch (``moe.paged_forward`` serves the MoE family over the
-    same pool); default the dense LM's forward. Returns (logits
-    [B, 1, V], pool_k, pool_v, lengths advanced by 1 for active
+    same pool); default the dense LM's forward. ``mlora_idx`` [B]: each
+    row's multi-LoRA adapter (the bank rides in ``params``). Returns
+    (logits [B, 1, V], pool_k, pool_v, lengths advanced by 1 for active
     slots)."""
     logits, _ = (forward_fn or forward)(params, tokens, cfg,
                         cache=_paged_cache(pool_k, pool_v, table, active,
                                            pool_k_scale, pool_v_scale),
                         pos_offset=lengths, attn_impl=attn_impl,
-                        layers_hook=layers_hook)
+                        layers_hook=layers_hook, mlora_idx=mlora_idx,
+                        mlora_scale=mlora_scale)
     return logits, pool_k, pool_v, lengths + active.to(lengths.dtype)
 
 
 def verify_core(params, tokens, pool_k, pool_v, table, lengths, active,
                 *, cfg: TransformerConfig, attn_impl: str = "auto",
                 layers_hook=None, pool_k_scale=None, pool_v_scale=None,
-                forward_fn=None):
+                forward_fn=None, mlora_idx=None, mlora_scale: float = 1.0):
     """Multi-token paged forward (speculative verify, fused tick):
     tokens [B, Sq] are written at positions lengths .. lengths+Sq-1 of
     each active slot (the pools in place) and scored in one forward.
     Returns logits [B, Sq, V]; lengths are NOT advanced (the caller
     decides acceptance first; rejected positions leave stale KV the
-    length mask keeps unattended until it is overwritten). ``forward_fn``
-    as ``decode_core``."""
+    length mask keeps unattended until it is overwritten).
+    ``forward_fn`` and ``mlora_idx`` as ``decode_core``."""
     logits, _ = (forward_fn or forward)(params, tokens, cfg,
                         cache=_paged_cache(pool_k, pool_v, table, active,
                                            pool_k_scale, pool_v_scale),
                         pos_offset=lengths, attn_impl=attn_impl,
-                        layers_hook=layers_hook)
+                        layers_hook=layers_hook, mlora_idx=mlora_idx,
+                        mlora_scale=mlora_scale)
     return logits
 
 
@@ -657,11 +657,12 @@ def _prefill_chunk(params, prompt: torch.Tensor, cfg: TransformerConfig,
                    cache: PagedCache, slot: int, row, done: int, end: int,
                    n_blk: int, comp_len: int, chunk: int,
                    attn_impl: str = "auto", layers_hook=None,
-                   forward_fn=None):
+                   forward_fn=None, mlora=None):
     """Forward prompt positions [done, end) against the admission row
     (which already holds [0, done)) and write this chunk's block rows
-    to the pool. Returns (last-position logits [V] on the final chunk
-    else None, cache, row).
+    to the pool. ``mlora``: the admission's adapter kwargs
+    (``MultiLoraSlots.kw``). Returns (last-position logits [V] on the
+    final chunk else None, cache, row).
 
     Padding follows the reference: mid chunks run at the fixed
     ``chunk`` length, the final chunk pads to the row tail — the padded
@@ -677,7 +678,7 @@ def _prefill_chunk(params, prompt: torch.Tensor, cfg: TransformerConfig,
     padded[:end - done] = prompt[done:end]
     logits, row = (forward_fn or forward)(
         params, padded[None, :], cfg, cache=row, pos_offset=done,
-        attn_impl=attn_impl, layers_hook=layers_hook)
+        attn_impl=attn_impl, layers_hook=layers_hook, **(mlora or {}))
     start_blk = done // bs
     end_blk = n_blk if final else end // bs
     ids = cache.block_table[slot, start_blk:end_blk].long()
@@ -709,22 +710,26 @@ class PagedSlotServer(SpecDecodeMixin):
     Options ported: greedy sampling, ``prefix_cache``, chunked
     admission, the fused admission tick (``step(prefill_work=slot)``),
     ``kv_quant`` (int8 pools), ``layers_hook`` (int8 weights), and
-    greedy speculative decoding (``speculative_draft=(params, cfg)``,
+    speculative decoding (``speculative_draft=(params, cfg)``,
     ``gamma``, ``spec_horizon``, ``draft_layers_hook``: the
     ``int8-self`` preset is ``(quant.quantize_params(params, cfg), cfg)``
-    with ``quant.dequant_hook(cfg)``), and ``forward_fn`` (another
-    family's forward over the same pool: ``moe.paged_forward`` serves the
-    MoE LM; not with ``kv_quant``, whose branches live in the dense
-    LM's forward, as in the reference), sampling (temperature, top-k,
-    top-p; stochastic speculation by the exact rejection rule), and
+    with ``quant.dequant_hook(cfg)``), ``forward_fn`` (another family's
+    forward over the same pool: ``moe.paged_forward`` serves the MoE LM,
+    its drafts too unless ``draft_forward_fn`` names the draft's own;
+    not with ``kv_quant`` or ``multi_lora``, whose branches live in the
+    dense LM's forward, as in the reference), ``multi_lora`` (an adapter
+    bank, ``lora.stack_adapters``: each slot picks its adapter at
+    ``admit(prompt, adapter=i)``; prefix chains are salted with the
+    adapter id; a speculative server's draft carries the same bank),
+    sampling (temperature, top-k, top-p; stochastic speculation by the
+    exact rejection rule), and
     ``kv_quota`` (a ``slo.KvQuota``: fresh blocks charged to the
     admitting tenant at admission, shared prefix hits free, growth
     charged, every charge refunded on evict), and ``host_tier`` (a
     ``kvtier.HostKvTier``: admissions demote the published blocks they
     reclaim and promote tier-resident chains; ``prefetch_prefix`` stages
     a prompt's tier blocks on the card ahead of its admission). Still
-    refused, each naming its ROADMAP item: multi_lora, mesh,
-    draft_forward_fn and speculation under ``forward_fn``.
+    refused, naming its ROADMAP item: mesh.
     """
 
     def __init__(self, params, cfg: TransformerConfig, *, n_slots: int,
@@ -735,23 +740,23 @@ class PagedSlotServer(SpecDecodeMixin):
                  kv_quant: bool = False,
                  temperature: float = 0.0, top_k=None, top_p=None,
                  seed: int = 0,
-                 multi_lora=None, speculative_draft=None, gamma: int = 4,
+                 multi_lora=None, mlora_scale: float = 1.0,
+                 speculative_draft=None, gamma: int = 4,
                  spec_horizon: int = 1, draft_layers_hook=None,
                  forward_fn=None, draft_forward_fn=None, mesh=None,
                  kv_quota=None, host_tier=None, device: DeviceLike = None):
-        for name, val, todo in (
-                ("multi_lora", multi_lora, TODO_LORA),
-                ("mesh", mesh, TODO_MESH),
-                ("draft_forward_fn", draft_forward_fn, TODO_FAMILY),
-                ("speculative_draft with forward_fn",
-                 speculative_draft if forward_fn else None, TODO_FAMILY)):
-            if val is not None:
-                raise NotImplementedError(f"{name}: {todo}")
-        if forward_fn is not None and kv_quant:
+        if mesh is not None:
+            raise NotImplementedError(f"mesh: {TODO_MESH}")
+        if forward_fn is not None and (kv_quant or multi_lora is not None):
             raise ValueError("forward_fn overrides (paged MoE) do not "
                              "support kv_quant or multi_lora: those "
                              "branches live in the dense LM's forward")
         self.device = resolve_device(device)
+        if multi_lora is not None:
+            from tpushare_torch.models.lora import multi_lora_params
+            params = multi_lora_params(params, multi_lora)
+        self._ml = MultiLoraSlots(multi_lora, n_slots, mlora_scale,
+                                  self.device)
         self.params = params
         self.cfg = cfg
         self.attn_impl = attn_impl
@@ -799,10 +804,30 @@ class PagedSlotServer(SpecDecodeMixin):
             self._spec_init(gamma=gamma, spec_horizon=spec_horizon,
                             temperature=temperature, top_k=top_k,
                             top_p=top_p)
-            self.draft_params, self.draft_cfg = speculative_draft
-            if self.draft_cfg.vocab_size != cfg.vocab_size:
+            draft_params, draft_cfg = speculative_draft
+            if draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share a vocab")
+            if self._ml.enabled:
+                # The draft carries the SAME bank, so each slot's
+                # proposals come from its own fine-tune; the bank's A/B
+                # shapes only fit a draft of the target's geometry.
+                geom = ("d_model", "n_layers", "n_heads", "n_kv_heads",
+                        "head_dim", "d_ff")
+                if any(getattr(draft_cfg, a) != getattr(cfg, a)
+                       for a in geom):
+                    raise NotImplementedError(
+                        "speculative + multi_lora needs a draft sharing "
+                        "the target's layer geometry (int8-self or a "
+                        "same-architecture draft) so the adapter bank "
+                        "applies to both sides")
+                from tpushare_torch.models.lora import multi_lora_params
+                draft_params = multi_lora_params(draft_params, multi_lora)
+            self.draft_params, self.draft_cfg = draft_params, draft_cfg
             self.draft_layers_hook = draft_layers_hook
+            # The draft's forward: its own family's, or the target's
+            # (int8-self MoE drafts ride moe.paged_forward too).
+            self._draft_forward_fn = (forward_fn if draft_forward_fn is None
+                                      else draft_forward_fn)
             dshape = (self.draft_cfg.n_layers, n_blocks, block_size,
                       self.draft_cfg.n_kv_heads, self.draft_cfg.head_dim)
             self._dpk = torch.zeros(dshape, dtype=self.draft_cfg.dtype,
@@ -836,7 +861,8 @@ class PagedSlotServer(SpecDecodeMixin):
 
     def _draft_kw(self) -> Dict[str, Any]:
         return {"cfg": self.draft_cfg, "attn_impl": self.attn_impl,
-                "layers_hook": self.draft_layers_hook}
+                "layers_hook": self.draft_layers_hook,
+                "forward_fn": self._draft_forward_fn}
 
     def admit(self, prompt, adapter: int = -1,
               tenant: Optional[str] = None) -> int:
@@ -856,17 +882,18 @@ class PagedSlotServer(SpecDecodeMixin):
         fused ticks (``step(prefill_work=slot)``). With ``chunk_tokens``
         the prompt prefills in block-aligned chunks, each attending over
         the admission's row (bit-identical KV to a whole-prompt
-        admit). ``tenant`` is the KV-quota principal (None = "default")."""
-        if adapter != -1:
-            raise NotImplementedError(f"adapter: {TODO_LORA}")
+        admit). ``tenant`` is the KV-quota principal (None = "default");
+        ``adapter`` the slot's multi-LoRA bank index (-1 = base)."""
         prompt_np = prompt_host(prompt)
         if prompt_np.ndim != 1:
             raise ValueError("admit takes a single unbatched prompt")
+        self._ml.validate(adapter)
         candidates = [s for s in range(self.cache.n_slots)
                       if not self.active[s] and s not in self._admissions]
         if not candidates:
             raise PoolExhausted("no free slots")
         slot = candidates[0]
+        self._ml.set(slot, adapter)
         # A slot that retired at capacity still owns its blocks;
         # release them before reuse or they leak.
         if (self.cache.host_table()[slot] >= 0).any():
@@ -876,7 +903,10 @@ class PagedSlotServer(SpecDecodeMixin):
         bs = self.cache.block_size
         tenant = tenant or "default"
         if self.prefix_cache:
-            keys = chain_keys(prompt_np, bs, S // bs)
+            # Salted by adapter id: KV under different adapters must
+            # never share blocks.
+            keys = chain_keys(prompt_np, bs, S // bs,
+                              salt=self._adapter_salt(adapter))
             self.cache, cached_len, blocks = admit_prefix(
                 self.cache, slot, prompt_np, keys=keys)
             self.last_cached_len = cached_len
@@ -926,7 +956,7 @@ class PagedSlotServer(SpecDecodeMixin):
             # Fused chunks write straight to the pool; the serial row
             # then lags it and is re-gathered before the next serial
             # chunk.
-            "row_stale": False,
+            "row_stale": False, "mlora": self._ml.kw(adapter),
         }
         if self.speculative:
             st["drow"], st["dcomp_len"], _ = _admission_row(
@@ -970,7 +1000,7 @@ class PagedSlotServer(SpecDecodeMixin):
             self.params, st["prompt"], self.cfg, self.cache, slot,
             st["row"], st["done"], end, st["n_blk"], st["comp_len"],
             chunk, attn_impl=self.attn_impl, layers_hook=self.layers_hook,
-            forward_fn=self._forward_fn)
+            forward_fn=self._forward_fn, mlora=st["mlora"])
         if self.speculative:
             # The draft needs the prompt's KV too, chunked the same way
             # (its pools are written in place through the view).
@@ -979,7 +1009,8 @@ class PagedSlotServer(SpecDecodeMixin):
                 self._draft_view(), slot, st["drow"], st["done"], end,
                 st["n_blk"], st["dcomp_len"], chunk,
                 attn_impl=self.attn_impl,
-                layers_hook=self.draft_layers_hook)
+                layers_hook=self.draft_layers_hook,
+                forward_fn=self._draft_forward_fn, mlora=st["mlora"])
         st["done"] = end
         tier = self.cache.host_tier
         if end < S:
@@ -1019,12 +1050,11 @@ class PagedSlotServer(SpecDecodeMixin):
         tier = self.cache.host_tier
         if tier is None or not self.prefix_cache:
             return 0
-        if adapter != -1:
-            raise NotImplementedError(f"adapter: {TODO_LORA}")
         prompt_np = prompt_host(prompt_np)
         bs = self.cache.block_size
         S = int(prompt_np.shape[0])
-        keys = chain_keys(prompt_np, bs, (S - 1) // bs)
+        keys = chain_keys(prompt_np, bs, (S - 1) // bs,
+                          salt=self._adapter_salt(adapter))
         staged: List[bytes] = []
         todo = []
         for key in keys[:(S - 1) // bs]:
@@ -1042,6 +1072,11 @@ class PagedSlotServer(SpecDecodeMixin):
             self._stage_uploads(tier, todo)
         tier.clear_staged(keep=staged)
         return len(staged)
+
+    def _adapter_salt(self, adapter: int) -> bytes:
+        """The prefix chain's salt: the adapter id with a bank, else
+        none (the reference's ``b"adapter:%d"``)."""
+        return b"adapter:%d" % adapter if self._ml.enabled else b""
 
     def _stage_uploads(self, tier, todo) -> None:
         """One upload of the tier blocks in ``todo`` into a staging
@@ -1153,7 +1188,8 @@ class PagedSlotServer(SpecDecodeMixin):
         c = self.cache
         logits, _, _, c.lengths = decode_core(
             self.params, self.last_token, c.pool_k, c.pool_v,
-            c.block_table, c.lengths, self._active_dev, **self._pool_kw())
+            c.block_table, c.lengths, self._active_dev, **self._pool_kw(),
+            **self._ml.kw())
         nxt = self._sampler.pick(logits[:, 0])
         self.last_token = torch.where(self._active_dev[:, None],
                                       nxt[:, None], self.last_token)
@@ -1209,15 +1245,18 @@ class PagedSlotServer(SpecDecodeMixin):
         # decode rows write their one real token; the rest go to trash.
         wmask = self._active_dev.clone()
         wmask[slot] = True
+        mkw = self._ml.kw()
         logits = verify_core(self.params, toks, c.pool_k, c.pool_v,
-                             c.block_table, pos, wmask, **self._pool_kw())
+                             c.block_table, pos, wmask, **self._pool_kw(),
+                             **mkw)
         c.lengths = c.lengths + self._active_dev.to(c.lengths.dtype)
         if self.speculative:
             # One draft forward: decode rows mirror their pending
             # token's draft KV, the admitting row advances its draft
             # chunk — same batch, logits dropped.
             verify_core(self.draft_params, toks, self._dpk, self._dpv,
-                        c.block_table, pos, wmask, **self._draft_kw())
+                        c.block_table, pos, wmask, **self._draft_kw(),
+                        **mkw)
         st["done"] = end
         st["row_stale"] = True
         final = end >= S
@@ -1270,7 +1309,7 @@ class PagedSlotServer(SpecDecodeMixin):
         dl, _, _, _ = decode_core(
             self.draft_params, tok, self._dpk, self._dpv,
             self.cache.block_table, base + j, self._active_dev,
-            **self._draft_kw())
+            **self._draft_kw(), **self._ml.kw())
         return dl[:, 0]
 
     def _spec_draft_catchup(self, block, tok, base, h: int) -> None:
@@ -1279,14 +1318,14 @@ class PagedSlotServer(SpecDecodeMixin):
         del block
         decode_core(self.draft_params, tok, self._dpk, self._dpv,
                     self.cache.block_table, base + h, self._active_dev,
-                    **self._draft_kw())
+                    **self._draft_kw(), **self._ml.kw())
 
     def _spec_verify(self, block, base) -> torch.Tensor:
         """ONE multi-token target verify over the pools."""
         c = self.cache
         return verify_core(self.params, block, c.pool_k, c.pool_v,
                            c.block_table, base, self._active_dev,
-                           **self._pool_kw())
+                           **self._pool_kw(), **self._ml.kw())
 
     def _spec_commit(self, a_b, correction, active) -> None:
         c = self.cache
@@ -1330,5 +1369,6 @@ class PagedSlotServer(SpecDecodeMixin):
         self.active[slot] = False
         self._sync_active()
         self._admissions.pop(slot, None)
+        self._ml.reset(slot)
         self._refund_slot(slot)
         self.cache = release(self.cache, slot)

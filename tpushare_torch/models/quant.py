@@ -11,6 +11,8 @@
   the MoE variant that leaves the expert stacks int8 for the fused
   kernel (``ops/q8_expert.py``). Norms, the router and the embeddings
   stay full precision and are shared with the source tree.
+  ``quantized_forward`` is ``forward`` over such a tree with
+  ``dequant_hook``.
 - KV: ``kv_quantize`` / ``kv_dequantize`` with per-(position, head)
   scales over the head dim (``s = max(absmax, 1e-12) / 127``) and
   ``init_cache_q8`` for a dense row cache.
@@ -133,6 +135,15 @@ def fused_expert_hook(cfg):
                 out[k] = v
         return out
     return hook
+
+
+def quantized_forward(qparams: Dict[str, Any], tokens: torch.Tensor,
+                      cfg: TransformerConfig, **kw):
+    """``transformer.forward`` over a ``quantize_params`` tree through
+    ``dequant_hook(cfg)`` (serving without training)."""
+    from tpushare_torch.models.transformer import forward
+    return forward(qparams, tokens, cfg, layers_hook=dequant_hook(cfg),
+                   **kw)
 
 
 def dequant_expert_leaves(layer: Dict[str, torch.Tensor],

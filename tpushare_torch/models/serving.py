@@ -1,8 +1,9 @@
 """Serving pieces the slot servers share, and the dense-row slot server.
 Counterpart of ``tpushare/models/serving.py``: ``TokenSampler`` (with
 the NaN -> -1 guard), ``PendingStep``, the fused admission tick's
-``bucket_len`` / ``fused_chunk_span`` / ``fused_token_batch``, and
-``SlotServer`` (continuous batching over one static row cache)."""
+``bucket_len`` / ``fused_chunk_span`` / ``fused_token_batch``, the
+multi-LoRA slot bookkeeping (``validate_adapter``, ``MultiLoraSlots``),
+and ``SlotServer`` (continuous batching over one static row cache)."""
 
 from __future__ import annotations
 
@@ -59,6 +60,62 @@ def fused_token_batch(last_token: torch.Tensor, prompt: torch.Tensor,
     toks[slot] = 0
     toks[slot, :end - done] = prompt[done:end].to(torch.int64)
     return toks
+
+
+def validate_adapter(adapter, enabled: bool, bank_size: int) -> None:
+    """Host-side multi-LoRA index check both slot servers share: an
+    out-of-range index would gather another tenant's adapter (or fail
+    inside a batched tick), so it fails here instead. Bools are refused
+    too (bool subclasses int: {"adapter": true} from JSON would select
+    adapter 1)."""
+    if isinstance(adapter, bool) or not isinstance(adapter, int):
+        raise ValueError(f"adapter must be an int, got {adapter!r}")
+    if adapter != -1 and not (enabled and 0 <= adapter < bank_size):
+        raise ValueError(
+            f"adapter {adapter} out of range for a bank of "
+            f"{bank_size} (multi_lora "
+            f"{'set' if enabled else 'not set'}) — a clamped device "
+            f"gather would silently serve another tenant's adapter")
+
+
+class MultiLoraSlots:
+    """Per-slot adapter bookkeeping both slot servers share: the bank
+    size, the host-truth adapter of each slot and its device mirror, and
+    the forward kwargs that apply them (``kw()``: the batch's
+    ``mlora_idx`` [n_slots]; ``kw(adapter)``: one admission row's).
+    Disabled (no bank), ``kw`` is empty and only adapter -1 passes."""
+
+    def __init__(self, multi_lora, n_slots: int, scale: float = 1.0,
+                 device: DeviceLike = "cpu"):
+        from tpushare_torch.models.lora import bank_size
+        self.enabled = multi_lora is not None
+        self.bank_size = bank_size(multi_lora) if self.enabled else 0
+        self.scale = scale
+        self.device = torch.device(device)
+        self._host = np.full(n_slots, -1, np.int64)
+        self.dev = torch.full((n_slots,), -1, dtype=torch.int64,
+                              device=self.device)
+
+    def validate(self, adapter) -> None:
+        validate_adapter(adapter, self.enabled, self.bank_size)
+
+    def set(self, slot: int, adapter: int) -> None:
+        """Host truth, then the mirror (an upload, always a copy)."""
+        if not self.enabled:
+            return
+        self._host[slot] = adapter
+        self.dev = torch.tensor(self._host, device=self.device)
+
+    def reset(self, slot: int) -> None:
+        self.set(slot, -1)
+
+    def kw(self, adapter: Optional[int] = None) -> Dict[str, Any]:
+        if not self.enabled:
+            return {}
+        idx = (self.dev if adapter is None else
+               torch.tensor([adapter], dtype=torch.int64,
+                            device=self.device))
+        return {"mlora_idx": idx, "mlora_scale": self.scale}
 
 
 class TokenSampler:
@@ -156,10 +213,13 @@ class SlotServer:
     Ported: sampling (greedy, temperature, top-k, top-p), whole
     admission (bucket-padded, or in ``prefill_chunk`` pieces), chunked
     admission (``admit_start`` / ``admit_step``), the fused tick
-    (``step(prefill_work=slot)``), ``kv_quant`` (int8 rows) and
-    ``layers_hook`` (int8 weights).
-    ``multi_lora`` and ``mesh`` raise, naming their ROADMAP item.
-    Rows are updated in place (the reference rebinds new arrays)."""
+    (``step(prefill_work=slot)``), ``kv_quant`` (int8 rows),
+    ``layers_hook`` (int8 weights) and ``multi_lora`` (an adapter bank
+    from ``lora.stack_adapters``: each slot picks its adapter at
+    ``admit(prompt, adapter=i)``, -1 the base model, and every row
+    applies its own delta inside one batched forward). ``mesh`` raises,
+    naming its ROADMAP item. Rows are updated in place (the reference
+    rebinds new arrays)."""
 
     def __init__(self, params, cfg, *, n_slots: int, max_len: int,
                  attn_impl: str = "auto", layers_hook=None,
@@ -168,13 +228,16 @@ class SlotServer:
                  kv_quant: bool = False, multi_lora=None,
                  mlora_scale: float = 1.0, mesh=None, param_specs=None,
                  device: DeviceLike = None):
-        from tpushare_torch.models.transformer import TODO_LORA, TODO_MESH
-        del mlora_scale, param_specs
-        for name, val, todo in (("multi_lora", multi_lora, TODO_LORA),
-                                ("mesh", mesh, TODO_MESH)):
-            if val is not None:
-                raise NotImplementedError(f"{name}: {todo}")
+        from tpushare_torch.models.transformer import TODO_MESH
+        del param_specs
+        if mesh is not None:
+            raise NotImplementedError(f"mesh: {TODO_MESH}")
         self.device = resolve_device(device)
+        if multi_lora is not None:
+            from tpushare_torch.models.lora import multi_lora_params
+            params = multi_lora_params(params, multi_lora)
+        self._ml = MultiLoraSlots(multi_lora, n_slots, mlora_scale,
+                                  self.device)
         self.params = params
         self.cfg = cfg
         self.n_slots = n_slots
@@ -269,26 +332,27 @@ class SlotServer:
         """Prefill ``prompt`` [S] into a free slot; returns the slot.
         The prompt zero-pads to its power-of-two bucket (or to a
         multiple of ``prefill_chunk``, prefilled piece by piece); rows
-        past S are junk the length mask never attends."""
-        from tpushare_torch.models.transformer import (TODO_LORA,
-                                                       chunked_prefill_loop)
-        if adapter != -1:
-            raise NotImplementedError(f"adapter: {TODO_LORA}")
+        past S are junk the length mask never attends. ``adapter``: the
+        slot's multi-LoRA bank index (-1 = base model)."""
+        from tpushare_torch.models.transformer import chunked_prefill_loop
+        self._ml.validate(adapter)
         prompt = prompt_tensor(prompt, self.device)
         slot = self._claim_slot(prompt)
+        self._ml.set(slot, adapter)
+        mkw = self._ml.kw(adapter)
         S = int(prompt.shape[0])
         row = self._new_rows(1)
         chunk = self._prefill_chunk
         if chunk and S > chunk:
             n_pad = min(-(-S // chunk) * chunk, self.max_len)
             last, row = chunked_prefill_loop(
-                lambda p, t, **kw: self._fwd(t, **kw), self.params,
+                lambda p, t, **kw: self._fwd(t, **kw, **mkw), self.params,
                 pad_tokens(prompt, 0, S, n_pad), row, chunk, S - 1)
             last = last[0]
         else:
             logits, row = self._fwd(
                 pad_tokens(prompt, 0, S, min(bucket_len(S), self.max_len)),
-                cache=row, pos_offset=0)
+                cache=row, pos_offset=0, **mkw)
             last = logits[0, S - 1]
         self._install(slot, row)
         self._activate(slot, self._sampler.pick(last[None, :])[0], S)
@@ -299,26 +363,26 @@ class SlotServer:
         """Begin a chunked admission: reserve a slot, prefill nothing;
         drive with admit_step() (one chunk per call) or
         step(prefill_work=slot) (the fused tick)."""
-        from tpushare_torch.models.transformer import TODO_LORA
-        if adapter != -1:
-            raise NotImplementedError(f"adapter: {TODO_LORA}")
+        self._ml.validate(adapter)
         prompt = prompt_tensor(prompt, self.device)
         slot = self._claim_slot(prompt)
         chunk = int(chunk_tokens or self._prefill_chunk or prompt.shape[0])
         if chunk < 1:
             raise ValueError("chunk_tokens must be >= 1")
+        self._ml.set(slot, adapter)
         self._admissions[slot] = {
             "prompt": prompt, "S": int(prompt.shape[0]), "done": 0,
-            "chunk": chunk, "row": self._new_rows(1), "in_cache": False}
+            "chunk": chunk, "row": self._new_rows(1), "in_cache": False,
+            "adapter": adapter}
         return slot
 
-    def _chunk_forward(self, st, row, max_chunk_tokens=None):
-        """One serial prefill chunk [done, end) into ``row``. The final
-        chunk zero-pads to a power-of-two bucket capped at the chunk,
-        or runs at its exact width where the padded end would pass
-        max_len. Returns (last-position logits [1, V] on the final
-        chunk else None, end)."""
-        S, done, chunk = st["S"], st["done"], st["chunk"]
+    def _chunk_span(self, S: int, done: int, chunk: int,
+                    max_chunk_tokens: Optional[int] = None
+                    ) -> Tuple[int, int]:
+        """(end, width) of a serial chunk from ``done``: the chunk capped
+        at ``max_chunk_tokens``; the final chunk zero-pads to a
+        power-of-two bucket capped at the chunk, or runs at its exact
+        width where the padded end would pass max_len."""
         if max_chunk_tokens is not None:
             chunk = max(1, min(chunk, max_chunk_tokens))
         end = min(S, done + chunk)
@@ -327,8 +391,20 @@ class SlotServer:
             width = min(bucket_len(end - done), chunk)
             if done + width > self.max_len:
                 width = end - done
+        return end, width
+
+    def _chunk_forward(self, st, row, max_chunk_tokens=None):
+        """One serial prefill chunk [done, end) into ``row``. The final
+        chunk zero-pads to a power-of-two bucket capped at the chunk,
+        or runs at its exact width where the padded end would pass
+        max_len. Returns (last-position logits [1, V] on the final
+        chunk else None, end)."""
+        S, done = st["S"], st["done"]
+        end, width = self._chunk_span(S, done, st["chunk"],
+                                      max_chunk_tokens)
         logits, _ = self._fwd(pad_tokens(st["prompt"], done, end, width),
-                              cache=row, pos_offset=done)
+                              cache=row, pos_offset=done,
+                              **self._ml.kw(st.get("adapter", -1)))
         return (logits[:1, S - 1 - done] if end >= S else None), end
 
     def admit_step(self, slot: int,
@@ -380,7 +456,7 @@ class SlotServer:
         if not self.active.any():
             return PendingStep.done({})
         logits, _ = self._fwd(self.last_token, cache=self.cache,
-                              pos_offset=self.lengths)
+                              pos_offset=self.lengths, **self._ml.kw())
         nxt = self._sampler.pick(logits[:, 0])
         self._advance(nxt)
         slots = [int(s) for s in np.nonzero(self.active)[0]]
@@ -438,7 +514,8 @@ class SlotServer:
                                  width, slot)
         pos = self.lengths.clone()
         pos[slot] = done
-        logits, _ = self._fwd(toks, cache=self.cache, pos_offset=pos)
+        logits, _ = self._fwd(toks, cache=self.cache, pos_offset=pos,
+                              **self._ml.kw())
         st["done"] = end
         final = end >= S
         if not final:
@@ -477,4 +554,5 @@ class SlotServer:
         self._admissions.pop(slot, None)   # cancel mid-chunked admit
         self.active[slot] = False
         self._sync_active()
+        self._ml.reset(slot)
         self._set_length(slot, 0)

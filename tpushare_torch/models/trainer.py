@@ -9,7 +9,8 @@ caller's: pass a deterministic iterator.
 Not ported yet: checkpointing (``ckpt_dir``; the reference's orbax
 ``utils/checkpoint.py`` moves to safetensors under ROADMAP A12) and the
 MFU telemetry (``flops_per_step``; the reference divides by TPU peak
-tables, and the port's card figures come with ROADMAP A13).
+tables; the port's card figures come with the port's benchmark, a
+benchmark issue's work, since ``benchmarks/`` is not ported).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ log = logging.getLogger("tpushare_torch.trainer")
 StepFn = Callable[..., Tuple[Any, Any, Any]]
 
 TODO_CKPT = "ROADMAP A12 (utils/checkpoint.py to safetensors)"
-TODO_MFU = "ROADMAP A13 (H100 bench harness: MFU)"
+TODO_MFU = "the port's benchmark (MFU on the H100; a benchmark issue)"
 
 
 def fit(step_fn: StepFn, params: Any, opt_state: Any,

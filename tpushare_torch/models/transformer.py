@@ -51,7 +51,6 @@ from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
 from tpushare_torch.parallel.ring_attention import ring_attention
 
 # ROADMAP items that port what the port still leaves out.
-TODO_LORA = "ROADMAP A9 (multi-LoRA)"
 TODO_MESH = "ROADMAP A10 (multi-GPU serving)"
 TODO_ULYSSES = "ROADMAP A12 (Ulysses sequence parallelism)"
 
@@ -242,6 +241,27 @@ def drop_write(rows: torch.Tensor, positions: torch.Tensor,
     rows[b_idx, torch.where(valid, pos, tgt)] = v
 
 
+def _layer_slice(tree, li: int):
+    """Layer ``li`` of a stacked layer tree; nested trees (a
+    ``lora.lora_params`` pack) slice leaf by leaf, as the reference's
+    layer scan does."""
+    return {name: (_layer_slice(leaf, li) if isinstance(leaf, dict)
+                   else leaf[li]) for name, leaf in tree.items()}
+
+
+def _lora_delta(inp: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                idx: torch.Tensor, scale: float) -> torch.Tensor:
+    """Per-row low-rank delta ``scale * inp @ A[idx] @ B[idx]`` of one
+    layer's bank (a [NA, d, r], b [NA, r, o]) in f32, zero for rows
+    with idx < 0 (the base model), cast to ``inp``'s dtype. Plain
+    torch, as the reference's is plain jnp outside any kernel."""
+    safe = torch.clamp(idx.long(), min=0)
+    t = torch.einsum("bsd,bdr->bsr", inp.float(), a[safe].float())
+    d = torch.einsum("bsr,bro->bso", t, b[safe].float()) * scale
+    d = torch.where((idx >= 0)[:, None, None], d, torch.zeros_like(d))
+    return d.to(inp.dtype)
+
+
 def _ragged_attn(q, k, v, lk, lv, lks, lvs, pos, positions, w, cfg,
                  attn_impl):
     """Dense ragged branches of the reference (transformer.py:534-607):
@@ -349,6 +369,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
             pctx: Optional[ParallelCtx] = None,
             layers_hook=None,
             mlora_idx: Optional[torch.Tensor] = None,
+            mlora_scale: float = 1.0,
             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """LM forward. tokens [B, S] -> (logits [B, S, V] f32, cache).
 
@@ -362,6 +383,11 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     int32 tensor ``pos_offset``: token j of slot b at position
     pos[b] + j, attending through the block table. ``layers_hook`` maps
     each layer's leaves before use (``quant.dequant_hook``).
+    Multi-LoRA: when ``params["layers"]`` carries the ``_mlora`` bank
+    (``lora.multi_lora_params``), ``mlora_idx`` [B] picks each row's
+    adapter and every bank target adds ``mlora_scale * x @ A[i] @ B[i]``
+    (f32, cast to the activation dtype) on the activation path, zero
+    for rows with idx < 0 (the base model); on every cache branch.
     A dense cache with a [B] int32 tensor ``pos_offset``: ragged rows,
     token j of row b at pos[b] + j (writes past max_len dropped).
     ``attn_impl``: "auto" (the kernels) or "reference" (plain PyTorch).
@@ -380,8 +406,6 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
                          f"'a2a'")
     if pctx.sp is not None and pctx.sp_impl == "a2a":
         raise NotImplementedError(f"sp_impl 'a2a': {TODO_ULYSSES}")
-    if mlora_idx is not None or "_mlora" in params["layers"]:
-        raise NotImplementedError(f"multi-LoRA rows: {TODO_LORA}")
     B, S = tokens.shape
     Dh = cfg.head_dim
     dev = tokens.device
@@ -425,20 +449,31 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype,
                              device=dev)
     wls = layer_windows(cfg)
-    layers = params["layers"]
+    layers = dict(params["layers"])
+    bank = layers.pop("_mlora", None)
 
     def block(x, li):
-        layer = {name: leaf[li] for name, leaf in layers.items()}
+        layer = _layer_slice(layers, li)
         if layers_hook is not None:
             layer = layers_hook(layer)
+        ml = None
+        if bank is not None and mlora_idx is not None:
+            ml = {n: (ab["a"][li], ab["b"][li]) for n, ab in bank.items()}
+
+        def lin(name, inp):
+            out = inp @ layer[name]
+            if ml is None or name not in ml:
+                return out
+            return out + _lora_delta(inp, *ml[name], mlora_idx, mlora_scale)
+
         w = None if wls is None else wls[li]
         h = rms_norm(x, layer["ln1"], eps=cfg.norm_eps,
                      offset=cfg.norm_offset)
         H = layer["wq"].shape[-1] // Dh
         Hkv = layer["wk"].shape[-1] // Dh
-        q = (h @ layer["wq"]).reshape(B, S, H, Dh)
-        k = (h @ layer["wk"]).reshape(B, S, Hkv, Dh)
-        v = (h @ layer["wv"]).reshape(B, S, Hkv, Dh)
+        q = lin("wq", h).reshape(B, S, H, Dh)
+        k = lin("wk", h).reshape(B, S, Hkv, Dh)
+        v = lin("wv", h).reshape(B, S, Hkv, Dh)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
 
@@ -487,15 +522,15 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
                              window=w, attn_softcap=cfg.attn_softcap,
                              impl=attn_impl)
 
-        o = attn.reshape(B, S, H * Dh) @ layer["wo"]
+        o = lin("wo", attn.reshape(B, S, H * Dh))
         if cfg.post_norms:
             o = rms_norm(o, layer["ln_post_attn"], eps=cfg.norm_eps,
                          offset=cfg.norm_offset)
         x = x + o
         h = rms_norm(x, layer["ln2"], eps=cfg.norm_eps,
                      offset=cfg.norm_offset)
-        ff = _act(cfg.act, h @ layer["w_gate"]) * (h @ layer["w_up"])
-        ff = ff @ layer["w_down"]
+        ff = _act(cfg.act, lin("w_gate", h)) * lin("w_up", h)
+        ff = lin("w_down", ff)
         if cfg.post_norms:
             ff = rms_norm(ff, layer["ln_post_ffw"], eps=cfg.norm_eps,
                           offset=cfg.norm_offset)
