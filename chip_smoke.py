@@ -20,7 +20,14 @@ Phases, one JSON line each, each with its own seconds:
           pages, at the slices' positions; verify, bf16 and int8 pages,
           at the Llama slice's speculative round (Sq 5) and fused ticks
           (Sq = each chunk width), at Gemma-2B's GQA 8 / head_dim 256,
-          and with a Gemma-2 window + softcap. Each case reports the
+          and with a Gemma-2 window + softcap; prefill and the gradient
+          at the fine-tuning and generation paths' shapes (batch
+          included): generate's and speculation's S = 1 steps and
+          gamma + 1 blocks at every scalar offset of their dense
+          caches, their prefills and moe.generate's, the lifecycle's
+          admission, the LoRA and Mixtral training forwards with their
+          lse, and the gradient at the LoRA step's 4 x 1024 and the
+          Mixtral step's 1 x 4096. Each case reports the
           kernel's time, the plain version's, the least time the card
           could take (bound) and a library route's (SDPA for prefill;
           for the paged kernels: gather the live pages into a dense
@@ -252,6 +259,55 @@ Phases, one JSON line each, each with its own seconds:
           geometry (4 shards of 2048), partial passes merged by the
           ring's merge and gradients summed over hops, against their plain
           versions (faults: k_offset + 1, a zero dsum).
+  slice_finetune
+          the LoRA tenant lifecycle of tpushare_torch/tools/
+          finetune_serve.py at Gemma-2B's full width and depth (remat
+          on): two tenants train rank-16 adapters on wq and wv, 20 SGD
+          steps of 4 x 1024 tokens each through lora.make_lora_fit_step
+          and trainer.fit, their batches from utils/data.py's
+          token_batches over a seeded token file; tenant B is
+          checkpointed at step 10 (one safetensors file), its state
+          dropped, restored from latest_checkpoint and trained on, and
+          must equal an uninterrupted run leaf for leaf (torch.equal);
+          both adapters are read back from disk into a bank and served
+          with the base by one ServeEngine over HTTP: each tenant's 4
+          tokens hold its target at least 3 times, the base's do not.
+          Then a gradient twin of one LoRA step (tenant A's trained
+          adapters on its first batch) against mha_reference, per leaf
+          within GRAD_REL_L2_TOL. Training launches exactly 2 x 18
+          flash_attention (forward and remat recompute) and 18
+          flash_attention_bwd per step; serving 18 flash_attention per
+          admission and whole layers of paged_flash_decode. Printed:
+          step ms, training tokens/s, the checkpoint's bytes, save and
+          restore seconds, peak memory_allocated, ms per engine tick
+          with the bank.
+  slice_moe_train
+          Mixtral-8x7B's width (d 4096, 32/8 heads, F 14336, 8 experts
+          top-2), depth cut to 2 of 32 layers so that AdamW's state fits
+          (~3.17 B params: 6.3 GB bf16, 6.3 GB of gradients, 25.4 GB of
+          f32 moments), random bf16 weights, one sequence of 4096
+          tokens. Gradient twins of moe.lm_loss under psum with capacity
+          1.25, dropless (torch._grouped_mm forward and backward) and
+          expert_choice, each against attn_impl="reference" replaying
+          the kernel run's routes (Routes), per leaf within
+          GRAD_REL_L2_TOL; dropless's twin also runs the per-expert
+          products (moe._per_expert_products), the grouped GEMM's plain
+          version; one sgd_train_step; 4 AdamW steps through
+          trainer.fit of moe.make_adamw_spmd_train_step over a one-rank
+          NCCL group and make_mesh({"dp": 1, "sp": 1}) (the ring's
+          partial kernel, one hop) whose loss must fall; the AdamW
+          state saved (trainer.save_state) and restored equal.
+  slice_generate
+          Gemma-2B's generate, greedy, 4 prompts of 512 tokens + 64 new:
+          the dense scalar-offset branch (flash_attention at every step,
+          flash_decode never: the counts say), equal to a direct
+          PagedSlotServer's greedy streams or parted at a near-tie
+          within LOGIT_REL_TOL; speculative_generate with the int8-self
+          draft (quantize_params + dequant_hook, gamma 4) equal to
+          generate bit for bit, with its accept rate and ms per token
+          beside generate's; moe.generate on slice_moe_train's trained
+          2-layer Mixtral, 32 new tokens, its prefill logits within
+          MOE_LOGIT_REL_TOL of the replaying reference twin.
   flex    the softcapped cases' library call, flex_attention under
           torch.compile with the softcap as its score_mod and the mask
           as its block mask, on the kernels phase's inputs; it runs
@@ -571,22 +627,50 @@ def bound(flops, nbytes):
 
 
 def prefill_case(fa, attn, F, torch, dev, flush, name, Sq, Sk, H, Hkv, D,
-                 q_offset, window=None, softcap=None, seed=0, fault=False):
+                 q_offset, window=None, softcap=None, seed=0, fault=False,
+                 B=1, more_offsets=(), lse=False):
     """One prefill shape: check, time, bound. With ``fault``, also run
     the kernel one position off at the causal edge (q_offset + 1, as an
-    off-by-one kernel would) and require the same check to reject it."""
+    off-by-one kernel would) and require the same check to reject it.
+    ``more_offsets``: further q_offsets checked on the same inputs (a
+    decode loop's steps over one cache); the row's check columns are
+    the worst over them, its times and bound q_offset's. ``lse``: the
+    launch a training forward makes (with its f32 log-sum-exp, which
+    the gradient reads) is checked too: its output by the same rule,
+    its lse by the f32-sum rule against the plain partial pass's
+    m + log(l)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
-    q = torch.randn(1, Sq, H, D, generator=g, device=dev).to(bf)
-    k = torch.randn(1, Sk, Hkv, D, generator=g, device=dev).to(bf)
-    v = torch.randn(1, Sk, Hkv, D, generator=g, device=dev).to(bf)
+    q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(bf)
+    k = torch.randn(B, Sk, Hkv, D, generator=g, device=dev).to(bf)
+    v = torch.randn(B, Sk, Hkv, D, generator=g, device=dev).to(bf)
     kw = dict(q_offset=q_offset, window=window, attn_softcap=softcap)
-    got = fa.flash_attention(q, k, v, **kw)
     want = attn.mha_reference(q, k, v, **kw)
+    cmp = None
+    for off in (q_offset, *more_offsets):
+        kwo = dict(kw, q_offset=off)
+        c = compare(fa.flash_attention(q, k, v, **kwo),
+                    want if off == q_offset else
+                    attn.mha_reference(q, k, v, **kwo))
+        if not (c["ulp_ratio"] <= 1.0):
+            raise AssertionError(f"flash_attention {name} at q_offset "
+                                 f"{off}: {c}")
+        cmp = c if cmp is None else {key: max(cmp[key], c[key])
+                                     for key in c}
+    lse_cmp = None
+    if lse:
+        out_l, lse_k = fa._flash_launch(q, k, v, scale=None, with_lse=True,
+                                        **kw)
+        acc, m, l_ = fa.flash_attention_partial_plain(q, k, v, k_offset=0,
+                                                      **kw)
+        out_cmp = compare(out_l, want)
+        lse_cmp = compare(lse_k, m + torch.log(l_), F32_SUM_FLOOR)
+        del out_l, lse_k, acc, m, l_
+        if not (max(out_cmp["ulp_ratio"], lse_cmp["ulp_ratio"]) <= 1.0):
+            raise AssertionError(f"flash_attention {name} with its lse: "
+                                 f"out {out_cmp}, lse {lse_cmp}")
+        cmp = {key: max(cmp[key], out_cmp[key]) for key in cmp}
     torch.cuda.synchronize()
-    cmp = compare(got, want)
-    if not (cmp["ulp_ratio"] <= 1.0):
-        raise AssertionError(f"flash_attention {name}: {cmp}")
     fault_ratio = None
     if fault:
         bad = fa.flash_attention(q, k, v, **dict(kw, q_offset=q_offset + 1))
@@ -618,12 +702,14 @@ def prefill_case(fa, attn, F, torch, dev, flush, name, Sq, Sk, H, Hkv, D,
         library_err = (lib.float() - want.float()).abs().max().item()
         library_ms = time_ms(sdpa, iters, flush)
     pairs = causal_pairs(Sq, Sk, q_offset, window)
-    flops = 4 * D * H * pairs
-    nbytes = 2 * (2 * Sq * H * D + 2 * Sk * Hkv * D)
+    flops = 4 * D * H * pairs * B
+    nbytes = 2 * B * (2 * Sq * H * D + 2 * Sk * Hkv * D)
     bms, by = bound(flops, nbytes)
     row = {"phase": "kernels", "kernel": "flash_attention", "case": name,
-           "Sq": Sq, "Sk": Sk, "H": H, "Hkv": Hkv, "D": D,
+           "B": B, "Sq": Sq, "Sk": Sk, "H": H, "Hkv": Hkv, "D": D,
            "q_offset": q_offset, "window": window, "softcap": softcap,
+           "offsets_checked": 1 + len(more_offsets),
+           "lse_ulp_ratio": lse_cmp and lse_cmp["ulp_ratio"],
            **cmp, "fault_ulp_ratio": fault_ratio, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library_err": library_err, "bound_ms": bms, "bound_by": by,
@@ -1337,9 +1423,10 @@ def check_case(failures, what, cmp, fault_cmp, fault_name):
 
 
 def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
-                          D, window, softcap, flex=False):
-    """Case (a): slice_train's attention layer on one card, q and K/V
-    over the whole sequence (a one-rank ring is one hop at offsets 0).
+                          D, window, softcap, flex=False, B=1):
+    """Case (a): a training step's attention layer on one card, B rows,
+    q and K/V over the whole sequence (a one-rank ring is one hop at
+    offsets 0).
     flash_attention_partial against its plain version (fault: k_offset
     + 1), then flash_attention_bwd from that pass's lse and dsum
     (fault: a zero dsum, the term a kernel could drop). Both have a
@@ -1347,8 +1434,8 @@ def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
     library times are flex_attention's under torch.compile (forward
     with the lse; its backward), queued for the flex phase, else
     null."""
-    q, k, v, do = bf16_inputs(torch, dev, 7, [(1, S, H, D), (1, S, Hkv, D),
-                                               (1, S, Hkv, D), (1, S, H, D)])
+    q, k, v, do = bf16_inputs(torch, dev, 7, [(B, S, H, D), (B, S, Hkv, D),
+                                               (B, S, Hkv, D), (B, S, H, D)])
     kw = dict(q_offset=0, k_offset=0, window=window, attn_softcap=softcap)
     got = fa.flash_attention_partial(q, k, v, **kw)
     want = fa.flash_attention_partial_plain(q, k, v, **kw)
@@ -1373,14 +1460,15 @@ def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
     check_case(failures, f"flash_attention_bwd {name}", cmpb, faultb,
                "a zero dsum")
     del gotb
-    pairs = H * causal_pairs(S, S, 0, window)
+    pairs = B * H * causal_pairs(S, S, 0, window)
     rows = []
     for kernel, fn, plain, flops, nbytes, c, f in (
             ("flash_attention_partial",
              lambda: fa.flash_attention_partial(q, k, v, **kw),
              lambda: fa.flash_attention_partial_plain(q, k, v, **kw),
              4 * D * pairs,
-             2 * (S * H * D + 2 * S * Hkv * D) + 4 * (S * H * D + 2 * H * S),
+             B * (2 * (S * H * D + 2 * S * Hkv * D)
+                  + 4 * (S * H * D + 2 * H * S)),
              cmp, fault),
             ("flash_attention_bwd",
              lambda: fa.flash_attention_bwd(q, k, v, do, lse, dsum, **kw),
@@ -1388,13 +1476,13 @@ def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
                                                   **kw),
              # The five products a gradient needs: s, dp, dv, dq, dk.
              10 * D * pairs,
-             2 * (2 * S * H * D + 2 * S * Hkv * D) + 4 * 2 * H * S
-             + 4 * (S * H * D + 2 * S * Hkv * D),
+             B * (2 * (2 * S * H * D + 2 * S * Hkv * D) + 4 * 2 * H * S
+                  + 4 * (S * H * D + 2 * S * Hkv * D)),
              cmpb, faultb)):
         bms, by = bound(flops, nbytes)
         ms = time_ms(fn, 5, flush)
-        row = {"phase": "kernels", "kernel": kernel, "case": name, "S": S,
-               "H": H, "Hkv": Hkv, "D": D, "window": window,
+        row = {"phase": "kernels", "kernel": kernel, "case": name, "B": B,
+               "S": S, "H": H, "Hkv": Hkv, "D": D, "window": window,
                "softcap": softcap, **c, "fault_ulp_ratio": f["ulp_ratio"],
                "ms": ms, "plain_ms": time_ms(plain, 3, flush),
                "library_ms": None,
@@ -1650,16 +1738,19 @@ def moe_widths(serving, paged, whole, chunked, prefix_hit, chunk, bs,
 
 
 class Routes:
-    """The MoE router's top-k while one server runs (moe.top_k_lower_index
-    is patched for the run): per forward, every layer's expert ids and
-    the batch rows that carry real tokens, each with its count of real
-    columns (an active decode row 1, an admitting row its chunk's
-    prompt tokens). With ``replay`` (another run's
+    """The MoE router's top-k while it is patched (moe.top_k_lower_index,
+    for the with-block): per forward, every layer's expert ids. A
+    forward starts at each call of a function passed through ``wrap``:
+    a server's forward, or one whole forward (and backward) of a
+    gradient twin (remat off: one top-k per layer). Under a server
+    (``srv`` set), also the batch rows that carry real tokens, each with
+    its count of real columns (an active decode row 1, an admitting row
+    its chunk's prompt tokens). With ``replay`` (another run's
     ``calls``), every layer routes its tokens to the experts that run
-    chose, the weights renormalized from this run's own router
-    probabilities; the ids recorded stay this run's own choice, so a
-    replaying twin's record says where it alone would have routed
-    otherwise."""
+    chose (its tokens, under expert_choice), the weights renormalized
+    from this run's own router probabilities; the ids recorded stay
+    this run's own choice, so a replaying twin's record says where it
+    alone would have routed otherwise."""
 
     def __init__(self, moe, replay=None):
         self.moe, self.replay, self.calls, self.rows = moe, replay, [], []
@@ -1667,13 +1758,15 @@ class Routes:
 
     def wrap(self, fn):
         def call(*a, **kw):
-            import numpy as np
-            srv = self.srv
-            real = {int(r): 1 for r in np.nonzero(srv.active)[0]}
-            for r, st in srv._admissions.items():
-                real[r] = min(st["chunk"], len(st["prompt"]) - st["done"])
             self.calls.append([])
-            self.rows.append(real)
+            srv = self.srv
+            if srv is not None:
+                import numpy as np
+                real = {int(r): 1 for r in np.nonzero(srv.active)[0]}
+                for r, st in srv._admissions.items():
+                    real[r] = min(st["chunk"],
+                                  len(st["prompt"]) - st["done"])
+                self.rows.append(real)
             return fn(*a, **kw)
         return call
 
@@ -1689,6 +1782,15 @@ class Routes:
             raise AssertionError("the replaying twin's forwards differ in "
                                  "shape from the recorded run's")
         return torch.gather(probs, -1, want), want
+
+    def flips(self):
+        """Share of routed entries where this run alone chose otherwise
+        than the run it replays."""
+        pairs = [(a, b) for got, want in zip(self.calls, self.replay)
+                 for a, b in zip(got, want)]
+        diff = sum(int((a.sort(-1).values != b.sort(-1).values).sum())
+                   for a, b in pairs)
+        return diff / sum(int(a.numel()) for a, _ in pairs)
 
     def __enter__(self):
         self.orig = self.moe.top_k_lower_index
@@ -2986,6 +3088,379 @@ def slice_moe_spec(torch, np, moe, paged, quant, q8, mcfg, dev, card,
     return launches
 
 
+# slice_finetune, slice_moe_train, slice_generate (see the module
+# docstring).
+MT_LAYERS = 2                    # of Mixtral-8x7B's 32: the depth cut
+MT_SEQ = 4096
+MT_ROUTINGS = [("psum_capacity", "psum", 1.25), ("dropless", "dropless", None),
+               ("expert_choice", "expert_choice", None)]
+MT_ADAMW_STEPS = 4
+GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW, GEN_GAMMA = 4, 512, 64, 4
+MOE_GEN_NEW = 32
+
+
+def slice_finetune(torch, np, cfg, dev, card, run_path, no_launch, failures):
+    """slice_finetune (see the module docstring): the LoRA lifecycle of
+    tools/finetune_serve.py at Gemma-2B's full width and depth, then a
+    gradient twin of one LoRA step. Returns the launch counts of its
+    training and its serving."""
+    import importlib
+    fs = importlib.import_module("tpushare_torch.tools.finetune_serve")
+    lora = importlib.import_module("tpushare_torch.models.lora")
+    trainer = importlib.import_module("tpushare_torch.models.trainer")
+    training = importlib.import_module("tpushare_torch.models.training")
+    tt = importlib.import_module("tpushare_torch.models.transformer")
+    fcfg, fit_kw = fs.config(tiny=False)
+    L, steps = fcfg.n_layers, fit_kw["steps"]
+    gen = torch.Generator(device=dev).manual_seed(fs.BASE_SEED)
+    base = tt.init_params(gen, fcfg, device=dev)
+    lines = []
+    with tempfile.TemporaryDirectory() as work:
+        torch.cuda.reset_peak_memory_stats()
+        rec, train_l = run_path(("flash_attention", "flash_attention_bwd"),
+                                fs.train, base, fcfg, fit_kw, work, dev,
+                                lines.append)
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        served, serve_l = run_path(("flash_attention", "paged_flash_decode"),
+                                   fs.serve_tenants, base, fcfg, rec, fit_kw,
+                                   dev, False, lines.append)
+        rec["served"] = served
+        # The gradient twin: tenant A's trained adapters (both factors
+        # non-zero) on its first batch, kernels against mha_reference.
+        like = lora.init_lora(torch.Generator(device=dev).manual_seed(0),
+                              fcfg, fit_kw["rank"])
+        ads = trainer.load_state(rec["tenants"]["a"]["final_ckpt"],
+                                 like_params=like, like_opt={})[0]
+        corpus = fs.dpipe.load_tokens(os.path.join(work, "corpus_a.bin"),
+                                      dtype=fs.TOKEN_DTYPE)
+        tokens = torch.from_numpy(fs.dpipe.batch_at(
+            corpus, 0, batch_size=fit_kw["batch"], seq_len=fit_kw["seq"],
+            seed=fs.TENANTS["a"][1])).to(dev)
+
+        def grads(impl):
+            return training.value_and_grad(
+                lambda a: lora.lora_loss(base, a, tokens, fcfg,
+                                         attn_impl=impl), ads)
+        ref_loss, ref_g = no_launch(grads, "reference")
+        (k_loss, k_g), twin_l = run_path(
+            ("flash_attention", "flash_attention_bwd"), grads, "auto")
+        rel = grad_rel_l2(training, k_g, ref_g)
+    rec["failures"] = fs.check(rec)
+    failures += [f"slice_finetune: {f}" for f in rec["failures"]]
+    n_steps = steps + steps + steps // 2 + (steps - steps // 2)
+    want_train = {"flash_attention": 2 * L * n_steps,
+                  "flash_attention_bwd": L * n_steps,
+                  "flash_attention_partial": 0, "flash_decode": 0}
+    if any(train_l[k] != n for k, n in want_train.items()):
+        failures.append(f"slice_finetune: training launches {train_l}, "
+                        f"expected {want_train}")
+    if serve_l["flash_attention"] != 3 * L or \
+            serve_l["paged_flash_decode"] % L or \
+            serve_l["flash_attention_bwd"]:
+        failures.append(f"slice_finetune: serving launches {serve_l}: "
+                        f"expected {3 * L} flash_attention (one admission "
+                        f"per request) and whole layers of decode")
+    worst = max(rel.values())
+    if not (worst <= GRAD_REL_L2_TOL):
+        failures.append(f"slice_finetune: LoRA gradients vs the reference "
+                        f"twin: {rel}")
+    b = rec["tenants"]["b"]
+    emit({"phase": "slice_finetune", "model": "gemma_2b",
+          "params": fcfg.num_params(), "remat": fcfg.remat, **fit_kw,
+          "targets": ["wq", "wv"], "n_steps": n_steps,
+          "losses": {n: t["losses"] for n, t in rec["tenants"].items()},
+          "step_ms_median": rec["step_ms_median"],
+          "step_ms": {n: t["step_ms"] for n, t in rec["tenants"].items()},
+          "train_tok_s": rec["train_tok_s"],
+          "ckpt_bytes": b["ckpt_bytes"], "ckpt_save_s": b["ckpt_save_s"],
+          "ckpt_restore_s": b["ckpt_restore_s"],
+          "preempted_at": b["preempted_at"],
+          "resume_equal": b["resume_equal"], "served": served["tokens"],
+          "serve_ticks": served["ticks"],
+          "ms_per_tick_bank": served["ms_per_tick"],
+          "twin": {"loss": float(k_loss), "ref_loss": float(ref_loss),
+                   "grad_rel_l2": rel, "grad_rel_l2_max": worst,
+                   "launches": twin_l},
+          "grad_rel_l2_tol": GRAD_REL_L2_TOL, "train_launches": train_l,
+          "serve_launches": serve_l, "train_peak_gib": train_peak,
+          "stages": lines, "card": card})
+    del base, ads, k_g, ref_g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"slice_finetune_train": train_l, "slice_finetune_serve": serve_l,
+            "slice_finetune_twin": twin_l}
+
+
+def slice_moe_train(torch, np, moe, mcfg, dev, card, run_path, no_launch,
+                    failures):
+    """slice_moe_train (see the module docstring): Mixtral-8x7B's width at
+    2 of 32 layers on one 4096-token sequence. Returns (launch counts by
+    path, the trained params, their config)."""
+    import importlib
+    dist = importlib.import_module("torch.distributed")
+    trainer = importlib.import_module("tpushare_torch.models.trainer")
+    training = importlib.import_module("tpushare_torch.models.training")
+    pmesh = importlib.import_module("tpushare_torch.parallel.mesh")
+    cfg = dataclasses.replace(mcfg, n_layers=MT_LAYERS)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    params = moe.init_params(gen, cfg, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (1, MT_SEQ + 1)), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in training.tree_leaves(params))
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    twins, launches = {}, {}
+    for name, routing, factor in MT_ROUTINGS:
+        rcfg = dataclasses.replace(cfg, routing=routing,
+                                   capacity_factor=factor, remat=False)
+        t0 = time.perf_counter()
+        with Routes(moe) as rec:
+            (loss, g), launches[f"slice_moe_train_twin_{name}"] = run_path(
+                ("flash_attention", "flash_attention_bwd"),
+                rec.wrap(training.value_and_grad), moe.xent_loss, params,
+                inputs, targets, rcfg)
+            torch.cuda.synchronize()
+        k_s = time.perf_counter() - t0
+        # The twin: the plain attention, and under dropless the plain
+        # per-expert products in place of the grouped GEMM (forward and
+        # backward), counted: three a layer.
+        fits, per_expert = moe._grouped_mm_fits, moe._per_expert_products
+        plain = []
+        if routing == "dropless":
+            def counted(*a):
+                plain.append(1)
+                return per_expert(*a)
+            moe._grouped_mm_fits = lambda x, w: False
+            moe._per_expert_products = counted
+        try:
+            with Routes(moe, replay=rec.calls) as rep:
+                ref_loss, ref_g = no_launch(
+                    rep.wrap(training.value_and_grad), moe.xent_loss,
+                    params, inputs, targets, rcfg, attn_impl="reference")
+        finally:
+            moe._grouped_mm_fits = fits
+            moe._per_expert_products = per_expert
+        if routing == "dropless" and len(plain) != 3 * L:
+            failures.append(f"slice_moe_train dropless: the twin ran "
+                            f"{len(plain)} per-expert products, expected "
+                            f"{3 * L}")
+        rel = grad_rel_l2(training, g, ref_g)
+        twins[name] = {"loss": float(loss), "ref_loss": float(ref_loss),
+                       "s": k_s, "grad_rel_l2_max": max(rel.values()),
+                       "grad_rel_l2": rel, "route_flips": rep.flips(),
+                       "plain_products": len(plain),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del g, ref_g, rec, rep
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not (twins[name]["grad_rel_l2_max"] <= GRAD_REL_L2_TOL):
+            failures.append(f"slice_moe_train {name} gradients vs the "
+                            f"replaying reference twin: {rel}")
+    ccfg = dataclasses.replace(cfg, routing="psum", capacity_factor=1.25)
+    sgd = StepClock(moe.sgd_train_step)
+    (params, sgd_loss), launches["slice_moe_train_sgd"] = run_path(
+        ("flash_attention", "flash_attention_bwd"), sgd, params, tokens,
+        ccfg, lr=TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats()
+    rec_ck = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = pmesh.make_mesh({"dp": 1, "sp": 1})
+            step, opt_init = moe.make_adamw_spmd_train_step(ccfg, mesh,
+                                                            lr=TRAIN_LR)
+            step = StepClock(step)
+            (params, state, losses), launches["slice_moe_train_fit"] = \
+                run_path(("flash_attention_partial", "flash_attention_bwd"),
+                         trainer.fit, step, params, opt_init(params),
+                         [tokens] * MT_ADAMW_STEPS, steps=MT_ADAMW_STEPS,
+                         log_every=0)
+            fit_peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            dist.destroy_process_group()
+        path = os.path.join(tmp, f"step_{MT_ADAMW_STEPS}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec_ck["bytes"] = trainer.save_state(path, params, state,
+                                             MT_ADAMW_STEPS)
+        rec_ck["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back_p, back_o, back_step = trainer.load_state(
+            path, like_params=params, like_opt=state)
+        torch.cuda.synchronize()
+        rec_ck["restore_s"] = time.perf_counter() - t0
+        rec_ck["equal"] = back_step == MT_ADAMW_STEPS and all(
+            torch.equal(a, b) for a, b in zip(
+                training.tree_leaves({"p": back_p, "o": back_o}),
+                training.tree_leaves({"p": params, "o": state})))
+        del back_p, back_o
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [float(x) for x in losses]
+    emit({"phase": "slice_moe_train", "model": "mixtral_8x7b",
+          "layers": L, "layers_full": mcfg.n_layers, "seq": MT_SEQ,
+          "params": sum(t.numel() for t in training.tree_leaves(params)),
+          "param_gib": param_bytes / 2**30, "init_s": init_s,
+          "twins": twins, "grad_rel_l2_tol": GRAD_REL_L2_TOL,
+          "sgd_loss": float(sgd_loss), "sgd_ms": sgd.ms,
+          "adamw_losses": losses, "step_ms": step.ms,
+          "tok_s": MT_SEQ / (mean(step.ms[1:]) / 1e3),
+          "fit_peak_gib": fit_peak, "checkpoint": rec_ck,
+          "launches": launches, "card": card})
+    if not all(math.isfinite(x) for x in losses + [float(sgd_loss)]):
+        failures.append(f"slice_moe_train: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        failures.append(f"slice_moe_train: the loss did not fall: {losses}")
+    if not rec_ck["equal"]:
+        failures.append("slice_moe_train: the restored AdamW checkpoint "
+                        "differs from the state saved")
+    want = {"slice_moe_train_sgd": {"flash_attention": 2 * L,
+                                    "flash_attention_bwd": L,
+                                    "flash_attention_partial": 0},
+            "slice_moe_train_fit": {
+                "flash_attention_partial": 2 * L * MT_ADAMW_STEPS,
+                "flash_attention_bwd": L * MT_ADAMW_STEPS,
+                "flash_attention": 0}}
+    for path_, w in want.items():
+        if any(launches[path_][k] != n for k, n in w.items()):
+            failures.append(f"slice_moe_train {path_} launches "
+                            f"{launches[path_]}, expected {w}")
+    return launches, params, ccfg
+
+
+def slice_generate(torch, np, paged, cfg, dev, card, run_path, no_launch,
+                   moe, m_params, m_cfg, failures):
+    """slice_generate (see the module docstring). Returns launch counts
+    by path."""
+    import importlib
+    tg = importlib.import_module("tpushare_torch.models.generate")
+    sp = importlib.import_module("tpushare_torch.models.speculative")
+    quant = importlib.import_module("tpushare_torch.models.quant")
+    tt = importlib.import_module("tpushare_torch.models.transformer")
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(12)
+    params = tt.init_params(gen, cfg, device=dev)
+    qparams = quant.quantize_params(params, cfg)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, GEN_PROMPT_LEN)
+               for _ in range(GEN_PROMPTS)]
+    toks = torch.as_tensor(np.stack(prompts), device=dev)
+    launches = {}
+    # Warm-up (cuBLAS choices, allocator growth), then the timed runs.
+    tg.generate(params, toks[:, :16], cfg, max_new_tokens=4)
+    rows = []
+    orig = tg.sample_logits
+
+    def recording(logits, *a, **kw):
+        rows.append(logits.float().clone())
+        return orig(logits, *a, **kw)
+    tg.sample_logits = recording
+    try:
+        clock = StepClock(tg.generate)
+        out, launches["slice_generate_dense"] = run_path(
+            ("flash_attention",), clock, params, toks, cfg,
+            max_new_tokens=GEN_NEW)
+    finally:
+        tg.sample_logits = orig
+    gen_ms = clock.ms[0]
+    streams = out[:, GEN_PROMPT_LEN:].tolist()
+    d_streams, d_rows, _ = direct_run(
+        torch, paged, cfg, params, prompts, list(range(GEN_PROMPTS)),
+        GEN_NEW, GEN_PROMPTS * ((GEN_PROMPT_LEN + GEN_NEW) // 16 + 2) + 1,
+        16, n_slots=GEN_PROMPTS)
+    flips = {i: stream_flips(streams[i], d_streams[i], d_rows[i],
+                             LOGIT_REL_TOL) for i in range(GEN_PROMPTS)}
+    # int8-self speculation, greedy: must give generate's output.
+    hook = quant.dequant_hook(cfg)
+    calls = [0]
+
+    def counting_hook(layer):
+        calls[0] += 1
+        return hook(layer)
+    sclock = StepClock(sp.speculative_generate)
+    sout, launches["slice_generate_spec"] = run_path(
+        ("flash_attention",), sclock, params, qparams, toks, cfg,
+        max_new_tokens=GEN_NEW, gamma=GEN_GAMMA,
+        draft_layers_hook=counting_hook)
+    # The draft's forwards: its prefill, then gamma steps and one
+    # catch-up write a round.
+    rounds = (calls[0] // L - 1) // (GEN_GAMMA + 1)
+    accepted = (GEN_NEW - 1) - rounds
+    spec_equal = torch.equal(sout, out)
+    spec_parts = []
+    if not spec_equal:
+        for i in range(GEN_PROMPTS):
+            s_row = sout[i, GEN_PROMPT_LEN:].tolist()
+            for pos, (a, b) in enumerate(zip(s_row, streams[i])):
+                if a != b:
+                    row = rows[pos][i]
+                    top2 = row.topk(2).values
+                    spec_parts.append({"prompt": i, "pos": pos,
+                                       "gap": float((top2[0] - top2[1])
+                                                    / row.abs().max())})
+                    break
+        failures.append(f"slice_generate: speculative_generate differs from "
+                        f"generate: {spec_parts}")
+    bad = [t for s_ in streams for t in s_ if not 0 <= t < cfg.vocab_size]
+    if bad:
+        failures.append(f"slice_generate: tokens outside the vocabulary: "
+                        f"{bad[:8]}")
+    want_dense = {"flash_attention": L * GEN_NEW, "flash_decode": 0,
+                  "paged_flash_decode": 0}
+    if any(launches["slice_generate_dense"][k] != n
+           for k, n in want_dense.items()):
+        failures.append(f"slice_generate: generate's launches "
+                        f"{launches['slice_generate_dense']}, expected "
+                        f"{want_dense}")
+    del params, qparams, rows, d_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    # moe.generate on slice_moe_train's trained 2-layer Mixtral: the
+    # prefill's logits against the reference twin (routes replayed).
+    m_toks = torch.as_tensor(np.random.default_rng(13).integers(
+        0, m_cfg.vocab_size, (2, 256)), device=dev)
+    mclock = StepClock(moe.generate)
+    m_out, launches["slice_generate_moe"] = run_path(
+        ("flash_attention",), mclock, m_params, m_toks, m_cfg,
+        max_new_tokens=MOE_GEN_NEW)
+    with torch.no_grad():
+        with Routes(moe) as rec:
+            k_logits, _ = rec.wrap(moe.forward)(m_params, m_toks, m_cfg)
+        with Routes(moe, replay=rec.calls) as rep:
+            r_logits, _ = no_launch(rep.wrap(moe.forward), m_params, m_toks,
+                                    m_cfg, attn_impl="reference")
+    m_rel = float((k_logits - r_logits).abs().max() / r_logits.abs().max())
+    m_ok = (m_out.shape == (2, 256 + MOE_GEN_NEW)
+            and bool(((m_out >= 0) & (m_out < m_cfg.vocab_size)).all())
+            and torch.equal(m_out[:, :256], m_toks))
+    if not m_ok or not (m_rel <= MOE_LOGIT_REL_TOL):
+        failures.append(f"slice_generate: moe.generate shape/tokens ok "
+                        f"{m_ok}, prefill logits vs twin {m_rel}")
+    emit({"phase": "slice_generate", "model": "gemma_2b",
+          "prompts": GEN_PROMPTS, "prompt_len": GEN_PROMPT_LEN,
+          "new_tokens": GEN_NEW, "generate_ms": gen_ms,
+          "generate_ms_per_token": gen_ms / GEN_NEW,
+          "direct_flips": {i: f for i, f in flips.items() if f},
+          "spec_equal": spec_equal, "spec_parts": spec_parts,
+          "spec_gamma": GEN_GAMMA, "spec_rounds": rounds,
+          "spec_accept_rate": accepted / (rounds * GEN_GAMMA),
+          "spec_ms": sclock.ms[0],
+          "spec_ms_per_token": sclock.ms[0] / GEN_NEW,
+          "moe": {"layers": m_cfg.n_layers, "new_tokens": MOE_GEN_NEW,
+                  "ms": mclock.ms[0], "prefill_logit_rel": m_rel,
+                  "tokens": m_out[:, 256:].tolist()},
+          "launches": launches, "card": card})
+    return launches
+
+
 KV_TIER_BYTES = 2 << 30
 KV_ARGV = ["--preset", "gemma_2b", "--n-slots", "8", "--n-blocks", "256",
            "--block-size", "16", "--port", "0", "--seed", "0"]
@@ -3681,6 +4156,44 @@ def main() -> int:
                      "gemma2_window_softcap", 512, 1024, 8, 4, 256,
                      q_offset=512, window=256, softcap=50.0),
     ]
+    # The fine-tuning and generation paths' shapes (Gemma-2B: 8/1 heads,
+    # head_dim 256; Mixtral: 32/8, 128). slice_generate: generate's
+    # prefill into its dense cache (4 rows of 512 prompt tokens, the
+    # cache 512 + 64 rows), then every S = 1 step at its scalar offset;
+    # speculative_generate's cache holds gamma + 1 more rows, its draft
+    # steps (S = 1) and its verify and catch-up blocks (S = gamma + 1)
+    # checked at every offset the cache can take them at; moe.generate's
+    # prefill (2 rows of 256, 32 new). slice_finetune: the engine's
+    # admission of a tenant's prompt (finetune_serve.BLOCK + 1 tokens,
+    # blocks of 16, 4 a slot), and the LoRA step's forward with its lse
+    # (4 x 1024); slice_moe_train's forward with its lse (1 x 4096).
+    P, g_sk = GEN_PROMPT_LEN, GEN_PROMPT_LEN + GEN_NEW
+    s_sk, gw = g_sk + GEN_GAMMA + 1, GEN_GAMMA + 1
+    fs = importlib.import_module("tpushare_torch.tools.finetune_serve")
+    lc = paged.admission_len(fs.BLOCK + 1, 0, 16, 4)[1]
+    gpc = functools.partial(prefill_case, fa, attn, F, torch, dev, flush)
+    pre_n = [
+        gpc(f"gemma2b_generate_b4_sq{P}_sk{g_sk}_off0", P, g_sk, 8, 1, 256,
+            q_offset=0, B=GEN_PROMPTS),
+        gpc(f"gemma2b_generate_b4_sq1_sk{g_sk}", 1, g_sk, 8, 1, 256,
+            q_offset=P, more_offsets=range(P + 1, g_sk), B=GEN_PROMPTS,
+            fault=True),
+        gpc(f"gemma2b_spec_b4_sq{P}_sk{s_sk}_off0", P, s_sk, 8, 1, 256,
+            q_offset=0, B=GEN_PROMPTS),
+        gpc(f"gemma2b_spec_b4_sq1_sk{s_sk}", 1, s_sk, 8, 1, 256,
+            q_offset=P, more_offsets=range(P + 1, s_sk), B=GEN_PROMPTS),
+        gpc(f"gemma2b_spec_b4_sq{gw}_sk{s_sk}", gw, s_sk, 8, 1, 256,
+            q_offset=P, more_offsets=range(P + 1, s_sk - gw + 1),
+            B=GEN_PROMPTS, fault=True),
+        gpc(f"mixtral_generate_b2_sq256_sk{256 + MOE_GEN_NEW}_off0", 256,
+            256 + MOE_GEN_NEW, 32, 8, 128, q_offset=0, B=2),
+        gpc(f"gemma2b_lifecycle_sq{lc}_sk{lc}_off0", lc, lc, 8, 1, 256,
+            q_offset=0),
+        gpc("gemma2b_lora_train_b4_s1024", 1024, 1024, 8, 1, 256,
+            q_offset=0, B=4, lse=True),
+        gpc(f"mixtral_train_s{MT_SEQ}", MT_SEQ, MT_SEQ, 32, 8, 128,
+            q_offset=0, lse=True),
+    ]
     pc = functools.partial(paged_case, fa, F, torch, np, dev, flush)
     dec = [
         pc("paged_flash_decode", "gemma2b_b8", dec_pos, dec_pages, 1, 8, 1,
@@ -3768,6 +4281,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     part_b, bwd_b = ring_cases(fa, ring, F, torch, dev, flush, failures, 4,
                                2048, 32, 8, 128)
+    torch.cuda.empty_cache()
+    # The gradient at slice_finetune's LoRA step (4 x 1024, Gemma-2B) and
+    # at slice_moe_train's steps (1 x 4096, Mixtral; its fit's one-hop
+    # ring runs the partial kernel at this shape too).
+    part_n, bwd_n = zip(*[attention_layer_cases(
+        fa, torch, dev, flush, failures, name, S, H, Hkv, D, None, None,
+        B=B) for name, B, S, H, Hkv, D in (
+            ("gemma2b_lora_b4_s1024", 4, 1024, 8, 1, 256),
+            (f"mixtral_s{MT_SEQ}", 1, MT_SEQ, 32, 8, 128))])
     del flush
     torch.cuda.empty_cache()
     kernels_s = time.perf_counter() - t_k
@@ -4263,6 +4785,27 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- slice_finetune: the LoRA lifecycle at Gemma-2B's full width ----
+    t_ft = time.perf_counter()
+    ft_launches = slice_finetune(torch, np, cfg, dev, card, run_path,
+                                 no_launch, failures)
+    finetune_s = time.perf_counter() - t_ft
+
+    # -- slice_moe_train: Mixtral width, 2 layers, the routings' grads --
+    t_mt = time.perf_counter()
+    mt_launches, mt_params, mt_cfg = slice_moe_train(
+        torch, np, moe, mcfg, dev, card, run_path, no_launch, failures)
+    moe_train_s = time.perf_counter() - t_mt
+
+    # -- slice_generate: generate, speculative_generate, moe.generate ----
+    t_gn = time.perf_counter()
+    gn_launches = slice_generate(torch, np, paged, cfg, dev, card, run_path,
+                                 no_launch, moe, mt_params, mt_cfg, failures)
+    generate_s = time.perf_counter() - t_gn
+    del mt_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
     t_f = time.perf_counter()
     run_flex_later()
     flex_s = time.perf_counter() - t_f
@@ -4276,7 +4819,8 @@ def main() -> int:
              **{f"slice_llama_{m}": c for m, c in l_launches.items()},
              **{f"slice_moe_{m}": c for m, c in m_launches.items()},
              "slice_rows": r_launches, "slice_train_sgd": sgd_launches,
-             "slice_train_fit": fit_launches, "slice_plugin": p_launches}
+             "slice_train_fit": fit_launches, "slice_plugin": p_launches,
+             **ft_launches, **mt_launches, **gn_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in paths.values())
@@ -4306,7 +4850,8 @@ def main() -> int:
     ref_fa = "tpushare/ops/flash_attention.py:"
     kernels = [
         dict(entry("flash_attention", src + "flash_prefill.cu",
-                   ref_fa + "105", pre_g + pre_l + pre_m, pre),
+                   ref_fa + "105", pre_g + pre_l + pre_m + pre_n,
+                   pre + pre_n),
              also_replaces=ref_fa + "180"),
         entry("paged_flash_decode", src + "paged_decode.cu", ref_fa + "659",
               dec[:2] + dec_m, dec),
@@ -4324,11 +4869,12 @@ def main() -> int:
              library_ms_no_softcap=largest(fdec)["library_ms_no_softcap"],
              library_no_softcap_calls=fdec[0]["library_no_softcap_calls"]),
         dict(entry("flash_attention_partial", src + "flash_prefill.cu",
-                   ref_fa + "453", part_a, part_a + (part_b,)),
+                   ref_fa + "453", part_a + part_n[1:],
+                   part_a + (part_b,) + part_n),
              library_ms_no_softcap=part_b["library_ms"],
              no_softcap_case=part_b["case"]),
         dict(entry("flash_attention_bwd", src + "flash_bwd.cu",
-                   ref_fa + "105", bwd_a, bwd_a + (bwd_b,)),
+                   ref_fa + "105", bwd_a + bwd_n, bwd_a + (bwd_b,) + bwd_n),
              note="the gradient of _fa_kernel: the JAX package has no "
                   "backward kernel (jax 0.9.0 pallas_call registers no "
                   "transpose)",
@@ -4352,7 +4898,8 @@ def main() -> int:
     emit({"phase": "seconds", "kernels": kernels_s, "engine": engine_s,
           "engine_lora": engine_lora_s, "moe_spec": moe_spec_s,
           "kv_economy": kv_economy_s, "colocate": colocate_s,
-          "plugin": plugin_s, "flex": flex_s,
+          "plugin": plugin_s, "finetune": finetune_s,
+          "moe_train": moe_train_s, "generate": generate_s, "flex": flex_s,
           "flex_compile": {f"{r['kernel']} {r['case']}": r["flex_compile_s"]
                            for r in dec + fdec + list(part_a) + list(bwd_a)
                            if r.get("flex_compile_s") is not None},

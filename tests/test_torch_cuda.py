@@ -777,7 +777,9 @@ def test_ring_and_spmd_steps_across_cards(dev, tmp_path):
     gradients against the single-card flash_attention through its
     autograd Function. Then forward under pctx.sp and 2 SGD / 2 AdamW
     SPMD steps of a small f32 Gemma-2-style model (head_dim 128; dp2 x sp2
-    on four cards, dp1 x sp2 on two) against the single-card steps.
+    on four cards, dp1 x sp2 on two) against the single-card steps; then
+    the same with Ulysses (sp_impl="a2a": the attention case, 2 SGD and
+    2 AdamW steps).
     Tolerances, f32 on both sides, which sum the same products in other
     orders (per hop, per shard): attention 1e-4 rel + 1e-5 abs, logits
     1e-5 rel + 1e-4 abs, losses 1e-5 rel, parameters 2e-5 abs."""
@@ -858,6 +860,43 @@ def test_ring_and_spmd_steps_across_cards(dev, tmp_path):
     for k_, a in want.items():
         np.testing.assert_allclose(got[f"adamw/{k_}"], a, rtol=0, atol=2e-5)
     assert int(got["adamw_count"]) == 6
+
+    # Ulysses (sp_impl="a2a") over NCCL: the attention case above, then
+    # the same SGD steps and AdamW steps (no weight decay), each against
+    # the single card, at the same tolerances.
+    got = torch_spawn.run_ranks(
+        torch_spawn.ulysses_worker, world, tmp_path,
+        dict(zip(("card_q", "card_k", "card_v", "card_do"), arrays)),
+        [("card", kw)], backend="nccl", timeout=300)
+    q, k, v = (torch.tensor(a, device=dev, requires_grad=True)
+               for a in arrays[:3])
+    out = fa.flash_attention(q, k, v, **kw)
+    out.backward(torch.tensor(arrays[3], device=dev))
+    for name, want in (("out", out), ("dq", q.grad), ("dk", k.grad),
+                       ("dv", v.grad)):
+        np.testing.assert_allclose(got[f"card_{name}"],
+                                   want.detach().cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5)
+    got = torch_spawn.run_ranks(torch_spawn.a2a_train_worker, world,
+                                tmp_path, inputs, cfg, sizes, lr, 2,
+                                backend="nccl", timeout=300)
+    p = torch_spawn.unflatten(inputs, "p/", dev)
+    pa = torch_spawn.unflatten(inputs, "p/", dev)
+    state = {"mu": torch_spawn.unflatten(inputs, "mu/", dev),
+             "nu": torch_spawn.unflatten(inputs, "nu/", dev),
+             "count": torch.tensor(4, dtype=torch.int32, device=dev)}
+    for s in range(2):
+        p, loss = training.sgd_train_step(p, tok, cfg, lr=lr)
+        np.testing.assert_allclose(got[f"sgd_loss{s}"], loss.item(),
+                                   rtol=1e-5)
+        pa, state, loss = training.adamw_train_step(pa, state, tok, cfg,
+                                                    lr=lr)
+        np.testing.assert_allclose(got[f"adamw_loss{s}"], loss.item(),
+                                   rtol=1e-5)
+    for prefix, tree in (("sgd/", p), ("adamw/", pa)):
+        for k_, a in torch_spawn.flatten(tree).items():
+            np.testing.assert_allclose(got[prefix + k_], a, rtol=0,
+                                       atol=2e-5)
 
 
 def test_tiny_engine_on_the_card(dev):

@@ -157,12 +157,17 @@ class TestAdapters:
             bridge.adapters_from_jax({"wq": {"a": 1}})
 
     def test_left_out_pieces_name_their_item(self):
+        """Sharded placement is the piece left out; LoRA training is
+        ported (its parity: tests/test_torch_finetune.py)."""
         with pytest.raises(NotImplementedError, match="A10"):
             lora.lora_param_specs(None)
-        for fn in (lora.lora_loss, lora.make_lora_fit_step,
-                   lora.lora_train_step):
-            with pytest.raises(NotImplementedError, match="A12"):
-                fn(None, None)
+        cfg = tt.tiny()
+        base = tt.init_params(0, cfg, device="cpu")
+        ad = lora.init_lora(torch.Generator().manual_seed(0), cfg, 2)
+        tok = torch.zeros((1, 5), dtype=torch.int64)
+        assert torch.isfinite(lora.lora_loss(base, ad, tok, cfg))
+        step = lora.make_lora_fit_step(base, cfg)
+        assert step(ad, {}, tok)[1] == {}
 
 
 def _mlora_inputs(jcfg, jp, tp, targets, seed=0, B=None):

@@ -16,6 +16,17 @@ JAX servers through plain, prefix-hit, chunked, fused and evict /
 re-admit scenarios. Also: the quantizer on expert stacks, the bridge of
 a quantized MoE tree, routing ties, the config conversion, one fetch
 per tick, and the options that refuse.
+
+Training (``TestTraining``): ``lm_loss`` and its gradient under every
+routing (psum dense and capacity, a2a, dropless through
+``_GroupedProducts``, expert_choice) against ``jax.value_and_grad`` of
+JAX's ``lm_loss``, losses within 1e-5 relative and each gradient leaf
+within 5e-5 of its largest |element|; SGD and AdamW steps (AdamW from a
+non-zero state) with parameters within 2e-6 abs; remat on and off equal;
+and ``make_spmd_train_step`` / ``make_adamw_spmd_train_step`` on a dp2 x
+sp2 gloo group of 4 spawned ranks (``tests/torch_spawn.py``) against
+the JAX SPMD steps (the aux statistics averaged over the data axes)
+and the single-process steps.
 """
 
 import types
@@ -34,6 +45,8 @@ from tpushare.models import quant as jq
 from tpushare_torch.models import bridge, convert, paged
 from tpushare_torch.models import moe as tm
 from tpushare_torch.models import quant as tq
+from tpushare_torch.models import training as ttr
+import torch_spawn
 from tests.test_torch_paged import _unaliased, count_fetches
 
 REL = 5e-5
@@ -536,9 +549,163 @@ class TestRefusals:
         tok = torch.zeros((1, 3), dtype=torch.int64)
         with pytest.raises(NotImplementedError, match="A10"):
             tm.forward(tp, tok, cfg, ep_axis="ep")
-        with pytest.raises(NotImplementedError, match="A12"):
-            tm.generate(tp, tok, cfg)
-        with pytest.raises(NotImplementedError, match="A12"):
-            tm.lm_loss(tp, tok, cfg)
+        with pytest.raises(NotImplementedError, match="A10"):
+            tm.forward(tp, tok, cfg, pctx=tm.ParallelCtx(tp="tp"))
+        with pytest.raises(NotImplementedError, match="A10"):
+            tm.sgd_train_step(tp, tok, cfg, ep_axis="ep")
+        # generate and the loss run (their parity: TestTraining and
+        # tests/test_torch_generate.py).
+        assert tm.generate(tp, tok, cfg, max_new_tokens=2).shape == (1, 5)
+        assert torch.isfinite(tm.lm_loss(tp, tok, cfg))
         with pytest.raises(ValueError, match="adapter"):
             tm.paged_forward(tp, tok, cfg, mlora_idx=torch.zeros(1))
+
+
+TRAIN_ROUTINGS = [("psum", None), ("psum", 1.5), ("a2a", 1.5),
+                  ("dropless", None), ("expert_choice", None)]
+LOSS_RTOL, PARAM_ATOL = 1e-5, 2e-6
+
+
+def _train_pair(routing, factor, seed=0):
+    jcfg = jm.tiny(remat=False, routing=routing, capacity_factor=factor,
+                   aux_loss_weight=0.1)
+    jp = jm.init_params(jax.random.PRNGKey(seed), jcfg)
+    return jcfg, jp, bridge.moe_config_from_jax(jcfg), \
+        bridge.params_from_jax(jp, device="cpu")
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v.detach() if isinstance(
+                v, torch.Tensor) else v, np.float32)
+    return out
+
+
+def _close_leafwise(got, want, rel=REL):
+    got, want = _flat(got), _flat(want)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                   atol=rel * max(np.abs(want[key]).max(),
+                                                  1e-30), err_msg=key)
+
+
+def _opt_state(jp, seed):
+    """A non-zero AdamW state whose moments dominate the next gradients
+    (tests/test_torch_train.py's reason)."""
+    rng = np.random.default_rng(seed)
+    return {"mu": jax.tree.map(lambda a: (rng.normal(size=a.shape) * 1e-2
+                                          ).astype(np.float32), jp),
+            "nu": jax.tree.map(lambda a: rng.uniform(
+                1e-4, 4e-4, size=a.shape).astype(np.float32), jp),
+            "count": np.int32(4)}
+
+
+class TestTraining:
+    @pytest.mark.parametrize("routing,factor", TRAIN_ROUTINGS)
+    def test_loss_and_grads_match_jax(self, routing, factor):
+        """The port with remat on (each layer under torch.utils.
+        checkpoint) against jax.value_and_grad of JAX's lm_loss."""
+        jcfg, jp, tcfg, tp = _train_pair(routing, factor)
+        tok = _tokens(31, 2, 9, jcfg.vocab_size)
+        jloss, jg = jax.value_and_grad(jm.lm_loss)(jp, jnp.asarray(tok), jcfg)
+        import dataclasses
+        tcfg = dataclasses.replace(tcfg, remat=True)
+        t = torch.from_numpy(tok)
+        loss, g = ttr.value_and_grad(tm.xent_loss, tp, t[:, :-1], t[:, 1:],
+                                     tcfg)
+        np.testing.assert_allclose(float(loss), float(jloss),
+                                   rtol=LOSS_RTOL)
+        np.testing.assert_allclose(float(tm.lm_loss(tp, t, tcfg)),
+                                   float(jloss), rtol=LOSS_RTOL)
+        _close_leafwise(g, jax.tree.map(np.asarray, jg))
+        _, g_off = ttr.value_and_grad(tm.xent_loss, tp, t[:, :-1], t[:, 1:],
+                                      dataclasses.replace(tcfg, remat=False))
+        for a, b in zip(ttr.tree_leaves(g), ttr.tree_leaves(g_off)):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("routing,factor", [("psum", 1.5),
+                                                ("dropless", None)])
+    def test_sgd_and_adamw_steps_match_jax(self, routing, factor):
+        jcfg, jp0, tcfg, tp = _train_pair(routing, factor, seed=1)
+        toks = [_tokens(40 + i, 2, 9, jcfg.vocab_size) for i in range(2)]
+        jp, ta = jp0, bridge.params_from_jax(jp0, device="cpu")
+        state = _opt_state(jp0, 2)
+        js = jax.tree.map(jnp.asarray, state)
+        ts = bridge.opt_state_from_jax(state, device="cpu")
+        jpa = jp0
+        for tok in toks:
+            jp, jloss = jm.sgd_train_step(jp, jnp.asarray(tok), jcfg, lr=0.1)
+            tp, tloss = tm.sgd_train_step(tp, torch.from_numpy(tok), tcfg,
+                                          lr=0.1)
+            np.testing.assert_allclose(float(tloss), float(jloss),
+                                       rtol=LOSS_RTOL)
+            jpa, js, jl_ = jm.adamw_train_step(jpa, js, jnp.asarray(tok),
+                                               jcfg, lr=0.01,
+                                               weight_decay=0.01)
+            ta, ts, tl_ = tm.adamw_train_step(ta, ts, torch.from_numpy(tok),
+                                              tcfg, lr=0.01,
+                                              weight_decay=0.01)
+            np.testing.assert_allclose(float(tl_), float(jl_),
+                                       rtol=LOSS_RTOL)
+        for got, want in ((tp, jp), (ta, jpa)):
+            for key, w in _flat(jax.tree.map(np.asarray, want)).items():
+                np.testing.assert_allclose(_flat(got)[key], w, rtol=0,
+                                           atol=PARAM_ATOL, err_msg=key)
+        assert int(ts["count"]) == int(js["count"]) == 6
+
+
+MOE_SPMD = {"dp": 2, "sp": 2}
+MOE_SPMD_LR = 0.05
+
+
+@pytest.fixture(scope="module")
+def moe_spmd_run(tmp_path_factory):
+    """psum with capacity 1.5 (each shard's capacity from its own
+    tokens, the aux statistics averaged over dp and sp) on a dp2 x sp2
+    gloo group of 4: 2 SGD steps and 2 AdamW steps."""
+    tmp = tmp_path_factory.mktemp("moe_spmd")
+    jcfg, jp, tcfg, _ = _train_pair("psum", 1.5, seed=3)
+    tok = _tokens(50, 2, 18, jcfg.vocab_size)
+    state = _opt_state(jp, 6)
+    inputs = {"tokens": tok, "count": np.asarray(state["count"]),
+              **torch_spawn.flatten(jax.tree.map(np.asarray, jp), "p/"),
+              **torch_spawn.flatten(state["mu"], "mu/"),
+              **torch_spawn.flatten(state["nu"], "nu/")}
+    got = torch_spawn.run_ranks(torch_spawn.moe_train_worker, 4, tmp, inputs,
+                                tcfg, MOE_SPMD, MOE_SPMD_LR, 2)
+    return jcfg, jp, tcfg, tok, state, got
+
+
+class TestSpmdTraining:
+    def test_sgd_step_matches_jax_and_single_process(self, moe_spmd_run):
+        from tpushare.parallel.mesh import make_mesh as jax_make_mesh
+        jcfg, jp, tcfg, tok, _, got = moe_spmd_run
+        mesh = jax_make_mesh(MOE_SPMD, devices=jax.devices()[:4])
+        step = jm.make_spmd_train_step(jcfg, mesh, lr=MOE_SPMD_LR)
+        for s in range(2):
+            jp, jloss = step(jp, jnp.asarray(tok))
+            np.testing.assert_allclose(float(got[f"sgd_loss{s}"]),
+                                       float(jloss), rtol=LOSS_RTOL)
+        for key, w in _flat(jax.tree.map(np.asarray, jp)).items():
+            np.testing.assert_allclose(got["sgd/" + key], w, rtol=0,
+                                       atol=PARAM_ATOL, err_msg=key)
+
+    def test_adamw_step_matches_jax(self, moe_spmd_run):
+        from tpushare.parallel.mesh import make_mesh as jax_make_mesh
+        jcfg, jp, tcfg, tok, state, got = moe_spmd_run
+        mesh = jax_make_mesh(MOE_SPMD, devices=jax.devices()[:4])
+        step, _ = jm.make_adamw_spmd_train_step(jcfg, mesh, lr=MOE_SPMD_LR)
+        js = jax.tree.map(jnp.asarray, state)
+        for s in range(2):
+            jp, js, jloss = step(jp, js, jnp.asarray(tok))
+            np.testing.assert_allclose(float(got[f"adamw_loss{s}"]),
+                                       float(jloss), rtol=LOSS_RTOL)
+        for key, w in _flat(jax.tree.map(np.asarray, jp)).items():
+            np.testing.assert_allclose(got["adamw/" + key], w, rtol=0,
+                                       atol=PARAM_ATOL, err_msg=key)
+        assert int(got["opt_init_count"]) == 0

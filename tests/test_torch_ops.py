@@ -418,7 +418,9 @@ class TestPortBoundary:
                     "plugin/allocate.py", "plugin/nvmldisc.py",
                     "deviceplugin/rpc.py", "k8s/client.py",
                     "models/bert.py", "tools/colocate.py",
-                    "models/lora.py"):
+                    "models/lora.py", "utils/data.py",
+                    "utils/checkpoint.py", "models/speculative.py",
+                    "parallel/ulysses.py", "tools/finetune_serve.py"):
             assert os.path.join("tpushare_torch", mod) in names
         assert bad == []
 

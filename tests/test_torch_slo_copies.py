@@ -1,5 +1,6 @@
 """The port's copies of the JAX package's host-only modules (``slo/``,
-``durable/``, ``chaos/``, ``router/``, ``utils/``), held equal to
+``durable/``, ``chaos/``, ``router/``, ``utils/``, ``utils/data.py``
+among them), held equal to
 their originals (the rule that keeps ``tpushare_torch`` free of any
 ``tpushare`` import, as ``router/chainkeys.py`` is held today).
 
@@ -44,7 +45,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["slo/__init__.py", "slo/tiers.py", "slo/stats.py", "slo/quota.py",
           "slo/sched.py", "durable/__init__.py", "durable/journal.py",
           "chaos/__init__.py", "chaos/injector.py", "utils/ownership.py",
-          "utils/atomicio.py", "router/__init__.py", "router/chainkeys.py",
+          "utils/atomicio.py", "utils/data.py", "router/__init__.py",
+          "router/chainkeys.py",
           "router/core.py", "router/daemon.py"]
 TENANTS = ["acme", "bg", "default", "other"]
 QUOTA_TEXT = "acme=4:10,bg=0:6,default=2:"

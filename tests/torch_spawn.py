@@ -184,3 +184,86 @@ def train_worker(rank, world, inp, cfg, mesh_sizes, lr, steps, wd):
     out.update(flatten(state["mu"], "adamw_mu/"))
     out["adamw_count"] = _np(state["count"])
     return out
+
+
+def ulysses_worker(rank, world, inp, cases):
+    """Each case: ``ulysses_attention_sharded`` of the whole q, k, v on
+    every rank, backward of sum(out * dout), q/k/v gradients summed over
+    the group."""
+    from tpushare_torch.parallel.mesh import make_mesh
+    from tpushare_torch.parallel.ulysses import ulysses_attention_sharded
+    mesh = make_mesh({"sp": world})
+    group = mesh.get_group("sp")
+    dev = _device()
+    out = {}
+    for name, kw in cases:
+        q, k, v = (torch.tensor(inp[f"{name}_{x}"], device=dev,
+                                requires_grad=True) for x in "qkv")
+        o = ulysses_attention_sharded(q, k, v, mesh=mesh, **kw)
+        (o * torch.tensor(inp[f"{name}_do"], device=dev)).sum().backward()
+        out[f"{name}_out"] = _np(o)
+        for x, t in zip("qkv", (q, k, v)):
+            dist.all_reduce(t.grad, group=group)
+            out[f"{name}_d{x}"] = _np(t.grad)
+    return out
+
+
+def a2a_train_worker(rank, world, inp, cfg, mesh_sizes, lr, steps):
+    """``steps`` SGD steps and ``steps`` AdamW steps (from the given
+    state) of the dense LM over the mesh with Ulysses sequence
+    parallelism (``sp_impl="a2a"``)."""
+    from tpushare_torch.models import training
+    from tpushare_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(mesh_sizes)
+    dev = _device()
+    tokens = torch.tensor(inp["tokens"], device=dev)
+    params = unflatten(inp, "p/", dev)
+    step = training.make_spmd_train_step(cfg, mesh, lr=lr, sp_impl="a2a")
+    out = {}
+    for s in range(steps):
+        params, loss = step(params, tokens)
+        out[f"sgd_loss{s}"] = _np(loss)
+    out.update(flatten(params, "sgd/"))
+    params = unflatten(inp, "p/", dev)
+    astep = training.make_adamw_spmd_train_step(cfg, mesh, lr=lr,
+                                                sp_impl="a2a")
+    state = {"mu": unflatten(inp, "mu/", dev),
+             "nu": unflatten(inp, "nu/", dev),
+             "count": torch.tensor(inp["count"], dtype=torch.int32,
+                                   device=dev)}
+    for s in range(steps):
+        params, state, loss = astep(params, state, tokens)
+        out[f"adamw_loss{s}"] = _np(loss)
+    out.update(flatten(params, "adamw/"))
+    return out
+
+
+def moe_train_worker(rank, world, inp, cfg, mesh_sizes, lr, steps):
+    """``steps`` MoE SGD steps (``moe.make_spmd_train_step``) and
+    ``steps`` AdamW steps from the given state
+    (``moe.make_adamw_spmd_train_step``) over the mesh."""
+    from tpushare_torch.models import moe
+    from tpushare_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(mesh_sizes)
+    dev = _device()
+    tokens = torch.tensor(inp["tokens"], device=dev)
+    params = unflatten(inp, "p/", dev)
+    step = moe.make_spmd_train_step(cfg, mesh, lr=lr)
+    out = {}
+    for s in range(steps):
+        params, loss = step(params, tokens)
+        out[f"sgd_loss{s}"] = _np(loss)
+    out.update(flatten(params, "sgd/"))
+    params = unflatten(inp, "p/", dev)
+    astep, opt_init = moe.make_adamw_spmd_train_step(cfg, mesh, lr=lr)
+    zeros = opt_init(params)
+    state = {"mu": unflatten(inp, "mu/", dev),
+             "nu": unflatten(inp, "nu/", dev),
+             "count": torch.tensor(inp["count"], dtype=torch.int32,
+                                   device=dev)}
+    out["opt_init_count"] = _np(zeros["count"])
+    for s in range(steps):
+        params, state, loss = astep(params, state, tokens)
+        out[f"adamw_loss{s}"] = _np(loss)
+    out.update(flatten(params, "adamw/"))
+    return out

@@ -2,10 +2,12 @@
 
 The dense decoder LM (``transformer``) and what serves it: ``paged``
 (PagedSlotServer over the paged KV pool), ``serving`` (SlotServer over
-dense rows, TokenSampler, PendingStep), ``spec`` (speculative decoding),
-``quant`` (int8 weights and KV), ``generate`` (sampling);
-the MoE LM (``moe``, ``convert``); what trains the dense LM:
-``training`` (losses, SGD/AdamW steps, single device and over a dp × sp
-mesh) and ``trainer`` (``fit``); and ``bridge`` (JAX weights and
-optimizer state -> torch).
+dense rows, TokenSampler, PendingStep), ``spec`` (the speculation
+seam), ``speculative`` (the generate-level speculative loops), ``quant``
+(int8 weights and KV), ``generate`` (sampling and the generate loop),
+``lora`` (adapters, the bank, LoRA training); the MoE LM (``moe``, with
+its training steps); ``convert`` (Hugging Face configs and weights);
+what trains: ``training`` (losses, SGD/AdamW steps, single device and
+over a dp × sp mesh) and ``trainer`` (``fit`` with checkpoint and
+resume); and ``bridge`` (JAX weights and optimizer state -> torch).
 """

@@ -1,6 +1,12 @@
-"""Token sampling for the decoder LM. Counterpart of
-``tpushare/models/generate.py`` (``filter_logits``, ``sample_logits``);
-the scanned ``generate`` loop is not ported yet (ROADMAP A12).
+"""Token sampling and the generate loop for the decoder LM. Counterpart
+of ``tpushare/models/generate.py`` (``filter_logits``, ``sample_logits``,
+``generate``).
+
+``generate`` is the dense-cache loop: one prefill into a row cache of
+exactly prompt + new tokens (``last_logit_only``), then S = 1 steps at a
+scalar offset (the reference's ``lax.scan`` is a Python loop). Every
+pick stays on the device; nothing is read back until the caller reads
+the result, so the loop makes no per-token host sync.
 
 Sampling runs on the logits' device with plain torch ops (``topk``,
 ``sort``, ``softmax``, ``cumsum``, ``rand``): no host round trip and no
@@ -15,6 +21,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from tpushare_torch.models.transformer import (TransformerConfig, forward,
+                                               init_cache)
 
 
 def filter_logits(logits: torch.Tensor, temperature: float,
@@ -65,3 +74,39 @@ def sample_logits(logits: torch.Tensor,
         return torch.argmax(logits, dim=-1)
     return categorical(filter_logits(logits, temperature, top_k=top_k,
                                      top_p=top_p), generator)
+
+
+def generate(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
+             max_new_tokens: int = 32, temperature: float = 0.0,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             generator: Optional[torch.Generator] = None,
+             attn_impl: str = "auto", layers_hook=None) -> torch.Tensor:
+    """tokens [B, S] -> [B, S + max_new_tokens], on tokens' device.
+
+    Temperature 0 is greedy; otherwise sampling at that temperature with
+    the optional top-k / top-p filters, drawing from ``generator`` (the
+    reference's ``rng``). The cache is sized S + max_new_tokens, so the
+    footprint is known before the first step."""
+    B, S = tokens.shape
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature sampling needs a generator")
+    with torch.no_grad():
+        cache = init_cache(cfg, B, S + max_new_tokens, device=tokens.device)
+        logits, cache = forward(params, tokens, cfg, cache=cache,
+                                pos_offset=0, attn_impl=attn_impl,
+                                last_logit_only=True,
+                                layers_hook=layers_hook)
+        last = logits[:, -1]
+        out = torch.empty((B, max_new_tokens), dtype=tokens.dtype,
+                          device=tokens.device)
+        for i in range(max_new_tokens):
+            tok = sample_logits(last, generator, temperature=temperature,
+                                top_k=top_k, top_p=top_p).to(tokens.dtype)
+            out[:, i] = tok
+            if i + 1 == max_new_tokens:
+                break
+            logits, cache = forward(params, tok[:, None], cfg, cache=cache,
+                                    pos_offset=S + i, attn_impl=attn_impl,
+                                    layers_hook=layers_hook)
+            last = logits[:, -1]
+    return torch.cat([tokens, out], dim=1)

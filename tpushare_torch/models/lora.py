@@ -13,9 +13,15 @@ leaves: the adapter axis after the layer axis), and
 layer tree, where ``transformer.forward`` applies each row's adapter on
 the activation path (``mlora_idx`` [B], -1 = the base model).
 
-Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
-``lora_param_specs`` (sharded placement) and LoRA training
-(``lora_loss``, ``make_lora_fit_step``, ``lora_train_step``).
+Training (``lora_loss``, ``lora_train_step``, ``make_lora_fit_step``
+for ``trainer.fit``): only the adapters are differentiated; the frozen
+base's leaves never require a gradient, so no base gradient is ever
+made (the reference differentiates ``argnums=1``). The update is the
+shared SGD rule (``training._sgd_update``: f32 math, each leaf keeps its
+dtype), in place on the adapter tree.
+
+Left out, raising ``NotImplementedError`` naming its ROADMAP item:
+``lora_param_specs`` (sharded placement).
 """
 
 from __future__ import annotations
@@ -26,9 +32,9 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from tpushare_torch.models.training import (_sgd_update, value_and_grad,
+                                            xent_loss)
 from tpushare_torch.models.transformer import TODO_MESH, TransformerConfig
-
-TODO_LORA_TRAIN = "ROADMAP A12 (LoRA training)"
 
 # Every linear the layer stack carries. (wq, wv) is the classic
 # attention-only default; MLP targets are there for full-layer LoRA.
@@ -148,13 +154,42 @@ def lora_param_specs(*a, **kw):
     raise NotImplementedError(f"lora_param_specs: {TODO_MESH}")
 
 
-def lora_loss(*a, **kw):
-    raise NotImplementedError(f"lora_loss: {TODO_LORA_TRAIN}")
+def lora_loss(base: Dict[str, Any], adapters: Dict[str, Any],
+              tokens: torch.Tensor, cfg: TransformerConfig, *,
+              scale: float = 1.0, inner=None,
+              attn_impl: str = "auto") -> torch.Tensor:
+    """Next-token cross-entropy of the hooked (base + delta) model over
+    tokens [B, S+1]."""
+    return xent_loss(lora_params(base, adapters), tokens[:, :-1],
+                     tokens[:, 1:], cfg, attn_impl=attn_impl,
+                     layers_hook=lora_hook(scale, inner=inner))
 
 
-def make_lora_fit_step(*a, **kw):
-    raise NotImplementedError(f"make_lora_fit_step: {TODO_LORA_TRAIN}")
+def lora_train_step(base: Dict[str, Any], adapters: Dict[str, Any],
+                    tokens: torch.Tensor, cfg: TransformerConfig, *,
+                    lr: float = 1e-3, scale: float = 1.0,
+                    attn_impl: str = "auto"
+                    ) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """One SGD step on the ADAPTERS only: (adapters, loss). Only the
+    adapter tree is differentiated (``training.value_and_grad``); the
+    base's tensors are used as they are and require no gradient, so the
+    backward computes no base gradient. The update is in place."""
+    loss, grads = value_and_grad(
+        lambda ads: lora_loss(base, ads, tokens, cfg, scale=scale,
+                              attn_impl=attn_impl), adapters)
+    return _sgd_update(adapters, grads, lr), loss
 
 
-def lora_train_step(*a, **kw):
-    raise NotImplementedError(f"lora_train_step: {TODO_LORA_TRAIN}")
+def make_lora_fit_step(base: Dict[str, Any], cfg: TransformerConfig, *,
+                       lr: float = 1e-3, scale: float = 1.0,
+                       attn_impl: str = "auto"):
+    """``trainer.fit`` step with the ADAPTERS as the trained state:
+    (adapters, opt_state, tokens) -> (adapters, opt_state, loss). SGD
+    keeps no optimizer state: pass {} and the trainer checkpoints
+    (adapters, {}, step), so a preempted LoRA tenant resumes bit for bit
+    like any other."""
+    def step(adapters, opt_state, tokens):
+        adapters, loss = lora_train_step(base, adapters, tokens, cfg, lr=lr,
+                                         scale=scale, attn_impl=attn_impl)
+        return adapters, opt_state, loss
+    return step

@@ -15,7 +15,15 @@ sorted by expert, three grouped products, nothing dropped) and
 ``forward``'s cache branches (no cache, dense scalar offset, ragged
 rows at S = 1 and S > 1, paged S = 1 and S > 1) with ``layers_hook``,
 ``last_logit_only`` and ``phase_timer`` (measurement mode: a drain at
-every phase mark); ``paged_forward`` (the ``forward_fn`` of
+every phase mark); ``generate`` (one prefill, then ragged S = 1 decodes
+in a Python loop, one device-to-host read at the end); training:
+``lm_loss`` (nll + ``aux_loss_weight`` x aux), ``sgd_train_step``,
+``adamw_train_step`` and their SPMD forms over a ``("dp", "sp")`` mesh
+(``make_spmd_train_step``, ``make_adamw_spmd_train_step``: rows over
+dp, the sequence over sp through ring attention, ``cfg.remat``
+checkpointing each layer), with a gradient through every routing
+(dropless's grouped products carry their own backward,
+``_GroupedProducts``); ``paged_forward`` (the ``forward_fn`` of
 ``paged.PagedSlotServer``, its drafts' too); ``MoESlotServer`` (admit
 with the row prefix cache, chunked admission, the fused tick, one fetch
 per tick or round, evict, and per-slot speculation through
@@ -24,8 +32,8 @@ row cache). Int8 expert trees served with ``quant.fused_expert_hook
 (cfg)`` run their expert products through the hand-written kernel
 (``ops/q8_expert.py``); dropless widens them in-graph, warning once.
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
-``ep_axis`` / ``pctx`` / meshes (a2a over an ep axis among them),
-``generate`` and training.
+``ep_axis``, ``pctx.tp`` and meshes with ep or tp above 1 (a2a over an
+ep axis among them).
 
 Dense-row decode attends through ``mha_reference`` with the ragged mask,
 exactly as the reference does (its masked read never reaches a flash
@@ -36,29 +44,34 @@ kernel); the paged branches go through ``paged_flash_decode`` /
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from tpushare_torch import DeviceLike, resolve_device
+from tpushare_torch.models.generate import sample_logits
 from tpushare_torch.models.quant import dequant_expert_leaves
 from tpushare_torch.models.serving import (PendingStep, SlotServer,
                                            bucket_len, fused_chunk_span,
                                            fused_token_batch, pad_tokens,
                                            prompt_host, prompt_tensor)
 from tpushare_torch.models.spec import SpecDecodeMixin
-from tpushare_torch.models.transformer import (TODO_MESH, _act, _paged_attn,
-                                               drop_write)
+from tpushare_torch.models import training as _training
+from tpushare_torch.models.training import adamw_init
+from tpushare_torch.models.transformer import (TODO_MESH, ParallelCtx, _act,
+                                               _paged_attn, drop_write)
 from tpushare_torch.ops.attention import attention
 from tpushare_torch.ops.norms import rms_norm
 from tpushare_torch.ops.q8_expert import q8_expert_dispatch
 from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
+from tpushare_torch.parallel.ring_attention import ring_attention
 
-# ROADMAP items that port what the MoE family still leaves out.
-TODO_GENERATE = "ROADMAP A12 (the scanned generate loop, training)"
 ROUTINGS = ("psum", "a2a", "dropless", "expert_choice")
 
 
@@ -83,7 +96,7 @@ class MoEConfig:
     aux_loss_weight: float = 0.01
     tie_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16
-    remat: bool = True             # kept for config parity; no training
+    remat: bool = True             # checkpoint each layer when training
     # The attention the MoE LM runs is the plain softmax(q.k / sqrt(D))
     # one; the shared paged branch (transformer._paged_attn) reads these.
     attn_scale = None
@@ -291,15 +304,38 @@ def _per_expert_products(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+class _GroupedProducts(torch.autograd.Function):
+    """``torch._grouped_mm(x, w, offs)`` with its gradient as grouped
+    GEMMs too: dx = g @ w[e]^T per group, and dw[e] = x_e^T @ g_e, the
+    contraction over each group's rows (an empty group's dw is zero)."""
+
+    @staticmethod
+    def forward(ctx, x, w, offs):
+        ctx.save_for_backward(x, w, offs)
+        return torch._grouped_mm(x, w, offs=offs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, offs = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch._grouped_mm(g, w.transpose(-2, -1), offs=offs)
+        if ctx.needs_input_grad[1]:
+            dw = torch._grouped_mm(x.t(), g, offs=offs)
+        return dx, dw, None
+
+
 def _grouped_products(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor,
                       e_s: torch.Tensor) -> torch.Tensor:
     """[A, K] rows sorted by expert (group g ends at ``offs[g]``; ``e_s``
     each row's expert) times the expert stack ``w`` [E, K, N] -> [A, N]:
     each row multiplies its own expert's matrix, once. One grouped GEMM
-    (``torch._grouped_mm``) where it takes the operands, else
+    (``torch._grouped_mm``, differentiable through
+    ``_GroupedProducts``) where it takes the operands, else
     ``_per_expert_products``."""
     if _grouped_mm_fits(x, w):
-        return torch._grouped_mm(x, w, offs=offs)
+        return _GroupedProducts.apply(x, w, offs)
     return _per_expert_products(x, w, e_s)
 
 
@@ -358,15 +394,34 @@ def _expert_choice_dispatch(h, layer, cfg: MoEConfig, probs: torch.Tensor,
     return out.reshape(B, S, Dm)
 
 
+def _group_mean(t: torch.Tensor, groups) -> torch.Tensor:
+    """``t`` averaged over each process group in ``groups`` in turn (the
+    reference's pmean over each data axis); no gradient flows through
+    the exchange."""
+    for g in groups:
+        t = t.clone()
+        dist.all_reduce(t, group=g)
+        t = t / dist.get_world_size(g)
+    return t
+
+
 def _moe_ffn(h: torch.Tensor, layer: Dict[str, torch.Tensor],
-             cfg: MoEConfig, phase_timer=None
+             cfg: MoEConfig, phase_timer=None, data_axes=()
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed expert MLP. h [B, S, Dm] -> (out [B, S, Dm], aux scalar).
     A layer carrying raw ``w_gate#q8`` leaves (``fused_expert_hook``)
     runs its expert products through the int8 kernel, except under
     dropless, whose grouped products take wide weights (widened here,
     with a warning). ``phase_timer`` marks router / dispatch /
-    expert_gemm at the reference's points (measurement mode only)."""
+    expert_gemm at the reference's points (measurement mode only).
+
+    ``data_axes`` (process groups the batch is sharded over): the Switch
+    aux loss E * sum_e frac(e) * mean_prob(e) is nonlinear in the data,
+    so the reference averages both statistics over the data axes before
+    the product. Here the routed fractions (no gradient) are averaged
+    over the groups and multiply this rank's mean probabilities: the
+    mean of the ranks' aux values is the global aux, and the mean of
+    their gradients (what the SPMD steps take) is its gradient."""
     B, S, Dm = h.shape
     E = cfg.n_experts
     pt = phase_timer
@@ -389,8 +444,10 @@ def _moe_ffn(h: torch.Tensor, layer: Dict[str, torch.Tensor],
                                             device=h.device)
     top_w, top_i = top_k_lower_index(probs, cfg.top_k)       # [B, S, K]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    combine = torch.zeros_like(probs).scatter_(-1, top_i, top_w)
+    combine = torch.zeros_like(probs).scatter(-1, top_i, top_w)
     frac = (combine > 0).float().mean(dim=(0, 1))
+    if data_axes:
+        frac = _group_mean(frac.detach(), data_axes)
     aux = E * torch.sum(frac * probs.mean(dim=(0, 1)))
     if pt is not None:
         pt.mark("router", block_on=(combine, top_w, top_i, aux))
@@ -450,11 +507,21 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig, *,
     MODE ONLY: each phase — embed / dequant (hook) / attn / router /
     dispatch / expert_gemm / kv_stack / unembed, the reference's marks —
     closes with a drain of the card, exactly the syncs the serving tick
-    must never make. None (the default) adds nothing to any path."""
-    for name, val in (("pctx", pctx), ("ep_axis", ep_axis),
-                      ("data_axes", data_axes or None)):
+    must never make. None (the default) adds nothing to any path.
+
+    Training (no cache): under ``pctx.sp`` (a process group) tokens are
+    this rank's sequence shard, positions start at rank * S and
+    attention is ring attention over the group (its dense chunk math
+    with attn_impl "reference"); ``data_axes`` names the process groups
+    the batch is sharded over (``_moe_ffn``'s aux statistics). With
+    ``cfg.remat``, grad mode on, no cache and no timer, each layer runs
+    under ``torch.utils.checkpoint``. ``ep_axis`` and ``pctx.tp`` raise,
+    naming ROADMAP A10."""
+    pctx = pctx or ParallelCtx()
+    for name, val in (("ep_axis", ep_axis), ("pctx.tp", pctx.tp)):
         if val is not None:
             raise NotImplementedError(f"{name}: {TODO_MESH}")
+    data_axes = tuple(data_axes or ())
     pt = phase_timer
     B, S = tokens.shape
     Dh = cfg.head_dim
@@ -473,6 +540,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig, *,
         if not isinstance(pos_offset, int):
             raise TypeError("scalar pos_offset must be a Python int")
         positions = (pos_offset + torch.arange(S, device=dev))[None, :]
+        if pctx.sp is not None:
+            positions = positions + dist.get_rank(pctx.sp) * S
     positions = positions.expand(B, S)
     cos, sin = rotary_embedding(positions, Dh, base=cfg.rope_base,
                                 scaling=cfg.rope_scaling)
@@ -487,7 +556,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig, *,
         pt.mark("embed", block_on=(x, cos, sin))
     aux_l = []
     layers = params["layers"]
-    for li in range(cfg.n_layers):
+
+    def block(x, li):
         layer = {name: leaf[li] for name, leaf in layers.items()}
         if layers_hook is not None:
             layer = layers_hook(layer)
@@ -518,14 +588,29 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig, *,
             lv[:, start:start + S] = v.to(lv.dtype)
             attn = attention(q, lk, lv, causal=True, q_offset=pos_offset,
                              impl=attn_impl)
+        elif pctx.sp is not None:
+            attn = ring_attention(
+                q, k, v, group=pctx.sp,
+                impl="dense" if attn_impl == "reference" else "auto")
         else:
             attn = attention(q, k, v, causal=True, impl=attn_impl)
         x = x + attn.reshape(B, S, H * Dh) @ layer["wo"]
         if pt is not None:
             pt.mark("attn", block_on=x)
         h = rms_norm(x, layer["ln2"], eps=cfg.norm_eps)
-        ff, aux = _moe_ffn(h, layer, cfg, phase_timer=pt)
-        x = x + ff
+        ff, aux = _moe_ffn(h, layer, cfg, phase_timer=pt,
+                           data_axes=data_axes)
+        return x + ff, aux
+
+    # The model has no randomness, so the recompute needs no RNG state.
+    remat = (cfg.remat and not use_cache and pt is None
+             and torch.is_grad_enabled())
+    for li in range(cfg.n_layers):
+        if remat:
+            x, aux = checkpoint(block, x, li, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = block(x, li)
         aux_l.append(aux)
     if pt is not None and use_cache:
         # The reference re-stacks its per-layer caches here; the port
@@ -564,12 +649,129 @@ def paged_forward(params, tokens: torch.Tensor, cfg: MoEConfig, *,
     return (out[0], None) if cache is None else (out[0], out[2])
 
 
-def generate(*a, **kw):
-    raise NotImplementedError(f"moe.generate: {TODO_GENERATE}")
+def generate(params, tokens: torch.Tensor, cfg: MoEConfig, *,
+             max_new_tokens: int = 32, temperature: float = 0.0,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             generator: Optional[torch.Generator] = None,
+             attn_impl: str = "auto", layers_hook=None) -> torch.Tensor:
+    """tokens [B, S] -> [B, S + max_new_tokens]: one prefill into a row
+    cache of S + max_new_tokens (``last_logit_only``), then ragged S = 1
+    decodes at each row's offset, as the reference's scan does (the
+    routing is recomputed per token; KV rows are the whole cache). The
+    picks stay on the device: nothing is read back until the caller
+    reads the result. Temperature 0 is greedy; otherwise
+    ``sample_logits``' filters apply, drawing from ``generator``."""
+    B, S = tokens.shape
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature sampling needs a generator")
+    with torch.no_grad():
+        cache = init_cache(cfg, B, S + max_new_tokens, device=tokens.device)
+        logits, _, cache = forward(params, tokens, cfg, cache=cache,
+                                   pos_offset=0, attn_impl=attn_impl,
+                                   layers_hook=layers_hook,
+                                   last_logit_only=True)
+
+        def pick(lg):
+            return sample_logits(lg, generator, temperature=temperature,
+                                 top_k=top_k, top_p=top_p).to(tokens.dtype)
+
+        out = torch.empty((B, max_new_tokens), dtype=tokens.dtype,
+                          device=tokens.device)
+        last = pick(logits[:, -1])
+        for i in range(max_new_tokens):
+            out[:, i] = last
+            if i + 1 == max_new_tokens:
+                break
+            pos = torch.full((B,), S + i, dtype=torch.int32,
+                             device=tokens.device)
+            lg, _, cache = forward(params, last[:, None], cfg, cache=cache,
+                                   pos_offset=pos, attn_impl=attn_impl,
+                                   layers_hook=layers_hook)
+            last = pick(lg[:, 0])
+    return torch.cat([tokens, out], dim=1)
 
 
-def lm_loss(*a, **kw):
-    raise NotImplementedError(f"moe.lm_loss: {TODO_GENERATE}")
+def xent_loss(params, inputs: torch.Tensor, targets: torch.Tensor,
+              cfg: MoEConfig, *, pctx=None, ep_axis=None, data_axes=(),
+              attn_impl: str = "auto") -> torch.Tensor:
+    """Mean cross-entropy of forward(inputs) against aligned ``targets``
+    (both [B, S]) plus ``aux_loss_weight`` x the mean aux loss over
+    layers. Under ``data_axes`` this is this rank's term; the SPMD steps
+    average the ranks' terms (and gradients) into the global loss
+    (``_moe_ffn``)."""
+    logits, aux = forward(params, inputs, cfg, pctx=pctx, ep_axis=ep_axis,
+                          data_axes=data_axes, attn_impl=attn_impl)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])
+    return nll.mean() + cfg.aux_loss_weight * aux
+
+
+def lm_loss(params, tokens: torch.Tensor, cfg: MoEConfig, *, pctx=None,
+            ep_axis=None, data_axes=(), attn_impl: str = "auto"
+            ) -> torch.Tensor:
+    """``xent_loss`` over the next-token shift of tokens [B, S+1]."""
+    return xent_loss(params, tokens[:, :-1], tokens[:, 1:], cfg, pctx=pctx,
+                     ep_axis=ep_axis, data_axes=data_axes,
+                     attn_impl=attn_impl)
+
+
+def _data_axes(mesh):
+    """The groups the aux loss's routed fractions average over: under
+    every routing the batch shards over (dp, sp) ("a2a" without an ep
+    axis is the psum math)."""
+    return (mesh.get_group("dp"), mesh.get_group("sp"))
+
+
+def shard_tokens(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of tokens [B, S+1]: rows over ``dp``, columns
+    over ``sp``, as the reference's MoE steps shard them (``P("dp",
+    "sp")`` on the tokens themselves). Each shard then takes its own
+    next-token shift, so the pair across a shard boundary is not
+    trained, as in the reference (the dense steps shift first,
+    ``training.shard_batch``)."""
+    B, S1 = tokens.shape
+    dp, sp = mesh["dp"].size(), mesh["sp"].size()
+    if B % dp or S1 % sp:
+        raise ValueError(f"tokens [{B}, {S1}] do not shard over dp={dp}, "
+                         f"sp={sp}")
+    i, j = mesh.get_local_rank("dp"), mesh.get_local_rank("sp")
+    return tokens[i * B // dp:(i + 1) * B // dp,
+                  j * S1 // sp:(j + 1) * S1 // sp].contiguous()
+
+
+def shard_pairs(tokens: torch.Tensor, mesh):
+    """(inputs, targets) of this rank's ``shard_tokens`` block: the
+    ``shard_fn`` of the MoE SPMD steps."""
+    local = shard_tokens(tokens, mesh)
+    return local[:, :-1], local[:, 1:]
+
+
+# The four steps are training.py's with this module's loss (and, under
+# SPMD, its sharding): one SGD step (params, loss), one AdamW step
+# (params, state, loss), and their SPMD forms over a ("dp", "sp") mesh,
+# ring attention over sp. ep_axis raises in ``forward``.
+sgd_train_step = functools.partial(_training.sgd_train_step,
+                                   loss_fn=xent_loss)
+adamw_train_step = functools.partial(_training.adamw_train_step,
+                                     loss_fn=xent_loss)
+
+
+def make_spmd_train_step(cfg: MoEConfig, mesh, *, lr: float = 1e-3):
+    """The SGD step over ``mesh``: step(params, tokens [B, S+1]) ->
+    (params, global loss)."""
+    return _training.make_spmd_train_step(
+        cfg, mesh, lr=lr, loss_fn=xent_loss, shard_fn=shard_pairs,
+        data_axes=_data_axes(mesh))
+
+
+def make_adamw_spmd_train_step(cfg: MoEConfig, mesh, *, lr: float = 1e-3,
+                               weight_decay: float = 0.0):
+    """(step, opt_init): AdamW over ``mesh``, laid out as
+    ``make_spmd_train_step``, and ``training.adamw_init``, as the
+    reference returns its sharded initializer beside the step."""
+    return _training.make_adamw_spmd_train_step(
+        cfg, mesh, lr=lr, weight_decay=weight_decay, loss_fn=xent_loss,
+        shard_fn=shard_pairs, data_axes=_data_axes(mesh)), adamw_init
 
 
 class MoESlotServer(SpecDecodeMixin, SlotServer):

@@ -1,11 +1,15 @@
 """Training steps for the transformer LM. Counterpart of
 ``tpushare/models/training.py``.
 
-One loss (``xent_loss``), one gradient routine (``loss_and_grads``) and
+One loss (``xent_loss``), one gradient routine (``value_and_grad``) and
 two update rules (SGD, AdamW), run two ways: single device
 (``sgd_train_step``, ``adamw_train_step``) and SPMD over a ``("dp",
 "sp")`` mesh (``make_spmd_train_step``, ``make_adamw_spmd_train_step``:
-batch rows over dp, sequence over sp through ring attention).
+batch rows over dp, sequence over sp through ring attention, or Ulysses
+all-to-all attention with ``sp_impl="a2a"``). The four steps take the
+loss (``loss_fn``) and, under SPMD, the sharding (``shard_fn``) as
+parameters; ``moe.py``'s steps are these with its own loss and
+``moe.shard_pairs``.
 
 Gradients under SPMD: the reference makes the loss global (pmean over
 the data axes) before ``jax.grad`` and lets the shard_map transpose
@@ -34,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 from tpushare_torch.models.transformer import (
-    TODO_ULYSSES, ParallelCtx, TransformerConfig, forward,
+    ParallelCtx, TransformerConfig, forward,
 )
 
 TODO_FSDP = "ROADMAP A12 (fsdp training steps)"
@@ -89,18 +93,26 @@ def lm_loss(params: Tree, tokens: torch.Tensor, cfg: TransformerConfig, *,
                      attn_impl=attn_impl)
 
 
+def value_and_grad(loss_fn: Callable, tree: Tree, *args,
+                   **kw) -> Tuple[torch.Tensor, Tree]:
+    """(loss, gradient tree) of ``loss_fn(tree, *args, **kw)`` with
+    respect to ``tree`` only (the counterpart of ``jax.value_and_grad``
+    on the first argument): its tensors are taken as fresh autograd
+    leaves sharing their storage, so the caller's tensors are left as
+    they were, and nothing else gets a gradient."""
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(tree)]
+    loss = loss_fn(_unflatten(tree, leaves), *args, **kw)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), _unflatten(tree, list(grads))
+
+
 def loss_and_grads(params: Tree, inputs: torch.Tensor,
                    targets: torch.Tensor, cfg: TransformerConfig, *,
                    pctx: Optional[ParallelCtx] = None,
                    attn_impl: str = "auto") -> Tuple[torch.Tensor, Tree]:
-    """(loss, gradient tree) of ``xent_loss`` at ``params``: the
-    parameters are taken as fresh autograd leaves sharing their storage,
-    so the caller's tensors are left as they were."""
-    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-    loss = xent_loss(_unflatten(params, leaves), inputs, targets, cfg,
-                     pctx=pctx, attn_impl=attn_impl)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), _unflatten(params, list(grads))
+    """(loss, gradient tree) of ``xent_loss`` at ``params``."""
+    return value_and_grad(xent_loss, params, inputs, targets, cfg,
+                          pctx=pctx, attn_impl=attn_impl)
 
 
 def _sgd_update(params: Tree, grads: Tree, lr: float) -> Tree:
@@ -112,11 +124,14 @@ def _sgd_update(params: Tree, grads: Tree, lr: float) -> Tree:
     return params
 
 
-def sgd_train_step(params: Tree, tokens: torch.Tensor,
-                   cfg: TransformerConfig, *, lr: float = 1e-3
-                   ) -> Tuple[Tree, torch.Tensor]:
-    """One single-device SGD step on tokens [B, S+1]: (params, loss)."""
-    loss, grads = loss_and_grads(params, tokens[:, :-1], tokens[:, 1:], cfg)
+def sgd_train_step(params: Tree, tokens: torch.Tensor, cfg, *,
+                   lr: float = 1e-3, loss_fn: Callable = xent_loss,
+                   **loss_kw) -> Tuple[Tree, torch.Tensor]:
+    """One single-device SGD step on tokens [B, S+1]: (params, loss).
+    ``loss_fn(params, inputs, targets, cfg, **loss_kw)`` is the loss of
+    the aligned pairs (the MoE steps pass ``moe.xent_loss``)."""
+    loss, grads = value_and_grad(loss_fn, params, tokens[:, :-1],
+                                 tokens[:, 1:], cfg, **loss_kw)
     return _sgd_update(params, grads, lr), loss
 
 
@@ -164,11 +179,14 @@ def adamw_init(params: Tree) -> Tree:
 
 
 def adamw_train_step(params: Tree, opt_state: Tree, tokens: torch.Tensor,
-                     cfg: TransformerConfig, *, lr: float = 1e-3,
-                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                     weight_decay: float = 0.0):
-    """One single-device AdamW step: (params, state, loss)."""
-    loss, grads = loss_and_grads(params, tokens[:, :-1], tokens[:, 1:], cfg)
+                     cfg, *, lr: float = 1e-3, b1: float = 0.9,
+                     b2: float = 0.999, eps: float = 1e-8,
+                     weight_decay: float = 0.0,
+                     loss_fn: Callable = xent_loss, **loss_kw):
+    """One single-device AdamW step: (params, state, loss); ``loss_fn``
+    and ``loss_kw`` as in ``sgd_train_step``."""
+    loss, grads = value_and_grad(loss_fn, params, tokens[:, :-1],
+                                 tokens[:, 1:], cfg, **loss_kw)
     params, state = apply_adamw(params, grads, opt_state, lr=lr, b1=b1,
                                 b2=b2, eps=eps, weight_decay=weight_decay)
     return params, state, loss
@@ -207,39 +225,47 @@ def _mesh_mean(grads: Tree, loss: torch.Tensor, mesh) -> torch.Tensor:
 def _spmd_ctx(mesh, sp_impl: str) -> ParallelCtx:
     if sp_impl not in ("ring", "a2a"):
         raise ValueError(f"unknown sp_impl {sp_impl!r}; 'ring' or 'a2a'")
-    if sp_impl == "a2a":
-        raise NotImplementedError(f"sp_impl 'a2a': {TODO_ULYSSES}")
     return ParallelCtx(sp=mesh.get_group("sp"), sp_impl=sp_impl)
 
 
-def make_spmd_train_step(cfg: TransformerConfig, mesh, *, lr: float = 1e-3,
-                         sp_impl: str = "ring"):
+def make_spmd_train_step(cfg, mesh, *, lr: float = 1e-3,
+                         sp_impl: str = "ring", loss_fn: Callable = xent_loss,
+                         shard_fn: Callable = shard_batch, **loss_kw):
     """The SGD step over ``mesh`` (``parallel.mesh.make_mesh``): every
-    rank passes the same global tokens [B, S+1]; rows go over dp, the
-    sequence over sp (ring attention). Returns step(params, tokens) ->
-    (params, global mean loss); params are replicated and stay equal on
-    every rank."""
+    rank passes the same global tokens [B, S+1]; ``shard_fn(tokens,
+    mesh)`` gives this rank's (inputs, targets) (rows over dp, the
+    sequence over sp), attention runs as ring attention over sp (or
+    Ulysses with ``sp_impl="a2a"``), and ``loss_fn(params, inputs,
+    targets, cfg, pctx=, **loss_kw)``'s gradients and value are
+    averaged over the mesh. Returns step(params, tokens) -> (params,
+    global mean loss); params are replicated and stay equal on every
+    rank."""
     pctx = _spmd_ctx(mesh, sp_impl)
 
     def step(params, tokens):
-        inputs, targets = shard_batch(tokens, mesh)
-        loss, grads = loss_and_grads(params, inputs, targets, cfg, pctx=pctx)
+        inputs, targets = shard_fn(tokens, mesh)
+        loss, grads = value_and_grad(loss_fn, params, inputs, targets, cfg,
+                                     pctx=pctx, **loss_kw)
         loss = _mesh_mean(grads, loss, mesh)
         return _sgd_update(params, grads, lr), loss
 
     return step
 
 
-def make_adamw_spmd_train_step(cfg: TransformerConfig, mesh, *,
-                               lr: float = 1e-3, weight_decay: float = 0.0):
+def make_adamw_spmd_train_step(cfg, mesh, *, lr: float = 1e-3,
+                               weight_decay: float = 0.0,
+                               sp_impl: str = "ring",
+                               loss_fn: Callable = xent_loss,
+                               shard_fn: Callable = shard_batch, **loss_kw):
     """AdamW over ``mesh``, laid out as ``make_spmd_train_step``; the
     moments are replicated like the params. Returns step(params,
     opt_state, tokens) -> (params, state, global mean loss)."""
-    pctx = _spmd_ctx(mesh, "ring")
+    pctx = _spmd_ctx(mesh, sp_impl)
 
     def step(params, opt_state, tokens):
-        inputs, targets = shard_batch(tokens, mesh)
-        loss, grads = loss_and_grads(params, inputs, targets, cfg, pctx=pctx)
+        inputs, targets = shard_fn(tokens, mesh)
+        loss, grads = value_and_grad(loss_fn, params, inputs, targets, cfg,
+                                     pctx=pctx, **loss_kw)
         loss = _mesh_mean(grads, loss, mesh)
         params, state = apply_adamw(params, grads, opt_state, lr=lr,
                                     weight_decay=weight_decay)

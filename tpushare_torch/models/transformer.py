@@ -22,8 +22,9 @@ returns the same cache dict.
 Training (no cache) is differentiable through the kernels: single
 device through ``flash_attention``'s autograd Function, and sequence
 parallel under ``ParallelCtx(sp=<process group>)`` through
-``parallel.ring_attention`` (reference ``transformer.py:634-643``),
-positions offset by the rank's shard (``:325-326``). ``cfg.remat``
+``parallel.ring_attention`` or, with ``sp_impl="a2a"``,
+``parallel.ulysses`` (reference ``transformer.py:634-643``), positions
+offset by the rank's shard (``:325-326``). ``cfg.remat``
 checkpoints each layer (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` of the block, ``:670-671``).
 """
@@ -49,10 +50,10 @@ from tpushare_torch.ops.norms import rms_norm
 from tpushare_torch.ops.q8_expert import _apply_act as _act
 from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
 from tpushare_torch.parallel.ring_attention import ring_attention
+from tpushare_torch.parallel.ulysses import ulysses_attention
 
-# ROADMAP items that port what the port still leaves out.
+# ROADMAP item that ports what the port still leaves out.
 TODO_MESH = "ROADMAP A10 (multi-GPU serving)"
-TODO_ULYSSES = "ROADMAP A12 (Ulysses sequence parallelism)"
 
 
 def layer_windows(cfg: "TransformerConfig") -> Optional[List[int]]:
@@ -72,8 +73,8 @@ class ParallelCtx:
     ``transformer.py:55-67``, whose fields name mesh axes). ``sp`` holds
     the ``torch.distributed`` process group the sequence is sharded over
     (``mesh.get_group("sp")``): attention runs as ring attention across
-    it. ``tp`` (tensor parallelism) and ``sp_impl="a2a"`` (Ulysses) raise
-    until their ROADMAP items land."""
+    it, or as Ulysses all-to-all attention with ``sp_impl="a2a"``. ``tp``
+    (tensor parallelism) raises until its ROADMAP item lands."""
     tp: Any = None
     sp: Any = None
     sp_impl: str = "ring"
@@ -394,7 +395,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     Under ``pctx.sp`` (a process group) tokens are this rank's sequence
     shard: positions start at rank * S and, with no cache, attention is
     ring attention over the group (its dense chunk math with
-    attn_impl "reference"). With ``cfg.remat``, grad mode on and no
+    attn_impl "reference"), or Ulysses under ``pctx.sp_impl == "a2a"``. With ``cfg.remat``, grad mode on and no
     cache, each layer runs under ``torch.utils.checkpoint``.
     """
     pctx = pctx or ParallelCtx()
@@ -404,8 +405,6 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     if pctx.sp_impl not in ("ring", "a2a"):
         raise ValueError(f"unknown sp_impl {pctx.sp_impl!r}; 'ring' or "
                          f"'a2a'")
-    if pctx.sp is not None and pctx.sp_impl == "a2a":
-        raise NotImplementedError(f"sp_impl 'a2a': {TODO_ULYSSES}")
     B, S = tokens.shape
     Dh = cfg.head_dim
     dev = tokens.device
@@ -512,6 +511,10 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
             attn = attention(q, kd, vd, causal=True, q_offset=pos_offset,
                              scale=cfg.attn_scale, window=w,
                              attn_softcap=cfg.attn_softcap, impl=attn_impl)
+        elif pctx.sp is not None and pctx.sp_impl == "a2a":
+            attn = ulysses_attention(
+                q, k, v, group=pctx.sp, scale=cfg.attn_scale, window=w,
+                attn_softcap=cfg.attn_softcap, impl=attn_impl)
         elif pctx.sp is not None:
             attn = ring_attention(
                 q, k, v, group=pctx.sp, scale=cfg.attn_scale, window=w,
