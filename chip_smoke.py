@@ -308,6 +308,52 @@ Phases, one JSON line each, each with its own seconds:
           beside generate's; moe.generate on slice_moe_train's trained
           2-layer Mixtral, 32 new tokens, its prefill logits within
           MOE_LOGIT_REL_TOL of the replaying reference twin.
+  slice_fsdp
+          Gemma-2B at full width and depth, remat on, 4 x 1024 tokens
+          from utils/data.py (batch_at over a seeded token array), a
+          one-rank NCCL group and make_mesh({"fsdp": 1}): two steps each
+          of make_fsdp_train_step, make_fsdp_stream_train_step and
+          make_fsdp_stream_adamw_step from the same params as two steps
+          of make_spmd_train_step / make_adamw_spmd_train_step (dp1 x
+          sp1): equal losses, each leaf's update within GRAD_REL_L2_TOL
+          of the SPMD step's by relative L2, and whether the trees are
+          bit-equal; the streaming SGD run's flat params through a
+          checkpoint (trainer.save_state of fsdp_gather_flat) and back
+          through load_state(shardings=fsdp_shardings(...)), equal.
+          Each step launches the partial kernel twice a layer (the
+          one-hop ring's forward and its remat recompute) and the
+          gradient once. Printed: step ms, peak memory, the checkpoint's
+          bytes and seconds.
+  slice_pipeline
+          the same model and batch at make_mesh({"pp": 1}), M = 4
+          microbatches: pipeline.pp_loss_and_grads under GPipe, 1F1B and
+          interleaved (2 chunks, to_interleaved_storage), each against
+          the whole batch's plain gradient (training.value_and_grad of
+          xent_loss) by relative L2 and loss, then one 1F1B AdamW step
+          (make_pp_adamw_train_step). Exact launch counts: GPipe 2 x 18
+          x 4 forward (remat) and 18 x 4 gradient; 1F1B 18 x 4 of each
+          (the forward runs only inside the backward's recompute);
+          interleaved (9 x 2 + 9) x 4 forward. Printed: ms per schedule
+          (the second call; the first is a warm-up), peak memory.
+  slice_moe_train's pp step
+          on its 2-layer Mixtral after the checkpoint: moe_pipeline.
+          moe_pp_loss_and_grads at pp 1, M 2, 2 x 2048 tokens, under psum
+          (capacity 1.25) and dropless, each against the per-microbatch
+          objective (the mean of moe.lm_loss over the microbatches)
+          through the same kernels, then one make_moe_pp_train_step.
+  slice_saturation
+          tools/saturation.py: the four 4 GiB eval pods placed one per
+          card of a fake four-card host (A), then four ResNet-50 tenant
+          processes (bf16, 64 x 224 x 224 x 3) on this card under
+          Allocate's envs and the guard, one solo then four at once (B):
+          images/s, the four's total over solo, peak memory_reserved
+          within the grant, no breach, logits within LOGIT_REL_TOL of an
+          f32 twin; no attention kernel (cuDNN convolutions).
+          The kernels phase adds prefill with its lse (fault: the causal
+          edge) at slice_pipeline's microbatch (1 x 1024) and the MoE pp
+          step's (Mixtral 1 x 2048), and the partial pass and the
+          gradient (faults: k_offset + 1, a zero dsum) at slice_fsdp's
+          4 x 1024 and at both microbatches.
   flex    the softcapped cases' library call, flex_attention under
           torch.compile with the softcap as its score_mod and the mask
           as its block mask, on the kernels phase's inputs; it runs
@@ -3301,9 +3347,17 @@ def slice_moe_train(torch, np, moe, mcfg, dev, card, run_path, no_launch,
                 training.tree_leaves({"p": back_p, "o": back_o}),
                 training.tree_leaves({"p": params, "o": state})))
         del back_p, back_o
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        world1(torch, dist, os.path.join(tmp, "pp_store"))
+        try:
+            pp_runs, pp_launches = moe_pp_check(
+                torch, np, moe, ccfg, params,
+                pmesh.make_mesh({"pp": 1}), dev, run_path, failures)
+            launches.update(pp_launches)
+        finally:
+            dist.destroy_process_group()
     losses = [float(x) for x in losses]
     emit({"phase": "slice_moe_train", "model": "mixtral_8x7b",
           "layers": L, "layers_full": mcfg.n_layers, "seq": MT_SEQ,
@@ -3314,6 +3368,7 @@ def slice_moe_train(torch, np, moe, mcfg, dev, card, run_path, no_launch,
           "adamw_losses": losses, "step_ms": step.ms,
           "tok_s": MT_SEQ / (mean(step.ms[1:]) / 1e3),
           "fit_peak_gib": fit_peak, "checkpoint": rec_ck,
+          "pp": {"microbatches": MPP_M, "seq": MPP_SEQ, "runs": pp_runs},
           "launches": launches, "card": card})
     if not all(math.isfinite(x) for x in losses + [float(sgd_loss)]):
         failures.append(f"slice_moe_train: a loss is not finite: {losses}")
@@ -3334,6 +3389,361 @@ def slice_moe_train(torch, np, moe, mcfg, dev, card, run_path, no_launch,
             failures.append(f"slice_moe_train {path_} launches "
                             f"{launches[path_]}, expected {w}")
     return launches, params, ccfg
+
+
+FS_BATCH, FS_SEQ = 4, 1024       # slice_fsdp / slice_pipeline: 4 x 1024
+FS_STEPS = 2
+PP_M, PP_CHUNKS = 4, 2           # slice_pipeline's microbatches, chunks
+MPP_M, MPP_SEQ = 2, 2048         # slice_moe_train's pp step: 2 x 2048
+SAT_SECONDS = 3.0                # slice_saturation's windows
+
+
+def world1(torch, dist, store):
+    """A one-rank NCCL group over the FileStore file ``store`` (the
+    pattern of slice_train)."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+
+
+def tree_clone(training, tree):
+    return training.tree_map(lambda t: t.clone(), tree)
+
+
+def update_rel_l2(training, got, want, p0):
+    """Per-leaf ||got - want|| / ||want - p0||: two steps' updates from
+    the same p0 compared leaf by leaf (f32), and whether every leaf is
+    bit-equal."""
+    import torch
+    rel, equal = {}, True
+    for name, g, w, p in zip(tree_keys(want), training.tree_leaves(got),
+                             training.tree_leaves(want),
+                             training.tree_leaves(p0)):
+        equal = equal and bool(torch.equal(g, w))
+        d = (w.float() - p.float()).norm().item()
+        rel[name] = (g.float() - w.float()).norm().item() / max(d, 1e-30)
+    return rel, equal
+
+
+def fs_tokens(np, cfg, seed):
+    """slice_fsdp's and slice_pipeline's batch: utils/data.py's first
+    window batch over a seeded token array."""
+    import importlib
+    dpipe = importlib.import_module("tpushare_torch.utils.data")
+    corpus = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, 16 * FS_BATCH * FS_SEQ).astype(np.uint32)
+    return dpipe.batch_at(corpus, 0, batch_size=FS_BATCH, seq_len=FS_SEQ,
+                          seed=seed)
+
+
+def slice_fsdp(torch, np, cfg, dev, card, run_path, failures):
+    """slice_fsdp (see the module docstring): Gemma-2B's three fsdp steps
+    at fsdp 1 against the SPMD steps from the same params. Returns the
+    launch counts by path."""
+    import importlib
+    dist = importlib.import_module("torch.distributed")
+    training = importlib.import_module("tpushare_torch.models.training")
+    trainer = importlib.import_module("tpushare_torch.models.trainer")
+    tt = importlib.import_module("tpushare_torch.models.transformer")
+    pmesh = importlib.import_module("tpushare_torch.parallel.mesh")
+    L = cfg.n_layers
+    p0 = tt.init_params(torch.Generator(device=dev).manual_seed(11), cfg)
+    tokens = torch.as_tensor(fs_tokens(np, cfg, 11), device=dev)
+    like = tt.init_params(0, cfg, device="meta")
+    launches, runs, rec = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        world1(torch, dist, os.path.join(tmp, "store"))
+        try:
+            mesh = pmesh.make_mesh({"fsdp": 1})
+            for kind in ("sgd", "adamw"):
+                ref = tree_clone(training, p0)
+                if kind == "sgd":
+                    rstep = StepClock(training.make_spmd_train_step(
+                        cfg, mesh, lr=TRAIN_LR))
+                    ref_losses = [float(rstep(ref, tokens)[1])
+                                  for _ in range(FS_STEPS)]
+                    paths = (("plain", training.make_fsdp_train_step,
+                              training.fsdp_unshard_params),
+                             ("stream", training.make_fsdp_stream_train_step,
+                              training.fsdp_stream_unshard_params))
+                else:
+                    rstep = StepClock(training.make_adamw_spmd_train_step(
+                        cfg, mesh, lr=TRAIN_LR))
+                    st = training.adamw_init(ref)
+                    ref_losses = []
+                    for _ in range(FS_STEPS):
+                        ref, st, loss = rstep(ref, st, tokens)
+                        ref_losses.append(float(loss))
+                    del st
+                    paths = (("stream_adamw",
+                              training.make_fsdp_stream_adamw_step,
+                              training.fsdp_stream_unshard_params),)
+                for name, factory, unshard in paths:
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    made = factory(cfg, mesh, lr=TRAIN_LR)
+                    step, shard = StepClock(made[0]), made[1]
+                    flat = shard(p0)
+                    state = made[2](flat) if len(made) > 2 else None
+
+                    def steps():
+                        nonlocal flat, state
+                        out = []
+                        for _ in range(FS_STEPS):
+                            if state is None:
+                                flat, loss = step(flat, tokens)
+                            else:
+                                flat, state, loss = step(flat, state,
+                                                         tokens)
+                            out.append(float(loss))
+                        return out
+                    losses, launches[f"slice_fsdp_{name}"] = run_path(
+                        ("flash_attention_partial", "flash_attention_bwd"),
+                        steps)
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                    rel, equal = update_rel_l2(training, unshard(flat, like),
+                                               ref, p0)
+                    runs[name] = {"losses": losses, "ref_losses": ref_losses,
+                                  "step_ms": step.ms,
+                                  "ref_step_ms": rstep.ms,
+                                  "update_rel_l2_max": max(rel.values()),
+                                  "update_rel_l2": rel, "bit_equal": equal,
+                                  "peak_mem_gib": peak,
+                                  "launches": launches[f"slice_fsdp_{name}"]}
+                    if not (max(rel.values()) <= GRAD_REL_L2_TOL):
+                        failures.append(f"slice_fsdp {name}: updates vs the "
+                                        f"SPMD step's {rel}")
+                    if any(abs(a - b) > 1e-3 * abs(b)
+                           for a, b in zip(losses, ref_losses)):
+                        failures.append(f"slice_fsdp {name}: losses {losses}"
+                                        f" vs the SPMD step's {ref_losses}")
+                    if name == "stream":
+                        # The flat storage through a checkpoint and back,
+                        # read as rank 0 of 1 (checkpoint.FlatShard).
+                        path = os.path.join(tmp, "flat")
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        rec["bytes"] = trainer.save_state(
+                            path, training.fsdp_gather_flat(
+                                flat, mesh, stream=True), {}, FS_STEPS)
+                        rec["save_s"] = time.perf_counter() - t0
+                        t0 = time.perf_counter()
+                        back, _, back_step = trainer.load_state(
+                            path, like_params=flat, like_opt={},
+                            shardings={"params": training.fsdp_shardings(
+                                like, 1, 0, stream=True)})
+                        torch.cuda.synchronize()
+                        rec["restore_s"] = time.perf_counter() - t0
+                        rec["equal"] = back_step == FS_STEPS and all(
+                            torch.equal(a, b) for a, b in zip(
+                                training.tree_leaves(back),
+                                training.tree_leaves(flat)))
+                        del back
+                        if not rec["equal"]:
+                            failures.append("slice_fsdp: the restored flat "
+                                            "checkpoint differs")
+                    del flat, state, made, step
+                del ref
+        finally:
+            dist.destroy_process_group()
+    want = {"flash_attention_partial": 2 * L * FS_STEPS,
+            "flash_attention_bwd": L * FS_STEPS, "flash_attention": 0}
+    for path_, got in launches.items():
+        if any(got[k] != n for k, n in want.items()):
+            failures.append(f"{path_} launches {got}, expected {want}")
+    emit({"phase": "slice_fsdp", "model": "gemma_2b",
+          "params": cfg.num_params(), "remat": cfg.remat,
+          "batch": FS_BATCH, "seq": FS_SEQ, "mesh": {"fsdp": 1},
+          "steps": FS_STEPS, "lr": TRAIN_LR, "runs": runs,
+          "checkpoint": rec, "update_rel_l2_tol": GRAD_REL_L2_TOL,
+          "card": card})
+    del p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def slice_pipeline(torch, np, cfg, dev, card, run_path, failures):
+    """slice_pipeline (see the module docstring): Gemma-2B through the
+    three schedules at pp 1, each held against the whole batch's plain
+    gradient. Returns the launch counts by path."""
+    import importlib
+    dist = importlib.import_module("torch.distributed")
+    training = importlib.import_module("tpushare_torch.models.training")
+    tt = importlib.import_module("tpushare_torch.models.transformer")
+    pl = importlib.import_module("tpushare_torch.models.pipeline")
+    pmesh = importlib.import_module("tpushare_torch.parallel.mesh")
+    L = cfg.n_layers
+    params = tt.init_params(torch.Generator(device=dev).manual_seed(12), cfg)
+    tokens = torch.as_tensor(fs_tokens(np, cfg, 12), device=dev)
+    launches, runs = {}, {}
+    clock = StepClock(training.value_and_grad)
+    for _ in range(2):                       # the second call is timed
+        ref_loss, ref_g = clock(training.xent_loss, params, tokens[:, :-1],
+                                tokens[:, 1:], cfg)
+    ref_loss = float(ref_loss)
+    with tempfile.TemporaryDirectory() as tmp:
+        world1(torch, dist, os.path.join(tmp, "store"))
+        try:
+            mesh = pmesh.make_mesh({"pp": 1})
+            stage = pl.stage_params(params, 1, 0)
+            for sched in ("gpipe", "1f1b", "interleaved"):
+                p = (pl.to_interleaved_storage(stage, 1, PP_CHUNKS)
+                     if sched == "interleaved" else stage)
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                fn = StepClock(pl.pp_loss_and_grads)
+                kw = dict(schedule=sched, n_microbatches=PP_M,
+                          n_chunks=PP_CHUNKS)
+                fn(p, tokens, cfg, mesh, **kw)                   # warm-up
+                (loss, g), launches[f"slice_pipeline_{sched}"] = run_path(
+                    ("flash_attention", "flash_attention_bwd"), fn, p,
+                    tokens, cfg, mesh, **kw)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                rel = grad_rel_l2(training, g, ref_g)
+                runs[sched] = {"loss": float(loss), "grad_ms": fn.ms[1],
+                               "first_grad_ms": fn.ms[0],
+                               "grad_rel_l2_max": max(rel.values()),
+                               "grad_rel_l2": rel, "peak_mem_gib": peak,
+                               "launches": launches[
+                                   f"slice_pipeline_{sched}"]}
+                if not (max(rel.values()) <= GRAD_REL_L2_TOL):
+                    failures.append(f"slice_pipeline {sched}: gradients vs "
+                                    f"the whole batch's {rel}")
+                if abs(float(loss) - ref_loss) > 1e-3 * abs(ref_loss):
+                    failures.append(f"slice_pipeline {sched}: loss "
+                                    f"{float(loss)} vs {ref_loss}")
+                del g, p
+            del ref_g
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            astep = StepClock(pl.make_pp_adamw_train_step(
+                cfg, mesh, n_microbatches=PP_M, lr=TRAIN_LR,
+                schedule="1f1b"))
+            state = training.adamw_init(stage)
+            (stage, state, aloss), launches["slice_pipeline_adamw"] = \
+                run_path(("flash_attention", "flash_attention_bwd"), astep,
+                         stage, state, tokens)
+            runs["adamw_1f1b"] = {
+                "loss": float(aloss), "step_ms": astep.ms[0],
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "count": int(state["count"]),
+                "launches": launches["slice_pipeline_adamw"]}
+            if abs(float(aloss) - ref_loss) > 1e-3 * abs(ref_loss) or \
+                    not math.isfinite(float(aloss)):
+                failures.append(f"slice_pipeline adamw: loss {float(aloss)}"
+                                f" vs {ref_loss}")
+            del state
+        finally:
+            dist.destroy_process_group()
+    lc = L // PP_CHUNKS
+    want = {"gpipe": (2 * L * PP_M, L * PP_M),
+            "1f1b": (L * PP_M, L * PP_M),
+            "interleaved": ((2 * lc + lc) * PP_M, L * PP_M),
+            "adamw": (L * PP_M, L * PP_M)}
+    for sched, (fwd, bwd) in want.items():
+        got = launches[f"slice_pipeline_{sched}"]
+        if got["flash_attention"] != fwd or \
+                got["flash_attention_bwd"] != bwd or \
+                got["flash_attention_partial"]:
+            failures.append(f"slice_pipeline {sched} launches {got}, "
+                            f"expected {fwd} forward, {bwd} gradient")
+    emit({"phase": "slice_pipeline", "model": "gemma_2b",
+          "params": cfg.num_params(), "remat": cfg.remat,
+          "batch": FS_BATCH, "seq": FS_SEQ, "mesh": {"pp": 1},
+          "microbatches": PP_M, "n_chunks": PP_CHUNKS, "ref_loss": ref_loss,
+          "ref_grad_ms": clock.ms[1], "runs": runs,
+          "grad_rel_l2_tol": GRAD_REL_L2_TOL, "card": card})
+    del params, stage
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_pp_check(torch, np, moe, cfg, params, mesh, dev, run_path,
+                 failures):
+    """slice_moe_train's pp step: moe_pp_loss_and_grads at pp 1 and M 2
+    under psum (capacity 1.25) and dropless, each against the
+    per-microbatch objective (the mean of moe.lm_loss over the
+    microbatches, tests/test_moe_pipeline.py's oracle) through the same
+    kernels, so routes match; then one make_moe_pp_train_step. Returns
+    ({run: record}, launch counts by path)."""
+    import importlib
+    training = importlib.import_module("tpushare_torch.models.training")
+    mp = importlib.import_module("tpushare_torch.models.moe_pipeline")
+    tokens = torch.as_tensor(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (MPP_M, MPP_SEQ + 1)), device=dev)
+    out, launches = {}, {}
+    for name, routing, factor in (("psum_capacity", "psum", 1.25),
+                                  ("dropless", "dropless", None)):
+        rcfg = dataclasses.replace(cfg, routing=routing,
+                                   capacity_factor=factor)
+
+        def per_mb(p):
+            return torch.stack([moe.lm_loss(p, tokens[m:m + 1], rcfg)
+                                for m in range(MPP_M)]).mean()
+        ref_loss, ref_g = training.value_and_grad(per_mb, params)
+        fn = StepClock(mp.moe_pp_loss_and_grads)
+        (loss, g), launches[f"slice_moe_train_pp_{name}"] = run_path(
+            ("flash_attention", "flash_attention_bwd"), fn, params, tokens,
+            rcfg, mesh, n_microbatches=MPP_M)
+        rel = grad_rel_l2(training, g, ref_g)
+        out[name] = {"loss": float(loss), "ref_loss": float(ref_loss),
+                     "grad_ms": fn.ms[0], "grad_rel_l2_max": max(rel.values()),
+                     "grad_rel_l2": rel,
+                     "launches": launches[f"slice_moe_train_pp_{name}"]}
+        if not (max(rel.values()) <= GRAD_REL_L2_TOL) or \
+                abs(float(loss) - float(ref_loss)) > 1e-3 * abs(
+                    float(ref_loss)):
+            failures.append(f"slice_moe_train pp {name}: loss {float(loss)}"
+                            f" vs {float(ref_loss)}, gradients {rel}")
+        del g, ref_g
+        gc.collect()
+        torch.cuda.empty_cache()
+    step = StepClock(mp.make_moe_pp_train_step(
+        dataclasses.replace(cfg, routing="psum", capacity_factor=1.25), mesh,
+        n_microbatches=MPP_M, lr=TRAIN_LR))
+    (params, sloss), launches["slice_moe_train_pp_step"] = run_path(
+        ("flash_attention", "flash_attention_bwd"), step, params, tokens)
+    out["sgd_step"] = {"loss": float(sloss), "step_ms": step.ms[0],
+                       "launches": launches["slice_moe_train_pp_step"]}
+    if abs(float(sloss) - out["psum_capacity"]["loss"]) > 1e-3 * abs(
+            out["psum_capacity"]["loss"]):
+        failures.append(f"slice_moe_train pp step: loss {float(sloss)} vs "
+                        f"{out['psum_capacity']['loss']}")
+    return out, launches
+
+
+def slice_saturation(card, failures):
+    """slice_saturation (see the module docstring): tools/saturation.py's
+    placement (A) and its four ResNet-50 tenants on the card (B)."""
+    import importlib
+    sat = importlib.import_module("tpushare_torch.tools.saturation")
+    t0 = time.perf_counter()
+    record = sat.run(sat.build_parser().parse_args(
+        ["--seconds", str(SAT_SECONDS)]), log=lambda line: None)
+    failures += [f"slice_saturation {f}" for f in record["failures"]]
+    b = record["B"]
+    emit({"phase": "slice_saturation", "model": "resnet50",
+          "batch": b["solo"]["batch"], "image": b["solo"]["image"],
+          "placement": record["A"], "grant_bytes": b["grant_bytes"],
+          "units_advertised": b["units_advertised"],
+          "hbm_binpack_pct": b["hbm_binpack_pct"],
+          "solo_images_per_sec": b["solo_images_per_sec"],
+          "four_images_per_sec": b["four_images_per_sec"],
+          "four_total_images_per_sec": b["four_total_images_per_sec"],
+          "four_over_solo": b["four_over_solo"],
+          "peak_reserved": [r.get("max_memory_reserved")
+                            for r in [b["solo"]] + b["four"]],
+          "breaches": [r["hbm_breaches"] for r in [b["solo"]] + b["four"]],
+          "logit_rel_err": [r["logit_rel_err"]
+                            for r in [b["solo"]] + b["four"]],
+          "logit_rel_tol": sat.LOGIT_REL_TOL,
+          "tenants": [b["solo"]] + b["four"],
+          "seconds": time.perf_counter() - t0, "card": card})
 
 
 def slice_generate(torch, np, paged, cfg, dev, card, run_path, no_launch,
@@ -4193,6 +4603,13 @@ def main() -> int:
             q_offset=0, B=4, lse=True),
         gpc(f"mixtral_train_s{MT_SEQ}", MT_SEQ, MT_SEQ, 32, 8, 128,
             q_offset=0, lse=True),
+        # slice_pipeline's microbatch (1 x 1024 of its 4 x 1024 batch)
+        # and slice_moe_train's pp microbatch (1 x 2048, Mixtral), each
+        # with its lse (the training forward) and the causal-edge fault.
+        gpc(f"gemma2b_pp_mb1_s{FS_SEQ}", FS_SEQ, FS_SEQ, 8, 1, 256,
+            q_offset=0, lse=True, fault=True),
+        gpc(f"mixtral_pp_mb1_s{MPP_SEQ}", MPP_SEQ, MPP_SEQ, 32, 8, 128,
+            q_offset=0, lse=True, fault=True),
     ]
     pc = functools.partial(paged_case, fa, F, torch, np, dev, flush)
     dec = [
@@ -4285,11 +4702,18 @@ def main() -> int:
     # The gradient at slice_finetune's LoRA step (4 x 1024, Gemma-2B) and
     # at slice_moe_train's steps (1 x 4096, Mixtral; its fit's one-hop
     # ring runs the partial kernel at this shape too).
+    # The new training paths' shapes: slice_fsdp's batch (4 x 1024: its
+    # one-hop ring runs the partial kernel), slice_pipeline's microbatch
+    # and slice_moe_train's pp microbatch (their gradients).
     part_n, bwd_n = zip(*[attention_layer_cases(
         fa, torch, dev, flush, failures, name, S, H, Hkv, D, None, None,
         B=B) for name, B, S, H, Hkv, D in (
             ("gemma2b_lora_b4_s1024", 4, 1024, 8, 1, 256),
-            (f"mixtral_s{MT_SEQ}", 1, MT_SEQ, 32, 8, 128))])
+            (f"mixtral_s{MT_SEQ}", 1, MT_SEQ, 32, 8, 128),
+            (f"gemma2b_fsdp_b{FS_BATCH}_s{FS_SEQ}", FS_BATCH, FS_SEQ, 8, 1,
+             256),
+            (f"gemma2b_pp_mb1_s{FS_SEQ}", 1, FS_SEQ, 8, 1, 256),
+            (f"mixtral_pp_mb1_s{MPP_SEQ}", 1, MPP_SEQ, 32, 8, 128))])
     del flush
     torch.cuda.empty_cache()
     kernels_s = time.perf_counter() - t_k
@@ -4806,6 +5230,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- slice_fsdp / slice_pipeline: Gemma-2B, sharded and pipelined ----
+    t_fs = time.perf_counter()
+    fs_launches = slice_fsdp(torch, np, cfg, dev, card, run_path, failures)
+    fsdp_s = time.perf_counter() - t_fs
+    t_pp = time.perf_counter()
+    pp_launches = slice_pipeline(torch, np, cfg, dev, card, run_path,
+                                 failures)
+    pipeline_s = time.perf_counter() - t_pp
+
+    # -- slice_saturation: four ResNet-50 eval tenants ------------------
+    t_sat = time.perf_counter()
+    slice_saturation(card, failures)
+    saturation_s = time.perf_counter() - t_sat
+
     t_f = time.perf_counter()
     run_flex_later()
     flex_s = time.perf_counter() - t_f
@@ -4820,7 +5258,8 @@ def main() -> int:
              **{f"slice_moe_{m}": c for m, c in m_launches.items()},
              "slice_rows": r_launches, "slice_train_sgd": sgd_launches,
              "slice_train_fit": fit_launches, "slice_plugin": p_launches,
-             **ft_launches, **mt_launches, **gn_launches}
+             **ft_launches, **mt_launches, **gn_launches, **fs_launches,
+             **pp_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in paths.values())
@@ -4869,7 +5308,7 @@ def main() -> int:
              library_ms_no_softcap=largest(fdec)["library_ms_no_softcap"],
              library_no_softcap_calls=fdec[0]["library_no_softcap_calls"]),
         dict(entry("flash_attention_partial", src + "flash_prefill.cu",
-                   ref_fa + "453", part_a + part_n[1:],
+                   ref_fa + "453", part_a + part_n[1:3],
                    part_a + (part_b,) + part_n),
              library_ms_no_softcap=part_b["library_ms"],
              no_softcap_case=part_b["case"]),
@@ -4899,7 +5338,9 @@ def main() -> int:
           "engine_lora": engine_lora_s, "moe_spec": moe_spec_s,
           "kv_economy": kv_economy_s, "colocate": colocate_s,
           "plugin": plugin_s, "finetune": finetune_s,
-          "moe_train": moe_train_s, "generate": generate_s, "flex": flex_s,
+          "moe_train": moe_train_s, "generate": generate_s,
+          "fsdp": fsdp_s, "pipeline": pipeline_s,
+          "saturation": saturation_s, "flex": flex_s,
           "flex_compile": {f"{r['kernel']} {r['case']}": r["flex_compile_s"]
                            for r in dec + fdec + list(part_a) + list(bwd_a)
                            if r.get("flex_compile_s") is not None},

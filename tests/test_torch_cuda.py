@@ -899,6 +899,135 @@ def test_ring_and_spmd_steps_across_cards(dev, tmp_path):
                                        atol=2e-5)
 
 
+def _multi_card_inputs(rng, cfg):
+    """The params (and a non-zero AdamW state) of ``cfg`` as numpy."""
+    import torch_spawn
+    from tpushare_torch.models import transformer as tt
+    flat = torch_spawn.flatten(tt.init_params(0, cfg, device="cpu"))
+    return flat, {
+        "count": np.int32(4), **{f"p/{k}": a for k, a in flat.items()},
+        **{f"mu/{k}": rng.normal(size=a.shape).astype(np.float32) * 1e-2
+           for k, a in flat.items()},
+        **{f"nu/{k}": rng.uniform(1e-4, 4e-4, size=a.shape).astype(
+            np.float32) for k, a in flat.items()}}
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 or more NVIDIA GPUs (the fsdp gathers and "
+                    "the pipeline's point-to-point hops over NCCL)")
+    from tpushare_torch.ops import _build
+    _build.build_all(("flash_prefill", "flash_bwd"))  # before ranks load
+
+
+def test_fsdp_steps_across_cards(dev, tmp_path):
+    """fsdp 2 over NCCL, one card per rank: make_fsdp_train_step,
+    make_fsdp_stream_train_step and make_fsdp_stream_adamw_step (from a
+    non-zero state), 2 steps each, against the single-card steps; the
+    AdamW run's flat checkpoint restored at fsdp 2, equal. f32 on both
+    sides: losses 1e-5 rel, parameters 2e-5 abs."""
+    _two_cards()
+    import torch_spawn
+    from tpushare_torch.models import training
+    from tpushare_torch.models import transformer as tt
+    cfg = tt.TransformerConfig(
+        vocab_size=1000, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+        head_dim=128, d_ff=512, act="gelu", dtype=torch.float32)
+    rng = np.random.default_rng(21)
+    _, inputs = _multi_card_inputs(rng, cfg)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 256 + 1))
+    lr, wd = 0.05, 0.01
+    got = torch_spawn.run_ranks(
+        torch_spawn.fsdp_worker, 2, tmp_path, {"tokens": tokens, **inputs},
+        cfg, {"fsdp": 2}, lr, 2, wd, str(tmp_path / "flat"),
+        backend="nccl", timeout=300)
+    assert bool(got["restored_equal"])
+    tok = torch.tensor(tokens, device=dev)
+    for name in ("plain", "stream"):
+        p = torch_spawn.unflatten(inputs, "p/", dev)
+        for s in range(2):
+            p, loss = training.sgd_train_step(p, tok, cfg, lr=lr)
+            np.testing.assert_allclose(got[f"{name}_loss{s}"], loss.item(),
+                                       rtol=1e-5)
+        for k, a in torch_spawn.flatten(p).items():
+            np.testing.assert_allclose(got[f"{name}/{k}"], a, rtol=0,
+                                       atol=2e-5)
+    p = torch_spawn.unflatten(inputs, "p/", dev)
+    state = {"mu": torch_spawn.unflatten(inputs, "mu/", dev),
+             "nu": torch_spawn.unflatten(inputs, "nu/", dev),
+             "count": torch.tensor(4, dtype=torch.int32, device=dev)}
+    for s in range(2):
+        p, state, loss = training.adamw_train_step(p, state, tok, cfg,
+                                                   lr=lr, weight_decay=wd)
+        np.testing.assert_allclose(got[f"adamw_loss{s}"], loss.item(),
+                                   rtol=1e-5)
+    for k, a in torch_spawn.flatten(p).items():
+        np.testing.assert_allclose(got[f"adamw/{k}"], a, rtol=0, atol=2e-5)
+
+
+def test_pipeline_schedules_across_cards(dev, tmp_path):
+    """pp 2 over NCCL, one stage per card: one SGD step of GPipe, 1F1B
+    and interleaved (2 chunks), and one 1F1B AdamW step from a non-zero
+    state, against the single-card steps on the whole batch; then the
+    MoE pipeline (psum, SGD and AdamW) against the per-microbatch
+    objective. f32: losses 1e-5 rel, parameters 2e-5 abs."""
+    _two_cards()
+    import torch_spawn
+    from tpushare_torch.models import moe, training
+    from tpushare_torch.models import transformer as tt
+    cfg = tt.TransformerConfig(
+        vocab_size=1000, d_model=256, n_layers=4, n_heads=4, n_kv_heads=2,
+        head_dim=128, d_ff=512, act="gelu", sliding_window=100,
+        alternate_sliding=True, attn_softcap=30.0, dtype=torch.float32)
+    rng = np.random.default_rng(22)
+    _, inputs = _multi_card_inputs(rng, cfg)
+    tokens = rng.integers(0, cfg.vocab_size, (4, 256 + 1))
+    lr, wd = 0.05, 0.01
+    got = torch_spawn.run_ranks(
+        torch_spawn.pp_worker, 2, tmp_path, {"tokens": tokens, **inputs},
+        cfg, {"pp": 2}, 2, lr, wd, ("gpipe", "1f1b", "interleaved"),
+        backend="nccl", timeout=300)
+    tok = torch.tensor(tokens, device=dev)
+    p, loss = training.sgd_train_step(
+        torch_spawn.unflatten(inputs, "p/", dev), tok, cfg, lr=lr)
+    for sched in ("gpipe", "1f1b", "interleaved"):
+        np.testing.assert_allclose(got[f"{sched}_loss"], loss.item(),
+                                   rtol=1e-5)
+        for k, a in torch_spawn.flatten(p).items():
+            np.testing.assert_allclose(got[f"{sched}/{k}"], a, rtol=0,
+                                       atol=2e-5)
+    state = {"mu": torch_spawn.unflatten(inputs, "mu/", dev),
+             "nu": torch_spawn.unflatten(inputs, "nu/", dev),
+             "count": torch.tensor(4, dtype=torch.int32, device=dev)}
+    p, state, loss = training.adamw_train_step(
+        torch_spawn.unflatten(inputs, "p/", dev), state, tok, cfg, lr=lr,
+        weight_decay=wd)
+    np.testing.assert_allclose(got["adamw_loss"], loss.item(), rtol=1e-5)
+    for k, a in torch_spawn.flatten(p).items():
+        np.testing.assert_allclose(got[f"adamw/{k}"], a, rtol=0, atol=2e-5)
+
+    mcfg = moe.MoEConfig(vocab_size=1000, d_model=256, n_layers=4,
+                         n_heads=4, n_kv_heads=2, head_dim=128, d_ff=512,
+                         n_experts=4, top_k=2, dtype=torch.float32,
+                         remat=False)
+    mflat = torch_spawn.flatten(moe.init_params(0, mcfg, device="cpu"))
+    minputs = {"tokens": tokens, "count": np.int32(4),
+               **{f"m/p/{k}": a for k, a in mflat.items()},
+               **{f"m/mu/{k}": np.zeros_like(a) for k, a in mflat.items()},
+               **{f"m/nu/{k}": np.zeros_like(a) for k, a in mflat.items()}}
+    got = torch_spawn.run_ranks(
+        torch_spawn.moe_pp_worker, 2, tmp_path, minputs, [("m", mcfg)],
+        {"pp": 2}, 2, lr, wd, backend="nccl", timeout=300)
+    mp = torch_spawn.unflatten(minputs, "m/p/", dev)
+    loss, g = training.value_and_grad(lambda q: torch.stack(
+        [moe.lm_loss(q, tok[i * 2:(i + 1) * 2], mcfg)
+         for i in range(2)]).mean(), mp)
+    np.testing.assert_allclose(got["m/sgd_loss"], loss.item(), rtol=1e-5)
+    want = training._sgd_update(mp, g, lr)
+    for k, a in torch_spawn.flatten(want).items():
+        np.testing.assert_allclose(got[f"m/sgd/{k}"], a, rtol=0, atol=2e-5)
+
+
 def test_tiny_engine_on_the_card(dev):
     """A tiny bf16 engine on the card answers one HTTP request; its tick
     runs in inference mode on the engine thread, and both attention

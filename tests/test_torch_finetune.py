@@ -163,7 +163,7 @@ class TestCheckpoint:
         bad["params"]["extra"] = torch.zeros(1)
         with pytest.raises(ValueError, match="params/extra: missing"):
             checkpoint.restore(path, like=bad)
-        with pytest.raises(NotImplementedError, match="A10.*A12"):
+        with pytest.raises(NotImplementedError, match="A10"):
             checkpoint.restore(path, like=tree, shardings=object())
 
     def test_overwrite_behaves_as_the_reference(self, tmp_path):
@@ -266,7 +266,7 @@ class TestTrainer:
         _equal_trees(back, p)
         with pytest.raises(NotImplementedError, match="A10"):
             trainer.load_state(path, like_params=p, like_opt={},
-                               shardings={"params": None})
+                               shardings={"params": object()})
 
     def test_fit_with_the_data_pipeline_resumes_exactly(self, tmp_path):
         """token_batches(start_step=k) positions the stream, so the

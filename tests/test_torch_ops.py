@@ -420,7 +420,10 @@ class TestPortBoundary:
                     "models/bert.py", "tools/colocate.py",
                     "models/lora.py", "utils/data.py",
                     "utils/checkpoint.py", "models/speculative.py",
-                    "parallel/ulysses.py", "tools/finetune_serve.py"):
+                    "parallel/ulysses.py", "tools/finetune_serve.py",
+                    "parallel/mesh.py", "models/training.py",
+                    "models/pipeline.py", "models/moe_pipeline.py",
+                    "models/resnet.py", "tools/saturation.py"):
             assert os.path.join("tpushare_torch", mod) in names
         assert bad == []
 
@@ -428,9 +431,12 @@ class TestPortBoundary:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tpushare_torch.resolve_device()
+        from tpushare_torch.models import resnet
         from tpushare_torch.models import transformer as tt
         with pytest.raises(RuntimeError):
             tt.init_params(0, tt.tiny())
+        with pytest.raises(RuntimeError):
+            resnet.init_params(0, resnet.tiny())
         assert tpushare_torch.resolve_device("cpu").type == "cpu"
 
     def test_kernel_wrappers_refuse_what_the_kernel_cannot_take(self):

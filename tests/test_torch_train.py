@@ -13,8 +13,10 @@ optimizer state carried across by ``bridge``.
   ``make_mesh({"dp": 2, "sp": 2})`` / ``{"sp": 4}``, and against the
   port's own single-process step.
 - ``remat`` on and off giving the same gradients, and every refusal
-  naming its ROADMAP item (Ulysses, ``sp_impl="a2a"``, and checkpoints
-  are ported: tests/test_torch_ring.py and tests/test_torch_finetune.py).
+  naming its ROADMAP item (Ulysses, ``sp_impl="a2a"``, checkpoints, fsdp
+  and the pipelines are ported: tests/test_torch_ring.py,
+  tests/test_torch_finetune.py, tests/test_torch_fsdp.py and
+  tests/test_torch_pipeline.py).
 
 Tolerances: losses within 1e-5 relative; logits 2e-5 abs; parameters
 and moments 2e-6 abs after the steps (an update moves a parameter by
@@ -295,11 +297,10 @@ class TestRefusals:
             tt.forward(tp, tok, cfg, pctx=tt.ParallelCtx(sp_impl="ulysses"))
         with pytest.raises(ValueError, match="sp_impl"):
             ttr.make_spmd_train_step(cfg, None, sp_impl="ulysses")
-        for factory in (ttr.make_fsdp_train_step,
-                        ttr.make_fsdp_stream_train_step,
+        for factory in (ttr.make_fsdp_stream_train_step,
                         ttr.make_fsdp_stream_adamw_step):
-            with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-                factory(cfg, None, lr=1e-3)
+            with pytest.raises(ValueError, match="remat"):
+                factory(tt.tiny(remat=False), None, lr=1e-3)
         step = functools.partial(ttr.adamw_train_step, cfg=cfg)
         with pytest.raises(NotImplementedError, match="benchmark"):
             trainer.fit(step, tp, ttr.adamw_init(tp), [], steps=1,
@@ -307,7 +308,8 @@ class TestRefusals:
 
     @pytest.mark.parametrize("sizes,match", [
         ({"tp": 2}, "ROADMAP A10"), ({"ep": 2}, "ROADMAP A10"),
-        ({"fsdp": 2}, "ROADMAP A12"), ({"pp": 2}, "ROADMAP A12")])
+        ({"fsdp": 2, "tp": 2}, "ROADMAP A10"),
+        ({"pp": 2, "ep": 2}, "ROADMAP A10")])
     def test_make_mesh_refuses_axes_it_does_not_carry(self, sizes, match):
         with pytest.raises(NotImplementedError, match=match):
             tmesh.make_mesh(sizes)

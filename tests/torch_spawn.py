@@ -1,6 +1,7 @@
-"""Spawned ranks for the port's sequence-parallel tests: gloo groups on
-the CPU (``tests/test_torch_ring.py``, ``tests/test_torch_train.py``)
-and NCCL groups, one card per rank (``tests/test_torch_cuda.py``).
+"""Spawned ranks for the port's multi-rank tests: gloo groups on the CPU
+(``tests/test_torch_ring.py``, ``tests/test_torch_train.py``,
+``tests/test_torch_fsdp.py``, ``tests/test_torch_pipeline.py``) and
+NCCL groups, one card per rank (``tests/test_torch_cuda.py``).
 
 The children import torch and the port only, never JAX: the parent test
 hands them numpy inputs in an .npz and reads rank 0's results back from
@@ -266,4 +267,198 @@ def moe_train_worker(rank, world, inp, cfg, mesh_sizes, lr, steps):
         params, state, loss = astep(params, state, tokens)
         out[f"adamw_loss{s}"] = _np(loss)
     out.update(flatten(params, "adamw/"))
+    return out
+
+
+def _gather_stages(params, mesh, P, perm=None):
+    """Whole layer stacks from every stage's block (rank 0's view), put
+    back in model order when ``perm`` (interleaved storage) is given."""
+    from tpushare_torch.parallel.mesh import axis_group
+    group = axis_group(mesh, "pp")
+    out = dict(params)
+    out["layers"] = {}
+    for k, a in params["layers"].items():
+        if group is not None:
+            parts = [torch.empty_like(a) for _ in range(P)]
+            dist.all_gather(parts, a.contiguous(), group=group)
+            a = torch.cat(parts)
+        if perm is not None:
+            a = a[torch.as_tensor(np.argsort(perm), device=a.device)]
+        out["layers"][k] = a
+    return out
+
+
+def fsdp_worker(rank, world, inp, cfg, mesh_sizes, lr, steps, wd, ckpt):
+    """``steps`` steps of each fsdp step (``make_fsdp_train_step``,
+    ``make_fsdp_stream_train_step``, ``make_fsdp_stream_adamw_step``
+    from the given AdamW state) over the mesh; their losses and the
+    gathered, unsharded params (and AdamW moments). With ``ckpt`` (a
+    path), the AdamW run's flat state is saved there (global leaves,
+    written by rank 0) and restored through ``shardings=``: each rank's
+    slices must come back equal."""
+    from tpushare_torch.models import trainer, training
+    from tpushare_torch.models import transformer as tt
+    from tpushare_torch.parallel.mesh import axis_rank, axis_size, make_mesh
+    mesh = make_mesh(mesh_sizes)
+    dev = _device()
+    F, idx = axis_size(mesh, "fsdp"), axis_rank(mesh, "fsdp")
+    tokens = torch.tensor(inp["tokens"], device=dev)
+    like = tt.init_params(0, cfg, device="meta")
+    out = {}
+    for name, factory, stream in (
+            ("plain", training.make_fsdp_train_step, False),
+            ("stream", training.make_fsdp_stream_train_step, True)):
+        step, shard = factory(cfg, mesh, lr=lr)
+        flat = shard(unflatten(inp, "p/", dev))
+        for s in range(steps):
+            flat, loss = step(flat, tokens)
+            out[f"{name}_loss{s}"] = _np(loss)
+        unshard = (training.fsdp_stream_unshard_params if stream
+                   else training.fsdp_unshard_params)
+        out.update(flatten(unshard(training.fsdp_gather_flat(
+            flat, mesh, stream=stream), like), f"{name}/"))
+    step, shard, opt_init = training.make_fsdp_stream_adamw_step(
+        cfg, mesh, lr=lr, weight_decay=wd)
+    flat = shard(unflatten(inp, "p/", dev))
+    out["opt_init_count"] = _np(opt_init(flat)["count"])
+    state = {"mu": shard(unflatten(inp, "mu/", dev)),
+             "nu": shard(unflatten(inp, "nu/", dev)),
+             "count": torch.tensor(inp["count"], dtype=torch.int32,
+                                   device=dev)}
+    for s in range(steps):
+        flat, state, loss = step(flat, state, tokens)
+        out[f"adamw_loss{s}"] = _np(loss)
+    gathered = {"params": training.fsdp_gather_flat(flat, mesh, stream=True),
+                "mu": training.fsdp_gather_flat(state["mu"], mesh,
+                                                stream=True)}
+    out.update(flatten(training.fsdp_stream_unshard_params(
+        gathered["params"], like), "adamw/"))
+    out.update(flatten(training.fsdp_stream_unshard_params(
+        gathered["mu"], like), "adamw_mu/"))
+    out["adamw_count"] = _np(state["count"])
+    if ckpt:
+        if rank == 0:
+            trainer.save_state(ckpt, gathered["params"], {
+                "mu": gathered["mu"], "nu": training.fsdp_gather_flat(
+                    state["nu"], mesh, stream=True),
+                "count": state["count"]}, steps)
+        else:
+            training.fsdp_gather_flat(state["nu"], mesh, stream=True)
+        dist.barrier()
+        sh = training.fsdp_shardings(like, F, idx, stream=True)
+        back, opt, step_n = trainer.load_state(
+            ckpt, like_params=flat, like_opt=state,
+            shardings={"params": sh, "opt_state": {"mu": sh, "nu": sh}})
+        out["restored_equal"] = np.asarray(step_n == steps and all(
+            torch.equal(a, b) for a, b in zip(
+                training.tree_leaves({"p": back, "o": opt}),
+                training.tree_leaves({"p": flat, "o": state}))))
+    return out
+
+
+def fsdp_restore_worker(rank, world, inp, cfg, mesh_sizes, ckpt):
+    """Restore a flat AdamW checkpoint (written at any fsdp size) at this
+    mesh's fsdp size; the gathered, unsharded params and moments."""
+    from tpushare_torch.models import trainer, training
+    from tpushare_torch.models import transformer as tt
+    from tpushare_torch.parallel.mesh import axis_rank, axis_size, make_mesh
+    mesh = make_mesh(mesh_sizes)
+    dev = _device()
+    F, idx = axis_size(mesh, "fsdp"), axis_rank(mesh, "fsdp")
+    like = tt.init_params(0, cfg, device="meta")
+    local = training.fsdp_local(training.fsdp_stream_shard_params(
+        training.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                device=dev), like), F),
+        F, idx, stream=True)
+    zeros = training.tree_map(lambda t: t.float(), local)
+    sh = training.fsdp_shardings(like, F, idx, stream=True)
+    params, opt, step = trainer.load_state(
+        ckpt, like_params=local,
+        like_opt={"mu": zeros, "nu": zeros,
+                  "count": torch.zeros((), dtype=torch.int32)},
+        shardings={"params": sh, "opt_state": {"mu": sh, "nu": sh}})
+    out = {"step": np.asarray(step), "count": _np(opt["count"])}
+    for name, tree in (("p", params), ("mu", opt["mu"]), ("nu", opt["nu"])):
+        out.update(flatten(training.fsdp_stream_unshard_params(
+            training.fsdp_gather_flat(tree, mesh, stream=True), like),
+            f"{name}/"))
+    return out
+
+
+def pp_worker(rank, world, inp, cfg, mesh_sizes, M, lr, wd, schedules,
+              n_chunks=2):
+    """One SGD step of each pipeline schedule, then one 1F1B AdamW step
+    from the given state, over the mesh, each from the same params:
+    losses and the whole updated params (stages gathered, model order)."""
+    from tpushare_torch.models import pipeline as pl
+    from tpushare_torch.parallel.mesh import axis_rank, axis_size, make_mesh
+    mesh = make_mesh(mesh_sizes)
+    dev = _device()
+    P, s = axis_size(mesh, "pp"), axis_rank(mesh, "pp")
+    tokens = torch.tensor(inp["tokens"], device=dev)
+    out = {}
+    for sched in schedules:
+        full = unflatten(inp, "p/", dev)
+        perm = None
+        if sched == "interleaved":
+            full = pl.to_interleaved_storage(full, P, n_chunks)
+            perm = pl.interleaved_layer_order(cfg.n_layers, P, n_chunks)
+        step = pl.make_pp_train_step(cfg, mesh, n_microbatches=M, lr=lr,
+                                     schedule=sched, n_chunks=n_chunks)
+        params, loss = step(pl.stage_params(full, P, s), tokens)
+        out[f"{sched}_loss"] = _np(loss)
+        out.update(flatten(_gather_stages(params, mesh, P, perm),
+                           f"{sched}/"))
+    if "mu/embed" not in inp:
+        return out
+    from tpushare_torch.models.training import tree_map
+    stage = pl.stage_params(unflatten(inp, "p/", dev), P, s)
+    state = {"mu": pl.stage_params(unflatten(inp, "mu/", dev), P, s),
+             "nu": pl.stage_params(unflatten(inp, "nu/", dev), P, s),
+             "count": torch.tensor(inp["count"], dtype=torch.int32,
+                                   device=dev)}
+    state["mu"] = tree_map(lambda t: t.clone(), state["mu"])
+    state["nu"] = tree_map(lambda t: t.clone(), state["nu"])
+    astep = pl.make_pp_adamw_train_step(cfg, mesh, n_microbatches=M, lr=lr,
+                                        weight_decay=wd, schedule="1f1b")
+    stage, state, loss = astep(stage, state, tokens)
+    out["adamw_loss"] = _np(loss)
+    out.update(flatten(_gather_stages(stage, mesh, P), "adamw/"))
+    out.update(flatten(_gather_stages(state["mu"], mesh, P), "adamw_mu/"))
+    out["adamw_count"] = _np(state["count"])
+    return out
+
+
+def moe_pp_worker(rank, world, inp, cases, mesh_sizes, M, lr, wd):
+    """For each (name, cfg) case: one ``make_moe_pp_train_step`` SGD step
+    and one AdamW step from the given state
+    (``make_moe_pp_adamw_train_step``) of the MoE LM over the mesh, from
+    the case's params (``<name>/p/...``); losses and the whole updated
+    params."""
+    from tpushare_torch.models import moe_pipeline as mp
+    from tpushare_torch.models import pipeline as pl
+    from tpushare_torch.models.training import tree_map
+    from tpushare_torch.parallel.mesh import axis_rank, axis_size, make_mesh
+    mesh = make_mesh(mesh_sizes)
+    dev = _device()
+    P, s = axis_size(mesh, "pp"), axis_rank(mesh, "pp")
+    tokens = torch.tensor(inp["tokens"], device=dev)
+    out = {}
+    for name, cfg in cases:
+        def stage(prefix):
+            return tree_map(lambda t: t.clone(), pl.stage_params(
+                unflatten(inp, f"{name}/{prefix}/", dev), P, s))
+        step = mp.make_moe_pp_train_step(cfg, mesh, n_microbatches=M, lr=lr)
+        params, loss = step(stage("p"), tokens)
+        out[f"{name}/sgd_loss"] = _np(loss)
+        out.update(flatten(_gather_stages(params, mesh, P), f"{name}/sgd/"))
+        state = {"mu": stage("mu"), "nu": stage("nu"),
+                 "count": torch.tensor(inp["count"], dtype=torch.int32,
+                                       device=dev)}
+        astep = mp.make_moe_pp_adamw_train_step(cfg, mesh, n_microbatches=M,
+                                                lr=lr, weight_decay=wd)
+        params, state, loss = astep(stage("p"), state, tokens)
+        out[f"{name}/adamw_loss"] = _np(loss)
+        out.update(flatten(_gather_stages(params, mesh, P),
+                           f"{name}/adamw/"))
     return out

@@ -15,7 +15,9 @@ LoRA adapter tree (``lora.init_lora``) or a stacked multi-LoRA bank
 (``lora.stack_adapters``) across. ``opt_state_from_jax`` carries an
 AdamW state (``adamw_init`` / ``apply_adamw``'s mu, nu and count)
 across, so both packages can train on from one non-zero optimizer
-state. None imports JAX: they read
+state. ``resnet_params_from_jax`` / ``resnet_config_from_jax`` carry
+``tpushare.models.resnet``'s tree (HWIO convolutions into PyTorch's
+channels-last [out, in, kh, kw]) and config. None imports JAX: they read
 arrays through numpy and config fields by name.
 """
 
@@ -30,6 +32,7 @@ import torch
 from tpushare_torch import DeviceLike, resolve_device
 from tpushare_torch.models.bert import BertConfig
 from tpushare_torch.models.moe import MoEConfig
+from tpushare_torch.models.resnet import ResNetConfig
 from tpushare_torch.models.transformer import TransformerConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -124,3 +127,38 @@ def opt_state_from_jax(state: Dict[str, Any], *,
                                   dtype=torch.float32),
             "count": torch.tensor(int(np.asarray(state["count"])),
                                   dtype=torch.int32, device=dev)}
+
+
+def resnet_config_from_jax(cfg) -> ResNetConfig:
+    """The port's ResNetConfig with every field of a JAX ResNetConfig."""
+    return _fields_from_jax(ResNetConfig, cfg)
+
+
+def resnet_params_from_jax(tree: Dict[str, Any], *,
+                           device: DeviceLike = None,
+                           dtype: Optional[torch.dtype] = None
+                           ) -> Dict[str, Any]:
+    """A JAX ``resnet.init_params`` tree -> the port's ``models.resnet``
+    params: every convolution's HWIO [kh, kw, in, out] weight becomes
+    [out, in, kh, kw], stored channels-last; the batch-norm affines and
+    the head keep their layout."""
+    missing = {"stem", "stages", "head"} - set(tree)
+    if missing:
+        raise ValueError(f"not a ResNet params tree: missing "
+                         f"{sorted(missing)}")
+
+    def conv(w):
+        t = params_from_jax({"w": w}, device=device, dtype=dtype)["w"]
+        return t.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+    def block(blk):
+        return {k: conv(v) if not isinstance(v, dict)
+                else params_from_jax(v, device=device, dtype=dtype)
+                for k, v in blk.items()}
+
+    return {"stem": block(tree["stem"]),
+            "stages": [[block(b) for b in stage]
+                       for stage in tree["stages"]],
+            "head": params_from_jax(tree["head"], device=device,
+                                    dtype=dtype)}

@@ -54,10 +54,18 @@ def load_state(path: str, *, like_params: Any, like_opt: Any,
     """Restore (params, opt_state, step) shaped and typed like
     ``like_params`` / ``like_opt``, each leaf on its ``like`` leaf's
     device unless ``device`` says otherwise. ``shardings`` (the
-    reference's remap onto a new mesh) raises ``NotImplementedError``."""
+    reference's remap onto a new mesh): {"params": tree, "opt_state":
+    tree} of ``checkpoint.FlatShard`` leaves (``training.fsdp_shardings``;
+    a missing or None entry reads whole), so each rank of an fsdp group
+    of any size reads its own slices of a global flat checkpoint; other
+    placements raise ``NotImplementedError`` naming ROADMAP A10."""
     like = {"params": like_params, "opt_state": like_opt,
             "step": torch.zeros((), dtype=torch.int32)}
-    state = checkpoint.restore(path, like=like, shardings=shardings,
+    sh = None
+    if shardings is not None:
+        sh = {"params": shardings.get("params"),
+              "opt_state": shardings.get("opt_state"), "step": None}
+    state = checkpoint.restore(path, like=like, shardings=sh,
                                device=device)
     return state["params"], state["opt_state"], int(state["step"])
 

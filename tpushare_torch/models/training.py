@@ -9,7 +9,10 @@ batch rows over dp, sequence over sp through ring attention, or Ulysses
 all-to-all attention with ``sp_impl="a2a"``). The four steps take the
 loss (``loss_fn``) and, under SPMD, the sharding (``shard_fn``) as
 parameters; ``moe.py``'s steps are these with its own loss and
-``moe.shard_pairs``.
+``moe.shard_pairs``. The manual fsdp steps (``make_fsdp_train_step``,
+``make_fsdp_stream_train_step``, ``make_fsdp_stream_adamw_step``) keep
+each rank's slice of flat, padded leaves and gather them per step (or
+per layer) over the mesh's ``fsdp`` axis.
 
 Gradients under SPMD: the reference makes the loss global (pmean over
 the data axes) before ``jax.grad`` and lets the shard_map transpose
@@ -38,10 +41,10 @@ import torch
 import torch.distributed as dist
 
 from tpushare_torch.models.transformer import (
-    ParallelCtx, TransformerConfig, forward,
+    ParallelCtx, TransformerConfig, forward, init_params,
 )
-
-TODO_FSDP = "ROADMAP A12 (fsdp training steps)"
+from tpushare_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from tpushare_torch.utils.checkpoint import FlatShard
 
 Tree = Dict[str, Any]
 
@@ -56,9 +59,11 @@ def tree_leaves(tree: Tree) -> List[torch.Tensor]:
 
 
 def tree_map(fn: Callable, tree: Tree) -> Tree:
-    """A nested dict of the same keys with ``fn`` applied to each tensor."""
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+    """A nested dict of the same keys with ``fn`` applied to each tensor
+    (``fn(tree)`` for a lone tensor)."""
+    if not isinstance(tree, dict):
+        return fn(tree)
+    return {k: tree_map(fn, v) for k, v in tree.items()}
 
 
 def _unflatten(like: Tree, leaves: List[torch.Tensor]) -> Tree:
@@ -196,14 +201,18 @@ def shard_batch(tokens: torch.Tensor, mesh) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
     """This rank's (inputs, targets) of a global batch tokens [B, S+1]:
     the next-token shift first, then rows over ``dp`` and columns over
-    ``sp`` (the reference's ``P("dp", "sp")``)."""
+    ``sp`` (the reference's ``P("dp", "sp")``); with an fsdp axis, rows
+    over (dp, fsdp) jointly (``P(("dp", "fsdp"), "sp")``)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     B, S = inputs.shape
-    dp, sp = mesh["dp"].size(), mesh["sp"].size()
+    dp = axis_size(mesh, "dp") * axis_size(mesh, "fsdp")
+    sp = axis_size(mesh, "sp")
     if B % dp or S % sp:
         raise ValueError(f"batch [{B}, {S}] does not shard over dp={dp}, "
                          f"sp={sp}")
-    i, j = mesh.get_local_rank("dp"), mesh.get_local_rank("sp")
+    i = axis_rank(mesh, "dp") * axis_size(mesh, "fsdp") + axis_rank(
+        mesh, "fsdp")
+    j = axis_rank(mesh, "sp")
     rows = slice(i * B // dp, (i + 1) * B // dp)
     cols = slice(j * S // sp, (j + 1) * S // sp)
     return inputs[rows, cols].contiguous(), targets[rows, cols].contiguous()
@@ -223,8 +232,15 @@ def _mesh_mean(grads: Tree, loss: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def _spmd_ctx(mesh, sp_impl: str) -> ParallelCtx:
+    """The SPMD steps' checks (reference ``training.py:116-126``) and
+    their ParallelCtx."""
     if sp_impl not in ("ring", "a2a"):
         raise ValueError(f"unknown sp_impl {sp_impl!r}; 'ring' or 'a2a'")
+    if axis_size(mesh, "fsdp") > 1:
+        raise NotImplementedError(
+            "use make_fsdp_train_step for the manual-fsdp schedule, or "
+            "pjit auto sharding with param_specs(fsdp='fsdp')")
+    _reject_axes(mesh, ("pp", "ep"))
     return ParallelCtx(sp=mesh.get_group("sp"), sp_impl=sp_impl)
 
 
@@ -274,18 +290,295 @@ def make_adamw_spmd_train_step(cfg, mesh, *, lr: float = 1e-3,
     return step
 
 
-def make_fsdp_train_step(cfg: TransformerConfig, mesh, **_):
-    """Manual-fsdp step (reference ``training.py:400``): not ported."""
-    raise NotImplementedError(f"make_fsdp_train_step: {TODO_FSDP}")
 
 
-def make_fsdp_stream_train_step(cfg: TransformerConfig, mesh, **_):
-    """Streaming-fsdp SGD step (reference ``training.py:314``): not
-    ported."""
-    raise NotImplementedError(f"make_fsdp_stream_train_step: {TODO_FSDP}")
+# --- manual fsdp (ZeRO-style sharded storage) -------------------------------
+# Reference training.py:146-441. Each leaf is stored flat and zero-padded
+# to a multiple of F (the fsdp size): globally [F, c] (the plain layout)
+# or, for the streaming step, [F*c] with the layer stacks [L, F*c]; each
+# rank holds only its own slice of every flat leaf ([1, c], [c] or
+# [L, c]). ``_FsdpGather`` is FSDP's collective pair: the forward
+# all-gathers the slices over the fsdp group, the backward
+# reduce-scatters (sums) the gradient back to its owners, JAX's
+# transpose of the tiled all_gather.
+
+def _pad_to(flat: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Zero-pad the last dim of ``flat`` to a multiple of n_shards."""
+    return torch.nn.functional.pad(flat, (0, -flat.shape[-1] % n_shards))
 
 
-def make_fsdp_stream_adamw_step(cfg: TransformerConfig, mesh, **_):
-    """Streaming-fsdp AdamW step (reference ``training.py:342``): not
-    ported."""
-    raise NotImplementedError(f"make_fsdp_stream_adamw_step: {TODO_FSDP}")
+def fsdp_shard_params(params: Tree, n_shards: int) -> Tree:
+    """Every leaf flattened to [n_shards, ceil(size / n_shards)],
+    zero-padded: the global storage of the manual fsdp step (reference
+    ``training.py:148``)."""
+    return tree_map(lambda p: _pad_to(p.reshape(-1), n_shards)
+                    .reshape(n_shards, -1), params)
+
+
+def _cut(f: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    n = like.numel()
+    return f.reshape(-1)[:n].reshape(like.shape).to(like.dtype)
+
+
+def fsdp_unshard_params(flat: Tree, like: Tree) -> Tree:
+    """Inverse of ``fsdp_shard_params``; ``like`` gives shapes and dtypes
+    (``init_params(..., device="meta")`` will do)."""
+    if not isinstance(flat, dict):
+        return _cut(flat, like)
+    return {k: fsdp_unshard_params(v, like[k]) for k, v in flat.items()}
+
+
+def fsdp_stream_shard_params(params: Tree, n_shards: int) -> Tree:
+    """The streaming step's global storage (reference ``training.py:200``):
+    leaves outside ``layers`` flatten to [F*c]; layer stacks keep their
+    leading L and flatten per layer to [L, F*c], so the forward can
+    gather one layer at a time. Zero-padded."""
+    out = {}
+    for k, v in params.items():
+        if k == "layers":
+            out[k] = tree_map(lambda p: _pad_to(p.reshape(p.shape[0], -1),
+                                                n_shards), v)
+        else:
+            out[k] = tree_map(lambda p: _pad_to(p.reshape(-1), n_shards), v)
+    return out
+
+
+def fsdp_stream_unshard_params(flat: Tree, like: Tree) -> Tree:
+    """Inverse of ``fsdp_stream_shard_params`` (checkpoint / eval
+    export)."""
+    out = {}
+    for k, v in flat.items():
+        if k == "layers":
+            out[k] = {n: f[:, :like[k][n].numel() // f.shape[0]]
+                      .reshape(like[k][n].shape).to(like[k][n].dtype)
+                      for n, f in v.items()}
+        else:
+            out[k] = fsdp_unshard_params(v, like[k])
+    return out
+
+
+def fsdp_local(flat: Tree, n_shards: int, index: int, *,
+               stream: bool) -> Tree:
+    """Rank ``index``'s slices of a global flat tree, as tensors of their
+    own: [1, c] of each [F, c] leaf (plain layout) or [c] / [L, c] of
+    each [F*c] / [L, F*c] leaf (``stream``)."""
+    def cut(f):
+        if not stream:
+            return f[index:index + 1].clone()
+        c = f.shape[-1] // n_shards
+        return f[..., index * c:(index + 1) * c].clone()
+    return tree_map(cut, flat)
+
+
+class _FsdpGather(torch.autograd.Function):
+    """all_gather_into_tensor of each rank's slice along dim 0 over the
+    fsdp group; the backward reduce-scatters (sums) the gradient so each
+    rank gets its own slice's total."""
+
+    @staticmethod
+    def forward(ctx, shard, group):
+        ctx.group = group
+        n = dist.get_world_size(group)
+        out = shard.new_empty((n * shard.shape[0],) + shard.shape[1:])
+        dist.all_gather_into_tensor(out, shard.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        out = g.new_empty((g.shape[0] // n,) + g.shape[1:])
+        dist.reduce_scatter_tensor(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
+def fsdp_gather(shard: torch.Tensor, group) -> torch.Tensor:
+    """The whole flat leaf from this rank's slice (differentiable);
+    identity when ``group`` is None (fsdp size 1)."""
+    return shard if group is None else _FsdpGather.apply(shard, group)
+
+
+def fsdp_gather_flat(local: Tree, mesh, *, stream: bool) -> Tree:
+    """The global flat tree from every rank's slices (no gradient): what
+    a checkpoint of fsdp state holds. Every rank of the fsdp group must
+    call it."""
+    group = axis_group(mesh, "fsdp")
+    if group is None:
+        return tree_map(lambda t: t.detach().clone(), local)
+    F = dist.get_world_size(group)
+
+    def gather(t, layer):
+        t = t.detach().contiguous()
+        out = t.new_empty((F * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t, group=group)
+        if stream and layer:                   # [F*L, c] -> [L, F*c]
+            return out.reshape(F, *t.shape).permute(1, 0, 2).reshape(
+                t.shape[0], -1)
+        return out
+    return {k: tree_map(lambda t: gather(t, k == "layers"), v)
+            for k, v in local.items()}
+
+
+def fsdp_shardings(like: Tree, n_shards: int, index: int, *,
+                   stream: bool) -> Tree:
+    """The ``checkpoint.restore(shardings=)`` tree that reads a global
+    flat fsdp checkpoint (either layout, written at any fsdp size) as
+    rank ``index``'s slices at ``n_shards``. ``like`` is the unsharded
+    params tree (shapes only: ``init_params(..., device="meta")``)."""
+    def spec(p, layer):
+        if layer and stream:
+            return FlatShard(p.numel() // p.shape[0], n_shards, index,
+                             rows=p.shape[0])
+        return FlatShard(p.numel(), n_shards, index, stacked=not stream)
+    return {k: tree_map(lambda p: spec(p, k == "layers"), v)
+            for k, v in like.items()}
+
+
+def _reject_axes(mesh, axes) -> None:
+    for ax in axes:
+        if axis_size(mesh, ax) > 1:
+            raise NotImplementedError(
+                f"{ax} axis not used by the dense-LM train step "
+                f"(pp: models.pipeline; ep: models.moe)")
+
+
+def _fsdp_setup(cfg: TransformerConfig, mesh, *, stream: bool):
+    """Shared validation and layout of the fsdp factories (reference
+    ``_fsdp_stream_setup``, ``training.py:286``): (like, F, group,
+    index, pctx)."""
+    if stream and not cfg.remat:
+        raise ValueError(
+            "streaming fsdp requires cfg.remat=True: without "
+            "checkpointing the block the backward saves all gathered "
+            "layers and the one-layer peak-memory property is lost "
+            "(use make_fsdp_train_step)")
+    if axis_size(mesh, "tp") > 1:
+        raise NotImplementedError(
+            "manual fsdp with tp: use pjit auto sharding with "
+            "param_specs(tp='tp', fsdp='fsdp')")
+    _reject_axes(mesh, ("pp", "ep"))
+    like = init_params(0, cfg, device="meta")
+    return (like, axis_size(mesh, "fsdp"), axis_group(mesh, "fsdp"),
+            axis_rank(mesh, "fsdp"), ParallelCtx(sp=mesh.get_group("sp")))
+
+
+def _global_value_and_grad(loss_fn: Callable, flat: Tree, mesh
+                           ) -> Tuple[torch.Tensor, Tree]:
+    """(global mean loss, this rank's gradient slices) of ``loss_fn(flat)``
+    (this rank's local mean): the local loss carries the global mean's
+    1/n before the backward, whose fsdp gathers reduce-scatter; the
+    slices are then summed over dp and sp, the ranks that hold the same
+    slices."""
+    n = mesh.size()
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(flat)]
+    loss = loss_fn(_unflatten(flat, leaves))
+    grads = torch.autograd.grad(loss / n, leaves)
+    for ax in ("dp", "sp"):
+        if axis_size(mesh, ax) > 1:
+            for g in grads:
+                dist.all_reduce(g, group=axis_group(mesh, ax))
+    loss = loss.detach().clone()
+    dist.all_reduce(loss)
+    return loss / n, _unflatten(flat, list(grads))
+
+
+def make_fsdp_train_step(cfg: TransformerConfig, mesh, *,
+                         lr: float = 1e-3):
+    """Manual fsdp SGD step over fsdp x dp x sp (reference
+    ``training.py:400``). Params live sharded (``fsdp_shard_params``:
+    each rank holds [1, c] of every [F, c] leaf); each step gathers the
+    whole tree, takes the loss global over (dp, fsdp, sp) and lets the
+    gathers' backward reduce-scatter the gradient. Tokens [B, S+1]
+    shard rows over (dp, fsdp) jointly and the sequence over sp (ring
+    attention). Returns (step, shard_fn): step(flat, tokens) -> (flat,
+    global mean loss), updating this rank's slices in place;
+    shard_fn(params) -> this rank's slices."""
+    like, F, group, index, pctx = _fsdp_setup(cfg, mesh, stream=False)
+
+    def loss_fn(flat, inputs, targets):
+        full = tree_map(lambda f: fsdp_gather(f, group), flat)
+        return xent_loss(fsdp_unshard_params(full, like), inputs, targets,
+                         cfg, pctx=pctx)
+
+    def step(flat, tokens):
+        inputs, targets = shard_batch(tokens, mesh)
+        loss, grads = _global_value_and_grad(
+            lambda f: loss_fn(f, inputs, targets), flat, mesh)
+        return _sgd_update(flat, grads, lr), loss
+
+    def shard_fn(params):
+        return fsdp_local(fsdp_shard_params(params, F), F, index,
+                          stream=False)
+
+    return step, shard_fn
+
+
+def _fsdp_stream_loss(flat, inputs, targets, *, like, cfg, group, pctx):
+    """Streaming-fsdp local loss (reference ``training.py:236``): the
+    small leaves gathered up front, each layer's slices gathered inside
+    its (checkpointed) block through ``forward``'s ``layers_hook``, so
+    at most one layer is whole at a time; under remat the backward
+    gathers each layer again and reduce-scatters its gradient."""
+    layer_like = {n: p[0] for n, p in like["layers"].items()}
+
+    def hook(layer_flat):
+        return {n: _cut(fsdp_gather(f, group), layer_like[n])
+                for n, f in layer_flat.items()}
+
+    params = {k: fsdp_unshard_params(tree_map(
+        lambda f: fsdp_gather(f, group), v), like[k])
+        for k, v in flat.items() if k != "layers"}
+    params["layers"] = flat["layers"]            # consumed through the hook
+    return xent_loss(params, inputs, targets, cfg, pctx=pctx,
+                     layers_hook=hook)
+
+
+def make_fsdp_stream_train_step(cfg: TransformerConfig, mesh, *,
+                                lr: float = 1e-3):
+    """The streaming-gather form of ``make_fsdp_train_step`` (reference
+    ``training.py:314``; the same math): layer params are gathered one
+    layer at a time inside the forward, so the transient whole-param
+    memory is the small leaves plus one layer. Requires cfg.remat.
+    Returns (step, shard_fn), storage ``fsdp_stream_shard_params``."""
+    like, F, group, index, pctx = _fsdp_setup(cfg, mesh, stream=True)
+
+    def step(flat, tokens):
+        inputs, targets = shard_batch(tokens, mesh)
+        loss, grads = _global_value_and_grad(
+            lambda f: _fsdp_stream_loss(f, inputs, targets, like=like,
+                                        cfg=cfg, group=group, pctx=pctx),
+            flat, mesh)
+        return _sgd_update(flat, grads, lr), loss
+
+    def shard_fn(params):
+        return fsdp_local(fsdp_stream_shard_params(params, F), F, index,
+                          stream=True)
+
+    return step, shard_fn
+
+
+def make_fsdp_stream_adamw_step(cfg: TransformerConfig, mesh, *,
+                                lr: float = 1e-3, weight_decay: float = 0.0):
+    """AdamW on the streaming-fsdp layout (reference ``training.py:342``):
+    params, gradients and the f32 moments all 1/F per rank, the moments
+    on the same flat slices as the params (AdamW is elementwise, so the
+    update is wholly rank-local; padding keeps zero gradients and zero
+    moments). Returns (step, shard_fn, opt_init): step(flat, opt_state,
+    tokens) -> (flat, opt_state, loss); opt_init(flat) -> the zero state
+    on this rank's slices."""
+    like, F, group, index, pctx = _fsdp_setup(cfg, mesh, stream=True)
+
+    def step(flat, opt_state, tokens):
+        inputs, targets = shard_batch(tokens, mesh)
+        loss, grads = _global_value_and_grad(
+            lambda f: _fsdp_stream_loss(f, inputs, targets, like=like,
+                                        cfg=cfg, group=group, pctx=pctx),
+            flat, mesh)
+        flat, state = apply_adamw(flat, grads, opt_state, lr=lr,
+                                  weight_decay=weight_decay)
+        return flat, state, loss
+
+    def shard_fn(params):
+        return fsdp_local(fsdp_stream_shard_params(params, F), F, index,
+                          stream=True)
+
+    return step, shard_fn, adamw_init

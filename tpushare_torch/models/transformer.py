@@ -169,9 +169,13 @@ def init_params(gen, cfg: TransformerConfig, *,
     stacked over layers. ``gen`` is a ``torch.Generator`` on the target
     device, or an int seed for one. The values differ from the JAX
     package's for the same seed (different generators); load JAX
-    weights with ``bridge.params_from_jax`` where parity matters."""
+    weights with ``bridge.params_from_jax`` where parity matters.
+    ``device="meta"`` gives the shapes and dtypes alone (the
+    reference's ``jax.eval_shape`` of this function)."""
     dev = resolve_device(device)
-    if isinstance(gen, int):
+    if dev.type == "meta":
+        gen = None
+    elif isinstance(gen, int):
         gen = torch.Generator(device=dev).manual_seed(gen)
     L, Dm, Fd = cfg.n_layers, cfg.d_model, cfg.d_ff
 

@@ -22,10 +22,19 @@ written here is one ``safetensors.torch.load_file`` reads.
 renames it into place (``utils/atomicio.py``'s pattern; its directory
 fsync), so a reader never sees a torn checkpoint. ``restore`` reads a
 leaf at a time.
+
+Cross-mesh restore (the reference's ``restore(shardings=)``) covers
+fsdp state: a checkpoint of it holds the global flat leaves
+(``training.fsdp_stream_shard_params``' bytes, or the plain
+``fsdp_shard_params`` layout), and a ``FlatShard`` per leaf reads one
+rank's slice of them at any fsdp size, the one it was written at or
+another (the leaf is cut to its unpadded elements, padded for the new
+size and sliced). Other placements wait for the multi-GPU item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import struct
@@ -37,8 +46,60 @@ import torch
 from tpushare_torch import DeviceLike, resolve_device
 from tpushare_torch.utils import atomicio
 
-TODO_RESHARD = ("ROADMAP A10 (multi-GPU placement) and A12 (fsdp "
-                "flat-storage checkpoints)")
+TODO_RESHARD = "ROADMAP A10 (multi-GPU placement of tp and ep shards)"
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatShard:
+    """How ``restore(shardings=)`` reads one global flat fsdp leaf: as
+    slice ``index`` of ``n_shards``. ``numel``: the unpadded elements
+    (per row with ``rows``). ``rows``: a streaming layer stack [L, F*c]
+    (L rows, each cut and sliced) -> [L, c]; else [F*c] -> [c], or with
+    ``stacked`` (the plain layout [F, c]) -> [1, c]."""
+    numel: int
+    n_shards: int
+    index: int
+    rows: Optional[int] = None
+    stacked: bool = False
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the stored global leaf ``t``."""
+        lead = self.rows or 1
+        if t.numel() < lead * self.numel:
+            raise ValueError(f"flat leaf of {t.numel()} elements holds no "
+                             f"{lead} x {self.numel}")
+        data = t.reshape(lead, -1)[:, :self.numel]
+        c = -(-self.numel // self.n_shards)
+        data = torch.nn.functional.pad(
+            data, (0, self.n_shards * c - self.numel))
+        part = data[:, self.index * c:(self.index + 1) * c].contiguous()
+        if self.rows:
+            return part
+        return part.reshape(1, c) if self.stacked else part.reshape(c)
+
+    def shape(self) -> List[int]:
+        c = -(-self.numel // self.n_shards)
+        return [self.rows, c] if self.rows else (
+            [1, c] if self.stacked else [c])
+
+
+def _shard_at(shardings: Any, parts: List[str]) -> Optional[FlatShard]:
+    """The FlatShard (or None) that ``shardings`` gives the leaf at key
+    path ``parts``: a None subtree reads its leaves whole; anything but
+    a dict, a FlatShard or None raises ``NotImplementedError``."""
+    node = shardings
+    for p in parts:
+        if node is None or isinstance(node, FlatShard):
+            break
+        if not isinstance(node, dict):
+            break
+        node = node.get(p)
+    if node is None or isinstance(node, FlatShard):
+        return node
+    raise NotImplementedError(
+        f"restore(shardings=) with {type(node).__name__} at "
+        f"{_SEP.join(parts)}: only FlatShard (fsdp flat storage) is "
+        f"ported; {TODO_RESHARD}")
 
 # safetensors dtype names <-> torch dtypes.
 _DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16",
@@ -168,18 +229,29 @@ def restore(path: str, *, like: Optional[Any] = None,
     lacks, or holds at another shape, raises ``ValueError``. Leaves go to
     ``device``, else to ``like``'s leaf's device, else to the card (the
     port's default device). ``shardings`` (the reference's cross-mesh
-    restore) raises ``NotImplementedError``."""
-    if shardings is not None:
-        raise NotImplementedError(f"restore(shardings=): {TODO_RESHARD}")
+    restore): a tree over the same keys whose leaves are ``FlatShard``
+    (read that rank's slice of a global flat fsdp leaf; ``like`` then
+    holds the slice's shape) or None (read the leaf whole); a None
+    subtree reads whole. Any other placement raises
+    ``NotImplementedError`` naming ROADMAP A10."""
     path = os.path.abspath(path)
     header, base = _read_header(path)
+
+    def read(f, key, dev, dtype):
+        spec = _shard_at(shardings, key.split(_SEP))
+        if spec is None:
+            return _read_leaf(f, base, header[key], dev, dtype)
+        return spec.take(_read_leaf(f, base, header[key], torch.device(
+            "cpu"), None)).to(device=dev, dtype=dtype or
+                              _FROM_NAME[header[key]["dtype"]])
+
     if like is None:
         dev = resolve_device(device)
         skeleton = json.loads(header["__metadata__"]["tree"])
 
         def build(node, prefix):
             return {k: build(v, f"{prefix}{k}{_SEP}") if isinstance(v, dict)
-                    else _read_leaf(f, base, header[prefix + k], dev, None)
+                    else read(f, prefix + k, dev, None)
                     for k, v in node.items()}
         with open(path, "rb") as f:
             return build(skeleton, "")
@@ -188,10 +260,14 @@ def restore(path: str, *, like: Optional[Any] = None,
     problems = []
     for key, ref in wanted:
         info = header.get(key)
+        spec = _shard_at(shardings, key.split(_SEP))
         if info is None:
             problems.append(f"{key}: missing")
-        elif list(info["shape"]) != list(ref.shape):
-            problems.append(f"{key}: shape {info['shape']} in the file, "
+            continue
+        have = list(info["shape"]) if spec is None else spec.shape()
+        if have != list(ref.shape):
+            where = "in the file" if spec is None else "sliced"
+            problems.append(f"{key}: shape {have} {where}, "
                             f"{list(ref.shape)} wanted")
     if problems:
         raise ValueError(f"checkpoint {path} does not match like: "
@@ -206,5 +282,5 @@ def restore(path: str, *, like: Optional[Any] = None,
             parts = key.split(_SEP)
             for p in parts[:-1]:
                 node = node[p]
-            node[parts[-1]] = _read_leaf(f, base, header[key], dev, dtype)
+            node[parts[-1]] = read(f, key, dev, dtype)
     return out
