@@ -214,7 +214,8 @@ Phases, one JSON line each, each with its own seconds:
           alone would have chosen another expert set.
   slice_moe_spec
           MoE int8-self speculation at Mixtral-8x7B's full width, depth
-          cut to 12 of 32 layers (a bf16 target and its int8 draft take
+          cut to 6 of 32 layers (12 until PR 15's time cut; a bf16
+          target and its int8 draft take
           ~2.9 + 1.45 GB a layer; 32 would be ~139 GB): random bf16
           weights from a seeded generator, the draft quantize_params of
           them served through fused_expert_hook. ServeEngine(
@@ -296,7 +297,10 @@ Phases, one JSON line each, each with its own seconds:
           trainer.fit of moe.make_adamw_spmd_train_step over a one-rank
           NCCL group and make_mesh({"dp": 1, "sp": 1}) (the ring's
           partial kernel, one hop) whose loss must fall; the AdamW
-          state saved (trainer.save_state) and restored equal.
+          state's first layer (every "layers" leaf of the params and
+          both moments cut to layer 0, the rest whole: ~16 GB, about
+          half the state, to hold the phase's disk time) saved
+          (trainer.save_state) and restored equal.
   slice_generate
           Gemma-2B's generate, greedy, 4 prompts of 512 tokens + 64 new:
           the dense scalar-offset branch (flash_attention at every step,
@@ -354,6 +358,38 @@ Phases, one JSON line each, each with its own seconds:
           step's (Mixtral 1 x 2048), and the partial pass and the
           gradient (faults: k_offset + 1, a zero dsum) at slice_fsdp's
           4 x 1024 and at both microbatches.
+  slice_mesh
+          tools/multichip.py, BASELINE row 5 (mixed bin-pack): (A) a
+          fake four-card host places a 32-unit serving pod on two cards
+          (GetPreferredAllocation spans two, Allocate's env is
+          gpu_env_for_cards') and bin-packs two 8-unit pods onto one
+          shared card. (B) Llama-3-8B at full width and depth over
+          tp=2: two rank processes of tpushare-torch-serve --mesh tp=2
+          (rank 0 serves HTTP, rank 1 follows its broadcast calls), on
+          this one card over the gloo transport (the collectives stage
+          through the host: not a tp measurement); 8 prompts of
+          16..2048 tokens with chunked admission (512), then a direct
+          sharded PagedSlotServer on the engine's slices (whole
+          admissions, 8 timed ticks) and greedy speculative rounds (the
+          model drafting for itself, gamma 4). Held to a one-card twin
+          run in this process first: streams equal or parting at a
+          counted flip, admission logits within LOGIT_REL_TOL of the
+          twin's largest |logit|, every rank's streams and call digest
+          equal to rank 0's, one fetch per tick. (C) Mixtral-8x7B's
+          width, 4 of its 32 layers, int8 experts through
+          fused_expert_hook, over ep=2 on the same ranks: the psum and
+          a2a routings (a2a: each rank routes its share of the tokens
+          at capacity E / top_k, so nothing drops), each against its
+          one-card twin at MOE_LOGIT_REL_TOL. (D) two small pods, one
+          BERT-base forward each. The kernels phase adds the per-rank
+          shapes: prefill at 16/4 heads for every direct admission
+          (fault: the causal edge); paged decode at the direct
+          server's B 8 and the engine's B 4 (fault: a dropped page);
+          verify at 16/4 heads at Sq 5 and at each fused width of the
+          engine's chunked admissions, B 4 (engine_schedule; fault:
+          the causal edge); q8_expert_ffn at 4 local experts (shared
+          blocks of 4 and 1024 rows, a2a queues; fault: two experts'
+          scales swapped).
   flex    the softcapped cases' library call, flex_attention under
           torch.compile with the softcap as its score_mod and the mask
           as its block mask, on the kernels phase's inputs; it runs
@@ -1130,6 +1166,35 @@ def llama_schedule(serving, paged, wave_a, wave_b, chunk, bs, h):
     return ticks, base, [(n + h) // bs + 1 for n in base]
 
 
+def engine_schedule(serving, paged, lens, n_slots, chunk, bs, max_tokens):
+    """slice_mesh's engine (``n_slots`` slots, ``chunk``-token chunked
+    admission, ``max_tokens`` a request) at its launch shapes, from the
+    server's own rules on the host: every prompt longer than ``chunk``
+    admitted by one fused tick a chunk (serving.fused_chunk_span, the
+    admitting row at its chunk start), beside n_slots - 1 rows decoding
+    at the longest other prompts' last positions (the most context such
+    a tick can carry); and the decode tick of the n_slots longest
+    prompts at their last positions. Returns each fused tick's (width,
+    pos, pages) and the decode tick's (pos, pages)."""
+    ticks = []
+    for i, S in enumerate(lens):
+        if S <= chunk:                  # admitted whole
+            continue
+        others = sorted((n for j, n in enumerate(lens) if j != i),
+                        reverse=True)[:n_slots - 1]
+        dpos = [n + max_tokens - 2 for n in others]
+        done = 0
+        while done < S:
+            end, width = serving.fused_chunk_span(done, S, chunk, None,
+                                                  gran=bs)
+            ticks.append((width, [done] + dpos,
+                          [paged.blocks_needed(S + 1, bs)]
+                          + [p // bs + 1 for p in dpos]))
+            done = end
+    last = [n + max_tokens - 2 for n in sorted(lens, reverse=True)[:n_slots]]
+    return ticks, (last, [p // bs + 1 for p in last])
+
+
 def serve_llama(paged, quant, cfg, params, qparams, wave_a, wave_b, *,
                 mode, attn_impl, rounds, n_blocks, chunk):
     """Drive one Llama-3-8B server through the slice: 4 whole
@@ -1708,54 +1773,15 @@ def grad_rel_l2(training, got, want):
                                   training.tree_leaves(want))}
 
 
-# Mixtral-8x7B as its published config.json gives it
-# (mistralai/Mixtral-8x7B-v0.1).
-MIXTRAL_8X7B = dict(
-    model_type="mixtral", vocab_size=32000, hidden_size=4096,
-    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
-    intermediate_size=14336, num_local_experts=8, num_experts_per_tok=2,
-    rope_theta=1e6, rms_norm_eps=1e-5, hidden_act="silu",
-    tie_word_embeddings=False, router_aux_loss_coef=0.02)
-
-
 def mixtral_int8_params(torch, quant, cfg, gen, dev):
     """Random Mixtral-width weights from ``gen``, made one layer (one
     expert) at a time and quantized as they are made, so no bf16 expert
-    tree ever exists: attention and expert leaves int8 + f32 scales
-    (quant.quantize_weight of the bf16 values, as quantize_params does),
-    router, norms, embed and unembed bf16."""
-    bf = torch.bfloat16
-    L, Dm, Fd, E, V = (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts,
-                       cfg.vocab_size)
-
-    def dense(shape, fan_in):
-        return (torch.randn(*shape, generator=gen, device=dev)
-                / math.sqrt(fan_in)).to(bf)
-
-    shapes = {"wq": (Dm, cfg.q_dim), "wk": (Dm, cfg.kv_dim),
-              "wv": (Dm, cfg.kv_dim), "wo": (cfg.q_dim, Dm),
-              "w_gate": (E, Dm, Fd), "w_up": (E, Dm, Fd),
-              "w_down": (E, Fd, Dm)}
-    layers = {}
-    for k, shp in shapes.items():
-        layers[k + "#q8"] = torch.empty((L, *shp), dtype=torch.int8,
-                                        device=dev)
-        layers[k + "#scale"] = torch.empty((L, *shp[:-2], 1, shp[-1]),
-                                           device=dev)
-    for li in range(L):
-        for k, shp in shapes.items():
-            for e in range(E if len(shp) == 3 else 1):
-                idx = (li, e) if len(shp) == 3 else (li,)
-                w = dense(shp[-2:], shp[-2])
-                q, s = quant.quantize_weight(w)
-                layers[k + "#q8"][idx] = q
-                layers[k + "#scale"][idx] = s
-    layers.update(ln1=torch.ones((L, Dm), dtype=bf, device=dev),
-                  ln2=torch.ones((L, Dm), dtype=bf, device=dev),
-                  router=dense((L, Dm, E), Dm))
-    return {"embed": dense((V, Dm), Dm), "layers": layers,
-            "final_norm": torch.ones((Dm,), dtype=bf, device=dev),
-            "unembed": dense((Dm, V), Dm)}
+    tree ever exists (``tools/multichip.py``'s ``moe_weights``):
+    attention and expert leaves int8 + f32 scales, router, norms, embed
+    and unembed bf16."""
+    import importlib
+    mc = importlib.import_module("tpushare_torch.tools.multichip")
+    return mc.moe_weights(cfg, gen, dev)
 
 
 def moe_widths(serving, paged, whole, chunked, prefix_hit, chunk, bs,
@@ -2849,7 +2875,7 @@ def slice_engine_lora(torch, np, paged, cfg, dev, card, run_path, failures,
 
 # -- slice_moe_spec: MoE int8-self speculation at Mixtral width -----------
 
-MS_LAYERS = 12                   # of Mixtral-8x7B's 32: the depth cut
+MS_LAYERS = 6                    # of Mixtral-8x7B's 32: the depth cut
 MS_LENGTHS = [64, 300, 700, 1000]
 MS_TOKENS, MS_GAMMA, MS_SLOTS = 32, 4, 4
 
@@ -3240,7 +3266,7 @@ def slice_finetune(torch, np, cfg, dev, card, run_path, no_launch, failures):
 def slice_moe_train(torch, np, moe, mcfg, dev, card, run_path, no_launch,
                     failures):
     """slice_moe_train (see the module docstring): Mixtral-8x7B's width at
-    2 of 32 layers on one 4096-token sequence. Returns (launch counts by
+    MT_LAYERS of 32 layers on one 4096-token sequence. Returns (launch counts by
     path, the trained params, their config)."""
     import importlib
     dist = importlib.import_module("torch.distributed")
@@ -3332,21 +3358,23 @@ def slice_moe_train(torch, np, moe, mcfg, dev, card, run_path, no_launch,
         finally:
             dist.destroy_process_group()
         path = os.path.join(tmp, f"step_{MT_ADAMW_STEPS}")
+        ck_p, ck_o = first_layer(params), first_layer(state)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rec_ck["bytes"] = trainer.save_state(path, params, state,
+        rec_ck["bytes"] = trainer.save_state(path, ck_p, ck_o,
                                              MT_ADAMW_STEPS)
         rec_ck["save_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         back_p, back_o, back_step = trainer.load_state(
-            path, like_params=params, like_opt=state)
+            path, like_params=ck_p, like_opt=ck_o)
         torch.cuda.synchronize()
         rec_ck["restore_s"] = time.perf_counter() - t0
+        rec_ck["layers_saved"] = 1
         rec_ck["equal"] = back_step == MT_ADAMW_STEPS and all(
             torch.equal(a, b) for a, b in zip(
                 training.tree_leaves({"p": back_p, "o": back_o}),
-                training.tree_leaves({"p": params, "o": state})))
-        del back_p, back_o
+                training.tree_leaves({"p": ck_p, "o": ck_o})))
+        del back_p, back_o, ck_p, ck_o
         del state
         gc.collect()
         torch.cuda.empty_cache()
@@ -3389,6 +3417,14 @@ def slice_moe_train(torch, np, moe, mcfg, dev, card, run_path, no_launch,
             failures.append(f"slice_moe_train {path_} launches "
                             f"{launches[path_]}, expected {w}")
     return launches, params, ccfg
+
+
+def first_layer(tree):
+    """``tree`` (params, or an AdamW state) with every leaf under a
+    "layers" key cut to its first layer (views), the rest whole."""
+    return {k: ({n: t[:1] for n, t in v.items()} if k == "layers"
+                else first_layer(v) if isinstance(v, dict) else v)
+            for k, v in tree.items()}
 
 
 FS_BATCH, FS_SEQ = 4, 1024       # slice_fsdp / slice_pipeline: 4 x 1024
@@ -3744,6 +3780,57 @@ def slice_saturation(card, failures):
           "logit_rel_tol": sat.LOGIT_REL_TOL,
           "tenants": [b["solo"]] + b["four"],
           "seconds": time.perf_counter() - t0, "card": card})
+
+
+# The kernels each part of slice_mesh must launch on its ranks.
+MESH_NEEDS = {"engine": ("flash_attention", "paged_flash_verify",
+                         "paged_flash_decode"),
+              "direct": ("flash_attention", "paged_flash_decode",
+                         "paged_flash_verify"),
+              "moe_psum": ("flash_attention", "paged_flash_decode",
+                           "q8_expert_ffn"),
+              "moe_a2a": ("flash_attention", "paged_flash_decode",
+                          "q8_expert_ffn")}
+
+
+def slice_mesh(card, failures):
+    """slice_mesh (see the module docstring): tools/multichip.py's
+    placement (A), Llama-3-8B over tp=2 (B), Mixtral's experts over
+    ep=2 (C) and the two small pods (D). Returns each part's kernel
+    launches, summed over its ranks."""
+    import importlib
+    mc = importlib.import_module("tpushare_torch.tools.multichip")
+    t0 = time.perf_counter()
+    record = mc.run(mc.build_parser().parse_args([]),
+                    log=lambda line: None)
+    failures += [f"slice_mesh {f}" for f in record["failures"]]
+    bc = record["BC"]
+    for part, names in MESH_NEEDS.items():
+        got = bc["launches"][part]
+        for name in names:
+            if got.get(name, 0) <= 0:
+                failures.append(f"slice_mesh {part}: {name} was not "
+                                f"launched on its ranks ({got})")
+    work = bc["stats"].get("work_ticks") or bc["stats"].get("fused_ticks")
+    emit({"phase": "slice_mesh", "model": "llama3_8b tp=2, mixtral "
+          f"{mc.MOE_LAYERS} layers ep=2", "placement": record["A"],
+          "transport": bc["transport"], "printed": bc.get("printed"),
+          "engine_stats": bc["stats"], "ready_s": bc["ready_s"],
+          "http_s": bc["http_s"], "twin_s": bc["twin_s"],
+          "ranks_s": bc["ranks_s"], "build_s": bc["build_s"],
+          "ms_per_tick": bc["ms_per_tick"], "engine_work_ticks": work,
+          "engine_ms_per_work_tick": (bc["http_s"] * 1e3 / work
+                                      if work else None),
+          "flips": {k: bc[k] for k in ("engine_flips", "direct_flips",
+                                      "spec_flips")},
+          "admit_logit_rel": bc["admit_logit_rel"],
+          "logit_rel_tol": mc.LOGIT_REL_TOL, "moe": bc["moe"],
+          "moe_logit_rel_tol": mc.MOE_LOGIT_REL_TOL,
+          "memory_per_rank": bc["memory"], "launches": bc["launches"],
+          "small_tenants": record["D"]["tenants"],
+          "failures": record["failures"],
+          "seconds": time.perf_counter() - t0, "card": card})
+    return {f"slice_mesh_{k}": v for k, v in bc["launches"].items()}
 
 
 def slice_generate(torch, np, paged, cfg, dev, card, run_path, no_launch,
@@ -4510,7 +4597,9 @@ def main() -> int:
     # admissions, 2 by fused ticks in 256-token chunks, a 4th whole one
     # (the rows server's prefix registry keeps the latest admission),
     # then a prompt that reuses 560 of the 4th's tokens.
-    mcfg = convert.moe_config_from_hf(types.SimpleNamespace(**MIXTRAL_8X7B))
+    mc = importlib.import_module("tpushare_torch.tools.multichip")
+    mcfg = convert.moe_config_from_hf(
+        types.SimpleNamespace(**mc.MIXTRAL_8X7B))
     mrng = np.random.default_rng(2)
     m_whole, m_chunked = [64, 300, 700, 1000], [200, 280]
     m_prompts = [mrng.integers(0, mcfg.vocab_size, n)
@@ -4681,7 +4770,62 @@ def main() -> int:
     q8_all = q8_path + [
         q8c(f"mixtral_per_expert_c{cap_c}", mw, cap_c, False),
         q8c("mixtral_gelu_c8", mw, 8, True, act="gelu")]
-    del mw
+    # slice_mesh's per-rank shapes (tools/multichip.py): Mixtral's
+    # experts at ep=2 (4 local experts): the decode tick's and the
+    # largest admission's shared blocks (psum), and a2a's queues of
+    # ep x the capacity of a rank's share (ceil(T / 2) tokens) rows.
+    mm_cfg, mm_prompts, _, (mm_nb, mm_bs) = mc.moe_workload(False)
+    mm_slots = len(mm_prompts)
+    mm_comp = max(paged.admission_len(len(p_), 0, mm_bs, mm_nb)[1]
+                  for p_ in mm_prompts)
+    mw4 = [t[:mcfg.n_experts // 2].contiguous() for t in mw]
+    a2a_cfg = dataclasses.replace(mcfg,
+                                  capacity_factor=mc.a2a_capacity(mcfg))
+    q8_mesh = [q8c(f"mixtral_ep2_c{mm_slots}", mw4, mm_slots, True,
+                   fault=True),
+               q8c(f"mixtral_ep2_c{mm_comp}", mw4, mm_comp, True)] + [
+        q8c(f"mixtral_ep2_a2a_c{2 * c}", mw4, 2 * c, False)
+        for c in sorted({moe.expert_capacity(-(-T // 2), a2a_cfg)
+                         for T in (mm_slots, mm_comp)})]
+    q8_all += q8_mesh
+    del mw, mw4
+    # slice_mesh's Llama-3-8B at tp=2: 16 query and 4 kv heads per rank,
+    # at every direct admission's padded row, the decode tick's
+    # positions and the speculative round's verify.
+    mc_argv, _, mc_prompts, mc_tokens, mc_ticks, _, mc_gamma = \
+        mc.llama_workload(False)
+
+    def mc_flag(name):
+        return int(mc_argv[mc_argv.index(name) + 1])
+    mc_nb = mc_flag("--n-blocks")
+    mc_lens = [len(p_) for p_ in mc_prompts]
+    mc_comp = sorted({paged.admission_len(n, 0, bs, mc_nb)[1]
+                      for n in mc_lens})
+    pre_mesh = [gpc(f"llama3_8b_tp2_sq{c}_sk{c}_off0", c, c, 16, 4, 128,
+                    q_offset=0, fault=c == mc_comp[-1]) for c in mc_comp]
+    mc_pos = [n + mc_ticks - 1 for n in mc_lens]
+    dec_mesh = [pc("paged_flash_decode", "llama3_8b_tp2_b8", mc_pos,
+                   [p_ // bs + 1 for p_ in mc_pos], 1, 16, 4, 128,
+                   nb=mc_nb, fault="page")]
+    ver_mesh = [pc("paged_flash_verify", "llama3_8b_tp2_spec_sq5", mc_lens,
+                   [(n + mc_gamma) // bs + 1 for n in mc_lens], mc_gamma + 1,
+                   16, 4, 128, nb=mc_nb, fault="causal")]
+    # The engine's ticks at 16/4 heads: each fused width of its chunked
+    # admissions (the tick of that width with the most context), and
+    # its decode tick over its slots.
+    e_slots = mc_flag("--n-slots")
+    e_ticks, (e_pos, e_pages) = engine_schedule(
+        serving, paged, mc_lens, e_slots, mc_flag("--prefill-chunk"), bs,
+        mc_tokens)
+    for w in sorted({w for w, _, _ in e_ticks}):
+        _, pos, pages = max((t for t in e_ticks if t[0] == w),
+                            key=lambda t: sum(t[1]))
+        ver_mesh.append(pc("paged_flash_verify", f"llama3_8b_tp2_fused_sq{w}",
+                           pos, pages, w, 16, 4, 128, nb=mc_nb,
+                           fault="causal"))
+    dec_mesh.append(pc("paged_flash_decode",
+                       f"llama3_8b_tp2_engine_b{e_slots}", e_pos, e_pages, 1,
+                       16, 4, 128, nb=mc_nb, fault="page"))
     fdc = functools.partial(flash_decode_case, fa, F, torch, np, dev, flush)
     fdec = [fdc("gemma2_2b_local", g_dec_pos, g_sched["max_len"], 8, 4, 256,
                 window=gcfg.sliding_window, softcap=gcfg.attn_softcap,
@@ -5215,7 +5359,7 @@ def main() -> int:
                                  no_launch, failures)
     finetune_s = time.perf_counter() - t_ft
 
-    # -- slice_moe_train: Mixtral width, 2 layers, the routings' grads --
+    # -- slice_moe_train: Mixtral width, 1 layer, the routings' grads --
     t_mt = time.perf_counter()
     mt_launches, mt_params, mt_cfg = slice_moe_train(
         torch, np, moe, mcfg, dev, card, run_path, no_launch, failures)
@@ -5244,6 +5388,13 @@ def main() -> int:
     slice_saturation(card, failures)
     saturation_s = time.perf_counter() - t_sat
 
+    # -- slice_mesh: Llama-3-8B over tp=2, Mixtral's experts over ep=2 --
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_mesh = time.perf_counter()
+    mesh_launches = slice_mesh(card, failures)
+    mesh_s = time.perf_counter() - t_mesh
+
     t_f = time.perf_counter()
     run_flex_later()
     flex_s = time.perf_counter() - t_f
@@ -5259,7 +5410,7 @@ def main() -> int:
              "slice_rows": r_launches, "slice_train_sgd": sgd_launches,
              "slice_train_fit": fit_launches, "slice_plugin": p_launches,
              **ft_launches, **mt_launches, **gn_launches, **fs_launches,
-             **pp_launches}
+             **pp_launches, **mesh_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in paths.values())
@@ -5290,14 +5441,14 @@ def main() -> int:
     kernels = [
         dict(entry("flash_attention", src + "flash_prefill.cu",
                    ref_fa + "105", pre_g + pre_l + pre_m + pre_n,
-                   pre + pre_n),
+                   pre + pre_n + pre_mesh),
              also_replaces=ref_fa + "180"),
         entry("paged_flash_decode", src + "paged_decode.cu", ref_fa + "659",
-              dec[:2] + dec_m, dec),
+              dec[:2] + dec_m, dec + dec_mesh),
         entry("paged_flash_decode_int8", src + "paged_decode.cu",
               ref_fa + "659", dec8, dec8),
         entry("paged_flash_verify", src + "paged_verify.cu", ref_fa + "843",
-              ver[:1 + len(fused_cases)] + ver_m, ver),
+              ver[:1 + len(fused_cases)] + ver_m, ver + ver_mesh),
         entry("paged_flash_verify_int8", src + "paged_verify.cu",
               ref_fa + "843", ver8, ver8),
         dict(entry("q8_expert_ffn", src + "q8_expert.cu",
@@ -5340,7 +5491,7 @@ def main() -> int:
           "plugin": plugin_s, "finetune": finetune_s,
           "moe_train": moe_train_s, "generate": generate_s,
           "fsdp": fsdp_s, "pipeline": pipeline_s,
-          "saturation": saturation_s, "flex": flex_s,
+          "saturation": saturation_s, "mesh": mesh_s, "flex": flex_s,
           "flex_compile": {f"{r['kernel']} {r['case']}": r["flex_compile_s"]
                            for r in dec + fdec + list(part_a) + list(bwd_a)
                            if r.get("flex_compile_s") is not None},

@@ -965,6 +965,80 @@ def test_fsdp_steps_across_cards(dev, tmp_path):
         np.testing.assert_allclose(got[f"adamw/{k}"], a, rtol=0, atol=2e-5)
 
 
+def _port_sharded_inputs():
+    """Tiny f32 dense and MoE trees (and the MoE's int8 tree) from the
+    port's own init, for the sharded serving workers; head_dim 128, a
+    width the attention kernels take."""
+    import dataclasses
+    import torch_spawn
+    from tpushare_torch.models import moe, quant
+    from tpushare_torch.models import transformer as tt
+    tcfg = dataclasses.replace(tt.tiny(remat=False, head_dim=128),
+                               dtype=torch.float32)
+    mcfg = dataclasses.replace(moe.tiny(remat=False, head_dim=128),
+                               dtype=torch.float32)
+    tp_ = tt.init_params(0, tcfg, device="cpu")
+    mp_ = moe.init_params(0, mcfg, device="cpu")
+    inp = {}
+    for name, cfg in (("tcfg", tcfg), ("mcfg", mcfg)):
+        fields = {f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cfg) if f.name != "dtype"}
+        inp[name] = np.array(json.dumps(fields))
+    for prefix, tree in (("tf/", tp_), ("moe/", mp_),
+                         ("moeq/", quant.quantize_params(mp_, mcfg))):
+        inp.update(torch_spawn.flatten(tree, prefix))
+    return inp, tcfg, tp_, mcfg, mp_
+
+
+@pytest.mark.parametrize("sizes,families", [
+    ({"tp": 2}, ["dense_tp", "paged_tp", "paged_spec_tp"]),
+    ({"tp": 2, "ep": 2}, ["paged_moe_eptp", "moe_rows_eptp"])])
+def test_sharded_serving_across_cards(dev, tmp_path, sizes, families):
+    """tp=2 (2+ cards) and ep2 x tp2 (4+ cards) over NCCL, one card per
+    rank: tests/test_torch_sharded_serving.py's families through its
+    ``_drive`` schedule, the kernels launched at the per-rank head and
+    expert counts, against one-card twins on the same tiny f32 weights:
+    streams equal, every rank's equal to rank 0's."""
+    world = int(np.prod(list(sizes.values())))
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} or more NVIDIA GPUs (one per rank of "
+                    f"{sizes} over NCCL)")
+    from tpushare_torch.ops import _build
+    _build.build_all()                               # before ranks load
+    import torch_spawn
+    from tpushare_torch.models import moe, serving
+    from tpushare_torch.models.paged import PagedSlotServer
+    inp, tcfg, tp_, mcfg, mp_ = _port_sharded_inputs()
+    got = torch_spawn.run_ranks(
+        torch_spawn.sharded_serving_worker, world, tmp_path, inp, sizes,
+        families, (), backend="nccl", timeout=300)
+    res = json.loads(str(got["res"]))
+    tp_, mp_ = (torch_spawn.unflatten(torch_spawn.flatten(t), "", dev)
+                for t in (tp_, mp_))
+    twins = {
+        "dense_tp": lambda: serving.SlotServer(tp_, tcfg, n_slots=3,
+                                               max_len=96, device=dev),
+        "paged_tp": lambda: PagedSlotServer(tp_, tcfg, n_slots=3,
+                                            n_blocks=64, block_size=4,
+                                            device=dev),
+        "paged_spec_tp": lambda: PagedSlotServer(
+            tp_, tcfg, n_slots=3, n_blocks=96, block_size=4,
+            speculative_draft=(tp_, tcfg), gamma=2, device=dev),
+        "paged_moe_eptp": lambda: PagedSlotServer(
+            mp_, mcfg, n_slots=3, n_blocks=64, block_size=4,
+            forward_fn=moe.paged_forward, device=dev),
+        "moe_rows_eptp": lambda: moe.MoESlotServer(
+            mp_, mcfg, n_slots=3, max_len=96, device=dev)}
+    for name in families:
+        vocab = (mcfg if "moe" in name else tcfg).vocab_size
+        with torch.inference_mode():
+            want = torch_spawn._drive(twins[name](),
+                                      torch_spawn._prompt(7, 21, vocab),
+                                      vocab)
+        assert res[name] == json.loads(json.dumps(list(want))), name
+        assert res[name + "/ranks_equal"] is True
+
+
 def test_pipeline_schedules_across_cards(dev, tmp_path):
     """pp 2 over NCCL, one stage per card: one SGD step of GPipe, 1F1B
     and interleaved (2 chunks), and one 1F1B AdamW step from a non-zero

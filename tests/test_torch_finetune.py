@@ -367,9 +367,24 @@ class TestLoraTraining:
                                 start_step=start, log_every=0)
         _equal_trees(got, want)
 
-    def test_left_out_piece_names_its_item(self):
+    def test_left_out_piece_names_its_item(self, tmp_path):
+        """The adapters' placement is ported (ROADMAP A10a): its spec
+        tree equals the reference's; a sharded checkpoint placement
+        other than flat fsdp storage still names its item (A10b)."""
+        jcfg = jt.tiny()
+        targets = ("wq", "wv", "wo", "w_down")
+        want = jl.lora_param_specs(jcfg, targets, fsdp="fsdp")
+        got = lora.lora_param_specs(bridge.config_from_jax(jcfg), targets,
+                                    fsdp="fsdp")
+        assert {n: {k: tuple(v) for k, v in ab.items()}
+                for n, ab in got.items()} == \
+            {n: {k: tuple(v) for k, v in ab.items()}
+             for n, ab in want.items()}
+        path = str(tmp_path / "ck")
+        tree = {"w": torch.zeros(2)}
+        checkpoint.save(path, tree)
         with pytest.raises(NotImplementedError, match="A10"):
-            lora.lora_param_specs(None)
+            checkpoint.restore(path, like=tree, shardings=object())
 
 
 def _hf_models():

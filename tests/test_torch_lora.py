@@ -157,11 +157,21 @@ class TestAdapters:
             bridge.adapters_from_jax({"wq": {"a": 1}})
 
     def test_left_out_pieces_name_their_item(self):
-        """Sharded placement is the piece left out; LoRA training is
-        ported (its parity: tests/test_torch_finetune.py)."""
-        with pytest.raises(NotImplementedError, match="A10"):
-            lora.lora_param_specs(None)
+        """A bank on a mesh is the piece left out, refused as the
+        reference refuses it; the adapters' spec tree (ROADMAP A10a)
+        and LoRA training are ported (their parity:
+        tests/test_torch_mesh.py, tests/test_torch_finetune.py)."""
+        from tpushare_torch.parallel.mesh import ServingMesh
+        mesh = ServingMesh({"tp": 2}, ["cpu"] * 2)
+        mesh.rank = 0
         cfg = tt.tiny()
+        bank = lora.stack_adapters([lora.init_lora(
+            torch.Generator().manual_seed(1), cfg, 2)])
+        with pytest.raises(ValueError, match="multi_lora"):
+            tpaged.PagedSlotServer(tt.init_params(0, cfg, device="cpu"), cfg,
+                                   n_slots=2, n_blocks=16, block_size=4,
+                                   multi_lora=bank, mesh=mesh)
+        assert set(lora.lora_param_specs(cfg)) == set(lora.DEFAULT_TARGETS)
         base = tt.init_params(0, cfg, device="cpu")
         ad = lora.init_lora(torch.Generator().manual_seed(0), cfg, 2)
         tok = torch.zeros((1, 5), dtype=torch.int64)

@@ -524,10 +524,20 @@ class TestRefusals:
         ({"draft_param_specs": object()}, "A10"),
     ])
     def test_server_options(self, kw, item):
+        """Sharded serving is ported (ROADMAP ``item``, A10a; its parity:
+        tests/test_torch_sharded_serving.py): a mesh must be a bound
+        ServingMesh, and spec trees without a mesh are ignored, as the
+        reference ignores them."""
+        assert item == "A10"
         _, _, tcfg, tp = _pair()
-        with pytest.raises(NotImplementedError, match=item):
-            tm.MoESlotServer(tp, tcfg, n_slots=2, max_len=8, device="cpu",
-                             **kw)
+        if "mesh" in kw:
+            with pytest.raises(TypeError, match="ServingMesh"):
+                tm.MoESlotServer(tp, tcfg, n_slots=2, max_len=8,
+                                 device="cpu", **kw)
+        else:
+            srv = tm.MoESlotServer(tp, tcfg, n_slots=2, max_len=8,
+                                   device="cpu", **kw)
+            assert srv.mesh is None
 
     @pytest.mark.parametrize("routing", ["a2a", "dropless", "expert_choice"])
     def test_routings(self, routing):

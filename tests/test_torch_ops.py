@@ -423,7 +423,9 @@ class TestPortBoundary:
                     "parallel/ulysses.py", "tools/finetune_serve.py",
                     "parallel/mesh.py", "models/training.py",
                     "models/pipeline.py", "models/moe_pipeline.py",
-                    "models/resnet.py", "tools/saturation.py"):
+                    "models/resnet.py", "tools/saturation.py",
+                    "parallel/sharding.py", "parallel/control.py",
+                    "tools/multichip.py", "tools/tp_drift.py"):
             assert os.path.join("tpushare_torch", mod) in names
         assert bad == []
 

@@ -520,7 +520,11 @@ class TestRefusals:
         ({"mesh": object()}, "A10"),
     ])
     def test_unported_options(self, kw, item):
-        with pytest.raises(NotImplementedError, match=item):
+        """A mesh is ported (ROADMAP ``item``, A10a; its parity:
+        tests/test_torch_sharded_serving.py): it must be a bound
+        ServingMesh."""
+        assert item == "A10"
+        with pytest.raises(TypeError, match="ServingMesh"):
             _small_server(**kw)
 
     def test_stochastic_speculation_refuses(self):

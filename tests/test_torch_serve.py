@@ -501,8 +501,11 @@ def test_build_engine_same_system_exit(argv):
 
 
 def test_unported_flags_name_their_roadmap_item():
-    for argv, item in ((["--mesh", "tp=2"], "A10"),
-                       (["--process-view", "2"], "A10")):
+    """--mesh is ported (its parity: tests/test_torch_mesh.py and
+    tests/test_torch_sharded_serving.py); a mesh's degrade-replay-grow
+    budget and process views name ROADMAP A10b."""
+    for argv, item in ((["--mesh", "tp=2", "--max-reshards", "3"], "A10b"),
+                       (["--process-view", "2"], "A10b")):
         args = tserve.build_parser().parse_args(argv + ["--device", "cpu"])
         with pytest.raises(NotImplementedError, match=item):
             tserve.build_engine(args)

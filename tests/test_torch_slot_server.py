@@ -199,8 +199,12 @@ class TestTickContract:
 class TestRefusals:
     @pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A10")])
     def test_unported_options(self, kw, item):
+        """A mesh is ported (ROADMAP ``item``, A10a; its parity:
+        tests/test_torch_sharded_serving.py): it must be a bound
+        ServingMesh."""
+        assert item == "A10"
         _, _, tcfg, tp = _pair("tiny")
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(TypeError, match="ServingMesh"):
             tserving.SlotServer(tp, tcfg, n_slots=2, max_len=8,
                                 device="cpu", **kw)
 

@@ -311,8 +311,16 @@ class TestRefusals:
         ({"fsdp": 2, "tp": 2}, "ROADMAP A10"),
         ({"pp": 2, "ep": 2}, "ROADMAP A10")])
     def test_make_mesh_refuses_axes_it_does_not_carry(self, sizes, match):
-        with pytest.raises(NotImplementedError, match=match):
-            tmesh.make_mesh(sizes)
+        """make_mesh carries tp and ep since sharded serving (ROADMAP
+        A10a); the training steps refuse a mesh with either above 1,
+        naming training under tp / ep."""
+        n = int(np.prod(list(sizes.values())))
+        mesh = tmesh.ServingMesh(sizes, ["cpu"] * n)
+        cfg = tt.tiny()
+        for factory in (ttr.make_spmd_train_step,
+                        ttr.make_adamw_spmd_train_step):
+            with pytest.raises(NotImplementedError, match=match):
+                factory(cfg, mesh)
 
     def test_make_mesh_rejects_unknown_axes(self):
         with pytest.raises(ValueError, match="unknown mesh axes"):

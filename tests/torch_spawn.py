@@ -462,3 +462,329 @@ def moe_pp_worker(rank, world, inp, cases, mesh_sizes, M, lr, wd):
         out.update(flatten(_gather_stages(params, mesh, P),
                            f"{name}/adamw/"))
     return out
+
+
+# -- sharded serving (tests/test_torch_sharded_serving.py) -------------------
+
+def _json_out(obj):
+    import json
+    return np.array(json.dumps(obj))
+
+
+def _drive(srv, long_prompt, vocab, ticks=8, chunk=8):
+    """test_sharded_serving.py's ``_drive``: one decode stream and one
+    chunk-admitted long prompt riding fused ticks; every emitted token
+    in schedule order."""
+    p0 = np.random.default_rng(1).integers(0, vocab, 6)
+    s0 = srv.admit(p0)
+    streams = {s0: [int(srv.last_token[s0, 0])]}
+    a = srv.admit_start(long_prompt, chunk_tokens=chunk)
+    admitted = []
+    for _ in range(ticks):
+        if a is not None:
+            out = srv.step(prefill_work=a)
+            if a in out:
+                admitted.append(out.pop(a))
+                a = None
+        else:
+            out = srv.step()
+        for s, t in out.items():
+            streams.setdefault(s, []).extend(t if isinstance(t, list)
+                                             else [t])
+    assert a is None, "admission never completed"
+    return {str(k): v for k, v in streams.items()}, admitted
+
+
+def _fused_vs_serial(mk, lp, vocab):
+    """test_sharded_serving.py's fused-vs-serial schedule on one
+    server: (admitted, streams)."""
+    srv = mk()
+    p0 = np.random.default_rng(1).integers(0, vocab, 6)
+    out = {}
+    for fused in (True, False):
+        srv = mk()
+        s0 = srv.admit(p0)
+        streams = {s0: [int(srv.last_token[s0, 0])]}
+        a = srv.admit_start(lp, chunk_tokens=8)
+        admitted = []
+        for _ in range(8):
+            if a is not None and fused:
+                o = srv.step(prefill_work=a)
+                if a in o:
+                    admitted.append(o.pop(a))
+                    a = None
+            else:
+                if a is not None:
+                    tok = srv.admit_step(a)
+                    if tok is not None:
+                        admitted.append(tok)
+                        a = None
+                o = srv.step()
+            for s, t in o.items():
+                streams.setdefault(s, []).append(t)
+        out["fused" if fused else "serial"] = (
+            admitted, {str(k): v for k, v in streams.items()})
+    return out
+
+
+def _prompt(seed, n, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, n)
+
+
+def _gathered(obj):
+    """Every rank's ``obj`` (gathered over the default group)."""
+    box = [None] * dist.get_world_size()
+    dist.all_gather_object(box, obj)
+    return box
+
+
+def sharded_serving_worker(rank, world, inp, sizes, families, extra):
+    """The port's sharded slot servers on a ``sizes`` serving mesh: each
+    family in ``families`` driven by ``_drive`` on every rank in
+    lockstep (rank 0's streams, and whether every rank's equal rank
+    0's), and the ``extra`` cases: "fused" (fused vs serial admission),
+    "prefix" (prefix sharing on the mesh), "decoders" (the decoder
+    factories' logits), "routings" (moe.forward under ep x tp per
+    routing), "control" (rank 0 through ShardedServer, the others
+    follow), "engine" (ServeEngine on the mesh over HTTP)."""
+    import json
+    from tpushare_torch.models import moe, quant, serving
+    from tpushare_torch.models import transformer as tt
+    from tpushare_torch.models.paged import PagedSlotServer
+    from tpushare_torch.parallel.mesh import serving_mesh
+    devices = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if dist.get_backend() == "nccl" else ["cpu"] * world)
+    mesh = serving_mesh(sizes, devices=devices).bind()
+    tcfg = tt.TransformerConfig(**json.loads(str(inp["tcfg"])),
+                                dtype=torch.float32)
+    mcfg = moe.MoEConfig(**json.loads(str(inp["mcfg"])),
+                         dtype=torch.float32)
+    tp_ = unflatten(inp, "tf/")
+    mp_ = unflatten(inp, "moe/")
+    mq = unflatten(inp, "moeq/")
+    lp_t = _prompt(7, 21, tcfg.vocab_size)
+    lp_m = _prompt(7, 21, mcfg.vocab_size)
+
+    def fam(name, m):
+        if name == "dense_tp":
+            return serving.SlotServer(tp_, tcfg, n_slots=3, max_len=96,
+                                      mesh=m, device="cpu")
+        if name == "paged_tp":
+            return PagedSlotServer(tp_, tcfg, n_slots=3, n_blocks=64,
+                                   block_size=4, mesh=m, device="cpu")
+        if name in ("paged_spec_tp", "paged_spec_horizon_tp"):
+            return PagedSlotServer(
+                tp_, tcfg, n_slots=3, n_blocks=96, block_size=4,
+                speculative_draft=(tp_, tcfg), gamma=2,
+                spec_horizon=2 if "horizon" in name else 1, mesh=m,
+                device="cpu")
+        if name == "paged_moe_eptp":
+            return PagedSlotServer(mp_, mcfg, n_slots=3, n_blocks=64,
+                                   block_size=4,
+                                   forward_fn=moe.paged_forward, mesh=m,
+                                   device="cpu")
+        if name == "paged_moe_spec_eptp":
+            return PagedSlotServer(
+                mp_, mcfg, n_slots=3, n_blocks=96, block_size=4,
+                forward_fn=moe.paged_forward,
+                speculative_draft=(mq, mcfg), gamma=2,
+                draft_layers_hook=quant.dequant_hook(mcfg), mesh=m,
+                draft_param_specs=(quant.quant_moe_param_specs(mcfg)
+                                   if m is not None else None),
+                device="cpu")
+        if name == "moe_rows_eptp":
+            return moe.MoESlotServer(mp_, mcfg, n_slots=3, max_len=96,
+                                     mesh=m, device="cpu")
+        raise KeyError(name)
+
+    res = {}
+    with torch.inference_mode():
+        for name in families:
+            vocab = (mcfg if "moe" in name else tcfg).vocab_size
+            got = _drive(fam(name, mesh), lp_m if "moe" in name else lp_t,
+                         vocab)
+            res[name] = got
+            res[name + "/ranks_equal"] = all(g == got
+                                             for g in _gathered(got))
+        if "fused" in extra:
+            res["fused"] = _fused_vs_serial(
+                lambda: PagedSlotServer(tp_, tcfg, n_slots=3, n_blocks=64,
+                                        block_size=4, mesh=mesh,
+                                        device="cpu"),
+                _prompt(9, 21, tcfg.vocab_size), tcfg.vocab_size)
+        if "prefix" in extra:
+            srv = PagedSlotServer(mp_, mcfg, n_slots=2, n_blocks=32,
+                                  block_size=4, forward_fn=moe.paged_forward,
+                                  prefix_cache=True, mesh=mesh, device="cpu")
+            prompt = _prompt(13, 13, mcfg.vocab_size)
+            a = srv.admit(prompt)
+            first = int(srv.last_token[a, 0])
+            srv.evict(a)
+            b = srv.admit(prompt)
+            res["prefix"] = [srv.last_cached_len, first,
+                             int(srv.last_token[b, 0]), len(srv.cache.free),
+                             srv.cache.live_blocks()]
+    out = {"res": _json_out(res)}
+    if "decoders" in extra:
+        out.update(_decoder_logits(mesh, tcfg, tp_, mcfg, mp_, inp))
+    if "routings" in extra:
+        out.update(_routing_logits(mesh, mcfg, mp_, inp))
+    if "control" in extra:
+        out["control"] = _json_out(_control_case(mesh, tcfg, tp_, lp_t))
+    if "engine" in extra:
+        out["engine"] = _json_out(_engine_case(mesh, mcfg, mp_))
+    return out
+
+
+def _decoder_logits(mesh, tcfg, tp_, mcfg, mp_, inp):
+    """The decoder factories over ``mesh``: prefill then one ragged
+    decode step into a sharded row cache, and one paged decode step."""
+    from tpushare_torch.models import serving
+    from tpushare_torch.models.transformer import param_specs
+    from tpushare_torch.models.moe import param_specs as moe_specs
+    from tpushare_torch.parallel.sharding import shard_tree
+    out = {}
+    toks = torch.tensor(inp["dec_tokens"])
+    if mesh.sizes["ep"] == 1:
+        pre, dec = serving.make_tp_decoder(tcfg, mesh)
+        p = shard_tree(tp_, param_specs(tcfg), mesh)
+        cache = serving.sharded_cache(tcfg, mesh, toks.shape[0], 32)
+        lg, cache = pre(p, toks, cache)
+        out["tp_prefill"] = _np(lg)
+        lg, cache = dec(p, toks[:, :1], cache, toks.shape[1])
+        out["tp_decode"] = _np(lg)
+        pd = serving.make_tp_paged_decoder(tcfg, mesh, block_size=4)
+        hkv = tcfg.n_kv_heads // mesh.sizes["tp"]
+        pool = torch.tensor(inp["pool"])          # [L, nb, bs, Hkv, Dh]
+        r = mesh.axis_rank("tp")
+        pk = pool[:, :, :, r * hkv:(r + 1) * hkv].contiguous()
+        pv = (pool[:, :, :, r * hkv:(r + 1) * hkv] * 0.5).contiguous()
+        lg, _, _, lens = pd(p, toks[:, :1], pk, pv,
+                            torch.tensor(inp["table"]),
+                            torch.tensor(inp["lengths"]),
+                            torch.ones(toks.shape[0], dtype=torch.bool))
+        out["tp_paged"] = _np(lg)
+        out["tp_paged_lengths"] = _np(lens)
+    else:
+        pre, dec = serving.make_moe_decoder(mcfg, mesh)
+        p = shard_tree(mp_, moe_specs(mcfg), mesh)
+        cache = serving.sharded_cache(mcfg, mesh, toks.shape[0], 32)
+        lg, cache = pre(p, toks, cache)
+        out["moe_prefill"] = _np(lg)
+        lg, cache = dec(p, toks[:, :1], cache, toks.shape[1])
+        out["moe_decode"] = _np(lg)
+    return out
+
+
+def _routing_logits(mesh, mcfg, mp_, inp):
+    """moe.forward under ep x tp for each routing, on this rank's
+    slices (int8 experts through fused_expert_hook for psum)."""
+    import dataclasses
+    from tpushare_torch.models import moe, quant
+    from tpushare_torch.models.transformer import ParallelCtx
+    from tpushare_torch.parallel.sharding import shard_tree
+    toks = torch.tensor(inp["route_tokens"])
+    pctx = ParallelCtx(tp=mesh.axis_group("tp"))
+    ep = mesh.axis_group("ep")
+    out = {}
+    for name, kw in (("psum_dense", {"routing": "psum"}),
+                     ("psum_capacity", {"routing": "psum",
+                                        "capacity_factor": 1.25}),
+                     ("a2a", {"routing": "a2a", "capacity_factor": 1.25}),
+                     ("dropless", {"routing": "dropless"}),
+                     ("expert_choice", {"routing": "expert_choice"})):
+        cfg = dataclasses.replace(mcfg, **kw)
+        p = shard_tree(mp_, moe.param_specs(cfg), mesh)
+        with torch.no_grad():
+            lg, _ = moe.forward(p, toks, cfg, pctx=pctx, ep_axis=ep)
+        out[f"route/{name}"] = _np(lg)
+    q = quant.quantize_params(mp_, mcfg)
+    p = shard_tree(q, quant.quant_moe_param_specs(mcfg), mesh)
+    with torch.no_grad():
+        lg, _ = moe.forward(p, toks, mcfg, pctx=pctx, ep_axis=ep,
+                            layers_hook=quant.fused_expert_hook(mcfg))
+    out["route/psum_q8"] = _np(lg)
+    return out
+
+
+def _control_case(mesh, tcfg, tp_, lp):
+    """Rank 0 drives ``_drive`` (and an admission the pool refuses)
+    through a ShardedServer; the other ranks follow. Returns rank 0's
+    streams, what it caught, and every rank's digest and call count."""
+    from tpushare_torch.models.paged import PagedSlotServer, PoolExhausted
+    from tpushare_torch.parallel.control import ShardedServer, follow
+    import hashlib
+    with torch.inference_mode():
+        srv = PagedSlotServer(tp_, tcfg, n_slots=2, n_blocks=64,
+                              block_size=4, mesh=mesh, device="cpu")
+        if mesh.rank == 0:
+            sh = ShardedServer(srv, mesh, heartbeat_s=0.2)
+            got = _drive(sh, lp, tcfg.vocab_size)
+            time.sleep(0.5)                    # a heartbeat or two
+            caught = None
+            try:
+                sh.admit(_prompt(3, 5, tcfg.vocab_size))
+            except PoolExhausted as e:
+                caught = str(e)
+            sh.stop()
+            mine = {"streams": got, "caught": caught,
+                    "digest": sh.digest.hexdigest(), "calls": None,
+                    "broadcasts": sh.broadcasts}
+        else:
+            h = hashlib.sha256()
+            n = follow(srv, mesh, digest=h)
+            mine = {"digest": h.hexdigest(), "calls": n}
+    return _gathered(mine)
+
+
+def _engine_case(mesh, mcfg, mp_):
+    """ServeEngine on the mesh, the reference's TestShardedEngine
+    schedule driven by ``_loop_once`` on rank 0, then one request over
+    HTTP; the other ranks follow. Rank 0's tokens and /stats."""
+    import json
+    import urllib.request
+    from tpushare_torch.cli import serve as serve_mod
+    eng = serve_mod.ServeEngine(
+        mp_, mcfg, model_family="moe", kv="paged", n_slots=4,
+        n_blocks=128, block_size=4, idle_sleep_s=0.0, prefill_chunk=8,
+        mesh=mesh, device="cpu")
+    if mesh.rank > 0:
+        n = eng.follow()
+        return _gathered({"calls": n, "digest": eng.stats()["mesh_digest"]})
+    prompts = [[5, 9, 12, 3], list(range(40, 70)), [9, 9, 2]]
+    reqs = [serve_mod._Request(list(p), 5, None) for p in prompts]
+    with eng._on_device():
+        for r in reqs:
+            assert eng.submit(r)
+        for _ in range(400):
+            if all(r.done.is_set() for r in reqs):
+                break
+            eng._loop_once()
+    httpd = serve_mod.serve(eng, port=0)
+    port = httpd.server_address[1]
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions",
+        data=json.dumps({"prompt": [7, 7, 3], "max_tokens": 5}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        http_tokens = json.loads(resp.read())["tokens"]
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                timeout=60) as resp:
+        stats = json.loads(resp.read())
+    chip = urllib.request.Request(
+        f"http://127.0.0.1:{port}/mesh/chip",
+        data=json.dumps({"device": 1, "healthy": False}).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        urllib.request.urlopen(chip, timeout=60)
+        chip_status = 200
+    except urllib.error.HTTPError as e:
+        chip_status = (e.code, json.loads(e.read())["error"])
+    httpd.shutdown()
+    httpd.server_close()
+    eng.stop()
+    return _gathered({"tokens": [r.tokens for r in reqs],
+                      "errors": [r.error for r in reqs],
+                      "http_tokens": http_tokens, "stats": stats,
+                      "chip": chip_status})

@@ -47,8 +47,10 @@ API (token ids in, token ids out — tokenization is the caller's):
   GET /stats            -> slots / pool / prefix-cache / recovery counters
   POST /drain, /undrain -> stop / resume accepting new work
   POST /mesh/chip       -> an unsharded engine's chip IS its whole
-                           domain: unhealthy drains, healthy undrains
-  POST /mesh/host       -> 400: no process-aware mesh (ROADMAP A10)
+                           domain: unhealthy drains, healthy undrains;
+                           a sharded engine answers 400 (degrade-
+                           replay-grow is ROADMAP A10b)
+  POST /mesh/host       -> 400: no process-aware mesh (ROADMAP A10b)
   GET /kv/blocks?keys=<hex>,<hex>
                         -> raw KV block payloads by chain digest (the
                            migration source): {"block_size": bs,
@@ -85,8 +87,18 @@ never touch pool tensors or the tier's host slots being written: the
 device-resident part of /kv/blocks and every landing run on the engine
 thread between ticks (``_engine_call``).
 
-Not in the port yet, each refused naming its ROADMAP item: meshes,
-process views, reshard checkpoints and gangs (A10).
+Sharded serving (``--mesh tp=2``, ``ServeEngine(mesh=)``): one process
+per rank of a ``parallel.mesh.ServingMesh``, each holding its slices of
+the weights and KV. Rank 0 runs this engine and its HTTP surface; its
+slot server broadcasts every state-changing call to the other ranks
+(``parallel/control.py``), which run the same server under
+``--rank N`` and replay the calls (``ServeEngine.follow``). Every
+process is given ``--dist-init tcp://localhost:<port>``. ``/stats``
+names the mesh's shape, its card count and the collectives' transport.
+
+Not in the port yet, each refused naming its ROADMAP item (A10b):
+degrade-replay-grow on a mesh (chip events, ``--max-reshards`` above 0,
+``--reshard-checkpoint``), process views and gangs.
 """
 
 from __future__ import annotations
@@ -118,7 +130,12 @@ from tpushare_torch.slo import (DEFAULT_TIER, KvQuota, TickScheduler,
                                 tier_rank)
 from tpushare_torch.utils import ownership as _ownership
 
-TODO_MESH = "ROADMAP A10 (multi-GPU serving)"
+TODO_MESH = "ROADMAP A10b (reshard, process axis, gangs)"
+
+def _mesh_axes(mesh):
+    from tpushare_torch.models.serving import mesh_axes
+    return mesh_axes(mesh)
+
 
 # How long stop() waits, in all, for the threads an engine started: a
 # tick is tens to hundreds of ms, so a thread alive after this is wedged.
@@ -462,12 +479,17 @@ class ServeEngine:
                  host_kv_bytes: int = 0,
                  num_processes: int = 1,
                  gang=None,
+                 max_reshards: int = 0,
                  device=None):
+        if reshard_checkpoint is not None and mesh is None:
+            raise ValueError("reshard_checkpoint needs a mesh (an "
+                             "unsharded engine has no mesh failure "
+                             "domain)")
         for name, val, todo in (
-                ("mesh", mesh, TODO_MESH),
-                ("param_specs", param_specs, TODO_MESH),
-                ("draft_param_specs", draft_param_specs, TODO_MESH),
                 ("reshard_checkpoint", reshard_checkpoint, TODO_MESH),
+                ("max_reshards > 0 on a mesh",
+                 (mesh is not None and max_reshards > 0) or None,
+                 TODO_MESH),
                 ("num_processes > 1", num_processes > 1 or None, TODO_MESH),
                 ("gang", gang, TODO_MESH)):
             if val is not None:
@@ -489,9 +511,17 @@ class ServeEngine:
                 f"round would emit past this budget and breach the "
                 f"per-tick bound it promises. Raise the budget or "
                 f"lower --gamma/--spec-horizon")
+        if mesh is not None and host_kv_bytes:
+            raise ValueError(
+                "host_kv_bytes does not compose with mesh sharding yet "
+                "(a sharded pool's block rows are split across ranks; "
+                "the host copy/restore contract here is single-device "
+                "— documented seam, like kv_quant-on-mesh)")
         # Resolved first, so a missing card fails before any weights or
-        # pools are placed.
-        self.device = resolve_device(device)
+        # pools are placed. On a mesh: this rank's card.
+        self._mesh = mesh
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         # Per-tenant KV-block quotas (slo.quota) layer on the paged
         # pool's counters; dense KV rows have no block pool to meter, so
         # quotas there are a loud error, not a silent no-op.
@@ -523,7 +553,8 @@ class ServeEngine:
                 spec_horizon=spec_horizon,
                 draft_layers_hook=draft_layers_hook,
                 forward_fn=paged_forward, kv_quota=self._kv_quota,
-                device=dev)
+                mesh=mesh, param_specs=param_specs,
+                draft_param_specs=draft_param_specs, device=dev)
         elif model_family == "moe":
             unsupported = {
                 "kv_quant": kv_quant,
@@ -547,7 +578,9 @@ class ServeEngine:
                 prefix_cache=use_prefix,
                 speculative_draft=speculative_draft, gamma=gamma,
                 spec_horizon=spec_horizon,
-                draft_layers_hook=draft_layers_hook, device=dev))
+                draft_layers_hook=draft_layers_hook, mesh=mesh,
+                param_specs=param_specs,
+                draft_param_specs=draft_param_specs, device=dev))
         elif model_family != "dense":
             raise ValueError(f"unknown model_family {model_family!r}")
         else:
@@ -567,7 +600,14 @@ class ServeEngine:
                 speculative_draft=speculative_draft, gamma=gamma,
                 spec_horizon=spec_horizon,
                 draft_layers_hook=draft_layers_hook,
-                kv_quota=self._kv_quota, device=dev)
+                kv_quota=self._kv_quota, mesh=mesh,
+                param_specs=param_specs,
+                draft_param_specs=draft_param_specs, device=dev)
+        if mesh is not None and mesh.size > 1 and mesh.rank == 0:
+            # Rank 0 takes the requests: every state-changing server
+            # call reaches the other ranks first (parallel/control.py).
+            from tpushare_torch.parallel.control import ShardedServer
+            self.srv = ShardedServer(self.srv, mesh)
         self.model_family = model_family
         self._has_pool = not isinstance(self.srv.cache,
                                         _DenseRowCacheStats)
@@ -620,8 +660,9 @@ class ServeEngine:
                        "engine_restarts": 0, "deadline_breaches": 0,
                        "evict_errors": 0,
                        # Mesh and host failure domains: always zero in
-                       # the port (no mesh; ROADMAP A10), kept so the
-                       # key set matches the reference engine's.
+                       # the port (no degrade-replay-grow; ROADMAP
+                       # A10b), kept so the key set matches the
+                       # reference engine's.
                        "reshards": 0, "grow_backs": 0,
                        "replayed_on_reshard": 0,
                        "host_losses": 0, "host_rejoins": 0,
@@ -1139,11 +1180,15 @@ class ServeEngine:
 
     def chip_event(self, device: int, healthy: bool) -> Dict[str, Any]:
         """One chip changed health (POST /mesh/chip — the plugin's
-        per-chip churn hook, an operator, or a test). The port's engine
-        is unsharded: its one card IS its whole failure domain, so chip
-        loss drains the daemon and recovery undrains (the reference's
-        unsharded behaviour; the mesh domain waits for ROADMAP A10)."""
+        per-chip churn hook, an operator, or a test). An unsharded
+        engine's one card IS its whole failure domain, so chip loss
+        drains the daemon and recovery undrains (the reference's
+        unsharded behaviour). A sharded engine refuses: degrade-replay-
+        grow across ranks is ROADMAP A10b."""
         del device
+        if self._mesh is not None:
+            raise ValueError(f"chip events on a mesh (degrade, replay, "
+                             f"grow back): {TODO_MESH}")
         if healthy:
             self.end_drain()
         else:
@@ -1152,12 +1197,32 @@ class ServeEngine:
                 "state": self.state()}
 
     def host_event(self, rank: int, healthy: bool) -> Dict[str, Any]:
-        """Whole-host health churn needs a process-aware mesh, which the
-        port does not have (ROADMAP A10): refused like the reference's
-        unsharded engine refuses it (POST /mesh/host answers 400)."""
+        """Whole-host health churn needs a process-aware mesh (ROADMAP
+        A10b): refused as the reference's unsharded engine refuses it
+        (POST /mesh/host answers 400)."""
         raise ValueError(
-            "host_event needs a process-aware mesh (construct "
-            "the engine with mesh= and num_processes=)")
+            f"host_event needs a process-aware mesh (construct the "
+            f"engine with mesh= and num_processes=): {TODO_MESH}")
+
+    def follow(self) -> int:
+        """A follower rank's loop: replay rank 0's server calls on this
+        rank's server until rank 0 stops (``parallel.control.follow``).
+        Returns the calls replayed."""
+        from tpushare_torch.parallel.control import follow
+        if self._mesh is None or self._mesh.rank in (None, 0):
+            raise ValueError("follow() runs on a mesh rank above 0")
+        import hashlib
+        self._follow_digest = hashlib.sha256()
+        with self._on_device():
+            return follow(self.srv, self._mesh, digest=self._follow_digest,
+                          log=lambda m: print(m, file=sys.stderr,
+                                              flush=True))
+
+    def _stop_followers(self) -> None:
+        """Rank 0: tell the other ranks to stop (once)."""
+        stop = getattr(self.srv, "stop", None)
+        if stop is not None and self._mesh is not None:
+            stop()
 
     def start(self) -> None:
         self._started = True
@@ -1271,6 +1336,7 @@ class ServeEngine:
         if not self._started:               # never started: nothing to
             with self._on_device():         # join, just drain
                 self._fail_all("server shutting down")
+            self._stop_followers()
             self._close_journal()
             return
         timeout_s = STOP_JOIN_S
@@ -1301,6 +1367,7 @@ class ServeEngine:
         self._flush_pipeline()
         with self._on_device():
             self._fail_all("server shutting down")
+        self._stop_followers()
         self._close_journal()
 
     def live_threads(self) -> List[str]:
@@ -1675,16 +1742,23 @@ class ServeEngine:
             "forwards_per_tick": (
                 round(out["model_forwards"] / out["work_ticks"], 3)
                 if out["work_ticks"] else None),
-            # Mesh observability: the port's engine is unsharded
-            # (ROADMAP A10), so these carry the reference's unsharded
-            # values: null shapes and health, one device.
-            "mesh_shape": None,
-            "num_devices": 1,
-            "mesh_shape_configured": None,
-            "mesh_shape_current": None,
-            "num_devices_configured": 1,
-            "healthy_devices": None,
-            "degraded": None,
+            # Mesh observability, with the reference's values and nulls:
+            # mesh_shape elides 1-sized axes ({} = a one-rank mesh,
+            # null = unsharded); the configured shape is the current
+            # one (no degrade-replay-grow yet, ROADMAP A10b), every
+            # rank healthy. mesh_transport names the collectives'
+            # transport (gloo over shared cards stages through the
+            # host: not a tensor-parallel measurement).
+            "mesh_shape": _mesh_axes(self._mesh),
+            "num_devices": (self._mesh.size if self._mesh is not None
+                            else 1),
+            "mesh_shape_configured": _mesh_axes(self._mesh),
+            "mesh_shape_current": _mesh_axes(self._mesh),
+            "num_devices_configured": (self._mesh.size
+                                       if self._mesh is not None else 1),
+            "healthy_devices": (self._mesh.size
+                                if self._mesh is not None else None),
+            "degraded": False if self._mesh is not None else None,
             "reshard_ms": None,
             # device_fetches counts the device->host transfers made
             # INSIDE work ticks (deltas of the server's raw counter
@@ -1780,6 +1854,20 @@ class ServeEngine:
                 "mean_tokens_per_round": round(
                     out["tokens_out"] / max(1, out["slot_rounds"]), 3),
             }
+        if self._mesh is not None:
+            # A sharded engine's own keys (an unsharded engine keeps
+            # the reference's key set): the cards its ranks run on and
+            # the collectives' transport.
+            out["mesh_cards"] = self._mesh.n_cards
+            out["mesh_transport"] = self._mesh.describe()
+            out["mesh_broadcasts"] = getattr(srv, "broadcasts", None)
+            # The digest of every server call's result on this rank
+            # (rank 0's broadcaster or a follower's replay): equal on
+            # every rank when their streams are.
+            dig = getattr(srv, "digest", None) or getattr(
+                self, "_follow_digest", None)
+            out["mesh_digest"] = (dig.hexdigest() if dig is not None
+                                  else None)
         return out
 
     # -- engine side -------------------------------------------------
@@ -3043,8 +3131,8 @@ def make_handler(engine: ServeEngine, timeout_s: float):
                 return
             if self.path == "/mesh/host":
                 # Whole-host health churn: only process-aware engines
-                # (a mesh, ROADMAP A10) accept it — the port's engine
-                # answers 400, there is no host domain to churn.
+                # (ROADMAP A10b) accept it — the port's engine answers
+                # 400, there is no host domain to churn.
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     body = json.loads(self.rfile.read(n) or b"{}")
@@ -3268,8 +3356,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "expert kernel (ops/q8_expert); 'dequant' "
                          "widens each layer's leaves (quant.dequant_hook)")
     ap.add_argument("--mesh", default="",
-                    help=f"device mesh spec, e.g. 'tp=2': "
-                         f"{TODO_MESH}")
+                    help="serving mesh spec over the granted cards, "
+                         "e.g. 'tp=2' or 'ep=2,tp=2' (-1 absorbs the "
+                         "rest): one process per rank, each started "
+                         "with --rank and --dist-init; ranks above 0 "
+                         "follow rank 0's server")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="this process's rank on --mesh (0 serves "
+                         "HTTP; the others replay its server calls)")
+    ap.add_argument("--dist-init", default="",
+                    help="torch.distributed init method every rank of "
+                         "--mesh meets at, e.g. tcp://localhost:29511")
     ap.add_argument("--process-view", type=int, default=0,
                     metavar="N",
                     help=f"logical process ranks over a mesh: "
@@ -3369,8 +3466,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="engine-thread restarts (with backoff) the "
                          "loop supervisor attempts before /healthz "
                          "goes red")
-    ap.add_argument("--max-reshards", type=int, default=3,
-                    help=f"mesh-shrink budget: {TODO_MESH}")
+    ap.add_argument("--max-reshards", type=int, default=0,
+                    help=f"mesh-shrink budget (above 0: "
+                         f"{TODO_MESH})")
     ap.add_argument("--reshard-checkpoint", default=None,
                     help=f"reshard weight source (requires --mesh): "
                          f"{TODO_MESH}")
@@ -3410,10 +3508,19 @@ def build_parser() -> argparse.ArgumentParser:
 def main() -> int:
     args = build_parser().parse_args()
     engine = build_engine(args)
+    if args.mesh and args.rank > 0:
+        # A follower rank: no HTTP surface, replay rank 0's calls.
+        print(f"tpushare-torch-serve rank {args.rank} following "
+              f"(mesh {args.mesh}, {engine.device})", flush=True)
+        n = engine.follow()
+        print(f"tpushare-torch-serve rank {args.rank}: rank 0 stopped "
+              f"after {n} calls", flush=True)
+        return 0
     httpd = serve(engine, args.host, args.port, daemon_threads=False)
     print(f"tpushare-torch-serve on {args.host}:{httpd.server_address[1]} "
           f"({args.model_family}/{args.preset}, {args.n_slots} slots, "
-          f"{engine.device})", flush=True)
+          f"{engine.device}"
+          f"{', mesh ' + args.mesh if args.mesh else ''})", flush=True)
 
     # SIGTERM (the kubelet's preemption signal) drains: refuse new
     # work, finish accepted requests within the pod's grace period,
@@ -3509,11 +3616,19 @@ def build_engine(args, **engine_kw) -> ServeEngine:
                          "--mesh (an unsharded engine has no mesh "
                          "failure domain)")
     for flag, val, todo in (
-            ("--mesh", args.mesh, TODO_MESH),
             ("--process-view", getattr(args, "process_view", 0) > 1,
+             TODO_MESH),
+            ("--reshard-checkpoint",
+             getattr(args, "reshard_checkpoint", None), TODO_MESH),
+            ("--max-reshards above 0 on a mesh",
+             args.mesh and getattr(args, "max_reshards", 0) > 0,
              TODO_MESH)):
         if val:
             raise NotImplementedError(f"{flag}: {todo}")
+    mesh = None
+    if args.mesh:
+        mesh = _cli_mesh(args, device)
+        device = mesh.device
     common = dict(
         n_slots=args.n_slots, n_blocks=args.n_blocks or 256,
         block_size=args.block_size or 16,
@@ -3534,7 +3649,7 @@ def build_engine(args, **engine_kw) -> ServeEngine:
         tick_wedge_ms=(getattr(args, "tick_wedge_ms", 0) or None),
         overlap_tick=(getattr(args, "overlap_tick", "on") == "on"),
         host_kv_bytes=getattr(args, "host_kv_bytes", 0),
-        device=device, **engine_kw)
+        device=device, mesh=mesh, **engine_kw)
     if args.model_family == "moe":
         from tpushare_torch.models import moe, quant
         moe_kv = args.kv or "rows"
@@ -3587,10 +3702,16 @@ def build_engine(args, **engine_kw) -> ServeEngine:
             mhook = (quant.dequant_hook(cfg)
                      if args.int8_expert_hook == "dequant"
                      else quant.fused_expert_hook(cfg))
-        return ServeEngine(params, cfg, model_family="moe", kv=moe_kv,
-                           max_len=args.max_len or 2048,
-                           layers_hook=mhook, speculative_draft=mspec,
-                           draft_layers_hook=mdhook, **common)
+        if args.int8_experts and mesh is not None:
+            common["param_specs"] = quant.quant_moe_param_specs(cfg)
+        if mspec is not None and mesh is not None:
+            common["draft_param_specs"] = quant.quant_moe_param_specs(cfg)
+        eng = ServeEngine(params, cfg, model_family="moe", kv=moe_kv,
+                          max_len=args.max_len or 2048, layers_hook=mhook,
+                          speculative_draft=mspec, draft_layers_hook=mdhook,
+                          **common)
+        del params, mspec
+        return _release_whole(eng)
     if args.int8_experts:
         raise SystemExit("--int8-experts is a moe flag; dense int8 "
                          "weights load via the API (quantize_params "
@@ -3618,9 +3739,56 @@ def build_engine(args, **engine_kw) -> ServeEngine:
         dcfg = {"tiny": tt.tiny, "gemma_2b": tt.gemma_2b}[
             args.draft_preset]()
         spec = (tt.init_params(args.seed + 1, dcfg, device=device), dcfg)
-    return ServeEngine(params, cfg, kv_quant=args.kv_quant,
-                       speculative_draft=spec, draft_layers_hook=hook,
-                       **common)
+    if args.draft_preset == "int8-self" and mesh is not None:
+        common["draft_param_specs"] = quant.quant_param_specs(cfg)
+    eng = ServeEngine(params, cfg, kv_quant=args.kv_quant,
+                      speculative_draft=spec, draft_layers_hook=hook,
+                      **common)
+    del params, spec
+    return _release_whole(eng)
+
+
+def _cli_mesh(args, device):
+    """--mesh/--rank/--dist-init -> a bound ServingMesh (SystemExit
+    with the reference's texts on a bad spec). On the CPU (--device
+    cpu) the ranks share the host; otherwise they mesh over the granted
+    cards."""
+    from tpushare_torch.parallel.mesh import parse_mesh_spec, serving_mesh
+    from tpushare_torch.utils.tenant import AllocationError
+    try:
+        sizes = parse_mesh_spec(args.mesh)
+        if args.model_family != "moe" and sizes.get("ep", 1) != 1:
+            raise ValueError(
+                "ep is expert parallelism (--model-family moe); "
+                "the dense family shards over tp")
+        mesh = serving_mesh(sizes, devices=(
+            [device] if device.type == "cpu" else None))
+    except ValueError as e:
+        raise SystemExit(
+            f"--mesh {args.mesh!r}: {e} (CPU testing recipe: --device "
+            f"cpu runs every rank on the host over gloo)")
+    except AllocationError as e:
+        raise SystemExit(f"--mesh {args.mesh!r}: {e}")
+    if mesh.size > 1 and not args.dist_init:
+        raise SystemExit(
+            f"--mesh {args.mesh!r} has {mesh.size} ranks: start one "
+            f"process per rank, each with --rank and the same "
+            f"--dist-init tcp://localhost:<port>")
+    if not 0 <= args.rank < mesh.size:
+        raise SystemExit(f"--rank {args.rank} is outside the "
+                         f"{mesh.size}-rank mesh")
+    return mesh.bind(rank=args.rank, init_method=args.dist_init or None)
+
+
+def _release_whole(engine: ServeEngine) -> ServeEngine:
+    """A sharded engine kept only its slices: once the caller has
+    dropped the whole tree, hand its cached blocks back to the card,
+    which other ranks may share."""
+    if engine._mesh is not None and engine.device.type == "cuda":
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    return engine
 
 
 if __name__ == "__main__":

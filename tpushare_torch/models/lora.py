@@ -20,21 +20,22 @@ made (the reference differentiates ``argnums=1``). The update is the
 shared SGD rule (``training._sgd_update``: f32 math, each leaf keeps its
 dtype), in place on the adapter tree.
 
-Left out, raising ``NotImplementedError`` naming its ROADMAP item:
-``lora_param_specs`` (sharded placement).
+``lora_param_specs`` places an adapter tree on a serving mesh (the
+Megatron split of its targets); a multi-LoRA bank on a mesh is refused
+by the slot servers, as in the reference.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from tpushare_torch.models.training import (_sgd_update, value_and_grad,
                                             xent_loss)
-from tpushare_torch.models.transformer import TODO_MESH, TransformerConfig
+from tpushare_torch.models.transformer import TransformerConfig
 
 # Every linear the layer stack carries. (wq, wv) is the classic
 # attention-only default; MLP targets are there for full-layer LoRA.
@@ -150,8 +151,26 @@ def bank_size(bank: Dict[str, Any]) -> int:
     return int(first["a"].shape[1])
 
 
-def lora_param_specs(*a, **kw):
-    raise NotImplementedError(f"lora_param_specs: {TODO_MESH}")
+def lora_param_specs(cfg: TransformerConfig,
+                     targets: Tuple[str, ...] = DEFAULT_TARGETS,
+                     *, tp: str = "tp",
+                     fsdp: Optional[str] = None) -> Dict[str, Any]:
+    """Spec tree of an adapter tree (reference ``:155-171``), matching
+    ``transformer.param_specs``' Megatron layout: column-parallel
+    targets split B's out axis over tp (A replicated like the base's
+    d_model axis); row-parallel targets (wo, w_down) split A's in axis
+    over tp. The rank axis is never split. A multi-LoRA bank on a mesh
+    stays refused, as the reference refuses it."""
+    del cfg
+    from tpushare_torch.parallel.sharding import P
+    col = {"wq", "wk", "wv", "w_gate", "w_up"}
+    specs: Dict[str, Any] = {}
+    for name in targets:
+        if name in col:
+            specs[name] = {"a": P(None, fsdp, None), "b": P(None, None, tp)}
+        else:                                   # wo, w_down: row-parallel
+            specs[name] = {"a": P(None, tp, None), "b": P(None, None, fsdp)}
+    return specs
 
 
 def lora_loss(base: Dict[str, Any], adapters: Dict[str, Any],

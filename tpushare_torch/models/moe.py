@@ -31,9 +31,17 @@ per tick or round, evict, and per-slot speculation through
 row cache). Int8 expert trees served with ``quant.fused_expert_hook
 (cfg)`` run their expert products through the hand-written kernel
 (``ops/q8_expert.py``); dropless widens them in-graph, warning once.
-Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
-``ep_axis``, ``pctx.tp`` and meshes with ep or tp above 1 (a2a over an
-ep axis among them).
+Serving over ep x tp (reference ``moe.py:144-164, 287-424, 554``):
+``param_specs`` puts the experts over ep and each expert's hidden axis
+over tp (the router and embeddings replicated; attention as the dense
+model's). ``forward(ep_axis=<group>, pctx=ParallelCtx(tp=<group>))``
+runs this rank's experts: every routing computes its local experts'
+part of the combine, reduces the expert products over tp and the
+combined output over ep; ``"a2a"`` ships the per-expert queues to the
+experts' owners with ``all_to_all_single`` over ep and back, with the
+tp reduction between. ``MoESlotServer(mesh=)`` serves over such a
+``ServingMesh``. Training under ep or tp raises, naming its ROADMAP
+item.
 
 Dense-row decode attends through ``mha_reference`` with the ragged mask,
 exactly as the reference does (its masked read never reaches a flash
@@ -59,13 +67,15 @@ from tpushare_torch.models.generate import sample_logits
 from tpushare_torch.models.quant import dequant_expert_leaves
 from tpushare_torch.models.serving import (PendingStep, SlotServer,
                                            bucket_len, fused_chunk_span,
-                                           fused_token_batch, pad_tokens,
-                                           prompt_host, prompt_tensor)
+                                           fused_token_batch, make_placement,
+                                           pad_tokens, prompt_host,
+                                           prompt_tensor)
 from tpushare_torch.models.spec import SpecDecodeMixin
 from tpushare_torch.models import training as _training
 from tpushare_torch.models.training import adamw_init
-from tpushare_torch.models.transformer import (TODO_MESH, ParallelCtx, _act,
-                                               _paged_attn, drop_write)
+from tpushare_torch.models.transformer import (TODO_TRAIN_TP, ParallelCtx,
+                                               _act, _paged_attn, drop_write,
+                                               tp_all_reduce, tp_matmul)
 from tpushare_torch.ops.attention import attention
 from tpushare_torch.ops.norms import rms_norm
 from tpushare_torch.ops.q8_expert import q8_expert_dispatch
@@ -168,12 +178,45 @@ def init_params(gen, cfg: MoEConfig, *,
     return out
 
 
+def param_specs(cfg: MoEConfig, *, tp: str = "tp",
+                ep: str = "ep") -> Dict[str, Any]:
+    """Spec tree matching ``init_params`` (reference ``:144-164``):
+    experts over ep, each expert's hidden axis over tp, attention like
+    the dense model; the router is replicated (every rank routes every
+    token, so routing decisions agree)."""
+    from tpushare_torch.parallel.sharding import P
+    specs = {
+        "embed": P(None, None),
+        "layers": {
+            "ln1": P(None, None), "ln2": P(None, None),
+            "wq": P(None, None, tp), "wk": P(None, None, tp),
+            "wv": P(None, None, tp), "wo": P(None, tp, None),
+            "router": P(None, None, None),
+            "w_gate": P(None, ep, None, tp),
+            "w_up": P(None, ep, None, tp),
+            "w_down": P(None, ep, tp, None),
+        },
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(None, None)
+    return specs
+
+
+def _local_experts(layer: Dict[str, torch.Tensor]) -> int:
+    """Experts on this ep rank, off the (full or int8) expert stack."""
+    return layer.get("w_gate", layer.get("w_gate#q8")).shape[0]
+
+
 def init_cache(cfg: MoEConfig, batch: int, max_len: int, *,
+               n_kv_heads: Optional[int] = None,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Dense KV rows {"k", "v"} [L, B, max_len, Hkv, Dh] (the
-    transformer's row layout; routing keeps no decode state)."""
+    transformer's row layout; routing keeps no decode state).
+    ``n_kv_heads`` overrides the head count for tp-local rows."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    hkv = cfg.n_kv_heads if n_kv_heads is None else n_kv_heads
+    shape = (cfg.n_layers, batch, max_len, hkv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
@@ -257,31 +300,105 @@ def _q8_routing_warn(routing: str) -> None:
         f"this dispatch", RuntimeWarning, stacklevel=3)
 
 
+def _ep_sum_dtype(y: torch.Tensor, ep) -> torch.dtype:
+    """The accumulator of a combined output: under ep, f32, so the ep
+    sum rounds once, where one card's scatter-add rounds each of a
+    token's (at most top-k) bf16 contributions into its sum — the same
+    value (f32 holds a sum of two bf16 terms exactly)."""
+    return torch.float32 if ep is not None else y.dtype
+
+
+def _ep_slice(t: torch.Tensor, ep, E_local: int, dim: int = 0
+              ) -> torch.Tensor:
+    """This ep rank's expert block of ``t`` along ``dim`` (all of it
+    without an ep group)."""
+    if ep is None:
+        return t
+    return t.narrow(dim, dist.get_rank(ep) * E_local, E_local)
+
+
 def _grouped_dispatch(h, layer, cfg: MoEConfig, top_w, top_i,
-                      q8: bool, phase_timer=None) -> torch.Tensor:
+                      q8: bool, phase_timer=None, tp=None,
+                      ep=None) -> torch.Tensor:
     """Capacity-bounded grouped expert compute: each expert runs its
-    products on at most C routed tokens; results scatter-add back."""
+    products on at most C routed tokens; results scatter-add back.
+    Under ep each rank runs its own experts' queues; the products
+    reduce over tp, the scattered output over ep."""
     B, S, Dm = h.shape
     E = cfg.n_experts
     T = B * S
     C = expert_capacity(T, cfg)
     pt = phase_timer
     buf, wbuf = _route_buffers(top_w, top_i, T, E, C)
+    E_local = _local_experts(layer)
+    buf, wbuf = _ep_slice(buf, ep, E_local), _ep_slice(wbuf, ep, E_local)
     hc = h.reshape(T, Dm).to(cfg.dtype)
     hpad = torch.cat([hc, hc.new_zeros((1, Dm))], dim=0)
     x_e = hpad[buf]                                    # [E, C, Dm]
     if pt is not None:
         pt.mark("dispatch", block_on=x_e)
-    y_e = (_q8_expert_mlps(x_e.contiguous(), layer, cfg) if q8
-           else _expert_mlps(x_e, layer, cfg))
+    y_e = tp_all_reduce(_q8_expert_mlps(x_e.contiguous(), layer, cfg) if q8
+                        else _expert_mlps(x_e, layer, cfg), tp)
     if pt is not None:
         pt.mark("expert_gemm", block_on=y_e)
     contrib = wbuf[..., None].to(y_e.dtype) * y_e
-    out = y_e.new_zeros((T + 1, Dm))
-    out.index_add_(0, buf.reshape(-1), contrib.reshape(-1, Dm))
+    out = y_e.new_zeros((T + 1, Dm), dtype=_ep_sum_dtype(y_e, ep))
+    out.index_add_(0, buf.reshape(-1), contrib.reshape(-1, Dm).to(out.dtype))
+    out = tp_all_reduce(out[:T].contiguous(), ep).to(y_e.dtype)
     if pt is not None:
         pt.mark("dispatch", block_on=out)
-    return out[:T].reshape(B, S, Dm)
+    return out.reshape(B, S, Dm)
+
+
+def _a2a_dispatch(h, layer, cfg: MoEConfig, top_w, top_i, q8: bool,
+                  tp, ep) -> torch.Tensor:
+    """GShard token routing over the ep group, ep a data axis as in the
+    reference (``:375-424``): this rank routes its own contiguous share
+    of the T tokens (ceil(T / ep) rows; a server hands every ep rank all
+    T) into per-expert queues [E, C], C the capacity of one share (per
+    source rank and expert: drops are decided within a share, in token
+    order, as the reference's). One ``all_to_all_single`` ships each
+    queue to the rank owning its expert, the experts run on [E_local,
+    ep * C] received tokens (their products reduced over tp), a second
+    exchange returns the outputs for the share's scatter-add, and one
+    all-gather over ep hands every rank all T rows. No ep reduction:
+    both top-k contributions of a token come back through its own
+    queues."""
+    B, S, Dm = h.shape
+    E = cfg.n_experts
+    E_local = _local_experts(layer)
+    n_ep = E // E_local
+    T = B * S
+    share = -(-T // n_ep)
+    lo = min(dist.get_rank(ep) * share, T)
+    n = min(lo + share, T) - lo                 # this share's tokens
+    K = top_i.shape[-1]
+    C = expert_capacity(share, cfg)
+    buf, wbuf = _route_buffers(top_w.reshape(T, K)[lo:lo + n],
+                               top_i.reshape(T, K)[lo:lo + n], n, E, C)
+    hc = h.reshape(T, Dm)[lo:lo + n].to(cfg.dtype)
+    hpad = torch.cat([hc, hc.new_zeros((1, Dm))], dim=0)
+    # dim 0 = destination rank; after the exchange dim 0 = source rank.
+    x_send = hpad[buf].reshape(n_ep, E_local, C, Dm).contiguous()
+    x_recv = torch.empty_like(x_send)
+    dist.all_to_all_single(x_recv, x_send, group=ep)
+    xe = x_recv.transpose(0, 1).reshape(E_local, n_ep * C, Dm).contiguous()
+    y = tp_all_reduce(_q8_expert_mlps(xe, layer, cfg) if q8
+                      else _expert_mlps(xe, layer, cfg), tp)
+    # Inverse exchange: outputs return to their source rank, arriving
+    # rank-major over expert owners == the [E, C] queue order.
+    y = y.reshape(E_local, n_ep, C, Dm).transpose(0, 1).contiguous()
+    y_ret = torch.empty_like(y)
+    dist.all_to_all_single(y_ret, y, group=ep)
+    y_ret = y_ret.reshape(E, C, Dm)
+    # Empty queue slots (token n, a zero row, weight 0) add zeros at row
+    # n; the rows past this share's tokens stay zero.
+    out = y_ret.new_zeros((share + 1, Dm))
+    out.index_add_(0, buf.reshape(-1),
+                   (wbuf[..., None].to(y_ret.dtype) * y_ret).reshape(-1, Dm))
+    rows = [torch.empty_like(out[:share]) for _ in range(n_ep)]
+    dist.all_gather(rows, out[:share].contiguous(), group=ep)
+    return torch.cat(rows)[:T].reshape(B, S, Dm)
 
 
 def _grouped_mm_fits(x: torch.Tensor, w: torch.Tensor) -> bool:
@@ -340,16 +457,20 @@ def _grouped_products(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor,
 
 
 def _dropless_dispatch(h, layer, cfg: MoEConfig, top_w,
-                       top_i) -> torch.Tensor:
+                       top_i, tp=None, ep=None) -> torch.Tensor:
     """Exact MoE over grouped products: the (token, expert) assignments
     sorted by expert (stable, so token order holds within an expert),
     the three expert products as grouped GEMMs over the per-expert
     groups, a weighted scatter-add back. Every pair computes exactly
     once; nothing is dropped. The group ends come from a device-side
     ``searchsorted`` over the sorted expert ids: no size is read on the
-    host (the tick keeps its one fetch)."""
+    host (the tick keeps its one fetch). Under ep a rank runs the
+    assignments of its own experts: the others keep their place in the
+    sort with a zero row and a zero weight (their products are zero,
+    bias-free), so no count reaches the host either; the products
+    reduce over tp, the output over ep."""
     B, S, Dm = h.shape
-    E = cfg.n_experts
+    E = _local_experts(layer)
     T = B * S
     K = top_i.shape[-1]
     A = T * K
@@ -357,22 +478,31 @@ def _dropless_dispatch(h, layer, cfg: MoEConfig, top_w,
     eid = top_i.reshape(A)
     w = top_w.reshape(A).float()
     tok = torch.arange(A, device=dev) // K
+    keep = None
+    if ep is not None:
+        eid = eid - dist.get_rank(ep) * E
+        keep = (eid >= 0) & (eid < E)
+        eid = torch.clamp(eid, 0, E - 1)
+        w = torch.where(keep, w, torch.zeros_like(w))
     order = torch.argsort(eid, stable=True)
     tok_s, w_s, e_s = tok[order], w[order], eid[order]
     offs = torch.searchsorted(e_s, torch.arange(1, E + 1, device=dev)
                               ).to(torch.int32)
     x = h.reshape(T, Dm).to(cfg.dtype)[tok_s]            # [A, Dm] sorted
+    if keep is not None:
+        x = torch.where(keep[order][:, None], x, torch.zeros_like(x))
     gate = _grouped_products(x, layer["w_gate"], offs, e_s)
     up = _grouped_products(x, layer["w_up"], offs, e_s)
     y = _grouped_products(_act(cfg.act, gate) * up, layer["w_down"], offs,
                           e_s)                            # [A, Dm]
-    out = y.new_zeros((T, Dm))
-    out.index_add_(0, tok_s, w_s[:, None].to(y.dtype) * y)
-    return out.reshape(B, S, Dm)
+    y = tp_all_reduce(y, tp)
+    out = y.new_zeros((T, Dm), dtype=_ep_sum_dtype(y, ep))
+    out.index_add_(0, tok_s, (w_s[:, None].to(y.dtype) * y).to(out.dtype))
+    return tp_all_reduce(out, ep).to(y.dtype).reshape(B, S, Dm)
 
 
 def _expert_choice_dispatch(h, layer, cfg: MoEConfig, probs: torch.Tensor,
-                            q8: bool) -> torch.Tensor:
+                            q8: bool, tp=None, ep=None) -> torch.Tensor:
     """Expert-choice routing (Zhou et al.): each expert takes the C =
     ceil(T K / E) tokens (factor 1.0 unless the config sets one) with
     its highest router scores, ties to the lower token index as
@@ -385,13 +515,15 @@ def _expert_choice_dispatch(h, layer, cfg: MoEConfig, probs: torch.Tensor,
     T = B * S
     C = expert_capacity(T, cfg, default_factor=1.0)
     w_e, idx_e = top_k_lower_index(probs.reshape(T, E).T, C)   # [E, C]
-    x_e = h.reshape(T, Dm).to(cfg.dtype)[idx_e]                 # [E, C, Dm]
-    y_e = (_q8_expert_mlps(x_e.contiguous(), layer, cfg) if q8
-           else _expert_mlps(x_e, layer, cfg))
+    E_local = _local_experts(layer)
+    w_e, idx_e = _ep_slice(w_e, ep, E_local), _ep_slice(idx_e, ep, E_local)
+    x_e = h.reshape(T, Dm).to(cfg.dtype)[idx_e]             # [E_l, C, Dm]
+    y_e = tp_all_reduce(_q8_expert_mlps(x_e.contiguous(), layer, cfg) if q8
+                        else _expert_mlps(x_e, layer, cfg), tp)
     contrib = w_e[..., None].to(y_e.dtype) * y_e
-    out = y_e.new_zeros((T, Dm))
-    out.index_add_(0, idx_e.reshape(-1), contrib.reshape(-1, Dm))
-    return out.reshape(B, S, Dm)
+    out = y_e.new_zeros((T, Dm), dtype=_ep_sum_dtype(y_e, ep))
+    out.index_add_(0, idx_e.reshape(-1), contrib.reshape(-1, Dm).to(out.dtype))
+    return tp_all_reduce(out, ep).to(y_e.dtype).reshape(B, S, Dm)
 
 
 def _group_mean(t: torch.Tensor, groups) -> torch.Tensor:
@@ -406,8 +538,8 @@ def _group_mean(t: torch.Tensor, groups) -> torch.Tensor:
 
 
 def _moe_ffn(h: torch.Tensor, layer: Dict[str, torch.Tensor],
-             cfg: MoEConfig, phase_timer=None, data_axes=()
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             cfg: MoEConfig, phase_timer=None, data_axes=(), tp=None,
+             ep=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed expert MLP. h [B, S, Dm] -> (out [B, S, Dm], aux scalar).
     A layer carrying raw ``w_gate#q8`` leaves (``fused_expert_hook``)
     runs its expert products through the int8 kernel, except under
@@ -421,7 +553,10 @@ def _moe_ffn(h: torch.Tensor, layer: Dict[str, torch.Tensor],
     the product. Here the routed fractions (no gradient) are averaged
     over the groups and multiply this rank's mean probabilities: the
     mean of the ranks' aux values is the global aux, and the mean of
-    their gradients (what the SPMD steps take) is its gradient."""
+    their gradients (what the SPMD steps take) is its gradient.
+
+    ``tp`` / ``ep``: the tensor- and expert-parallel process groups this
+    rank's expert slices (``param_specs``) are split over."""
     B, S, Dm = h.shape
     E = cfg.n_experts
     pt = phase_timer
@@ -437,7 +572,7 @@ def _moe_ffn(h: torch.Tensor, layer: Dict[str, torch.Tensor],
         # Switch aux loss does not exist for this routing.
         if pt is not None:
             pt.mark("router", block_on=probs)
-        out = _expert_choice_dispatch(h, layer, cfg, probs, q8)
+        out = _expert_choice_dispatch(h, layer, cfg, probs, q8, tp, ep)
         if pt is not None:
             pt.mark("expert_gemm", block_on=out)
         return out.to(h.dtype), torch.zeros((), dtype=torch.float32,
@@ -456,29 +591,45 @@ def _moe_ffn(h: torch.Tensor, layer: Dict[str, torch.Tensor],
             f"unknown routing {cfg.routing!r}; expected 'psum', 'a2a', "
             "'dropless', or 'expert_choice'")
     if cfg.routing == "dropless":
-        out = _dropless_dispatch(h, layer, cfg, top_w, top_i)
+        out = _dropless_dispatch(h, layer, cfg, top_w, top_i, tp, ep)
+        if pt is not None:
+            pt.mark("expert_gemm", block_on=out)
+        return out.to(h.dtype), aux
+    if cfg.routing == "a2a" and ep is not None:
+        if cfg.capacity_factor is None:
+            raise ValueError("routing='a2a' requires capacity_factor")
+        out = _a2a_dispatch(h, layer, cfg, top_w, top_i, q8, tp, ep)
         if pt is not None:
             pt.mark("expert_gemm", block_on=out)
         return out.to(h.dtype), aux
     # "psum", and "a2a" on one card (no ep axis: the same math).
     if cfg.capacity_factor is not None:
         out = _grouped_dispatch(h, layer, cfg, top_w, top_i, q8,
-                                phase_timer=pt)
+                                phase_timer=pt, tp=tp, ep=ep)
         return out.to(h.dtype), aux
+    E_local = _local_experts(layer)
+    combine = _ep_slice(combine, ep, E_local, dim=2)
     hc = h.to(cfg.dtype)
     if q8:
         # Every expert runs the whole token block: ONE shared [T, Dm]
         # block goes to the kernel, never an [E, T, Dm] broadcast.
         y = _q8_expert_mlps(hc.reshape(B * S, Dm).contiguous(), layer, cfg)
-        out_e = y.reshape(E, B, S, Dm).permute(1, 0, 2, 3)
+        out_e = y.reshape(E_local, B, S, Dm).permute(1, 0, 2, 3)
     else:
         gate = torch.einsum("bsd,edf->besf", hc, layer["w_gate"])
         up = torch.einsum("bsd,edf->besf", hc, layer["w_up"])
         out_e = torch.einsum("besf,efd->besd", _act(cfg.act, gate) * up,
                              layer["w_down"])
+    out_e = tp_all_reduce(out_e.contiguous(), tp) if tp is not None \
+        else out_e
     if pt is not None:
         pt.mark("expert_gemm", block_on=out_e)
-    out = torch.einsum("bse,besd->bsd", combine.to(out_e.dtype), out_e)
+    # Under ep the local experts' combine sums in f32 and the ep sum
+    # rounds once, as one card's single product over every expert does.
+    acc = _ep_sum_dtype(out_e, ep)
+    out = tp_all_reduce(torch.einsum(
+        "bse,besd->bsd", combine.to(out_e.dtype).to(acc), out_e.to(acc)),
+        ep).to(out_e.dtype)
     if pt is not None:
         pt.mark("dispatch", block_on=out)
     return out.to(h.dtype), aux
@@ -515,12 +666,16 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig, *,
     with attn_impl "reference"); ``data_axes`` names the process groups
     the batch is sharded over (``_moe_ffn``'s aux statistics). With
     ``cfg.remat``, grad mode on, no cache and no timer, each layer runs
-    under ``torch.utils.checkpoint``. ``ep_axis`` and ``pctx.tp`` raise,
-    naming ROADMAP A10."""
+    under ``torch.utils.checkpoint``.
+
+    Serving over a mesh: ``ep_axis`` (the ep process group) and
+    ``pctx.tp`` (the tp group) with this rank's ``param_specs`` slices;
+    with grad mode on either raises (training under ep / tp)."""
     pctx = pctx or ParallelCtx()
     for name, val in (("ep_axis", ep_axis), ("pctx.tp", pctx.tp)):
-        if val is not None:
-            raise NotImplementedError(f"{name}: {TODO_MESH}")
+        if val is not None and torch.is_grad_enabled():
+            raise NotImplementedError(f"{name} with grad mode on: "
+                                      f"{TODO_TRAIN_TP}")
     data_axes = tuple(data_axes or ())
     pt = phase_timer
     B, S = tokens.shape
@@ -594,12 +749,12 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig, *,
                 impl="dense" if attn_impl == "reference" else "auto")
         else:
             attn = attention(q, k, v, causal=True, impl=attn_impl)
-        x = x + attn.reshape(B, S, H * Dh) @ layer["wo"]
+        x = x + tp_matmul(attn.reshape(B, S, H * Dh), layer["wo"], pctx.tp)
         if pt is not None:
             pt.mark("attn", block_on=x)
         h = rms_norm(x, layer["ln2"], eps=cfg.norm_eps)
         ff, aux = _moe_ffn(h, layer, cfg, phase_timer=pt,
-                           data_axes=data_axes)
+                           data_axes=data_axes, tp=pctx.tp, ep=ep_axis)
         return x + ff, aux
 
     # The model has no randomness, so the recompute needs no RNG state.
@@ -629,7 +784,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig, *,
 
 
 def paged_forward(params, tokens: torch.Tensor, cfg: MoEConfig, *,
-                  pctx=None, cache=None, pos_offset=0,
+                  pctx=None, ep_axis=None, cache=None, pos_offset=0,
                   attn_impl: str = "auto", layers_hook=None,
                   last_logit_only: bool = False, mlora_idx=None,
                   mlora_scale: float = 1.0, phase_timer=None):
@@ -637,13 +792,14 @@ def paged_forward(params, tokens: torch.Tensor, cfg: MoEConfig, *,
     (logits, cache) — the ``forward_fn`` through which
     ``paged.PagedSlotServer`` serves the MoE family (its drafts too).
     Multi-LoRA is a dense-LM feature and raises. ``phase_timer`` passes
-    through to ``forward`` (``MoESlotServer``'s measurement mode)."""
+    through to ``forward`` (``MoESlotServer``'s measurement mode), and
+    so do ``pctx`` and ``ep_axis`` (a sharded server's groups)."""
     del mlora_scale
     if mlora_idx is not None:
         raise ValueError("MoE serving has no adapter bank "
                          "(multi-LoRA is a dense-server feature)")
-    out = forward(params, tokens, cfg, pctx=pctx, cache=cache,
-                  pos_offset=pos_offset, attn_impl=attn_impl,
+    out = forward(params, tokens, cfg, pctx=pctx, ep_axis=ep_axis,
+                  cache=cache, pos_offset=pos_offset, attn_impl=attn_impl,
                   layers_hook=layers_hook, last_logit_only=last_logit_only,
                   phase_timer=phase_timer)
     return (out[0], None) if cache is None else (out[0], out[2])
@@ -802,7 +958,11 @@ class MoESlotServer(SpecDecodeMixin, SlotServer):
     the draft's KV never rides the prefix registry. Near ``max_len``
     the server falls back to plain ticks that still write the draft's
     row. ``phase_timer``: measurement mode (``forward``'s marks; each
-    tick opens the chain). Meshes raise, naming their ROADMAP item."""
+    tick opens the chain). ``mesh`` (a bound ``ServingMesh``, reference
+    ``moe.py:1040-1090``): the target per ``param_specs`` (default
+    ``param_specs(cfg)``; int8 trees ``quant.quant_moe_param_specs``),
+    the draft per ``draft_param_specs`` with its own placement, rows of
+    this rank's kv heads."""
 
     def __init__(self, params, cfg: MoEConfig, *, n_slots: int,
                  max_len: int, temperature: float = 0.0, top_k=None,
@@ -812,14 +972,13 @@ class MoESlotServer(SpecDecodeMixin, SlotServer):
                  spec_horizon: int = 1, draft_layers_hook=None, mesh=None,
                  param_specs=None, draft_param_specs=None,
                  phase_timer=None, device: DeviceLike = None):
-        for name, val in (("mesh", mesh), ("param_specs", param_specs),
-                          ("draft_param_specs", draft_param_specs)):
-            if val is not None:
-                raise NotImplementedError(f"{name}: {TODO_MESH}")
         super().__init__(params, cfg, n_slots=n_slots, max_len=max_len,
                          attn_impl=attn_impl, layers_hook=layers_hook,
                          temperature=temperature, top_k=top_k, top_p=top_p,
-                         seed=seed, device=device)
+                         seed=seed, mesh=mesh, param_specs=param_specs,
+                         device=device)
+        cfg = self.cfg
+        self._draft_forward = paged_forward
         self.phase_timer = phase_timer
         self.prefix_cache = prefix_cache
         self._prefix: Optional[Tuple[np.ndarray, Dict[str, Any]]] = None
@@ -837,6 +996,12 @@ class MoESlotServer(SpecDecodeMixin, SlotServer):
             if self.draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share a "
                                  "vocabulary")
+            dplace = make_placement(mesh, self.draft_cfg,
+                                    draft_param_specs, role="draft")
+            if dplace is not None:
+                self.draft_params = dplace.place_params(self.draft_params)
+                self.draft_cfg = dplace.local_cfg(self.draft_cfg)
+                self._draft_forward = dplace.forward_fn(paged_forward)
             self.draft_layers_hook = draft_layers_hook
             self.dcache = init_cache(self.draft_cfg, n_slots, max_len,
                                      device=self.device)
@@ -853,9 +1018,9 @@ class MoESlotServer(SpecDecodeMixin, SlotServer):
         """The draft's forward; draft calls that need no logits pass
         ``last_logit_only`` (the [B, S, V] unembed is the prefill's
         largest tensor)."""
-        return paged_forward(self.draft_params, tokens, self.draft_cfg,
-                             attn_impl=self.attn_impl,
-                             layers_hook=self.draft_layers_hook, **kw)
+        return self._draft_forward(self.draft_params, tokens,
+                                   self.draft_cfg, attn_impl=self.attn_impl,
+                                   layers_hook=self.draft_layers_hook, **kw)
 
     def _retain(self, prompt_np: np.ndarray, row) -> None:
         """Keep (prompt, row) as the prefix registry's one entry; a

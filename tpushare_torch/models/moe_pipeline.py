@@ -11,7 +11,7 @@ M + P - 1 round fill/drain loop, differentiated by autograd, one
 Routing: ``"psum"`` and ``"dropless"`` ride the pipeline; ``"a2a"`` is
 refused as the reference refuses it (it makes ep a data axis, which
 contradicts the replicated microbatch queue). ep or tp above 1 raise,
-naming ROADMAP A10.
+naming ROADMAP A10c.
 
 The aux (load-balancing) loss counts only rounds that carry a real
 microbatch: every stage accumulates its per-round mean aux over its
@@ -37,7 +37,7 @@ from tpushare_torch.ops.norms import rms_norm
 from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
 from tpushare_torch.parallel.mesh import axis_group, axis_rank, axis_size
 
-TODO_EP = "ROADMAP A10 (multi-GPU: tp/ep splits)"
+TODO_EP = "ROADMAP A10c (training under tp / ep)"
 
 
 def _block(x, layer: Dict[str, torch.Tensor], cfg: MoEConfig, cos, sin,
@@ -131,7 +131,7 @@ def moe_pipelined_lm_loss(params, inputs: torch.Tensor,
 
 def _check_mesh(cfg: MoEConfig, mesh) -> None:
     """The reference's check (``:179``), and the axes the port leaves to
-    ROADMAP A10."""
+    ROADMAP A10c."""
     if cfg.n_experts % axis_size(mesh, "ep"):
         raise ValueError(f"ep={axis_size(mesh, 'ep')} must divide "
                          f"n_experts={cfg.n_experts}")

@@ -43,10 +43,11 @@ from tpushare_torch.models.quant import (init_cache_q8, pool_scales_to_rows,
                                          scales_to_pool_layout)
 from tpushare_torch.models.serving import (MultiLoraSlots, PendingStep,
                                            TokenSampler, fused_chunk_span,
-                                           fused_token_batch, prompt_host)
+                                           fused_token_batch, make_placement,
+                                           prompt_host)
 from tpushare_torch.models.spec import SpecDecodeMixin
 from tpushare_torch.models.transformer import (
-    TODO_MESH, TransformerConfig, forward, init_cache,
+    TransformerConfig, forward, init_cache,
 )
 from tpushare_torch.router.chainkeys import chain_keys
 
@@ -728,8 +729,15 @@ class PagedSlotServer(SpecDecodeMixin):
     charged, every charge refunded on evict), and ``host_tier`` (a
     ``kvtier.HostKvTier``: admissions demote the published blocks they
     reclaim and promote tier-resident chains; ``prefetch_prefix`` stages
-    a prompt's tier blocks on the card ahead of its admission). Still
-    refused, naming its ROADMAP item: mesh.
+    a prompt's tier blocks on the card ahead of its admission), and
+    ``mesh`` (a bound ``parallel.mesh.ServingMesh``, reference
+    ``:903-949, 1072``): weights per ``param_specs`` (default the
+    family's full-precision tree, off the config's shape), both pools
+    of this rank's kv heads, block table / lengths / free list
+    replicated host decisions; a speculative draft places per its own
+    ``draft_param_specs`` on the same kv-head split. Not with kv_quant,
+    multi_lora or a host tier, as the reference refuses them. On a mesh
+    ``cfg`` is the rank's geometry and ``model_cfg`` the whole model's.
     """
 
     def __init__(self, params, cfg: TransformerConfig, *, n_slots: int,
@@ -744,13 +752,34 @@ class PagedSlotServer(SpecDecodeMixin):
                  speculative_draft=None, gamma: int = 4,
                  spec_horizon: int = 1, draft_layers_hook=None,
                  forward_fn=None, draft_forward_fn=None, mesh=None,
+                 param_specs=None, draft_param_specs=None,
                  kv_quota=None, host_tier=None, device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(f"mesh: {TODO_MESH}")
         if forward_fn is not None and (kv_quant or multi_lora is not None):
             raise ValueError("forward_fn overrides (paged MoE) do not "
                              "support kv_quant or multi_lora: those "
                              "branches live in the dense LM's forward")
+        self.mesh = mesh
+        self.model_cfg = cfg
+        if mesh is not None and (kv_quant or multi_lora is not None):
+            raise ValueError(
+                "mesh sharding does not compose with kv_quant/"
+                "multi_lora yet (the int8 scale pools' padded-head "
+                "layout and the adapter bank have no sharded "
+                "placement contract — documented seams)")
+        if mesh is not None and host_tier is not None:
+            raise ValueError(
+                "host_kv_bytes does not compose with mesh sharding yet "
+                "(a sharded pool's block rows are split across ranks; "
+                "the host copy/restore contract here is single-device "
+                "— documented seam, like kv_quant-on-mesh)")
+        self._placement = make_placement(mesh, cfg, param_specs)
+        if self._placement is not None:
+            params = self._placement.place_params(params)
+            cfg = self._placement.local_cfg(cfg)
+            device = self._placement.device
+            forward_fn = self._placement.forward_fn(forward_fn or forward)
+            if draft_forward_fn is None and speculative_draft is not None:
+                draft_forward_fn = forward_fn.__wrapped__
         self.device = resolve_device(device)
         if multi_lora is not None:
             from tpushare_torch.models.lora import multi_lora_params
@@ -822,12 +851,22 @@ class PagedSlotServer(SpecDecodeMixin):
                         "applies to both sides")
                 from tpushare_torch.models.lora import multi_lora_params
                 draft_params = multi_lora_params(draft_params, multi_lora)
+            dplace = make_placement(mesh, draft_cfg, draft_param_specs,
+                                    role="draft")
+            if dplace is not None:
+                # The draft places like the target on the same kv-head
+                # split: the shared block table indexes both pools.
+                draft_params = dplace.place_params(draft_params)
+                draft_cfg = dplace.local_cfg(draft_cfg)
             self.draft_params, self.draft_cfg = draft_params, draft_cfg
             self.draft_layers_hook = draft_layers_hook
             # The draft's forward: its own family's, or the target's
             # (int8-self MoE drafts ride moe.paged_forward too).
             self._draft_forward_fn = (forward_fn if draft_forward_fn is None
                                       else draft_forward_fn)
+            if dplace is not None:
+                self._draft_forward_fn = dplace.forward_fn(
+                    self._draft_forward_fn)
             dshape = (self.draft_cfg.n_layers, n_blocks, block_size,
                       self.draft_cfg.n_kv_heads, self.draft_cfg.head_dim)
             self._dpk = torch.zeros(dshape, dtype=self.draft_cfg.dtype,

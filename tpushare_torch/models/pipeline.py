@@ -43,7 +43,7 @@ reference's pipeline head leaves it out).
 Gradients: layer gradients stay on their stage; the replicated leaves'
 are summed over pp; everything, and the loss, is averaged over dp and
 sp. The manual schedules accumulate in f32 and cast to each leaf's dtype
-at the end. tp and ep above 1 raise, naming ROADMAP A10.
+at the end. tp and ep above 1 raise, naming ROADMAP A10c.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
 from tpushare_torch.parallel.mesh import axis_group, axis_rank, axis_size
 from tpushare_torch.parallel.ring_attention import ring_attention
 
-TODO_TP = "ROADMAP A10 (multi-GPU: tp/ep splits)"
+TODO_TP = "ROADMAP A10c (training under tp / ep)"
 
 _SCHEDULES = ("gpipe", "1f1b", "interleaved")
 
@@ -703,7 +703,7 @@ def interleaved_loss_and_grads(params, inputs: torch.Tensor,
 
 def _mesh_setup(mesh, schedule: str):
     """(pp group, sp group or None, data groups) of the pp step over
-    ``mesh``; tp and ep above 1 raise (ROADMAP A10)."""
+    ``mesh``; tp and ep above 1 raise (ROADMAP A10c)."""
     if schedule not in _SCHEDULES:
         raise ValueError(f"unknown pipeline schedule {schedule!r}")
     for ax in ("tp", "ep"):

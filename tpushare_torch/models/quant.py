@@ -137,6 +137,56 @@ def fused_expert_hook(cfg):
     return hook
 
 
+def quant_layer_specs(layer_specs: Dict[str, Any],
+                      layers: Optional[Dict[str, Any]] = None
+                      ) -> Dict[str, Any]:
+    """Spec tree of a ``quantize_layers`` tree from the full-precision
+    layer specs (reference ``quant_layer_specs``): ``k#q8`` places like
+    ``k``; its scale ``[..., 1, Out]`` keeps every non-reduced axis and
+    drops the input axis's (a row split cannot cut a size-1 axis), so
+    a row-parallel leaf's scales replicate over tp and an expert
+    stack's keep ep. Specs must be explicit full rank; pass ``layers``
+    to have that checked against the leaves."""
+    from tpushare_torch.parallel.sharding import P
+    out: Dict[str, Any] = {}
+    for k, sp in layer_specs.items():
+        if k in _QUANT_KEYS:
+            entries = tuple(sp)
+            if len(entries) < 3:
+                raise ValueError(
+                    f"quantized leaf {k!r} needs an explicit rank>=3 "
+                    f"spec [L, ..., In, Out]; got {sp}")
+            if layers is not None and k in layers and \
+                    len(entries) != layers[k].ndim:
+                raise ValueError(
+                    f"quantized leaf {k!r} is rank {layers[k].ndim} "
+                    f"but its spec {sp} has {len(entries)} entries; "
+                    f"truncated specs would mis-place the scale "
+                    f"sharding — spell out every axis")
+            out[k + _SUFFIX_Q] = sp
+            out[k + _SUFFIX_S] = P(*entries[:-2], None, entries[-1])
+        else:
+            out[k] = sp
+    return out
+
+
+def quant_param_specs(cfg: TransformerConfig,
+                      **param_specs_kw) -> Dict[str, Any]:
+    """Spec tree of a dense ``quantize_params`` tree: the int8 weights
+    shard like the bf16 ones (``transformer.param_specs``)."""
+    from tpushare_torch.models.transformer import param_specs
+    specs = param_specs(cfg, **param_specs_kw)
+    return dict(specs, layers=quant_layer_specs(specs["layers"]))
+
+
+def quant_moe_param_specs(cfg, **param_specs_kw) -> Dict[str, Any]:
+    """Spec tree of a quantized MoE tree (``moe.param_specs`` with the
+    int8 layer leaves)."""
+    from tpushare_torch.models.moe import param_specs as moe_param_specs
+    specs = moe_param_specs(cfg, **param_specs_kw)
+    return dict(specs, layers=quant_layer_specs(specs["layers"]))
+
+
 def quantized_forward(qparams: Dict[str, Any], tokens: torch.Tensor,
                       cfg: TransformerConfig, **kw):
     """``transformer.forward`` over a ``quantize_params`` tree through

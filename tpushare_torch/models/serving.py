@@ -3,10 +3,30 @@ Counterpart of ``tpushare/models/serving.py``: ``TokenSampler`` (with
 the NaN -> -1 guard), ``PendingStep``, the fused admission tick's
 ``bucket_len`` / ``fused_chunk_span`` / ``fused_token_batch``, the
 multi-LoRA slot bookkeeping (``validate_adapter``, ``MultiLoraSlots``),
-and ``SlotServer`` (continuous batching over one static row cache)."""
+and ``SlotServer`` (continuous batching over one static row cache).
+
+Sharded serving over a ``parallel.mesh.ServingMesh`` (reference
+``serving.py:77-340``): ``MeshPlacement`` is the one home of the
+placement contract — weights per the family's spec tree (the Megatron
+split of the dense model, experts over ep and their hidden axis over tp
+for MoE), KV rows and pools split on the kv-head axis over tp, control
+state (block tables, lengths, tokens, ``active``) replicated. Each rank
+is a process holding its own contiguous slices; it runs the same slot
+server code on the same calls, so every host decision (admission,
+eviction, prefix chains, block ids) is identical on every rank by
+construction, and the logits come out of the forward replicated (the
+tp / ep sums are all-reduces written out over ``torch.distributed``).
+Every rank samples the same token from the same seeded generator and
+makes one fetch per tick. On a mesh a server's ``cfg`` is its rank's
+geometry (heads and the FFN hidden axis divided by tp) and
+``model_cfg`` the whole model's. ``make_tp_decoder``,
+``make_moe_decoder``, ``make_tp_paged_decoder`` and ``sharded_cache``
+are the decoder factories over the same contract."""
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -146,6 +166,226 @@ class TokenSampler:
         return torch.where(bad, torch.full_like(tok, -1), tok)
 
 
+def cache_specs() -> Dict[str, Any]:
+    """Dense KV rows [L, B, S, Hkv, Dh]: kv heads over tp."""
+    from tpushare_torch.parallel.sharding import P
+    spec = P(None, None, None, "tp", None)
+    return {"k": spec, "v": spec}
+
+
+def paged_pool_specs():
+    """Paged KV pool [L, n_blocks, bs, Hkv, Dh]: kv heads over tp (the
+    rows' head split; the block axis is never split, so block ids stay
+    host-global)."""
+    from tpushare_torch.parallel.sharding import P
+    return P(None, None, None, "tp", None)
+
+
+def mesh_axes(mesh) -> Optional[Dict[str, int]]:
+    """Mesh axis sizes with 1-sized axes elided — the spelling /stats
+    reports ({} = a one-rank mesh, None = no mesh)."""
+    if mesh is None:
+        return None
+    return {ax: int(s) for ax, s in mesh.shape.items() if s > 1}
+
+
+def default_param_specs(cfg):
+    """The family's full-precision spec tree, off the config's shape
+    (an MoEConfig carries n_experts). Int8 trees pass
+    ``quant.quant_param_specs`` / ``quant_moe_param_specs``."""
+    if hasattr(cfg, "n_experts"):
+        from tpushare_torch.models import moe as _moe
+        return _moe.param_specs(cfg)
+    from tpushare_torch.models.transformer import param_specs
+    return param_specs(cfg)
+
+
+def make_placement(mesh, cfg, param_specs=None, *, role: str = "target"):
+    """Build and check a MeshPlacement (None mesh -> None): the one
+    constructor every slot-server family and its draft side call."""
+    if mesh is None:
+        return None
+    place = MeshPlacement(mesh, param_specs or default_param_specs(cfg))
+    place.check(cfg, role=role)
+    return place
+
+
+class MeshPlacement:
+    """The sharded slot servers' placement contract (reference
+    ``MeshPlacement``): ``place_params`` cuts a whole tree into this
+    rank's contiguous slices per the spec tree; KV storage (rows and
+    pools) holds this rank's kv heads (``local_cfg``); control state
+    stays replicated. ``forward_fn`` binds a forward to the mesh's tp
+    (and ep) groups, run without grad."""
+
+    def __init__(self, mesh, param_specs_tree):
+        from tpushare_torch.parallel.mesh import ServingMesh
+        if not isinstance(mesh, ServingMesh):
+            raise TypeError(f"mesh must be a parallel.mesh.ServingMesh "
+                            f"(serving_mesh(...).bind(...)), got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self._pspecs = param_specs_tree
+        self.kv = paged_pool_specs()
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Mesh axis sizes, 1-sized axes elided (the /stats spelling)."""
+        return mesh_axes(self.mesh)
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    def check(self, cfg, *, role: str = "target") -> None:
+        """Fail loudly before any placement (the reference's messages):
+        a non-dividing axis would cut a head or an expert."""
+        tp = self.mesh.shape.get("tp", 1)
+        ep = self.mesh.shape.get("ep", 1)
+        if cfg.n_kv_heads % tp:
+            raise ValueError(f"tp={tp} must divide the {role} model's "
+                             f"n_kv_heads={cfg.n_kv_heads}")
+        n_experts = getattr(cfg, "n_experts", None)
+        if n_experts is None:
+            if ep > 1:
+                raise ValueError(
+                    f"ep={ep} is an expert-parallel axis; the {role} "
+                    f"model is dense (use tp, or serve an MoE family)")
+        elif n_experts % ep:
+            raise ValueError(f"ep={ep} must divide the {role} model's "
+                             f"n_experts={n_experts}")
+        unused = [ax for ax, s in self.mesh.shape.items()
+                  if s > 1 and ax not in ("tp", "ep")]
+        if unused:
+            raise ValueError(
+                f"serving shards over tp/ep only; axes {unused} would "
+                f"silently replicate every weight and pool shard")
+        if self.mesh.size > 1 and self.mesh.rank is None:
+            raise ValueError("the mesh is not bound to a process group "
+                             "(ServingMesh.bind)")
+
+    def place_params(self, params):
+        from tpushare_torch.parallel.sharding import shard_tree
+        return shard_tree(params, self._pspecs, self.mesh)
+
+    def place_kv(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's kv heads of a whole KV leaf (rows or pool)."""
+        from tpushare_torch.parallel.sharding import shard_leaf
+        return shard_leaf(t, self.kv, self.mesh.sizes,
+                          self.mesh.coords(self.mesh.rank or 0),
+                          self.mesh.device)
+
+    def local_cfg(self, cfg):
+        """``cfg`` at this rank's geometry: heads and the FFN hidden
+        axis divided by tp (experts stay global: routing spans them)."""
+        tp = self.mesh.shape.get("tp", 1)
+        if tp == 1:
+            return cfg
+        return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                                   n_kv_heads=cfg.n_kv_heads // tp,
+                                   d_ff=cfg.d_ff // tp)
+
+    def forward_fn(self, base):
+        """``base`` (a ``transformer.forward``-shaped callable) bound to
+        the mesh's groups — ``pctx.tp``, and ``ep_axis`` where the
+        mesh has ep — and run without grad (the forward refuses
+        training under tp)."""
+        from tpushare_torch.models.transformer import ParallelCtx
+        kw = {"pctx": ParallelCtx(tp=self.mesh.axis_group("tp"))}
+        if self.mesh.shape.get("ep", 1) > 1:
+            kw["ep_axis"] = self.mesh.axis_group("ep")
+
+        @functools.wraps(base)
+        def fwd(*a, **k):
+            with torch.no_grad():
+                return base(*a, **kw, **k)
+        return fwd
+
+
+def _decoder_groups(cfg, mesh, family: str):
+    place = MeshPlacement(mesh, default_param_specs(cfg))
+    if family == "moe" and not hasattr(cfg, "n_experts"):
+        raise ValueError("make_moe_decoder needs an MoE config")
+    place.check(cfg)
+    return place
+
+
+def make_tp_decoder(cfg, mesh, *, quantized: bool = False):
+    """(prefill_fn, decode_fn) over ``mesh``'s tp axis (reference
+    ``:77-116``): prefill_fn(params, tokens, cache) and
+    decode_fn(params, token, cache, offset) -> (logits, cache), offset
+    an int or a [B] tensor (ragged rows). Params are this rank's slices
+    per ``param_specs(cfg)`` (``quant.quant_param_specs`` with
+    ``quantized``, each rank widening its own int8 slices per layer);
+    caches from ``sharded_cache``."""
+    from tpushare_torch.models.transformer import forward
+    return _decoder_fns(forward, _decoder_groups(cfg, mesh, "dense"), cfg,
+                        quantized, "dense")
+
+
+def make_moe_decoder(cfg, mesh, *, quantized: bool = False):
+    """The MoE LM's (prefill_fn, decode_fn) over ``mesh``'s ep x tp axes
+    (reference ``:130-192``), the ``make_tp_decoder`` contract with the
+    experts over ep; ``quantized`` trees widen per layer
+    (``dequant_hook``)."""
+    from tpushare_torch.models.moe import paged_forward
+    return _decoder_fns(paged_forward, _decoder_groups(cfg, mesh, "moe"),
+                        cfg, quantized, "moe")
+
+
+def _decoder_fns(base, place, cfg, quantized: bool, family: str):
+    from tpushare_torch.models.quant import dequant_hook
+    fwd = place.forward_fn(base)
+    hook = dequant_hook(cfg) if quantized else None
+    lcfg = place.local_cfg(cfg)
+
+    def prefill_fn(params, tokens, cache):
+        return fwd(params, tokens, lcfg, cache=cache, pos_offset=0,
+                   layers_hook=hook)
+
+    def decode_fn(params, token, cache, offset):
+        return fwd(params, token, lcfg, cache=cache, pos_offset=offset,
+                   layers_hook=hook)
+
+    return prefill_fn, decode_fn
+
+
+def sharded_cache(cfg, mesh, batch: int, max_len: int):
+    """This rank's dense KV rows (its kv heads) on its card; the MoE
+    cache has the same layout, so one helper serves both families."""
+    from tpushare_torch.models.transformer import init_cache
+    tp = mesh.shape.get("tp", 1)
+    return init_cache(cfg, batch, max_len, n_kv_heads=cfg.n_kv_heads // tp,
+                      device=mesh.device)
+
+
+def make_tp_paged_decoder(cfg, mesh, *, block_size: int,
+                          attn_impl: str = "auto",
+                          quantized: bool = False):
+    """Tensor-parallel paged decode over ``mesh`` (reference
+    ``:201-245``): decode_fn(params, tokens, pool_k, pool_v, table,
+    lengths, active) -> (logits, pool_k, pool_v, lengths), the pools
+    this rank's kv heads (``paged_pool_specs``), table / lengths /
+    active replicated."""
+    del block_size                  # the pools carry it
+    from tpushare_torch.models.paged import decode_core
+    from tpushare_torch.models.quant import dequant_hook
+    from tpushare_torch.models.transformer import forward
+    place = _decoder_groups(cfg, mesh, "dense")
+    fwd = place.forward_fn(forward)
+    hook = dequant_hook(cfg) if quantized else None
+    lcfg = place.local_cfg(cfg)
+
+    def decode_fn(params, tokens, pool_k, pool_v, table, lengths, active):
+        logits, pk, pv, new_len = decode_core(
+            params, tokens, pool_k, pool_v, table, lengths, active,
+            cfg=lcfg, attn_impl=attn_impl, layers_hook=hook,
+            forward_fn=fwd)
+        return logits, pk, pv, new_len
+
+    return decode_fn
+
+
 class PendingStep:
     """A dispatched tick whose one device->host token fetch is still
     owed: ``step_async`` has enqueued all device work, ``finalize()``
@@ -217,9 +457,12 @@ class SlotServer:
     ``layers_hook`` (int8 weights) and ``multi_lora`` (an adapter bank
     from ``lora.stack_adapters``: each slot picks its adapter at
     ``admit(prompt, adapter=i)``, -1 the base model, and every row
-    applies its own delta inside one batched forward). ``mesh`` raises,
-    naming its ROADMAP item. Rows are updated in place (the reference
-    rebinds new arrays)."""
+    applies its own delta inside one batched forward). ``mesh`` (a bound
+    ``ServingMesh``): weights per ``param_specs`` (default the family's
+    full-precision tree), rows of this rank's kv heads, the forward
+    bound to the mesh's groups (``MeshPlacement``); not with kv_quant
+    or multi_lora, as in the reference. Rows are updated in place (the
+    reference rebinds new arrays)."""
 
     def __init__(self, params, cfg, *, n_slots: int, max_len: int,
                  attn_impl: str = "auto", layers_hook=None,
@@ -228,10 +471,19 @@ class SlotServer:
                  kv_quant: bool = False, multi_lora=None,
                  mlora_scale: float = 1.0, mesh=None, param_specs=None,
                  device: DeviceLike = None):
-        from tpushare_torch.models.transformer import TODO_MESH
-        del param_specs
-        if mesh is not None:
-            raise NotImplementedError(f"mesh: {TODO_MESH}")
+        self.mesh = mesh
+        self.model_cfg = cfg
+        if mesh is not None and (kv_quant or multi_lora is not None):
+            raise ValueError(
+                "mesh sharding does not compose with kv_quant/"
+                "multi_lora yet (the int8 scale pools' padded-head "
+                "layout and the adapter bank have no sharded "
+                "placement contract — documented seams)")
+        self._placement = make_placement(mesh, cfg, param_specs)
+        if self._placement is not None:
+            params = self._placement.place_params(params)
+            cfg = self._placement.local_cfg(cfg)
+            device = self._placement.device
         self.device = resolve_device(device)
         if multi_lora is not None:
             from tpushare_torch.models.lora import multi_lora_params
@@ -245,6 +497,8 @@ class SlotServer:
         self.attn_impl = attn_impl
         self.layers_hook = layers_hook
         self._forward, self._init_cache = self._family(kv_quant)
+        if self._placement is not None:
+            self._forward = self._placement.forward_fn(self._forward)
         self.cache = self._new_rows(n_slots)
         self.device_fetches = 0
         self.lengths = torch.zeros((n_slots,), dtype=torch.int32,

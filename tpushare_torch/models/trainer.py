@@ -58,7 +58,7 @@ def load_state(path: str, *, like_params: Any, like_opt: Any,
     tree} of ``checkpoint.FlatShard`` leaves (``training.fsdp_shardings``;
     a missing or None entry reads whole), so each rank of an fsdp group
     of any size reads its own slices of a global flat checkpoint; other
-    placements raise ``NotImplementedError`` naming ROADMAP A10."""
+    placements raise ``NotImplementedError`` naming ROADMAP A10b."""
     like = {"params": like_params, "opt_state": like_opt,
             "step": torch.zeros((), dtype=torch.int32)}
     sh = None

@@ -43,7 +43,8 @@ import torch.distributed as dist
 from tpushare_torch.models.transformer import (
     ParallelCtx, TransformerConfig, forward, init_params,
 )
-from tpushare_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from tpushare_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
+                                          refuse_serving_axes)
 from tpushare_torch.utils.checkpoint import FlatShard
 
 Tree = Dict[str, Any]
@@ -236,6 +237,7 @@ def _spmd_ctx(mesh, sp_impl: str) -> ParallelCtx:
     their ParallelCtx."""
     if sp_impl not in ("ring", "a2a"):
         raise ValueError(f"unknown sp_impl {sp_impl!r}; 'ring' or 'a2a'")
+    refuse_serving_axes(mesh)
     if axis_size(mesh, "fsdp") > 1:
         raise NotImplementedError(
             "use make_fsdp_train_step for the manual-fsdp schedule, or "

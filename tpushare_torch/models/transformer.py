@@ -27,6 +27,14 @@ parallel under ``ParallelCtx(sp=<process group>)`` through
 offset by the rank's shard (``:325-326``). ``cfg.remat``
 checkpoints each layer (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` of the block, ``:670-671``).
+
+Serving under tensor parallelism: ``ParallelCtx(tp=<process group>)``
+with this rank's Megatron slices of the weights (``param_specs``:
+q/k/v/gate/up columns and o/down rows over tp) and of the KV cache (kv
+heads over tp). Head counts are read off the weight shapes, and the two
+partial sums of each block, after ``wo`` and after ``w_down``, are
+all-reduced over the group (reference ``transformer.py:651-652,
+663-664``). Training under tp raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -49,11 +57,12 @@ from tpushare_torch.ops.flash_attention import (flash_decode,
 from tpushare_torch.ops.norms import rms_norm
 from tpushare_torch.ops.q8_expert import _apply_act as _act
 from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
+from tpushare_torch.parallel.mesh import TODO_TRAIN_AXES
 from tpushare_torch.parallel.ring_attention import ring_attention
 from tpushare_torch.parallel.ulysses import ulysses_attention
 
-# ROADMAP item that ports what the port still leaves out.
-TODO_MESH = "ROADMAP A10 (multi-GPU serving)"
+# The ROADMAP item that ports what the forward still leaves out.
+TODO_TRAIN_TP = TODO_TRAIN_AXES
 
 
 def layer_windows(cfg: "TransformerConfig") -> Optional[List[int]]:
@@ -74,7 +83,9 @@ class ParallelCtx:
     the ``torch.distributed`` process group the sequence is sharded over
     (``mesh.get_group("sp")``): attention runs as ring attention across
     it, or as Ulysses all-to-all attention with ``sp_impl="a2a"``. ``tp``
-    (tensor parallelism) raises until its ROADMAP item lands."""
+    holds the tensor-parallel process group (``ServingMesh.axis_group(
+    "tp")``): the forward all-reduces each block's two partial sums
+    over it; with grad mode on it raises (training under tp)."""
     tp: Any = None
     sp: Any = None
     sp_impl: str = "ring"
@@ -211,10 +222,66 @@ def init_params(gen, cfg: TransformerConfig, *,
     return params
 
 
+def param_specs(cfg: TransformerConfig, *, tp: str = "tp",
+                fsdp: Optional[str] = None) -> Dict[str, Any]:
+    """Spec tree matching ``init_params`` (reference ``:193-218``):
+    the Megatron layout, q/kv/gate/up columns over tp and o/down rows
+    over tp, so each block needs one all-reduce per half. ``fsdp``
+    additionally names the d_model (row) axis of the column-parallel
+    weights and the embedding's vocab axis."""
+    from tpushare_torch.parallel.sharding import P
+    specs = {
+        "embed": P(fsdp, None),
+        "layers": {
+            "ln1": P(None, None), "ln2": P(None, None),
+            "wq": P(None, fsdp, tp), "wk": P(None, fsdp, tp),
+            "wv": P(None, fsdp, tp), "wo": P(None, tp, fsdp),
+            "w_gate": P(None, fsdp, tp), "w_up": P(None, fsdp, tp),
+            "w_down": P(None, tp, fsdp),
+        },
+        "final_norm": P(None),
+    }
+    if cfg.post_norms:
+        specs["layers"]["ln_post_attn"] = P(None, None)
+        specs["layers"]["ln_post_ffw"] = P(None, None)
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(fsdp, None)
+    return specs
+
+
+def tp_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum a tensor-parallel partial over ``group`` (in place; the
+    reference's ``psum``). No group: ``x`` unchanged."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def tp_matmul(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """``x @ w`` for a row-parallel weight (``wo``, ``w_down``: its
+    input axis split over ``group``), summed over the group. Each rank's
+    partial leaves its product in f32 (``out_dtype`` on the card), the
+    sum runs in f32 and rounds once to ``x``'s dtype, as one card's
+    single product rounds its f32 accumulator once. No group: ``x @ w``."""
+    if group is None:
+        return x @ w
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32:
+        part = x2 @ w
+    elif x.is_cuda:
+        part = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        part = x2.float() @ w.float()
+    dist.all_reduce(part, group=group)
+    return part.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
                n_kv_heads: Optional[int] = None,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Static-shaped dense KV cache [L, B, max_len, Hkv, Dh] per K/V."""
+    """Static-shaped dense KV cache [L, B, max_len, Hkv, Dh] per K/V.
+    ``n_kv_heads`` overrides the head count for tp-local caches
+    (cfg.n_kv_heads // tp)."""
     dev = resolve_device(device)
     hkv = cfg.n_kv_heads if n_kv_heads is None else n_kv_heads
     shape = (cfg.n_layers, batch, max_len, hkv, cfg.head_dim)
@@ -403,9 +470,9 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     cache, each layer runs under ``torch.utils.checkpoint``.
     """
     pctx = pctx or ParallelCtx()
-    if pctx.tp is not None:
-        raise NotImplementedError(f"tensor parallelism (pctx.tp): "
-                                  f"{TODO_MESH}")
+    if pctx.tp is not None and torch.is_grad_enabled():
+        raise NotImplementedError(f"tensor parallelism (pctx.tp) with "
+                                  f"grad mode on: {TODO_TRAIN_TP}")
     if pctx.sp_impl not in ("ring", "a2a"):
         raise ValueError(f"unknown sp_impl {pctx.sp_impl!r}; 'ring' or "
                          f"'a2a'")
@@ -469,6 +536,13 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
                 return out
             return out + _lora_delta(inp, *ml[name], mlora_idx, mlora_scale)
 
+        def tp_lin(name, inp):
+            # The servers refuse multi-LoRA on a mesh, so under tp
+            # no adapter delta joins the row-parallel products.
+            if pctx.tp is None:
+                return lin(name, inp)
+            return tp_matmul(inp, layer[name], pctx.tp)
+
         w = None if wls is None else wls[li]
         h = rms_norm(x, layer["ln1"], eps=cfg.norm_eps,
                      offset=cfg.norm_offset)
@@ -529,7 +603,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
                              window=w, attn_softcap=cfg.attn_softcap,
                              impl=attn_impl)
 
-        o = lin("wo", attn.reshape(B, S, H * Dh))
+        o = tp_lin("wo", attn.reshape(B, S, H * Dh))
         if cfg.post_norms:
             o = rms_norm(o, layer["ln_post_attn"], eps=cfg.norm_eps,
                          offset=cfg.norm_offset)
@@ -537,7 +611,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
         h = rms_norm(x, layer["ln2"], eps=cfg.norm_eps,
                      offset=cfg.norm_offset)
         ff = _act(cfg.act, lin("w_gate", h)) * lin("w_up", h)
-        ff = lin("w_down", ff)
+        ff = tp_lin("w_down", ff)
         if cfg.post_norms:
             ff = rms_norm(ff, layer["ln_post_ffw"], eps=cfg.norm_eps,
                           offset=cfg.norm_offset)

@@ -46,7 +46,7 @@ import torch
 from tpushare_torch import DeviceLike, resolve_device
 from tpushare_torch.utils import atomicio
 
-TODO_RESHARD = "ROADMAP A10 (multi-GPU placement of tp and ep shards)"
+TODO_RESHARD = "ROADMAP A10b (resharding checkpoints across tp and ep)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,7 +233,7 @@ def restore(path: str, *, like: Optional[Any] = None,
     (read that rank's slice of a global flat fsdp leaf; ``like`` then
     holds the slice's shape) or None (read the leaf whole); a None
     subtree reads whole. Any other placement raises
-    ``NotImplementedError`` naming ROADMAP A10."""
+    ``NotImplementedError`` naming ROADMAP A10b."""
     path = os.path.abspath(path)
     header, base = _read_header(path)
 
