@@ -153,7 +153,9 @@ Phases, one JSON line each, each with its own seconds:
           and the planted HOG (enforcement off, isolation disabled) must
           walk past it. No speed is gated. BERT's attention (head_dim
           64, non-causal) takes mha_reference: no kernel of ours runs
-          here.
+          here. C, D then slice_saturation, and slice_plugin run side
+          by side, while the main process compiles the flex phase's
+          calls: their speeds are read beside each other's load.
   slice_plugin
           BASELINE.md's demo/binpack-1 dry-run on the card through the
           port's control plane (tpushare_torch/tools/binpack.py): (A)
@@ -298,9 +300,9 @@ Phases, one JSON line each, each with its own seconds:
           NCCL group and make_mesh({"dp": 1, "sp": 1}) (the ring's
           partial kernel, one hop) whose loss must fall; the AdamW
           state's first layer (every "layers" leaf of the params and
-          both moments cut to layer 0, the rest whole: ~16 GB, about
-          half the state, to hold the phase's disk time) saved
-          (trainer.save_state) and restored equal.
+          both moments cut to layer 0, and the experts' leaves to its
+          expert 0, the rest whole: ~4.8 GB, to hold the phase's disk
+          time) saved (trainer.save_state) and restored equal.
   slice_generate
           Gemma-2B's generate, greedy, 4 prompts of 512 tokens + 64 new:
           the dense scalar-offset branch (flash_attention at every step,
@@ -389,14 +391,39 @@ Phases, one JSON line each, each with its own seconds:
           engine's chunked admissions, B 4 (engine_schedule; fault:
           the causal edge); q8_expert_ffn at 4 local experts (shared
           blocks of 4 and 1024 rows, a2a queues; fault: two experts'
-          scales swapped).
+          scales swapped). (E) elastic serving on B's engine (each
+          rank keeps a host copy of the whole tree, or a checkpoint
+          read back by slice where the host's MemAvailable is short):
+          a wave of B's 8 prompts with POST /mesh/chip marking rank 1's
+          card unhealthy once the first tokens are out (the engine
+          reshards to tp=1 on rank 0 and replays), the card healthy
+          again (grow-back to tp=2 at an idle tick), a wave of 4 on the
+          regrown mesh: streams against the twin as in B, every mesh
+          generation's digest equal on both ranks, and per rank and
+          generation the kernels launched (tp=1: prefill, verify and
+          paged decode at 32/8 heads) and the peak memory. Then the
+          process case, E_KILL_LAYERS of Llama's 32 layers (the twin
+          cut alike): two rank processes of the serve CLI with
+          --process-view 2 and the gang liaison, rank 1's process
+          SIGKILLed mid-wave, the liaison's verdict, the reshard within
+          the heartbeat timeout + 10 s, rank 1 restarted, its rejoin and
+          the grow-back; detection, reshard and grow-back seconds.
+  slice_smokes
+          the three CI storm smokes as processes at their card presets,
+          in f32: chaos (Gemma-2B dense; Mixtral's width at 2 layers,
+          int8 experts through the fused expert kernel, over the paged
+          pool) and durable (a Gemma-2B serve process behind the
+          router, SIGKILLed between waves and restarted on its journal)
+          run beside slice_mesh's process case; then slo (a Gemma-2B
+          mixed-tier storm) alone, its gate being latency deadlines.
+          Each one's record; a smoke that exits non-zero fails the run.
   flex    the softcapped cases' library call, flex_attention under
           torch.compile with the softcap as its score_mod and the mask
-          as its block mask, on the kernels phase's inputs; it runs
-          after the slices so that no compile runs ahead of their
-          timings. Each case's time, distance from the plain version
-          and compile seconds (also on the seconds line) fill its
-          kernels row's library columns.
+          as its block mask, on the kernels phase's inputs; each case
+          compiles beside the side-by-side phases and is timed after
+          the slices, alone. Each case's time, distance from the plain
+          version and compile seconds (also on the seconds line) fill
+          its kernels row's library columns.
 
 The slices and the training runs set the launch counters to 0 just
 before their run and read them just after; every kernel variant its
@@ -414,9 +441,11 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from unittest import mock
@@ -487,8 +516,42 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line on stdout, written whole: the side-by-side phases
+    emit from threads of their own."""
+    line = memoryview((json.dumps(obj) + "\n").encode())
+    with _EMIT_LOCK:
+        sys.stdout.flush()
+        while line:
+            line = line[os.write(sys.stdout.fileno(), line):]
+
+
+def side_by_side(*fns):
+    """Call each function of no arguments, the first in this thread and
+    each other in a thread of its own; wait for all of them and raise
+    the first error any of them raised. Returns their results."""
+    results, errors = [None] * len(fns), [None] * len(fns)
+
+    def run(i):
+        try:
+            results[i] = fns[i]()
+        except BaseException as e:
+            errors[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(1, len(fns))]
+    for t in threads:
+        t.start()
+    run(0)
+    for t in threads:
+        t.join()
+    for e in errors:
+        if e is not None:
+            raise e
+    return results
 
 
 def nvidia_smi() -> str:
@@ -612,9 +675,11 @@ def flex_library(torch, dev, flush, name, q, k, v, softcap, mask_mod, Sq,
     with the call that returns k, v, e.g. a page gather), with the
     softcap as its score_mod and ``mask_mod`` as its block mask.
     ``lse``: forward with the log-sum-exp; ``grad`` = (do, (dq, dk,
-    dv)): time the backward from do instead. Returns (library_ms, its
-    max |distance| from ``want`` (or from the plain gradients), compile
-    seconds, error text or None)."""
+    dv)): time the backward from do instead. Compiles (the first call)
+    and returns a function of no arguments that times the compiled
+    call, apart, and returns (library_ms, its max |distance| from
+    ``want`` (or from the plain gradients), compile seconds, error text
+    or None)."""
     try:
         from torch.nn.attention.flex_attention import create_block_mask
         fn = flex_fn(torch)
@@ -653,28 +718,40 @@ def flex_library(torch, dev, flush, name, q, k, v, softcap, mask_mod, Sq,
             err = max((a.transpose(1, 2).float() - b.float()).abs().max()
                       .item() for a, b in zip(got, grad[1]))
         compile_s = time.perf_counter() - t0
-        return time_ms(call, iters, flush), err, compile_s, None
+        return lambda: (time_ms(call, iters, flush), err, compile_s, None)
     except Exception as e:  # a yardstick only: record why, gate nothing
-        return None, None, None, f"{name}: {type(e).__name__}: {e}"[:600]
+        msg = f"{name}: {type(e).__name__}: {e}"[:600]
+        return lambda: (None, None, None, msg)
 
 
-# flex_library calls held until after the slices: (row, call).
+# flex_library calls held until after the slices: [row, call, timer].
 FLEX_LATER = []
 
 
 def flex_later(row, *args, **kw):
     """Queue ``flex_library(*args, **kw)`` for the flex phase, which
     fills ``row``'s library columns."""
-    FLEX_LATER.append((row, functools.partial(flex_library, *args, **kw)))
+    FLEX_LATER.append([row, functools.partial(flex_library, *args, **kw),
+                       None])
+
+
+def compile_flex_later():
+    """Compile every queued flex_library call (its first call), leaving
+    its timing to the flex phase: this runs beside the side-by-side
+    phases, whose processes time nothing of the main process's."""
+    for item in FLEX_LATER:
+        if item[2] is None:
+            item[2] = item[1]()
 
 
 def run_flex_later():
-    """The flex phase: run every queued flex_library call in order,
-    fill its row and emit one line per case."""
+    """The flex phase: time every queued flex_library call in order
+    (compiling those not compiled yet), fill its row and emit one line
+    per case."""
     while FLEX_LATER:
-        row, call = FLEX_LATER.pop(0)
+        row, call, timer = FLEX_LATER.pop(0)
         (row["library_ms"], row["library_err"], row["flex_compile_s"],
-         row["library_error"]) = call()
+         row["library_error"]) = (timer or call())()
         emit({"phase": "flex", "kernel": row["kernel"], "case": row["case"],
               **{k: row[k] for k in ("library_ms", "library_err",
                                      "library_error", "flex_compile_s")}})
@@ -2140,7 +2217,6 @@ class TickClock:
     event set once ``work_ticks`` reaches ``until``."""
 
     def __init__(self, eng):
-        import threading
         self.eng, self.ms, self.active = eng, [], []
         self.until, self.reached = None, threading.Event()
         inner = eng._tick
@@ -2233,7 +2309,6 @@ def engine_a_requests(port, prompts, max_tokens):
     reader never cancels), #7 posted once #5 streams (it shares #5's
     1024-token prefix), #2 retried with its key once done. Returns
     {index: tokens}, the ids, the resume frames and the retry check."""
-    import threading
     out, ids, frames, errors = {}, {}, {}, []
     started = threading.Event()
 
@@ -2428,7 +2503,6 @@ def engine_b_run(serve_mod, argv, prompts, max_tokens):
     previous sits in the queue) before the engine starts, so two engines
     built with one seed see the same schedule. Returns the engine (still
     running), its clock and {index: tokens}."""
-    import threading
     from http.server import ThreadingHTTPServer
     eng = serve_mod.build_engine(serve_mod.build_parser().parse_args(argv))
     clock = TickClock(eng)
@@ -2738,7 +2812,6 @@ def lora_bank(torch, lora, cfg, dev, n=4, seed=9):
 def post_all(port, bodies):
     """POST every body at once (one thread each); returns {index: (status,
     answer)}."""
-    import threading
     out = {}
 
     def post(i):
@@ -3369,7 +3442,7 @@ def slice_moe_train(torch, np, moe, mcfg, dev, card, run_path, no_launch,
             path, like_params=ck_p, like_opt=ck_o)
         torch.cuda.synchronize()
         rec_ck["restore_s"] = time.perf_counter() - t0
-        rec_ck["layers_saved"] = 1
+        rec_ck["layers_saved"], rec_ck["experts_saved"] = 1, 1
         rec_ck["equal"] = back_step == MT_ADAMW_STEPS and all(
             torch.equal(a, b) for a, b in zip(
                 training.tree_leaves({"p": back_p, "o": back_o}),
@@ -3419,10 +3492,15 @@ def slice_moe_train(torch, np, moe, mcfg, dev, card, run_path, no_launch,
     return launches, params, ccfg
 
 
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")     # [L, E, ...]
+
+
 def first_layer(tree):
     """``tree`` (params, or an AdamW state) with every leaf under a
-    "layers" key cut to its first layer (views), the rest whole."""
-    return {k: ({n: t[:1] for n, t in v.items()} if k == "layers"
+    "layers" key cut to its first layer, and the experts' leaves to
+    that layer's first expert (views); the rest whole."""
+    return {k: ({n: t[:1, :1] if n in EXPERT_LEAVES else t[:1]
+                 for n, t in v.items()} if k == "layers"
                 else first_layer(v) if isinstance(v, dict) else v)
             for k, v in tree.items()}
 
@@ -3793,16 +3871,18 @@ MESH_NEEDS = {"engine": ("flash_attention", "paged_flash_verify",
                           "q8_expert_ffn")}
 
 
-def slice_mesh(card, failures):
+def slice_mesh(card, failures, before_kill=None):
     """slice_mesh (see the module docstring): tools/multichip.py's
     placement (A), Llama-3-8B over tp=2 (B), Mixtral's experts over
-    ep=2 (C) and the two small pods (D). Returns each part's kernel
+    ep=2 (C), elastic serving (E) and the two small pods (D); calls
+    ``before_kill`` before E's process case. Returns each part's kernel
     launches, summed over its ranks."""
     import importlib
     mc = importlib.import_module("tpushare_torch.tools.multichip")
+    gang = importlib.import_module("tpushare_torch.parallel.gang")
     t0 = time.perf_counter()
     record = mc.run(mc.build_parser().parse_args([]),
-                    log=lambda line: None)
+                    log=lambda line: None, before_kill=before_kill)
     failures += [f"slice_mesh {f}" for f in record["failures"]]
     bc = record["BC"]
     for part, names in MESH_NEEDS.items():
@@ -3812,6 +3892,10 @@ def slice_mesh(card, failures):
                 failures.append(f"slice_mesh {part}: {name} was not "
                                 f"launched on its ranks ({got})")
     work = bc["stats"].get("work_ticks") or bc["stats"].get("fused_ticks")
+    kill = record["E_kill"]
+    emit({"phase": "slice_mesh", "part": "E", "model": "llama3_8b tp=2",
+          "chip": bc["E"], "kill": kill,
+          "heartbeat_timeout_s": gang.HEARTBEAT_TIMEOUT_S, "card": card})
     emit({"phase": "slice_mesh", "model": "llama3_8b tp=2, mixtral "
           f"{mc.MOE_LAYERS} layers ep=2", "placement": record["A"],
           "transport": bc["transport"], "printed": bc.get("printed"),
@@ -3830,7 +3914,119 @@ def slice_mesh(card, failures):
           "small_tenants": record["D"]["tenants"],
           "failures": record["failures"],
           "seconds": time.perf_counter() - t0, "card": card})
-    return {f"slice_mesh_{k}": v for k, v in bc["launches"].items()}
+    out = {f"slice_mesh_{k}": v for k, v in bc["launches"].items()}
+    # Part E's process case ran its own rank processes: the launches of
+    # rank 0 and of both of rank 1's processes, each its last record's.
+    ends = [(kill["generations"][who] or {None: {}})
+            for who in ("rank0", "rank1", "rank1_restarted")]
+    out["slice_mesh_e_kill"] = _sum_counts(
+        _cumulative(g) for g in ends)
+    return out
+
+
+def _cumulative(gens):
+    """A rank process's launches in all, from its per-generation
+    counts."""
+    total = {}
+    for g in gens.values():
+        for k, v in (g.get("launches") or {}).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _sum_counts(counts):
+    total = {}
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+# slice_smokes: each smoke, its command, and the kernels it must launch.
+# The first three run side by side; the SLO storm, whose gate is a
+# latency deadline, runs alone after them.
+SMOKES = (
+    ("chaos_dense", ("tpushare_torch.chaos.smoke", "--family", "dense"),
+     ("flash_attention", "paged_flash_decode")),
+    ("chaos_moe_paged", ("tpushare_torch.chaos.smoke", "--family",
+                         "moe_paged"),
+     ("flash_attention", "paged_flash_decode", "q8_expert_ffn")),
+    ("durable", ("tpushare_torch.durable.smoke",), ()),
+    ("slo", ("tpushare_torch.slo.smoke",),
+     ("flash_attention", "paged_flash_decode")))
+SMOKE_TIMEOUT_S = 600
+
+
+class SliceSmokes:
+    """slice_smokes (see the module docstring): the three CI storm
+    smokes as processes on the card at their card presets. ``start``
+    launches the side smokes (chaos dense, chaos moe_paged, durable),
+    which run beside slice_mesh's process case; ``finish`` waits for
+    them, then runs the SLO storm alone, and returns each in-process
+    smoke's kernel launches."""
+
+    def __init__(self, failures, card):
+        self.failures, self.card, self.side = failures, card, {}
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        self.side = {name: (_start_smoke(name, cmd), needs)
+                     for name, cmd, needs in SMOKES[:3]}
+
+    def kill(self):
+        """Stop the side smokes (a phase before them failed)."""
+        for (proc, _, _), _ in self.side.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(30)
+
+    def finish(self):
+        if not self.side:
+            self.start()
+        launches = {}
+        for name, (job, needs) in self.side.items():
+            launches[f"slice_smokes_{name}"] = _finish_smoke(
+                name, needs, job, self.failures, self.card)
+        name, cmd, needs = SMOKES[3]
+        launches[f"slice_smokes_{name}"] = _finish_smoke(
+            name, needs, _start_smoke(name, cmd), self.failures,
+            self.card)
+        return launches
+
+
+def _start_smoke(name, cmd):
+    path = os.path.join(tempfile.gettempdir(), f"smoke_{name}.log")
+    err = open(path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", *cmd],
+                            stdout=subprocess.PIPE, stderr=err, text=True,
+                            start_new_session=True)
+    err.close()
+    return proc, path, time.perf_counter()
+
+
+def _finish_smoke(name, needs, job, failures, card):
+    proc, path, t0 = job
+    try:
+        out, _ = proc.communicate(timeout=SMOKE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    rec = json.loads(lines[-1]) if lines else {}
+    if proc.returncode != 0 or not rec.get("ok"):
+        with open(path) as f:
+            tail = f.read()[-1500:]
+        failures.append(f"slice_smokes {name}: exit {proc.returncode}, "
+                        f"record {rec}: {tail}")
+    got = rec.get("launches", {})
+    for k in needs:
+        if not got.get(k):
+            failures.append(f"slice_smokes {name}: {k} was not launched "
+                            f"({got})")
+    emit({"phase": "slice_smokes", "smoke": name, "rc": proc.returncode,
+          "record": rec, "seconds": time.perf_counter() - t0,
+          "card": card})
+    return got
 
 
 def slice_generate(torch, np, paged, cfg, dev, card, run_path, no_launch,
@@ -4121,7 +4317,6 @@ def kv_migration(serve_mod, torch, np, prompts, failures, card):
     warm, follow, probe = prompts
 
     def storm(port, ps, max_tokens):
-        import threading
         res = [None] * len(ps)
 
         def go(i):
@@ -4381,13 +4576,23 @@ def colocate_allocate(colocate, topo, failures, card):
 
 
 def slice_colocate(failures, card):
-    """The slice_colocate phase (see the module docstring)."""
+    """The slice_colocate phase (see the module docstring): runs A and
+    B, and returns C and D as two functions of no arguments, which may
+    run side by side. A and B run first because B patches this
+    process's env for a moment."""
     import importlib
     colocate = importlib.import_module("tpushare_torch.tools.colocate")
     topo = colocate_discovery(failures, card)
     envs = colocate_allocate(colocate, topo, failures, card)
     args = colocate.build_parser().parse_args([])
-    # (C) A-B-A: solo (the whole card), two tenants of 16 GiB, solo.
+    return (functools.partial(colocate_aba, colocate, envs, args, failures,
+                              card),
+            functools.partial(colocate_isolation, colocate, envs, args,
+                              failures, card))
+
+
+def colocate_aba(colocate, envs, args, failures, card):
+    """(C) A-B-A: solo (the whole card), two tenants of 16 GiB, solo."""
     rec = colocate.measure(envs["solo"], envs["co_0"], args,
                            log=lambda s: emit({"phase": "slice_colocate",
                                                "part": "C",
@@ -4434,8 +4639,11 @@ def slice_colocate(failures, card):
           "pooled_tol": colocate.POOLED_BF16_TOL,
           "pooled_bit_equal": len(digests) == 1,
           "solo_profile": w["solo_a1"].get("profile"), "card": card})
-    # (D) Isolation: the HOG (8 GiB) beside STEADY (16 GiB), then the
-    # planted fault, the HOG with enforcement off and isolation disabled.
+
+
+def colocate_isolation(colocate, envs, args, failures, card):
+    """(D) Isolation: the HOG (8 GiB) beside STEADY (16 GiB), then the
+    planted fault, the HOG with enforcement off and isolation disabled."""
     iso = colocate.isolation(envs["hog"], envs["co_0"], args)
     planted = colocate.planted_hog(envs["hog"], args)
     hog, step = iso["hog"], iso["hog"]["step_bytes"]
@@ -4989,23 +5197,43 @@ def main() -> int:
     kv_launches = slice_kv_economy(torch, np, cfg, card, run_path, failures)
     kv_economy_s = time.perf_counter() - t_k
 
-    # -- slice_colocate: the plugin's NVIDIA half, two BERT-base tenants -
-    # The tenants are processes of their own: this one holds no cached
-    # blocks while they run. BERT's attention (head_dim 64, non-causal)
-    # takes mha_reference, so no kernel of ours is on this path.
+    # -- slice_colocate, slice_plugin and slice_saturation, side by side -
+    # Each runs its tenants, daemon and pods as processes of their own
+    # (at most ~55 GB of the card together: the plugin's two 16 GiB
+    # Gemma-2B tenants, the planted HOG's 12 GiB, small BERT-base and
+    # ResNet-50 tenants), gates no speed (the plugin's health deadlines
+    # count in 5 s polls), and holds no cached blocks of this process;
+    # meanwhile this process compiles the flex phase's library calls.
+    # So their speeds are read beside each other (tools/colocate.py,
+    # saturation.py and binpack.py alone measure them). BERT's attention
+    # (head_dim 64, non-causal) takes mha_reference and ResNet-50 runs
+    # cuDNN: no kernel of ours there.
     gc.collect()
     torch.cuda.empty_cache()
-    t_c = time.perf_counter()
-    slice_colocate(failures, card)
-    colocate_s = time.perf_counter() - t_c
+    side_s = {}
 
-    # -- slice_plugin: the daemon, the extender, two Gemma-2B tenants ----
-    # Every piece is a process of its own (the tenants hold 16 GiB each).
-    gc.collect()
-    torch.cuda.empty_cache()
-    t_p = time.perf_counter()
-    p_launches = slice_plugin(failures, card)
-    plugin_s = time.perf_counter() - t_p
+    def timed(name, fn):
+        def run():
+            t0 = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                side_s[name] = time.perf_counter() - t0
+        return run
+
+    t_side = time.perf_counter()
+    colocate_c, colocate_d = timed("colocate_ab", lambda: slice_colocate(
+        failures, card))()
+
+    def isolation_then_saturation():
+        timed("colocate_d", colocate_d)()
+        timed("saturation", lambda: slice_saturation(card, failures))()
+
+    _, _, _, p_launches = side_by_side(
+        timed("flex_compile", compile_flex_later),
+        timed("colocate_c", colocate_c), isolation_then_saturation,
+        timed("plugin", lambda: slice_plugin(failures, card)))
+    side_s["all"] = time.perf_counter() - t_side
 
     # -- slice_llama: Llama-3-8B at full width, speculative + fused + int8
     t_l = time.perf_counter()
@@ -5383,17 +5611,25 @@ def main() -> int:
                                  failures)
     pipeline_s = time.perf_counter() - t_pp
 
-    # -- slice_saturation: four ResNet-50 eval tenants ------------------
-    t_sat = time.perf_counter()
-    slice_saturation(card, failures)
-    saturation_s = time.perf_counter() - t_sat
-
     # -- slice_mesh: Llama-3-8B over tp=2, Mixtral's experts over ep=2 --
     gc.collect()
     torch.cuda.empty_cache()
     t_mesh = time.perf_counter()
-    mesh_launches = slice_mesh(card, failures)
+    smokes = SliceSmokes(failures, card)
+    try:
+        mesh_launches = slice_mesh(card, failures,
+                                   before_kill=smokes.start)
+    except BaseException:
+        smokes.kill()
+        raise
     mesh_s = time.perf_counter() - t_mesh
+
+    # -- slice_smokes: the chaos, SLO and crash-recovery storms --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_sm = time.perf_counter()
+    smoke_launches = smokes.finish()
+    smokes_s = time.perf_counter() - t_sm
 
     t_f = time.perf_counter()
     run_flex_later()
@@ -5410,7 +5646,7 @@ def main() -> int:
              "slice_rows": r_launches, "slice_train_sgd": sgd_launches,
              "slice_train_fit": fit_launches, "slice_plugin": p_launches,
              **ft_launches, **mt_launches, **gn_launches, **fs_launches,
-             **pp_launches, **mesh_launches}
+             **pp_launches, **mesh_launches, **smoke_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in paths.values())
@@ -5487,11 +5723,12 @@ def main() -> int:
             raise AssertionError(f"{k['name']}: no launch on a main path")
     emit({"phase": "seconds", "kernels": kernels_s, "engine": engine_s,
           "engine_lora": engine_lora_s, "moe_spec": moe_spec_s,
-          "kv_economy": kv_economy_s, "colocate": colocate_s,
-          "plugin": plugin_s, "finetune": finetune_s,
+          "kv_economy": kv_economy_s, "side_by_side": side_s,
+          "finetune": finetune_s,
           "moe_train": moe_train_s, "generate": generate_s,
           "fsdp": fsdp_s, "pipeline": pipeline_s,
-          "saturation": saturation_s, "mesh": mesh_s, "flex": flex_s,
+          "mesh": mesh_s, "smokes": smokes_s,
+          "flex": flex_s,
           "flex_compile": {f"{r['kernel']} {r['case']}": r["flex_compile_s"]
                            for r in dec + fdec + list(part_a) + list(bwd_a)
                            if r.get("flex_compile_s") is not None},

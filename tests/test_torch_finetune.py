@@ -369,8 +369,10 @@ class TestLoraTraining:
 
     def test_left_out_piece_names_its_item(self, tmp_path):
         """The adapters' placement is ported (ROADMAP A10a): its spec
-        tree equals the reference's; a sharded checkpoint placement
-        other than flat fsdp storage still names its item (A10b)."""
+        tree equals the reference's; and since A10b no checkpoint
+        placement is left out: a tree saved whole restores as a tp
+        rank's slices (``MeshShard``), and an unknown placement is a
+        TypeError."""
         jcfg = jt.tiny()
         targets = ("wq", "wv", "wo", "w_down")
         want = jl.lora_param_specs(jcfg, targets, fsdp="fsdp")
@@ -381,9 +383,18 @@ class TestLoraTraining:
             {n: {k: tuple(v) for k, v in ab.items()}
              for n, ab in want.items()}
         path = str(tmp_path / "ck")
-        tree = {"w": torch.zeros(2)}
+        tree = {"w": torch.arange(8.0).reshape(2, 4)}
         checkpoint.save(path, tree)
-        with pytest.raises(NotImplementedError, match="A10"):
+        from tpushare_torch.parallel.mesh import ServingMesh
+        from tpushare_torch.parallel.sharding import P
+        mesh = ServingMesh({"tp": 2}, ["cpu"] * 2)
+        for r in range(2):
+            mesh.rank = r
+            got = checkpoint.restore(path, device="cpu",
+                                     shardings=checkpoint.mesh_shardings(
+                                         {"w": P(None, "tp")}, mesh))
+            assert torch.equal(got["w"], tree["w"][:, 2 * r:2 * r + 2])
+        with pytest.raises(NotImplementedError, match="MeshShard"):
             checkpoint.restore(path, like=tree, shardings=object())
 
 

@@ -13,12 +13,15 @@ process (the multi-rank runs are tests/test_torch_sharded_serving.py).
   package's PartitionSpec tree, and ``shard_tree`` gives each rank
   exactly the shard JAX places on the device at its coordinates.
 - Placement errors carry the reference's messages.
-- The CLI's mesh flags: the reference's exits, the refusals naming
-  ROADMAP A10b, and a one-rank ``--mesh tp=1`` engine that serves.
+- The CLI's mesh flags: the reference's exits, the elastic flags
+  reaching the engine, and a one-rank ``--mesh tp=1`` engine that
+  serves, then drains on the loss of its one card.
 - ``follow`` and ``ShardedServer`` over a scripted control group: the
   call order, a refusal replayed as a refusal, desyncs caught both
   ways, heartbeats while idle, one stop message.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +55,25 @@ TF_CFG = jt.tiny(remat=False)
 TF_PARAMS = jt.init_params(jax.random.PRNGKey(0), TF_CFG)
 MOE_CFG = jm.tiny(remat=False)
 MOE_PARAMS = jm.init_params(jax.random.PRNGKey(0), MOE_CFG)
+
+
+# The grant keys a tenant's env carries: serving_mesh reads them, and a
+# test elsewhere in the same worker may leave them set.
+GRANT_KEYS = ("NVIDIA_VISIBLE_DEVICES", "TPU_VISIBLE_CHIPS",
+              "TPU_VISIBLE_DEVICES")
+
+
+@pytest.fixture(autouse=True)
+def clean_grant_env():
+    """No grant in the env, whatever ran before in this process; the
+    whole env restored after."""
+    saved = dict(os.environ)
+    for k in list(os.environ):
+        if k in GRANT_KEYS or k.startswith("ALIYUN_COM_TPU_MEM_"):
+            os.environ.pop(k)
+    yield
+    os.environ.clear()
+    os.environ.update(saved)
 
 
 def _mesh(sizes, rank=0):
@@ -117,6 +139,26 @@ class TestMeshSpec:
         assert "share cards" in capsys.readouterr().err
         two = tmesh.serving_mesh({"tp": 4}, devices=cards[:2])
         assert two.cards == [cards[0], cards[1]] * 2
+
+    def test_transport_checks_pass_after_a_leaked_grant(self):
+        """A grant another test left in the env (the JAX package's
+        ``apply_tenant_limits`` sets ``TPU_VISIBLE_DEVICES`` and its
+        tests do not undo it) must not reach the transport checks: run
+        them in a process whose env carries that grant."""
+        import subprocess
+        import sys
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, TPU_VISIBLE_DEVICES="0",
+                   JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+        out = subprocess.run(
+            [sys.executable, "-m", "pytest", "-o", "addopts=", "-p",
+             "no:xdist", "-p", "no:randomly", "-p", "no:cacheprovider",
+             "tests/test_torch_mesh.py::TestMeshSpec::"
+             "test_transport_follows_the_card_count"],
+            cwd=root, env=env, capture_output=True, text=True,
+            timeout=240)
+        assert out.returncode == 0, out.stdout[-3000:]
+        assert "1 passed" in out.stdout
 
     @pytest.mark.parametrize("sizes", [{"tp": 2, "ep": 2}, {"tp": 4},
                                        {"ep": 2, "tp": 1}])
@@ -366,9 +408,26 @@ class TestCliMesh:
         ["--mesh", "tp=2", "--max-reshards", "7"],
         ["--mesh", "tp=2", "--reshard-checkpoint", "ckpt"],
         ["--process-view", "2"]])
-    def test_degrade_replay_grow_flags_name_a10b(self, argv):
-        with pytest.raises(NotImplementedError, match="A10b"):
-            self._build(*argv)
+    def test_degrade_replay_grow_flags_name_a10b(self, argv, tmp_path):
+        """Degrade-replay-grow is ported (ROADMAP A10b): its flags are no
+        longer refused. A multi-rank mesh still needs its rendezvous;
+        on a one-rank mesh each flag reaches the engine; a process view
+        without a mesh builds an engine with no process axis, as the
+        reference's (it reads the view only on a mesh)."""
+        argv = [str(tmp_path / a) if a == "ckpt" else a for a in argv]
+        if "--mesh" in argv:
+            with pytest.raises(SystemExit, match="--dist-init"):
+                self._build(*argv)
+            argv[argv.index("tp=2")] = "tp=1"
+        eng = self._build("--preset", "tiny", "--n-blocks", "64",
+                          "--block-size", "4", *argv)
+        st = eng.stats()
+        if "--max-reshards" in argv:
+            assert eng._max_reshards == 7
+            assert st["mesh_shape"] == {} and st["reshards"] == 0
+        if "--process-view" in argv:
+            assert st["mesh_shape"] is None and st["num_processes"] is None
+        eng.stop()
 
     def test_a_multi_rank_mesh_needs_its_rendezvous(self):
         with pytest.raises(SystemExit, match="--dist-init"):
@@ -392,8 +451,14 @@ class TestCliMesh:
         assert st["mesh_shape"] == {} and st["num_devices"] == 1
         assert st["mesh_transport"] == "gloo"
         assert st["fetches_per_tick"] <= 1.0
-        with pytest.raises(ValueError, match="A10b"):
-            eng.chip_event(0, False)
+        # A chip event on a mesh is the mesh failure domain's: a one-rank
+        # mesh has no smaller shape, so the replica drains sticky.
+        out = eng.chip_event(0, False)
+        assert out["mesh"] is True and out["healthy_devices"] == 0
+        with eng._on_device():
+            eng._loop_once()
+        assert "no serving shape" in eng.stats()["last_error"]
+        assert eng._draining.is_set() and eng._drain_sticky
         eng.stop()
 
 
@@ -511,6 +576,69 @@ class TestControlPlane:
                          _FakeSrv())
         with pytest.raises(ValueError, match="rank 0"):
             control.follow(_FakeSrv(), _mesh({"tp": 2}, rank=0))
+
+
+def _store():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return torch.distributed.TCPStore("127.0.0.1", port, 1, True,
+                                      wait_for_workers=False)
+
+
+class TestStoreChannel:
+    """The control channel over a real TCP store, in one process."""
+
+    def test_messages_arrive_in_order(self):
+        store = _store()
+        tx = control.StoreChannel(store, 5.0, lambda: False)
+        rx = control.StoreChannel(store, 5.0, lambda: False)
+        for m in (("call", 1, "admit", ([1],), {}), ("ping",), ("stop",)):
+            tx.send(m)
+        assert [rx.recv()[0] for _ in range(3)] == ["call", "ping", "stop"]
+
+    def test_a_waiting_follower_wakes_on_the_send(self):
+        import threading
+        import time
+        store = _store()
+        tx = control.StoreChannel(store, 5.0, lambda: False)
+        # The follower's own client, as in a follower process.
+        peer = torch.distributed.TCPStore("127.0.0.1", store.port, 1,
+                                          False)
+        rx = control.StoreChannel(peer, 30.0, lambda: False)
+        rx.WAIT_S = 20.0
+        t = threading.Timer(0.2, tx.send, args=(("ping",),))
+        t0 = time.monotonic()
+        t.start()
+        assert rx.recv() == ("ping",)
+        assert time.monotonic() - t0 < 5.0      # not after WAIT_S
+        t.join()
+
+    def test_rank_zero_moving_on_ends_the_wait(self):
+        store = _store()
+        rx = control.StoreChannel(store, 30.0, lambda: True)
+        rx.WAIT_S = 0.05
+        with pytest.raises(control.GenerationEnded):
+            rx.recv()
+
+    def test_a_silent_rank_zero_times_out(self):
+        store = _store()
+        rx = control.StoreChannel(store, 0.3, lambda: False)
+        rx.WAIT_S = 0.1
+        with pytest.raises(TimeoutError, match="sent nothing"):
+            rx.recv()
+
+    def test_latency_tool_times_both_channels(self):
+        from tpushare_torch.tools import control_latency
+        res = control_latency.measure(4, gaps=(0.0, 5.0))
+        assert sorted(res) == ["gloo/0ms", "gloo/5ms", "store/0ms",
+                               "store/5ms"]
+        for rec in res.values():
+            assert rec["messages"] == 4
+            assert rec["latency_ms"]["p50"] >= 0.0
+            assert rec["send_ms"]["p99"] >= rec["send_ms"]["p50"]
 
 
 class TestTpSums:

@@ -425,7 +425,12 @@ class TestPortBoundary:
                     "models/pipeline.py", "models/moe_pipeline.py",
                     "models/resnet.py", "tools/saturation.py",
                     "parallel/sharding.py", "parallel/control.py",
-                    "tools/multichip.py", "tools/tp_drift.py"):
+                    "tools/multichip.py", "tools/tp_drift.py",
+                    "models/reshard.py", "parallel/gang.py",
+                    "parallel/multihost.py",
+                    "parallel/multihost_smoke.py", "chaos/smoke.py",
+                    "slo/smoke.py", "durable/smoke.py",
+                    "tools/control_latency.py"):
             assert os.path.join("tpushare_torch", mod) in names
         assert bad == []
 

@@ -43,6 +43,25 @@ KW = dict(n_slots=3, n_blocks=48, block_size=4, max_blocks_per_slot=12,
           idle_sleep_s=0.001, chaos_spec="")
 
 
+# The grant keys a tenant's env carries: serving_mesh reads them, and a
+# test elsewhere in the same worker may leave them set.
+GRANT_KEYS = ("NVIDIA_VISIBLE_DEVICES", "TPU_VISIBLE_CHIPS",
+              "TPU_VISIBLE_DEVICES")
+
+
+@pytest.fixture(autouse=True)
+def clean_grant_env():
+    """No grant in the env, whatever ran before in this process; the
+    whole env restored after."""
+    saved = dict(os.environ)
+    for k in list(os.environ):
+        if k in GRANT_KEYS or k.startswith("ALIYUN_COM_TPU_MEM_"):
+            os.environ.pop(k)
+    yield
+    os.environ.clear()
+    os.environ.update(saved)
+
+
 def _engine(which, **kw):
     opts = dict(KW, **kw)
     if which == "jax":
@@ -501,14 +520,25 @@ def test_build_engine_same_system_exit(argv):
 
 
 def test_unported_flags_name_their_roadmap_item():
-    """--mesh is ported (its parity: tests/test_torch_mesh.py and
-    tests/test_torch_sharded_serving.py); a mesh's degrade-replay-grow
-    budget and process views name ROADMAP A10b."""
-    for argv, item in ((["--mesh", "tp=2", "--max-reshards", "3"], "A10b"),
-                       (["--process-view", "2"], "A10b")):
-        args = tserve.build_parser().parse_args(argv + ["--device", "cpu"])
-        with pytest.raises(NotImplementedError, match=item):
-            tserve.build_engine(args)
+    """Every serve flag is ported: --mesh (its parity:
+    tests/test_torch_mesh.py, tests/test_torch_sharded_serving.py), and
+    since ROADMAP A10b a mesh's degrade-replay-grow budget and process
+    views (tests/test_torch_elastic.py). A multi-rank mesh's budget is
+    taken, its rendezvous still asked for; a process view without a
+    mesh is read by neither daemon; the budget's default is the
+    reference's."""
+    args = tserve.build_parser().parse_args(
+        ["--mesh", "tp=2", "--max-reshards", "3", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--dist-init"):
+        tserve.build_engine(args)
+    assert tserve.build_parser().parse_args([]).max_reshards == \
+        jserve.build_parser().parse_args([]).max_reshards == 3
+    eng = tserve.build_engine(tserve.build_parser().parse_args(
+        ["--process-view", "2", "--device", "cpu", "--n-blocks", "32",
+         "--block-size", "4"]))
+    assert eng.stats()["num_processes"] is None
+    eng.stop()
+    assert not hasattr(tserve, "TODO_MESH")
 
 
 def test_kv_endpoints_answer_501():

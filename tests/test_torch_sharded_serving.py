@@ -27,8 +27,8 @@ bridged) and prompts go through both.
 - The engine: ``ServeEngine(mesh=)`` on the ep x tp group, the
   reference's TestShardedEngine schedule, then one request over HTTP:
   tokens equal to the JAX sharded engine's, its ``/stats`` mesh and pool
-  keys equal, one fetch per tick, and ``POST /mesh/chip`` refused
-  naming ROADMAP A10b.
+  keys equal, one fetch per tick, and ``POST /mesh/chip`` answered by a
+  reshard onto ep2 x tp1.
 - ``tools/multichip.py --device cpu --tiny`` (BASELINE row 5) as a
   subprocess, every gate held.
 """
@@ -221,9 +221,10 @@ def tp_run(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def eptp_run(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("eptp")
     return torch_spawn.run_ranks(
-        torch_spawn.sharded_serving_worker, 4,
-        tmp_path_factory.mktemp("eptp"), _inputs(), {"tp": 2, "ep": 2},
+        torch_spawn.sharded_serving_worker, 4, tmp,
+        dict(_inputs(), out_dir=np.array(str(tmp))), {"tp": 2, "ep": 2},
         EPTP_FAMILIES, ("prefix", "decoders", "routings", "engine"),
         timeout=240.0)
 
@@ -372,8 +373,10 @@ class TestShardedEngine:
         assert r0["errors"] == [None] * 3
         assert r0["tokens"] == want[0]
         assert r0["http_tokens"] == want[1][0]
+        # Every follower's digest of the first mesh generation (the one
+        # the chip event ended) equals rank 0's.
         digests = {r0["stats"]["mesh_digest"]} | {
-            r["digest"] for r in ranks[1:]}
+            r["digests"]["0"] for r in ranks[1:]}
         assert len(digests) == 1
 
     def test_stats_mesh_observability(self, eptp_run, jax_engine):
@@ -387,8 +390,18 @@ class TestShardedEngine:
         assert st["mesh_transport"] == "gloo"
 
     def test_chip_events_on_a_mesh_name_a10b(self, eptp_run):
-        code, err = json.loads(str(eptp_run["engine"]))[0]["chip"]
-        assert code == 400 and "A10b" in err
+        """A chip event on a mesh is no longer refused (ROADMAP A10b is
+        ported): ``POST /mesh/chip`` answers 200, and the engine
+        reshards ep2 x tp2 around the lost card onto ep2 x tp1, the
+        reference's degrade shape (tests/test_torch_elastic.py holds
+        the streams across a shrink)."""
+        r0 = json.loads(str(eptp_run["engine"]))[0]
+        code, body = r0["chip"]
+        assert code == 200 and body["mesh"] is True
+        assert body["healthy_devices"] == 3
+        assert r0["after"] == {"reshards": 1,
+                               "mesh_shape_current": {"ep": 2},
+                               "degraded": True, "healthy_devices": 3}
 
 
 def test_multichip_tool_on_the_host():

@@ -28,7 +28,9 @@ def run_ranks(target, world, tmp_path, inputs, *args, timeout=150.0,
               backend="gloo"):
     """Run ``target(rank, world, inputs, *args)`` on ``world`` spawned
     ranks of one ``backend`` group (NCCL: rank r on card r); returns
-    rank 0's result dict (numpy)."""
+    rank 0's result dict (numpy). ``backend=None`` starts no group: the
+    target binds its own mesh (``ServingMesh.bind(rank, init_method)``,
+    the serve CLI's way)."""
     name = f"{target.__name__}_{world}_{next(_runs)}"
     base = os.path.join(str(tmp_path), name)
     np.savez(base + "_in.npz", **inputs)
@@ -69,15 +71,19 @@ def _rank_main(target, rank, world, base, backend, args):
         if backend == "nccl":
             torch.cuda.set_device(rank)
             torch.backends.cuda.matmul.allow_tf32 = False
-        dist.init_process_group(
-            backend, store=dist.FileStore(base + ".store", world), rank=rank,
-            world_size=world)
+        if backend is not None:
+            dist.init_process_group(
+                backend, store=dist.FileStore(base + ".store", world),
+                rank=rank, world_size=world)
         with np.load(base + "_in.npz") as f:
             inputs = dict(f)
         res = target(rank, world, inputs, *args)
         if rank == 0:
             np.savez(base + "_out.npz", **res)
-        dist.destroy_process_group()
+        # A mesh generation after a reshard may have left this process
+        # outside any group.
+        if dist.is_initialized():
+            dist.destroy_process_group()
     except BaseException:
         with open(f"{base}_err{rank}.txt", "w") as f:
             f.write(traceback.format_exc())
@@ -633,7 +639,7 @@ def sharded_serving_worker(rank, world, inp, sizes, families, extra):
     if "control" in extra:
         out["control"] = _json_out(_control_case(mesh, tcfg, tp_, lp_t))
     if "engine" in extra:
-        out["engine"] = _json_out(_engine_case(mesh, mcfg, mp_))
+        out["engine"] = _json_out(_engine_case(mesh, mcfg, mp_, inp))
     return out
 
 
@@ -738,7 +744,7 @@ def _control_case(mesh, tcfg, tp_, lp):
     return _gathered(mine)
 
 
-def _engine_case(mesh, mcfg, mp_):
+def _engine_case(mesh, mcfg, mp_, inp):
     """ServeEngine on the mesh, the reference's TestShardedEngine
     schedule driven by ``_loop_once`` on rank 0, then one request over
     HTTP; the other ranks follow. Rank 0's tokens and /stats."""
@@ -749,9 +755,11 @@ def _engine_case(mesh, mcfg, mp_):
         mp_, mcfg, model_family="moe", kv="paged", n_slots=4,
         n_blocks=128, block_size=4, idle_sleep_s=0.0, prefill_chunk=8,
         mesh=mesh, device="cpu")
+    out_dir = str(inp["out_dir"])
     if mesh.rank > 0:
         n = eng.follow()
-        return _gathered({"calls": n, "digest": eng.stats()["mesh_digest"]})
+        return _gathered_files(out_dir, mesh, {
+            "calls": n, "digests": eng._mesh_digests})
     prompts = [[5, 9, 12, 3], list(range(40, 70)), [9, 9, 2]]
     reqs = [serve_mod._Request(list(p), 5, None) for p in prompts]
     with eng._on_device():
@@ -777,14 +785,404 @@ def _engine_case(mesh, mcfg, mp_):
         data=json.dumps({"device": 1, "healthy": False}).encode(),
         headers={"Content-Type": "application/json"})
     try:
-        urllib.request.urlopen(chip, timeout=60)
-        chip_status = 200
+        with urllib.request.urlopen(chip, timeout=60) as resp:
+            chip_status = (resp.status, json.loads(resp.read()))
     except urllib.error.HTTPError as e:
         chip_status = (e.code, json.loads(e.read())["error"])
+    deadline = time.monotonic() + 60
+    while eng.stats()["reshards"] < 1 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    after = {k: eng.stats()[k] for k in (
+        "reshards", "mesh_shape_current", "degraded", "healthy_devices")}
     httpd.shutdown()
     httpd.server_close()
     eng.stop()
-    return _gathered({"tokens": [r.tokens for r in reqs],
-                      "errors": [r.error for r in reqs],
-                      "http_tokens": http_tokens, "stats": stats,
-                      "chip": chip_status})
+    return _gathered_files(out_dir, mesh, {
+        "tokens": [r.tokens for r in reqs],
+        "errors": [r.error for r in reqs], "http_tokens": http_tokens,
+        "stats": stats, "chip": chip_status, "after": after})
+
+
+def _gathered_files(out_dir, mesh, obj, timeout=60.0):
+    """Every rank's ``obj``, through files (a reshard leaves the ranks
+    in different process groups): each rank writes its own, rank 0
+    reads them all."""
+    import json
+    rank = mesh.process_id
+    with open(os.path.join(out_dir, f"gathered_{rank}.json"), "w") as f:
+        json.dump(obj, f)
+    if rank != 0:
+        return None
+    deadline = time.monotonic() + timeout
+    out = []
+    for r in range(mesh.size):
+        path = os.path.join(out_dir, f"gathered_{r}.json")
+        while not os.path.exists(path) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        time.sleep(0.05)
+        with open(path) as f:
+            out.append(json.load(f))
+    return out
+
+
+# -- elastic sharded serving (ROADMAP A10b) -----------------------------
+
+ELASTIC_PROMPTS = [[5, 9, 12, 3], list(range(40, 60)), [9, 9, 2]]
+
+
+def free_ports(n):
+    """``n`` free TCP ports of the host (each closed before use)."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _elastic_drive(eng, prompts, max_tokens=6, shrink_at=None, dev=None,
+                   host_kill=None, host_rejoin=False, limit=600,
+                   sleep=0.0):
+    """The reference's ``_drive`` for the elastic cases: ``prompts``
+    through ``_loop_once`` on this thread, a chip event at tick
+    ``shrink_at`` (card ``dev``) or a host loss (``host_kill`` = (tick,
+    host)), and that host's rejoin once the engine resharded."""
+    from tpushare_torch.cli import serve as serve_mod
+    reqs = [serve_mod._Request(list(p), max_tokens, None) for p in prompts]
+    for r in reqs:
+        assert eng.submit(r)
+    rejoined = False
+    for i in range(limit):
+        if all(r.done.is_set() for r in reqs):
+            break
+        if shrink_at is not None and i == shrink_at:
+            eng.chip_event(dev, False)
+        if host_kill is not None and i == host_kill[0]:
+            eng.host_event(host_kill[1], False)
+        if host_rejoin and not rejoined and eng.stats()["reshards"] >= 1:
+            eng.host_event(host_kill[1], True)
+            rejoined = True
+        eng._loop_once()
+        if sleep:
+            time.sleep(sleep)
+    return {"tokens": [list(r.tokens) for r in reqs],
+            "errors": [r.error for r in reqs]}
+
+
+_ELASTIC_KEYS = ("reshards", "grow_backs", "degraded", "replayed_on_reshard",
+                 "mesh_shape_current", "mesh_shape_configured",
+                 "num_devices", "num_devices_configured", "healthy_devices",
+                 "reshard_ms", "grow_back_ms", "fetches_per_tick", "replays",
+                 "quarantines", "host_losses", "host_rejoins",
+                 "num_processes", "process_index", "healthy_processes",
+                 "gang", "last_error", "chaos_fired", "mesh_generation")
+
+
+def _idle_until_grown(eng, grows=1, limit_s=20.0):
+    """Idle ticks until the engine grew back ``grows`` times (a process
+    standing by marks itself ready on its own clock)."""
+    deadline = time.monotonic() + limit_s
+    while eng.stats()["grow_backs"] < grows and \
+            time.monotonic() < deadline:
+        eng._loop_once()
+        time.sleep(0.005)
+
+
+def _estats(eng):
+    st = eng.stats()
+    return {k: st.get(k) for k in _ELASTIC_KEYS}
+
+
+def _elastic_case(name, eng, ctx):
+    """Rank 0's side of one elastic case; its record."""
+    from tpushare_torch.cli import serve as serve_mod
+    dev = ctx["dev"]
+    P = ELASTIC_PROMPTS
+    out = {}
+    if name in ("shrink", "host_grow"):
+        if name == "shrink":
+            out["run"] = _elastic_drive(eng, P, shrink_at=4, dev=dev)
+        else:
+            out["run"] = _elastic_drive(eng, P, host_kill=(4, 1),
+                                        host_rejoin=True)
+        out["shrunk"] = _estats(eng)
+        if name == "shrink":
+            eng.chip_event(dev, True)
+        _idle_until_grown(eng)
+        out["grown"] = _estats(eng)
+        out["again"] = _elastic_drive(eng, [[7, 7, 3]])
+    elif name == "grow_fail":
+        out["run"] = _elastic_drive(eng, P, shrink_at=4, dev=dev)
+        real = eng._build_server
+        state = {"left": 1}
+
+        def failing_build(*a, **kw):
+            if state["left"] > 0:
+                state["left"] -= 1
+                raise torch.cuda.OutOfMemoryError(
+                    "CUDA out of memory placing the tp=2 slices")
+            return real(*a, **kw)
+        eng._build_server = failing_build
+        eng.chip_event(dev, True)
+        deadline = time.monotonic() + 20.0
+        while state["left"] and time.monotonic() < deadline:
+            eng._loop_once()
+            time.sleep(0.005)
+        out["failed_grow"] = _estats(eng)
+        out["failed_grow"]["draining"] = eng._draining.is_set()
+        out["served"] = _elastic_drive(eng, [[5, 9, 12, 3]])
+        out["still"] = _estats(eng)
+        _idle_until_grown(eng)
+        out["grown"] = _estats(eng)
+        out["again"] = _elastic_drive(eng, [[7, 7, 3]])
+    elif name == "spec_h2":
+        out["run"] = _elastic_drive(eng, P, shrink_at=2, dev=dev,
+                                    max_tokens=16)
+        out["shrunk"] = _estats(eng)
+    elif name == "undrain":
+        out["run"] = _elastic_drive(eng, [[5, 9, 12, 3]], shrink_at=2,
+                                    dev=dev)
+        out["shrunk"] = _estats(eng)
+        eng.begin_drain()
+        out["end_drain"] = eng.end_drain()
+        _idle_until_grown(eng)
+        out["grown"] = _estats(eng)
+    elif name == "checkpoint":
+        out["run"] = _elastic_drive(eng, [[5, 9, 12, 3], [9, 9, 2]],
+                                    shrink_at=3, dev=dev)
+        out["shrunk"] = _estats(eng)
+    elif name in ("budget0", "host_budget0"):
+        if name == "budget0":
+            eng.chip_event(dev, False)
+        else:
+            eng.host_event(1, False)
+        eng._loop_once()
+        out["st"] = _estats(eng)
+        out["sticky"] = [eng._draining.is_set(), eng._drain_sticky]
+        late = serve_mod._Request([5, 9], 2, None)
+        out["late_submit"] = eng.submit(late)
+        out["late_error"] = (late.done.wait(2)
+                             and late.error is not None)
+        out["end_drain"] = eng.end_drain()
+    elif name == "total_loss":
+        req = serve_mod._Request([5, 9, 12], 30, None)
+        assert eng.submit(req)
+        for _ in range(3):
+            eng._loop_once()
+        eng.chip_event(0, False)
+        eng.chip_event(1, False)
+        eng._loop_once()
+        out["failed"] = req.done.is_set() and req.error is not None
+        out["st"] = _estats(eng)
+        out["sticky"] = [eng._draining.is_set(), eng._drain_sticky]
+    elif name == "idempotent":
+        eng.chip_event(1, False)
+        eng._loop_once()
+        out["first"] = _estats(eng)["reshards"]
+        for _ in range(3):
+            eng.chip_event(1, False)
+            eng._loop_once()
+        out["st"] = _estats(eng)
+        out["draining"] = eng._draining.is_set()
+    elif name == "flap":
+        eng.chip_event(1, False)
+        eng.chip_event(1, True)
+        for _ in range(3):
+            eng._loop_once()
+        out["st"] = _estats(eng)
+        out["fault"] = eng._mesh_fault
+    elif name == "admit_death":
+        from tpushare_torch.chaos import InjectedXlaRuntimeError
+        real = eng.srv.admit
+        state = {"left": 1}
+
+        def dying_admit(*a, **kw):
+            if state["left"] > 0:
+                state["left"] -= 1
+                raise InjectedXlaRuntimeError(
+                    "INTERNAL: card lost mid-prefill")
+            return real(*a, **kw)
+        eng.srv.admit = dying_admit
+        out["run"] = _elastic_drive(eng, [[5, 9, 12, 3]], max_tokens=4)
+        out["st"] = _estats(eng)
+    elif name == "non_serving":
+        eng.chip_event(3, False)
+        eng._loop_once()                # degraded to positions [0, 1]
+        eng.chip_event(2, False)        # an idle card dies
+        for _ in range(3):
+            eng._loop_once()
+        out["after_idle_death"] = _estats(eng)
+        eng.chip_event(3, True)         # card 2 is still dead
+        for _ in range(20):
+            eng._loop_once()
+            time.sleep(0.005)
+        out["partial_recovery_grow_backs"] = _estats(eng)["grow_backs"]
+        eng.chip_event(2, True)
+        _idle_until_grown(eng)
+        out["full"] = _estats(eng)
+    elif name == "host_repeat":
+        eng.host_event(1, False)
+        eng.host_event(1, False)
+        out["losses"] = _estats(eng)["host_losses"]
+        eng.host_event(1, True)
+        eng.host_event(1, True)
+        out["rejoins"] = _estats(eng)["host_rejoins"]
+    elif name == "host_undrain":
+        out["run"] = _elastic_drive(eng, P, host_kill=(2, 1))
+        eng.begin_drain()
+        out["end_drain"] = eng.end_drain()
+        out["st"] = _estats(eng)
+    elif name in ("host_chaos", "chaos_no_process"):
+        out["run"] = _elastic_drive(eng, P)
+        out["st"] = _estats(eng)
+    elif name == "process_stats":
+        out["st"] = _estats(eng)
+    elif name == "gang":
+        leader = ctx["gang"]
+        deadline = time.monotonic() + 10.0
+        while leader.seen_ranks() != [1] and time.monotonic() < deadline:
+            time.sleep(0.02)
+        out["seen"] = leader.seen_ranks()
+        reqs = [serve_mod._Request(list(p), 8, None) for p in P]
+        for r in reqs:
+            assert eng.submit(r)
+        for i in range(4000):
+            if i == 4:
+                leader.sever(1)
+            st = eng.stats()
+            if all(r.done.is_set() for r in reqs) and \
+                    st["host_rejoins"] >= 1:
+                break
+            eng._loop_once()
+            time.sleep(0.005)
+        out["run"] = {"tokens": [list(r.tokens) for r in reqs],
+                      "errors": [r.error for r in reqs]}
+        _idle_until_grown(eng)
+        out["st"] = _estats(eng)
+    elif name == "host_route":
+        httpd = serve_mod.serve(eng, host="127.0.0.1", port=0,
+                                timeout_s=10.0)
+        port = httpd.server_address[1]
+        codes = []
+        for body in ({"rank": 1, "healthy": False},
+                     {"rank": 1, "healthy": True}, {"healthy": False},
+                     {"rank": "x", "healthy": False},
+                     {"rank": True, "healthy": False},
+                     {"rank": 1, "healthy": "down"},
+                     {"rank": 9, "healthy": False}):
+            codes.append(_post_json(port, "/mesh/host", body))
+        httpd.shutdown()
+        httpd.server_close()
+        out["codes"] = codes
+    else:
+        raise KeyError(name)
+    return out
+
+
+def _post_json(port, path, body):
+    import json
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return [r.status, json.loads(r.read())]
+    except urllib.error.HTTPError as e:
+        return [e.code, json.loads(e.read())]
+
+
+def _case_ports(rank, out_dir, i):
+    """Case ``i``'s two ports (the rendezvous, the liaison): rank 0 takes
+    free ones just before binding them and hands them to the others
+    through a file."""
+    import json
+    path = os.path.join(out_dir, f"port_{i}.json")
+    if rank == 0:
+        ports = free_ports(2)
+        with open(path + ".tmp", "w") as f:
+            json.dump(ports, f)
+        os.replace(path + ".tmp", path)
+        return ports
+    deadline = time.monotonic() + 60
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no port for case {i}")
+        time.sleep(0.01)
+    with open(path) as f:
+        return json.load(f)
+
+
+def elastic_worker(rank, world, inp, cases):
+    """The port's elastic engine (chip and host events, reshard, replay,
+    grow-back) on a ``world``-rank mesh (2: tp=2 over the dense tiny
+    model; 4: ep=2 x tp=2 over the MoE tiny model), one fresh mesh per
+    case in ``cases`` ((name, engine options) pairs), each bound on a
+    port of its own (``_case_port``) as the serve CLI binds
+    (``--dist-init``).
+    Rank 0 drives each case (``_elastic_case``); the other ranks follow
+    through every generation. Returns rank 0's records."""
+    import json
+    from tpushare_torch.cli import serve as serve_mod
+    from tpushare_torch.models import moe
+    from tpushare_torch.models import transformer as tt
+    from tpushare_torch.parallel.gang import GangFollower, GangLeader
+    from tpushare_torch.parallel.mesh import serving_mesh
+    if world == 2:
+        cfg = tt.TransformerConfig(**json.loads(str(inp["tcfg"])),
+                                   dtype=torch.float32)
+        params, sizes, family = unflatten(inp, "tf/"), {"tp": 2}, "dense"
+    else:
+        cfg = moe.MoEConfig(**json.loads(str(inp["mcfg"])),
+                            dtype=torch.float32)
+        params = unflatten(inp, "moe/")
+        sizes, family = {"tp": 2, "ep": 2}, "moe"
+    records = {}
+    out_dir = str(inp["out_dir"])
+    for i, (name, opts) in enumerate(cases):
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        opts = dict(opts)
+        port, gang_port = _case_ports(rank, out_dir, i)
+        if not opts.pop("gang", False):
+            gang_port = None
+        mesh = serving_mesh(sizes, devices=["cpu"] * world).bind(
+            rank=rank, init_method=f"tcp://127.0.0.1:{port}", timeout_s=60)
+        kw = dict(n_slots=4, n_blocks=128, block_size=4, idle_sleep_s=0.0,
+                  max_reshards=5, mesh=mesh, device="cpu")
+        if family == "moe":
+            kw.update(model_family="moe", kv="paged")
+        if opts.pop("speculative", False):
+            kw.update(speculative_draft=(params, cfg), gamma=2,
+                      spec_horizon=2, n_slots=3)
+        if opts.get("reshard_checkpoint"):
+            opts["reshard_checkpoint"] = os.path.join(
+                out_dir, opts["reshard_checkpoint"])
+        kw.update(opts)
+        gang = follower = None
+        if gang_port is not None:
+            if rank == 0:
+                gang = GangLeader(2, port=gang_port,
+                                  heartbeat_timeout_s=0.25)
+                kw["gang"] = gang
+            else:
+                follower = GangFollower(f"127.0.0.1:{gang_port}", 1,
+                                        interval_s=0.03,
+                                        fetches_fn=lambda: 7)
+        with torch.inference_mode():
+            eng = serve_mod.ServeEngine(params, cfg, **kw)
+        if rank > 0:
+            eng.follow()
+            if follower is not None:
+                follower.stop()
+            continue
+        ctx = {"dev": 1 if world == 2 else 3, "gang": gang}
+        with eng._on_device():
+            records[name] = _elastic_case(name, eng, ctx)
+        eng.stop()
+        if gang is not None:
+            gang.close()
+    return {"res": _json_out(records)} if rank == 0 else {}

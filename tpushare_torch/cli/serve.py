@@ -46,11 +46,17 @@ API (token ids in, token ids out — tokenization is the caller's):
                            the dense-row MoE family)
   GET /stats            -> slots / pool / prefix-cache / recovery counters
   POST /drain, /undrain -> stop / resume accepting new work
-  POST /mesh/chip       -> an unsharded engine's chip IS its whole
-                           domain: unhealthy drains, healthy undrains;
-                           a sharded engine answers 400 (degrade-
-                           replay-grow is ROADMAP A10b)
-  POST /mesh/host       -> 400: no process-aware mesh (ROADMAP A10b)
+  POST /mesh/chip       {"device": i | "chip": c, "healthy": bool}
+                        -> a sharded engine's card changed health:
+                           unhealthy reshards the mesh around it
+                           (degrade-and-replay), every card healthy
+                           again grows it back at an idle tick; an
+                           unsharded engine's chip IS its whole domain:
+                           unhealthy drains, healthy undrains
+  POST /mesh/host       {"rank": h, "healthy": bool}
+                        -> a whole host of the process view (its rank
+                           range) changed health; 400 without a
+                           process-aware mesh
   GET /kv/blocks?keys=<hex>,<hex>
                         -> raw KV block payloads by chain digest (the
                            migration source): {"block_size": bs,
@@ -96,9 +102,21 @@ slot server broadcasts every state-changing call to the other ranks
 process is given ``--dist-init tcp://localhost:<port>``. ``/stats``
 names the mesh's shape, its card count and the collectives' transport.
 
-Not in the port yet, each refused naming its ROADMAP item (A10b):
-degrade-replay-grow on a mesh (chip events, ``--max-reshards`` above 0,
-``--reshard-checkpoint``), process views and gangs.
+Mesh failure domain: a card lost under a sharded engine (POST
+/mesh/chip, the ``mesh.chip_failure`` chaos point, a collective's
+transport error) quarantines every in-flight request, re-carves the
+largest healthy sub-mesh (``models/reshard.py``) and replays the
+requests token-exact on it — a new mesh generation, for which every
+rank drops its server, frees its card's memory and rebuilds its slices
+from a weight copy off the mesh (a host copy, or
+``--reshard-checkpoint``); bounded by ``--max-reshards``, after which
+the replica drains sticky. Once every card is healthy the engine grows
+back at an idle tick. ``--process-view N`` groups the ranks into N
+hosts: rank 0 runs the gang liaison (``parallel/gang.py``) one port
+above ``--dist-init``, and a host whose heartbeats stop (or POST
+/mesh/host, or the ``host.loss`` chaos point) loses its whole rank
+range; a restarted rank process stands by and rejoins at the
+grow-back.
 """
 
 from __future__ import annotations
@@ -130,12 +148,34 @@ from tpushare_torch.slo import (DEFAULT_TIER, KvQuota, TickScheduler,
                                 tier_rank)
 from tpushare_torch.utils import ownership as _ownership
 
-TODO_MESH = "ROADMAP A10b (reshard, process axis, gangs)"
 
 def _mesh_axes(mesh):
     from tpushare_torch.models.serving import mesh_axes
     return mesh_axes(mesh)
 
+
+# Words of a collective's transport error (a dead or departed peer):
+# gloo's closed connection, an NCCL or store failure.
+_TRANSPORT_WORDS = ("Connection closed by peer", "Connection reset",
+                    "NCCL", "ProcessGroup", "gloo", "Broken pipe")
+
+
+def dist_errors() -> tuple:
+    """torch.distributed's own error classes (an empty tuple where the
+    build has none)."""
+    err = getattr(torch.distributed, "DistError", None)
+    return (err,) if err is not None else ()
+
+
+# How long a mesh generation waits for a process of the old one to free
+# its card's memory before taking it for dead: a follower finishes the
+# call it is replaying first (seconds at Llama-3-8B's width over gloo).
+RESHARD_ACK_S = 20.0
+
+# After a failed grow-back (the engine serves on again at its degraded
+# shape), the seconds before an idle tick tries the grow again: a full
+# rebuild of each shape takes seconds at Llama-3-8B's width.
+GROW_RETRY_S = 2.0
 
 # How long stop() waits, in all, for the threads an engine started: a
 # tick is tens to hundreds of ms, so a thread alive after this is wedged.
@@ -479,21 +519,19 @@ class ServeEngine:
                  host_kv_bytes: int = 0,
                  num_processes: int = 1,
                  gang=None,
-                 max_reshards: int = 0,
+                 max_reshards: int = 3,
                  device=None):
         if reshard_checkpoint is not None and mesh is None:
-            raise ValueError("reshard_checkpoint needs a mesh (an "
-                             "unsharded engine has no mesh failure "
-                             "domain)")
-        for name, val, todo in (
-                ("reshard_checkpoint", reshard_checkpoint, TODO_MESH),
-                ("max_reshards > 0 on a mesh",
-                 (mesh is not None and max_reshards > 0) or None,
-                 TODO_MESH),
-                ("num_processes > 1", num_processes > 1 or None, TODO_MESH),
-                ("gang", gang, TODO_MESH)):
-            if val is not None:
-                raise NotImplementedError(f"{name}: {todo}")
+            raise ValueError(
+                "reshard_checkpoint is a mesh feature (the reshard "
+                "path rebuilds weights after chip loss); pass mesh= "
+                "or drop it")
+        if num_processes < 1:
+            raise ValueError("num_processes must be >= 1")
+        if num_processes > 1 and mesh is None:
+            raise ValueError(
+                "num_processes > 1 is a mesh feature (the process "
+                "axis partitions a mesh's ranks); pass mesh=")
         if kv not in (None, "rows", "paged"):
             raise ValueError(f"unknown kv {kv!r}; 'rows' or 'paged'")
         # A speculative round is UNSPLITTABLE (acceptance is decided on
@@ -533,7 +571,6 @@ class ServeEngine:
                 "model_family='moe' with kv='rows' has no block pool "
                 "(serve --kv paged for quota-aware MoE)")
         use_prefix = True if prefix_cache is None else prefix_cache
-        dev = self.device
         if model_family == "moe" and kv == "paged":
             from tpushare_torch.models.moe import paged_forward
             from tpushare_torch.models.paged import PagedSlotServer
@@ -542,19 +579,21 @@ class ServeEngine:
                     "model_family='moe' does not support kv_quant/"
                     "multi_lora (dense-LM features; pass layers_hook="
                     "quant.dequant_hook(cfg) for int8 expert weights)")
-            self.srv = PagedSlotServer(
-                params, cfg, n_slots=n_slots, n_blocks=n_blocks,
-                block_size=block_size,
-                max_blocks_per_slot=max_blocks_per_slot,
-                prefix_cache=use_prefix,
-                temperature=temperature, top_k=top_k, top_p=top_p,
-                seed=seed, layers_hook=layers_hook,
-                speculative_draft=speculative_draft, gamma=gamma,
-                spec_horizon=spec_horizon,
-                draft_layers_hook=draft_layers_hook,
-                forward_fn=paged_forward, kv_quota=self._kv_quota,
-                mesh=mesh, param_specs=param_specs,
-                draft_param_specs=draft_param_specs, device=dev)
+
+            def factory(f_params, f_draft, f_mesh, f_quota, dev):
+                return PagedSlotServer(
+                    f_params, cfg, n_slots=n_slots, n_blocks=n_blocks,
+                    block_size=block_size,
+                    max_blocks_per_slot=max_blocks_per_slot,
+                    prefix_cache=use_prefix,
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    seed=seed, layers_hook=layers_hook,
+                    speculative_draft=f_draft, gamma=gamma,
+                    spec_horizon=spec_horizon,
+                    draft_layers_hook=draft_layers_hook,
+                    forward_fn=paged_forward, kv_quota=f_quota,
+                    mesh=f_mesh, param_specs=param_specs,
+                    draft_param_specs=draft_param_specs, device=dev)
         elif model_family == "moe":
             unsupported = {
                 "kv_quant": kv_quant,
@@ -569,18 +608,20 @@ class ServeEngine:
                     f"layers_hook=quant.dequant_hook(cfg) for int8 "
                     f"expert weights instead)")
             from tpushare_torch.models.moe import MoESlotServer
+
             # prefix_cache=None is "unset": both families default it on
             # (MoE's is the row-level variant).
-            self.srv = _MoEServerAdapter(MoESlotServer(
-                params, cfg, n_slots=n_slots, max_len=max_len,
-                temperature=temperature, top_k=top_k, top_p=top_p,
-                seed=seed, layers_hook=layers_hook,
-                prefix_cache=use_prefix,
-                speculative_draft=speculative_draft, gamma=gamma,
-                spec_horizon=spec_horizon,
-                draft_layers_hook=draft_layers_hook, mesh=mesh,
-                param_specs=param_specs,
-                draft_param_specs=draft_param_specs, device=dev))
+            def factory(f_params, f_draft, f_mesh, f_quota, dev):
+                return _MoEServerAdapter(MoESlotServer(
+                    f_params, cfg, n_slots=n_slots, max_len=max_len,
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    seed=seed, layers_hook=layers_hook,
+                    prefix_cache=use_prefix,
+                    speculative_draft=f_draft, gamma=gamma,
+                    spec_horizon=spec_horizon,
+                    draft_layers_hook=draft_layers_hook, mesh=f_mesh,
+                    param_specs=param_specs,
+                    draft_param_specs=draft_param_specs, device=dev))
         elif model_family != "dense":
             raise ValueError(f"unknown model_family {model_family!r}")
         else:
@@ -589,28 +630,107 @@ class ServeEngine:
                                  "paged pool (kv='paged' is its only "
                                  "KV layout)")
             from tpushare_torch.models.paged import PagedSlotServer
-            self.srv = PagedSlotServer(
-                params, cfg, n_slots=n_slots, n_blocks=n_blocks,
-                block_size=block_size,
-                max_blocks_per_slot=max_blocks_per_slot,
-                prefix_cache=use_prefix, kv_quant=kv_quant,
-                multi_lora=multi_lora, mlora_scale=mlora_scale,
-                temperature=temperature, top_k=top_k, top_p=top_p,
-                seed=seed, layers_hook=layers_hook,
-                speculative_draft=speculative_draft, gamma=gamma,
-                spec_horizon=spec_horizon,
-                draft_layers_hook=draft_layers_hook,
-                kv_quota=self._kv_quota, mesh=mesh,
-                param_specs=param_specs,
-                draft_param_specs=draft_param_specs, device=dev)
-        if mesh is not None and mesh.size > 1 and mesh.rank == 0:
-            # Rank 0 takes the requests: every state-changing server
-            # call reaches the other ranks first (parallel/control.py).
-            from tpushare_torch.parallel.control import ShardedServer
-            self.srv = ShardedServer(self.srv, mesh)
+
+            def factory(f_params, f_draft, f_mesh, f_quota, dev):
+                return PagedSlotServer(
+                    f_params, cfg, n_slots=n_slots, n_blocks=n_blocks,
+                    block_size=block_size,
+                    max_blocks_per_slot=max_blocks_per_slot,
+                    prefix_cache=use_prefix, kv_quant=kv_quant,
+                    multi_lora=multi_lora, mlora_scale=mlora_scale,
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    seed=seed, layers_hook=layers_hook,
+                    speculative_draft=f_draft, gamma=gamma,
+                    spec_horizon=spec_horizon,
+                    draft_layers_hook=draft_layers_hook,
+                    kv_quota=f_quota, mesh=f_mesh,
+                    param_specs=param_specs,
+                    draft_param_specs=draft_param_specs, device=dev)
+        self._server_factory = factory
+        self._cfg = cfg
+        # Mesh failure domain: the configured mesh is the operator's
+        # sized shape (generation 0); the CURRENT mesh (self._mesh)
+        # shrinks on card loss and grows back on recovery, each shape a
+        # mesh generation of its own (parallel/mesh.py). Card health is
+        # engine-side truth, fed by POST /mesh/chip, /undrain
+        # (all-healthy), the mesh.chip_failure chaos point and
+        # classified dispatch failures; self._positions names the
+        # configured positions the current ranks run on. Every rank
+        # keeps a ParamStore, built before placement off the unplaced
+        # trees: a dead card takes its slices with it, so rebuilds read
+        # host (or disk) copies. A one-rank mesh has nothing to shrink
+        # to and keeps none.
+        self._mesh_configured = mesh
+        self._positions = (list(range(mesh.size)) if mesh is not None
+                           else None)
+        self._max_reshards = max(0, int(max_reshards))
+        self._degraded = False
+        # The plan the degraded mesh was built on (a failed grow-back
+        # rebuilds on it), and the earliest time of the next grow.
+        self._serving_plan = None
+        self._grow_retry_at = 0.0
+        self._mesh_fault: Optional[str] = None
+        self._chip_health = ([True] * mesh.size
+                             if mesh is not None else None)
+        self._reshard_ms: List[float] = []
+        self._grow_ms: List[float] = []
+        self._presumed_dead: set = set()
+        # Set by the liaison thread when it aborts an NCCL generation.
+        self._mesh_aborted = False
+        # Rank 0's record of every ended mesh generation, and what the
+        # caller adds to each (the CLI: the kernel launches so far).
+        self._generations: List[Dict[str, Any]] = []
+        self.generation_probe = None
+        self._mesh_digests: Dict[int, str] = {}
+        self._draft_cfg = (speculative_draft[1]
+                           if speculative_draft is not None else None)
+        self._tenant_quotas = tenant_quotas
+        self._param_store = None
+        if mesh is not None and mesh.size > 1 and self._max_reshards:
+            from tpushare_torch.models.reshard import ParamStore
+            self._param_store = ParamStore(
+                params,
+                (speculative_draft[0] if speculative_draft is not None
+                 else None),
+                path=reshard_checkpoint)
+        # Process axis: the mesh's ranks fall into num_processes hosts,
+        # each a contiguous run of mesh.size // num_processes ranks;
+        # host health rides the card-health machinery (a dead host is
+        # its whole rank range going unhealthy at once). A one-host
+        # engine stays topology-less (null-not-zero in /stats, 400 on
+        # /mesh/host).
+        self._topo = None
+        if mesh is not None and num_processes > 1:
+            from tpushare_torch.parallel.multihost import ProcessTopology
+            if mesh.size % int(num_processes) != 0:
+                raise ValueError(
+                    f"mesh of {mesh.size} ranks does not divide into "
+                    f"{num_processes} processes")
+            self._topo = ProcessTopology.forced_view(int(num_processes),
+                                                     mesh.size)
+        self._host_health = ([True] * int(num_processes)
+                             if self._topo is not None else None)
+        # Gang liaison (parallel.gang.GangLeader on rank 0): heartbeat
+        # verdicts become host events, polled in the tick preamble and,
+        # while a tick may be blocked in a collective, by a liaison
+        # thread of its own.
+        self._gang = gang
+        if gang is not None and (self._topo is None
+                                 or self._topo.num_processes < 2):
+            raise ValueError(
+                "a gang liaison needs num_processes >= 2 on a mesh")
+        self._gang_follower = None
+        # Serializes /stats (and the other handler reads of the server)
+        # against a rebuild, which drops the old server before it
+        # builds the new one.
+        self._swap_lock = threading.RLock()
+        self.srv = None
+        if mesh is None or not mesh.standby:
+            self.srv = self._build_server(params, speculative_draft, mesh,
+                                          self._kv_quota)
         self.model_family = model_family
-        self._has_pool = not isinstance(self.srv.cache,
-                                        _DenseRowCacheStats)
+        self._has_pool = not (model_family == "moe"
+                              and (kv or "rows") == "rows")
         self.kv = "paged" if self._has_pool else "rows"
         # Bounded queue: a request flood gets an immediate 429 instead
         # of an unbounded queue + one parked handler thread per request.
@@ -645,7 +765,7 @@ class ServeEngine:
         # and admission-only ticks so neither side starves.
         self._tick_token_budget = int(tick_token_budget or 0)
         self._admit_turn = False
-        self._chunk_gran = getattr(self.srv.cache, "block_size", 1)
+        self._chunk_gran = block_size if self._has_pool else 1
         self._admitting: Dict[int, _Request] = {}   # tpushare: owner[engine]
         self._idle_sleep_s = idle_sleep_s
         self.max_tokens_cap = 4096
@@ -659,10 +779,9 @@ class ServeEngine:
                        "quarantines": 0, "replays": 0,
                        "engine_restarts": 0, "deadline_breaches": 0,
                        "evict_errors": 0,
-                       # Mesh and host failure domains: always zero in
-                       # the port (no degrade-replay-grow; ROADMAP
-                       # A10b), kept so the key set matches the
-                       # reference engine's.
+                       # Mesh and host failure domains: reshards
+                       # (degrade-and-replay), grow-backs, requests
+                       # replayed by a reshard, hosts lost and back.
                        "reshards": 0, "grow_backs": 0,
                        "replayed_on_reshard": 0,
                        "host_losses": 0, "host_rejoins": 0,
@@ -696,6 +815,8 @@ class ServeEngine:
         self._fault_token_fetch = self._chaos.point("engine.token_fetch")
         self._fault_admit = self._chaos.point("engine.admit")
         self._fault_kill = self._chaos.point("process.kill")
+        self._fault_chip = self._chaos.point("mesh.chip_failure")
+        self._fault_host = self._chaos.point("host.loss")
         # Host KV offload tier: cold paged blocks demote to host memory
         # under this byte budget instead of being destroyed, admissions
         # promote tier-resident chains back (prefetched in the overlap
@@ -1175,58 +1296,267 @@ class ServeEngine:
         concurrently recovering chip."""
         if self._stop.is_set() or self._drain_sticky:
             return False
+        if self._chip_health is not None:
+            # The plugin's undrain hook fires only once EVERY card is
+            # healthy again, so undrain doubles as the all-clear for the
+            # mesh domain: mark every position healthy and let the
+            # engine grow back to the configured mesh at an idle tick.
+            self._chip_health[:] = [True] * len(self._chip_health)
+            if self._host_health is not None:
+                self._host_health[:] = [True] * len(self._host_health)
+            self._mesh_fault = None
         self._draining.clear()
         return True
 
+    def _build_server(self, params, draft, mesh, quota):
+        """One slot server by the engine's factory on ``mesh`` (this
+        rank's card); rank 0 of a multi-rank mesh wraps it so every
+        state-changing call reaches the other ranks first
+        (parallel/control.py). Every rank of a generation makes this
+        same call, in the same order."""
+        dev = mesh.device if mesh is not None else self.device
+        srv = self._server_factory(params, draft, mesh, quota, dev)
+        if mesh is not None and mesh.size > 1 and mesh.rank == 0:
+            from tpushare_torch.parallel.control import ShardedServer
+            srv = ShardedServer(srv, mesh)
+        return srv
+
     def chip_event(self, device: int, healthy: bool) -> Dict[str, Any]:
-        """One chip changed health (POST /mesh/chip — the plugin's
-        per-chip churn hook, an operator, or a test). An unsharded
-        engine's one card IS its whole failure domain, so chip loss
-        drains the daemon and recovery undrains (the reference's
-        unsharded behaviour). A sharded engine refuses: degrade-replay-
-        grow across ranks is ROADMAP A10b."""
-        del device
-        if self._mesh is not None:
-            raise ValueError(f"chip events on a mesh (degrade, replay, "
-                             f"grow back): {TODO_MESH}")
-        if healthy:
-            self.end_drain()
-        else:
-            self.begin_drain()
-        return {"mesh": None, "draining": self._draining.is_set(),
+        """One card of the engine's mesh changed health (POST
+        /mesh/chip — the plugin's per-card churn hook, an operator, or
+        a test); ``device`` is its position (rank) in the configured
+        mesh. An unhealthy card the serving mesh uses flags a mesh
+        fault the engine thread picks up at its next tick: every
+        in-flight request is quarantined and replayed token-exact on
+        the largest healthy sub-mesh (degrade-and-replay). A recovered
+        card marks its position healthy; the engine grows back to the
+        configured mesh at an idle tick once every position is
+        healthy. An unsharded engine's one card IS its whole failure
+        domain: loss drains the daemon and recovery undrains."""
+        if self._mesh_configured is None:
+            if healthy:
+                self.end_drain()
+            else:
+                self.begin_drain()
+            return {"mesh": None, "draining": self._draining.is_set(),
+                    "state": self.state()}
+        device = int(device)
+        n = self._mesh_configured.size
+        if not (0 <= device < n):
+            raise ValueError(f"device {device} out of range for the "
+                             f"configured {n}-device mesh")
+        self._chip_health[device] = bool(healthy)
+        if not healthy:
+            # Only a card the SERVING mesh uses is a fault: a re-posted
+            # event for a card already resharded around must not burn
+            # the reshard budget on a same-shape rebuild.
+            if self._device_in_serving_mesh(device):
+                self._mesh_fault = f"chip {device} reported unhealthy"
+        elif self._mesh_fault is not None:
+            # A flap (unhealthy-then-healthy between ticks) must not
+            # rebuild a mesh that is whole again.
+            if not any(not h and self._device_in_serving_mesh(i)
+                       for i, h in enumerate(self._chip_health)):
+                self._mesh_fault = None
+        return {"mesh": True, "device": device, "healthy": bool(healthy),
+                "healthy_devices": sum(self._chip_health),
+                "configured_devices": n, "degraded": self._degraded,
                 "state": self.state()}
 
     def host_event(self, rank: int, healthy: bool) -> Dict[str, Any]:
-        """Whole-host health churn needs a process-aware mesh (ROADMAP
-        A10b): refused as the reference's unsharded engine refuses it
-        (POST /mesh/host answers 400)."""
-        raise ValueError(
-            f"host_event needs a process-aware mesh (construct the "
-            f"engine with mesh= and num_processes=): {TODO_MESH}")
+        """One whole host (process rank of the process view) of the
+        engine's mesh changed health (a gang-liaison verdict, POST
+        /mesh/host, the host.loss chaos point, or a test): its whole
+        rank range goes unhealthy (or healthy) at once through the
+        card-health machinery, so the next tick reshards across the
+        host boundary and grow-back follows once every host is back.
+        A lost host's processes are taken for dead: a reshard frees no
+        memory of theirs and waits on none of them."""
+        if self._topo is None:
+            raise ValueError(
+                "host_event needs a process-aware mesh (construct "
+                "the engine with mesh= and num_processes=)")
+        rank = int(rank)
+        if not (0 <= rank < self._topo.num_processes):
+            raise ValueError(
+                f"rank {rank} out of range for "
+                f"{self._topo.num_processes} processes")
+        was = self._host_health[rank]
+        self._host_health[rank] = bool(healthy)
+        if was and not healthy:
+            self._stats["host_losses"] += 1
+        elif not was and healthy:
+            self._stats["host_rejoins"] += 1
+        out: Dict[str, Any] = {}
+        for dev in self._topo.device_range(rank):
+            out = self.chip_event(dev, healthy)
+        out = dict(out)
+        out.update(rank=rank,
+                   healthy_processes=sum(self._host_health),
+                   num_processes=self._topo.num_processes)
+        return out
 
-    def follow(self) -> int:
-        """A follower rank's loop: replay rank 0's server calls on this
-        rank's server until rank 0 stops (``parallel.control.follow``).
-        Returns the calls replayed."""
-        from tpushare_torch.parallel.control import follow
-        if self._mesh is None or self._mesh.rank in (None, 0):
-            raise ValueError("follow() runs on a mesh rank above 0")
+    def follow(self, report=None) -> int:
+        """A follower process's loop: replay rank 0's server calls on
+        this rank's server (``parallel.control.follow``) until rank 0
+        stops; across every mesh generation rank 0 starts, leave the
+        old one (drop the server, free the card's memory, release the
+        groups), then rebuild this rank's slices from the ParamStore by
+        the same factory call as every other rank, or stand by where
+        the plan names this process no rank. ``report`` (optional) gets
+        one dict per generation served: its number, this process's rank
+        in it, the calls replayed, their digest and the card's peak
+        memory. Returns the calls replayed in all."""
         import hashlib
-        self._follow_digest = hashlib.sha256()
-        with self._on_device():
-            return follow(self.srv, self._mesh, digest=self._follow_digest,
-                          log=lambda m: print(m, file=sys.stderr,
-                                              flush=True))
+
+        from tpushare_torch.parallel.control import (GenerationEnded,
+                                                     follow)
+        mesh = self._mesh
+        if mesh is None or mesh.process_id in (None, 0):
+            raise ValueError("follow() runs on a mesh rank above 0")
+        log = (lambda m: print(m, file=sys.stderr, flush=True))
+        total = 0
+        while True:
+            if not mesh.standby and self.srv is not None:
+                self._follow_digest = hashlib.sha256()
+                n, ended = 0, None
+                watch = self._watch_generation(mesh)
+                try:
+                    with self._on_device():
+                        n = follow(self.srv, mesh,
+                                   digest=self._follow_digest, log=log)
+                except GenerationEnded as e:
+                    ended, n = "regen", e.calls
+                except Exception as e:  # noqa: BLE001 — a dead peer,
+                    # a desync or a silent rank 0: wait for rank 0's
+                    # next plan (a reshard around the fault), bounded.
+                    ended = f"{type(e).__name__}: {e}"
+                    log(f"process {mesh.process_id}: generation "
+                        f"{mesh.generation} ended on {ended}")
+                finally:
+                    watch.set()
+                total += n
+                self._mesh_digests[mesh.generation] = \
+                    self._follow_digest.hexdigest()
+                if report is not None:
+                    report(self._generation_report(mesh, n))
+                if ended is None:
+                    return total
+            nxt = mesh.wait_plan(stop=self._stop.is_set)
+            if nxt is None:
+                if self._stop.is_set() or mesh.stop_posted:
+                    return total
+                raise TimeoutError(
+                    f"process {mesh.process_id}: no plan for mesh "
+                    f"generation {mesh.generation + 1} within "
+                    f"{mesh.timeout_s} s")
+            # NCCL: abort first — freeing the card synchronizes it,
+            # which would wait forever on a collective with a dead peer.
+            mesh.abort()
+            with self._swap_lock:
+                self.srv = None
+            self._free_card_memory()
+            mesh.release()
+            self._mesh = mesh = nxt
+            if mesh.standby:
+                continue
+            if not self._join(mesh):
+                mesh.rank = None            # wait for the next plan
+                continue
+            params, draft = self._param_store.load()
+            self.device = mesh.device
+            with self._on_device():
+                srv = self._build_server(
+                    params, ((draft, self._draft_cfg)
+                             if draft is not None else None), mesh, None)
+            with self._swap_lock:
+                self.srv = srv
+
+    def _watch_generation(self, mesh) -> threading.Event:
+        """A follower over NCCL: a thread that aborts this generation's
+        communicators once rank 0 posts the next plan, so a collective
+        waiting on a dead peer ends with an error instead of at the
+        group's timeout (gloo raises on a closed peer by itself).
+        Returns the event that ends the thread."""
+        done = threading.Event()
+        if mesh.transport != "nccl":
+            return done
+
+        def watch():
+            while not done.wait(0.05):
+                if mesh.next_plan_ready():
+                    mesh.abort()
+                    return
+        threading.Thread(target=watch, name="mesh-generation-watch",
+                         daemon=True).start()
+        return done
+
+    def _join(self, mesh) -> bool:
+        """Form a published generation's groups once every process it
+        releases has freed its memory; False where one never does (it
+        is taken for dead, and rank 0 posts another plan) or rank 0
+        moved on."""
+        deadline = time.monotonic() + RESHARD_ACK_S
+        missing = mesh.missing_frees()
+        while missing:
+            if time.monotonic() > deadline or mesh.next_plan_ready():
+                return False
+            time.sleep(0.005)
+            missing = mesh.missing_frees()
+        mesh.join()
+        return True
+
+    def _generation_report(self, mesh, calls: int,
+                           end: bool = True) -> Dict[str, Any]:
+        """One mesh generation on this process: its number, this
+        process's rank in it, its shape, the calls made, their digest,
+        the card's peak memory (reset at the generation's end) and
+        what ``generation_probe`` adds (the CLI: kernel launches)."""
+        peak = None
+        if self.device.type == "cuda":
+            peak = int(torch.cuda.max_memory_allocated(self.device))
+            if end:
+                torch.cuda.reset_peak_memory_stats(self.device)
+        out = {"mesh_generation": mesh.generation,
+               "process_id": mesh.process_id, "rank": mesh.rank,
+               "mesh_shape": _mesh_axes(mesh), "calls": calls,
+               "digest": self._mesh_digests.get(mesh.generation),
+               "peak_bytes": peak}
+        if self.generation_probe is not None:
+            out.update(self.generation_probe())
+        return out
+
+    def _free_card_memory(self) -> None:
+        """Drop what the old server left (collected) and hand the
+        card's cached blocks back, so the next generation's slices fit
+        beside the other ranks' on a shared card."""
+        import gc
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
 
     def _stop_followers(self) -> None:
-        """Rank 0: tell the other ranks to stop (once)."""
+        """Rank 0: tell the other ranks to stop (once); processes
+        standing by outside the current generation read the stop plan
+        off the store. Ends the gang liaison's side of this process."""
         stop = getattr(self.srv, "stop", None)
         if stop is not None and self._mesh is not None:
             stop()
+        mesh = self._mesh
+        if mesh is not None and mesh.store is not None and \
+                mesh.process_id == 0:
+            mesh.publish_stop()
+        for liaison in (self._gang, self._gang_follower):
+            if liaison is not None:
+                (getattr(liaison, "close", None) or liaison.stop)()
 
     def start(self) -> None:
         self._started = True
         self._supervisor.start()
+        if self._gang is not None:
+            threading.Thread(target=self._liaison_loop,
+                             name="gang-liaison", daemon=True).start()
 
     def _supervise(self) -> None:
         """Engine-thread supervisor: start _loop, and when a LETHAL
@@ -1268,6 +1598,7 @@ class ServeEngine:
                     self._quarantine_inflight(
                         "engine tick wedged; hard restart" if wedged
                         else "engine thread restarted")
+                    self._recover_mesh_after_crash()
             except Exception as e:
                 # The supervisor's own recovery work hit the corrupted
                 # state that killed the engine: do NOT die silently
@@ -1686,7 +2017,9 @@ class ServeEngine:
             req.finish()
 
     def active_count(self) -> int:
-        return int(self.srv.active.sum())
+        with self._swap_lock:
+            srv = self.srv
+            return int(srv.active.sum()) if srv is not None else 0
 
     @property
     def default_tier(self) -> str:
@@ -1707,9 +2040,17 @@ class ServeEngine:
         mesh, no journal, no host tier). Every value is a host mirror or
         a host counter — a handler thread never reads a device tensor
         (the engine thread mutates them in place)."""
+        with self._swap_lock:
+            return self._stats_locked()
+
+    def _stats_locked(self) -> Dict[str, Any]:
         from tpushare_torch.utils.profiling import \
             gap_percentiles as _gap_percentiles
         srv = self.srv
+        if srv is None:                 # a failed rebuild: drained
+            out = dict(self._stats)
+            out.update(self._mesh_stats())
+            return out
         jst = (self._journal.stats()
                if self._journal is not None else None)
         out = dict(self._stats)
@@ -1742,24 +2083,6 @@ class ServeEngine:
             "forwards_per_tick": (
                 round(out["model_forwards"] / out["work_ticks"], 3)
                 if out["work_ticks"] else None),
-            # Mesh observability, with the reference's values and nulls:
-            # mesh_shape elides 1-sized axes ({} = a one-rank mesh,
-            # null = unsharded); the configured shape is the current
-            # one (no degrade-replay-grow yet, ROADMAP A10b), every
-            # rank healthy. mesh_transport names the collectives'
-            # transport (gloo over shared cards stages through the
-            # host: not a tensor-parallel measurement).
-            "mesh_shape": _mesh_axes(self._mesh),
-            "num_devices": (self._mesh.size if self._mesh is not None
-                            else 1),
-            "mesh_shape_configured": _mesh_axes(self._mesh),
-            "mesh_shape_current": _mesh_axes(self._mesh),
-            "num_devices_configured": (self._mesh.size
-                                       if self._mesh is not None else 1),
-            "healthy_devices": (self._mesh.size
-                                if self._mesh is not None else None),
-            "degraded": False if self._mesh is not None else None,
-            "reshard_ms": None,
             # device_fetches counts the device->host transfers made
             # INSIDE work ticks (deltas of the server's raw counter
             # around each tick's dispatch), so fetches_per_tick <= 1.0
@@ -1767,11 +2090,6 @@ class ServeEngine:
             "fetches_per_tick": (
                 round(out["device_fetches"] / out["work_ticks"], 3)
                 if out["work_ticks"] else None),
-            # Process axis: null without a process-aware mesh.
-            "num_processes": None,
-            "process_index": None,
-            "healthy_processes": None,
-            "gang": None,
             # Failure-domain recovery surface.
             "chaos_active": self._chaos.active,
             "chaos_spec": self._chaos.spec_summary(),
@@ -1806,6 +2124,7 @@ class ServeEngine:
                                      if self._host_tier is not None
                                      else None),
         })
+        out.update(self._mesh_stats())
         if self._has_pool:
             # Host mirrors only: the free list, the LRU and the table.
             n_total = int(srv.cache.pool_k.shape[1])    # static shape
@@ -1859,6 +2178,7 @@ class ServeEngine:
             # the reference's key set): the cards its ranks run on and
             # the collectives' transport.
             out["mesh_cards"] = self._mesh.n_cards
+            out["grow_back_ms"] = self._mesh_stats_ms(self._grow_ms)
             out["mesh_transport"] = self._mesh.describe()
             out["mesh_broadcasts"] = getattr(srv, "broadcasts", None)
             # The digest of every server call's result on this rank
@@ -1868,7 +2188,66 @@ class ServeEngine:
                 self, "_follow_digest", None)
             out["mesh_digest"] = (dig.hexdigest() if dig is not None
                                   else None)
+            # The digest restarts with every mesh generation: this
+            # generation's number and every ended one's digest.
+            out["mesh_generation"] = self._mesh.generation
+            out["mesh_digests"] = {str(g): d for g, d in
+                                   sorted(self._mesh_digests.items())}
+            if self._mesh.process_id == 0:
+                now = self._generation_report(
+                    self._mesh, getattr(srv, "broadcasts", 0), end=False)
+                now["digest"] = out["mesh_digest"]
+                out["mesh_generations"] = self._generations + [now]
         return out
+
+    @staticmethod
+    def _mesh_stats_ms(ring: List[float]) -> Optional[Dict[str, float]]:
+        """The last and p99 of a ring of milliseconds (null when empty)."""
+        if not ring:
+            return None
+        srt = sorted(ring)
+        return {"last": round(ring[-1], 1),
+                "p99": round(srt[min(len(srt) - 1, int(0.99 * len(srt)))],
+                             1)}
+
+    def _mesh_stats(self) -> Dict[str, Any]:
+        """The mesh and process-axis keys of /stats, with the
+        reference's values and nulls: mesh_shape elides 1-sized axes
+        ({} = a one-rank mesh, null = unsharded); the configured shape
+        is the operator's, the current one shrinks on card loss;
+        reshard_ms: the last and p99 of the rebuilds, shrinks and
+        grow-backs alike (null before the first; a sharded engine adds
+        ``grow_back_ms``, the grow-backs alone). The process axis is
+        null without a process-aware mesh; ``gang`` is the liaison's
+        view, null unless a GangLeader is attached."""
+        conf, cur = self._mesh_configured, self._mesh
+        ms = self._mesh_stats_ms
+        return {
+            "mesh_shape": _mesh_axes(cur),
+            "num_devices": cur.size if cur is not None else 1,
+            "mesh_shape_configured": _mesh_axes(conf),
+            "mesh_shape_current": _mesh_axes(cur),
+            "num_devices_configured": conf.size if conf is not None else 1,
+            "healthy_devices": (sum(self._chip_health)
+                                if self._chip_health is not None
+                                else None),
+            "degraded": self._degraded if conf is not None else None,
+            "reshard_ms": ms(self._reshard_ms),
+            "num_processes": (self._topo.num_processes
+                              if self._topo is not None else None),
+            "process_index": (self._topo.process_index
+                              if self._topo is not None else None),
+            "healthy_processes": (sum(self._host_health)
+                                  if self._host_health is not None
+                                  else None),
+            "gang": (
+                {"num_processes": self._gang.num_processes,
+                 "heartbeat_timeout_s": self._gang.heartbeat_timeout_s,
+                 "process_fetches": {
+                     str(r): n for r, n in sorted(
+                         self._gang.process_fetches().items())}}
+                if self._gang is not None else None),
+        }
 
     # -- engine side -------------------------------------------------
     def _intake_locked(self) -> None:
@@ -1928,6 +2307,12 @@ class ServeEngine:
             # server still holds for it (blocks must not leak).
             self._stats["engine_errors"] += 1
             self._stats["last_error"] = str(e)
+            if self._is_mesh_fault(e):
+                # A sharded admission dispatch died (a card or a peer
+                # lost at prefill): flag it so the tick's admission
+                # loop stops and reshards before the replayed request
+                # re-pops onto the same broken placement.
+                self._mesh_fault = f"admit mesh fault: {e}"
             for store in (self._active, self._admitting):
                 for slot, r in list(store.items()):
                     if r is req:
@@ -2096,7 +2481,13 @@ class ServeEngine:
         """Engine-side token emission: push + the tier's TTFT
         accounting on the request's FIRST token (replays carry their
         tokens, so their first push happened in an earlier life and
-        the clock never restarts)."""
+        the clock never restarts). After the liaison aborted the
+        generation's NCCL communicators, a fetch the abort released
+        carries no trustworthy token: the tick fails as a mesh fault
+        before any emission."""
+        if self._mesh_aborted:
+            raise RuntimeError("NCCL communicators aborted: a peer host "
+                               "was lost mid-collective")
         first = not req.tokens
         req.push(tok)
         self._note_emission(req, tok)
@@ -2245,6 +2636,11 @@ class ServeEngine:
         recovery, deadline accounting. Split from _loop so tests can
         drive the recovery machinery synchronously."""
         self._fire_kill_chaos()
+        if self.srv is None:
+            # A rebuild failed and left no server: the replica is
+            # drained sticky and its backlog failed.
+            time.sleep(self._idle_sleep_s)
+            return
         self._serve_engine_calls()
         t0 = time.monotonic()
         self._stats["ticks"] += 1
@@ -2279,7 +2675,14 @@ class ServeEngine:
                 # restart budget ends it red and bounded, never as a
                 # quarantine-replay loop.
                 raise _DeviceLost(str(e)) from e
-            self._quarantine_inflight(f"engine error: {e}")
+            if self._is_mesh_fault(e):
+                # A card or a peer rank lost under a sharded dispatch:
+                # the MESH is the failure domain — degrade-and-replay
+                # (quarantine rides inside) instead of replaying onto
+                # the same broken placement until replays exhaust.
+                self._reshard(f"mesh fault: {e}")
+            else:
+                self._quarantine_inflight(f"engine error: {e}")
         finally:
             if gen is None or gen == self._engine_gen:
                 # A superseded thread must not clobber the NEW
@@ -2310,6 +2713,344 @@ class ServeEngine:
         return False
 
     # -- failure-domain recovery -------------------------------------
+    # -- mesh failure domain -------------------------------------------
+    def _device_in_serving_mesh(self, device: int) -> bool:
+        """Does the CURRENT serving mesh run on configured position
+        ``device``?"""
+        return self._positions is not None and device in self._positions
+
+    def _is_mesh_fault(self, e: BaseException) -> bool:
+        """Classify a tick failure: on a multi-rank engine, a flagged
+        card- or host-health event, the injected chip failure, or a
+        collective's transport error (a dead or departed peer: gloo's
+        closed connection, an NCCL or store error) is a MESH fault and
+        routes to degrade-and-replay; anything else keeps the tick
+        domain (quarantine and replay on the same server)."""
+        if self._mesh_configured is None or self._mesh_configured.size < 2:
+            return False
+        if self._mesh_fault is not None:
+            return True
+        from tpushare_torch.chaos import InjectedXlaRuntimeError
+        if isinstance(e, (InjectedXlaRuntimeError, dist_errors())):
+            return True
+        return isinstance(e, RuntimeError) and any(
+            w in str(e) for w in _TRANSPORT_WORDS)
+
+    def _fire_chip_chaos(self) -> None:
+        """mesh.chip_failure chaos point (multi-rank engines only): a
+        fired ``raise`` flips the highest-positioned card the serving
+        mesh still uses unhealthy and re-raises, so this tick dies with
+        the fault and ``_loop_once`` reshards. Never the last healthy
+        card: total loss is the drain path, driven by chip_event."""
+        from tpushare_torch.chaos import InjectedXlaRuntimeError
+        try:
+            self._fault_chip()
+        except InjectedXlaRuntimeError:
+            healthy = [i for i, h in enumerate(self._chip_health)
+                       if h and self._device_in_serving_mesh(i)]
+            if len(healthy) <= 1 or sum(self._chip_health) <= 1:
+                return
+            victim = healthy[-1]
+            self._chip_health[victim] = False
+            self._mesh_fault = f"chip {victim} unhealthy (chaos)"
+            raise
+
+    def _fire_host_chaos(self) -> None:
+        """host.loss chaos point (process-aware engines only): a fired
+        ``raise`` takes one whole host dark. With a gang liaison the
+        injection is heartbeat silence (``sever``): the loss must be
+        detected by the liaison's timeout. Without one the host is
+        marked down directly. Never rank 0's own host, never the last
+        healthy one."""
+        if self._topo is None or self._topo.num_processes < 2:
+            return
+        from tpushare_torch.chaos import InjectedXlaRuntimeError
+        try:
+            self._fault_host()
+        except InjectedXlaRuntimeError:
+            own = self._topo.process_index
+            live = [r for r in range(self._topo.num_processes)
+                    if self._host_health[r] and r != own]
+            if self._gang is not None:
+                seen = set(self._gang.seen_ranks())
+                live = [r for r in live if r in seen]
+            if not live or sum(self._host_health) <= 1:
+                return
+            victim = live[-1]
+            if self._gang is not None:
+                self._gang.sever(victim)
+            else:
+                self.host_event(victim, False)
+
+    def _poll_gang(self) -> bool:
+        """Translate liaison heartbeat verdicts into host events;
+        True where a host was lost."""
+        if self._gang is None:
+            return False
+        ev = self._gang.poll()
+        for rank in ev["lost"]:
+            self.host_event(rank, False)
+        for rank in ev["rejoined"]:
+            self.host_event(rank, True)
+        return bool(ev["lost"])
+
+    def _liaison_loop(self) -> None:
+        """Rank 0 with a gang: poll the liaison while the engine thread
+        may be blocked in a collective with the lost host's ranks; over
+        NCCL, abort the generation's communicators so that collective
+        ends with an error (gloo raises on a closed peer by itself)."""
+        while not self._stop.wait(0.1):
+            try:
+                lost = self._poll_gang()
+            except Exception:           # noqa: BLE001 — keep watching
+                continue
+            mesh = self._mesh
+            if lost and self._mesh_fault is not None and \
+                    mesh is not None and mesh.transport == "nccl":
+                self._mesh_aborted = True
+                mesh.abort()
+
+    def _mesh_preamble(self) -> bool:
+        """The tick preamble of a sharded engine: chaos points, liaison
+        verdicts, and a flagged fault resharded before any dispatch
+        touches the dead card's slices. True when the tick resharded
+        (the caller returns)."""
+        if self._mesh_configured is None:
+            return False
+        self._fire_chip_chaos()
+        self._fire_host_chaos()
+        self._poll_gang()
+        if self._mesh_fault is not None:
+            self._flush_pipeline()
+            self._reshard(self._mesh_fault)
+            return True
+        return False
+
+    def _process_alive(self, pid: int) -> bool:
+        """Is process ``pid`` taken for alive? Rank 0 always is; a lost
+        host's processes are not, nor one that never freed its memory
+        for a generation (until it stands by again)."""
+        if pid == 0:
+            return True
+        if pid in self._presumed_dead:
+            return False
+        return (self._topo is None
+                or self._host_health[self._topo.process_of(pid)])
+
+    def _reshard(self, reason: str) -> None:
+        """Degrade-and-replay, the mesh failure domain's recovery:
+
+        1. quarantine every in-flight request (request state is host
+           resident: prompt plus generated tokens), to replay
+           token-exact;
+        2. re-carve the largest healthy sub-mesh
+           (``models/reshard.plan_reshard``);
+        3. end the mesh generation and build the next one there: every
+           rank drops its old server, frees its card's memory and
+           rebuilds its slices from the ParamStore;
+        4. bounded by max_reshards, after which the replica goes
+           drained-sticky and its backlog fails fast.
+
+        Engine thread only (the tick, ``_loop_once``'s classifier, or
+        the supervisor between engine generations)."""
+        t0 = time.monotonic()
+        inflight = len(self._active) + len(self._admitting)
+        if self._mesh.transport == "nccl" and self._mesh.size > 1:
+            # This generation ends: abort its communicators before
+            # anything waits on the card, where a collective may wait
+            # on a dead peer; nothing fetched from here on is emitted.
+            self._mesh_aborted = True
+            self._mesh.abort()
+        self._quarantine_inflight(reason)
+        self._stats["replayed_on_reshard"] += inflight
+        self._mesh_fault = None
+        if self._stats["reshards"] >= self._max_reshards:
+            self._drain_dead(f"{reason}: {self._max_reshards} reshard "
+                             f"budget exhausted; replica drained")
+            return
+        from tpushare_torch.models.reshard import plan_reshard
+        for _ in range(self._mesh_configured.size):
+            plan = plan_reshard(self._mesh_configured, self._chip_health,
+                                self._cfg, self._draft_cfg)
+            if plan.mesh is None:
+                self._drain_dead(
+                    f"{reason}: no serving shape fits the "
+                    f"{plan.n_healthy} surviving card(s); replica "
+                    f"drained")
+                return
+            done = self._rebuild_on(plan)
+            if done is True:
+                break
+            if done is False:
+                self._drain_dead(self._stats["last_error"])
+                return
+            # A process the plan waited on never freed its memory: it
+            # is taken for dead, and the next plan carves around it.
+            for pid in done:
+                self._chip_health[pid] = False
+        else:
+            self._drain_dead(f"{reason}: no generation formed")
+            return
+        self._stats["reshards"] += 1
+        self._reshard_ms.append((time.monotonic() - t0) * 1e3)
+        del self._reshard_ms[:-512]
+
+    def _drain_dead(self, msg: str) -> None:
+        """Nothing can serve here: drain sticky and fail the backlog
+        fast (parked handlers must not wait out the HTTP timeout)."""
+        self._stats["last_error"] = msg
+        self._drain_sticky = True
+        self._draining.set()
+        self._fail_all(msg)
+
+    def _rebuild_on(self, plan):
+        """End the current mesh generation and serve the next one on
+        ``plan``'s mesh: post the plan on the store (every follower
+        learns of it there, even one whose peer died), retire the old
+        server, drop it and free this card's memory, wait until every
+        live process of the old generation freed its own, then form
+        the new groups and build this rank's server by the factory
+        from the ParamStore. Returns True on success, False where the
+        build failed (no server is left: the caller drains), or the
+        processes that never freed their memory (taken for dead; the
+        caller re-plans around them)."""
+        from tpushare_torch.parallel.control import ShardedServer
+        cur = self._mesh
+        nxt = cur.successor(plan.spec, plan.positions,
+                            self._mesh_configured)
+        nxt.publish([pid for pid in cur.members
+                     if self._process_alive(pid)])
+        old = self.srv
+        calls = 0
+        if isinstance(old, ShardedServer):
+            old.retire(nxt.generation)
+            self._mesh_digests[cur.generation] = old.digest.hexdigest()
+            calls = old.broadcasts
+        elif cur.control is not None and cur.rank == 0:
+            # A generation whose build failed here: its followers wait
+            # on its channel all the same.
+            cur.control.send(("regen", nxt.generation))
+        self._generations.append(self._generation_report(cur, calls))
+        with self._swap_lock:
+            self.srv = None
+        old = None
+        cur.abort()         # NCCL: before the sync that frees the card
+        self._free_card_memory()
+        cur.release()
+        self._mesh = nxt
+        deadline = time.monotonic() + RESHARD_ACK_S
+        missing = nxt.missing_frees()
+        while missing and time.monotonic() < deadline:
+            self._poll_gang()
+            dead = [p for p in missing if not self._process_alive(p)]
+            if dead:
+                # The liaison declared a host lost meanwhile: carve
+                # around it now rather than at the deadline.
+                missing = dead
+                break
+            time.sleep(0.005)
+            missing = nxt.missing_frees()
+        if missing:
+            self._stats["last_error"] = (
+                f"mesh generation {nxt.generation}: processes "
+                f"{missing} never freed their memory")
+            self._presumed_dead.update(missing)
+            nxt.rank = None
+            return list(missing)
+        try:
+            self.device = nxt.device
+            with self._on_device():
+                nxt.join()
+                params, draft = self._param_store.load()
+                quota = (KvQuota(self._tenant_quotas)
+                         if self._tenant_quotas else None)
+                srv = self._build_server(
+                    params, ((draft, self._draft_cfg)
+                             if draft is not None else None), nxt, quota)
+        except Exception as e:          # noqa: BLE001 — no server left
+            self._stats["engine_errors"] += 1
+            self._stats["last_error"] = f"mesh rebuild failed: {e}"
+            return False
+        with self._swap_lock:
+            self.srv = srv
+        self._mesh_aborted = False
+        self._kv_quota = quota
+        self._positions = list(plan.positions)
+        self._degraded = plan.degraded
+        self._serving_plan = plan
+        if all(self._chip_health[p] for p in self._positions):
+            # A health event for a card this rebuild already left out
+            # (the liaison's verdict on a host the plan carved around)
+            # is no fault of the new mesh.
+            self._mesh_fault = None
+        # The old pool's ledger died with it: ceiling-parked requests
+        # re-enter their tiers (the fresh pool owes nobody).
+        for r in reversed(self._quota_parked):
+            self._sched.push_front(r)
+        self._quota_parked = []
+        return True
+
+    def _maybe_grow_back(self) -> bool:
+        """Idle-tick grow-back: every card healthy again and the engine
+        shrunk, and every process the configured mesh names alive and
+        standing by — rebuild on the full configured mesh. Runs only
+        with nothing in flight, so nothing replays. A process not yet
+        standing by defers the grow to a later idle tick. A failed
+        build rebuilds on the degraded plan that was serving (its
+        slices fitted a moment ago), which serves on while an idle tick
+        ``GROW_RETRY_S`` later tries the grow again; only where that
+        rebuild fails too does the replica drain."""
+        if (self._mesh_configured is None or not self._degraded
+                or self._mesh_fault is not None
+                or self._draining.is_set()
+                or not all(self._chip_health)
+                or time.monotonic() < self._grow_retry_at):
+            return False
+        conf, cur = self._mesh_configured, self._mesh
+        absent = set(range(conf.size)) - set(cur.members)
+        if not absent <= set(cur.ready_ids(conf.size)):
+            return False
+        self._presumed_dead -= absent
+        from tpushare_torch.models.reshard import plan_reshard
+        t0 = time.monotonic()
+        plan = plan_reshard(conf, self._chip_health, self._cfg,
+                            self._draft_cfg)
+        serving = self._serving_plan
+        done = self._rebuild_on(plan)
+        if done is False:
+            failed = self._stats["last_error"]
+            done = self._rebuild_on(serving)
+            if done is True:
+                self._stats["last_error"] = f"grow-back: {failed}"
+                self._grow_retry_at = time.monotonic() + GROW_RETRY_S
+                return True
+        if done is not True:
+            if done is not False:
+                for pid in done:
+                    self._chip_health[pid] = False
+                self._reshard("grow-back: a process never freed its "
+                              "memory")
+            else:
+                self._drain_dead(self._stats["last_error"])
+            return True
+        self._stats["grow_backs"] += 1
+        for ring in (self._reshard_ms, self._grow_ms):
+            ring.append((time.monotonic() - t0) * 1e3)
+            del ring[:-512]
+        return True
+
+    def _recover_mesh_after_crash(self) -> None:
+        """Supervisor x mesh seam: a supervised restart must serve on
+        the CURRENT healthy mesh, never over a dead card. Runs between
+        engine generations (no engine thread alive)."""
+        if self._mesh_configured is None or self._mesh_configured.size < 2:
+            return
+        if self._mesh_fault is not None:
+            self._reshard(self._mesh_fault)
+            return
+        if any(not self._chip_health[p] for p in self._positions):
+            self._reshard("engine restarted over a dead card")
+
     def _quarantine_inflight(self, msg: str) -> None:
         """Tick-level failure domain: evict EVERY in-flight slot and
         replay its request (the whole batch shared the failed forward,
@@ -2503,9 +3244,17 @@ class ServeEngine:
         """The pre-pipeline tick: schedule, dispatch, and fetch in one
         sequential pass. ``--overlap-tick off`` routes here — the
         fallback the overlapped mode must stay bit-exact against."""
+        if self._mesh_preamble():
+            return
         admitted = True
-        while admitted:
+        while admitted and self._mesh_fault is None:
             admitted = self._try_admit()    # drain as slots allow
+        if self._mesh_fault is not None:
+            # An admission dispatch flagged a mesh fault mid-drain:
+            # reshard NOW, before another pop lands on the broken
+            # placement.
+            self._reshard(self._mesh_fault)
+            return
         work = self._pick_admission()
         if not self._active:
             # No decode batch to fuse into: serial admission (one
@@ -2513,6 +3262,8 @@ class ServeEngine:
             if work is not None:
                 self._advance_one_admission(work, gen)
             elif not self._admitting:
+                if self._maybe_grow_back():
+                    return
                 time.sleep(self._idle_sleep_s)
             return
         # Reap cancelled (timed-out) requests before paying for a step.
@@ -2698,10 +3449,18 @@ class ServeEngine:
                            _PendingTick, then precompute the next
                            pick inside the freshly opened window
         """
+        if self._mesh_preamble():
+            return
         self._prereap_retired()
         admitted = True
-        while admitted:
+        while admitted and self._mesh_fault is None:
             admitted = self._try_admit()    # drain as slots allow
+        if self._mesh_fault is not None:
+            # An admission dispatch flagged a mesh fault mid-drain: the
+            # in-flight dispatch is as suspect as the admission.
+            self._flush_pipeline()
+            self._reshard(self._mesh_fault)
+            return
         q0 = self._stats["quarantines"]
         finalized = self._finalize_pending()
         if finalized and self._stats["quarantines"] == q0:
@@ -2714,8 +3473,12 @@ class ServeEngine:
             # tick's drain, keeping the recovery tick itself at the
             # one transfer the sync-free invariant allows.
             admitted = True
-            while admitted:
+            while admitted and self._mesh_fault is None:
                 admitted = self._try_admit()
+            if self._mesh_fault is not None:
+                self._flush_pipeline()
+                self._reshard(self._mesh_fault)
+                return
         self._schedule_and_dispatch(gen, finalized)
 
     def _prereap_retired(self) -> None:
@@ -2800,6 +3563,8 @@ class ServeEngine:
                     return
                 self._advance_one_admission(work, gen)
             elif not self._admitting:
+                if self._maybe_grow_back():
+                    return
                 time.sleep(self._idle_sleep_s)
             return
         # Reap cancelled (timed-out) requests before paying for a step.
@@ -3130,9 +3895,10 @@ def make_handler(engine: ServeEngine, timeout_s: float):
                 self._json(200, out)
                 return
             if self.path == "/mesh/host":
-                # Whole-host health churn: only process-aware engines
-                # (ROADMAP A10b) accept it — the port's engine answers
-                # 400, there is no host domain to churn.
+                # Whole-host health churn: {"rank": r, "healthy":
+                # bool} moves one host's whole rank range at once. Only
+                # process-aware engines (num_processes on a mesh)
+                # accept it; others answer 400.
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     body = json.loads(self.rfile.read(n) or b"{}")
@@ -3329,6 +4095,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--preset", default="tiny",
                     choices=["tiny", "gemma_2b", "llama3_8b"])
+    ap.add_argument("--dtype", default="",
+                    choices=["", "float32", "bfloat16"],
+                    help="the dense model's weight and activation dtype "
+                         "(default: the preset's)")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="the dense model's depth, cut from the preset's "
+                         "(default: the preset's)")
     ap.add_argument("--model-family", default="dense",
                     choices=["dense", "moe"],
                     help="moe: serve the MoE LM via MoESlotServer "
@@ -3369,8 +4142,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "--mesh meets at, e.g. tcp://localhost:29511")
     ap.add_argument("--process-view", type=int, default=0,
                     metavar="N",
-                    help=f"logical process ranks over a mesh: "
-                         f"{TODO_MESH}")
+                    help="group the mesh's ranks into N hosts of "
+                         "contiguous ranks: rank 0 runs the gang "
+                         "liaison one port above --dist-init, the "
+                         "first rank of every other host heartbeats to "
+                         "it, and a host that falls silent (or POST "
+                         "/mesh/host, or the host.loss chaos point) "
+                         "reshards the mesh around its ranks. "
+                         "Conflicts with a gang env grant")
     ap.add_argument("--device", default="",
                     help="torch device to serve on, e.g. 'cuda', "
                          "'cuda:1' or 'cpu' (default: the CUDA card; "
@@ -3466,12 +4245,21 @@ def build_parser() -> argparse.ArgumentParser:
                     help="engine-thread restarts (with backoff) the "
                          "loop supervisor attempts before /healthz "
                          "goes red")
-    ap.add_argument("--max-reshards", type=int, default=0,
-                    help=f"mesh-shrink budget (above 0: "
-                         f"{TODO_MESH})")
+    ap.add_argument("--max-reshards", type=int, default=3,
+                    help="mesh-shrink (degrade-and-replay) budget for "
+                         "a sharded engine: a card-health event or a "
+                         "collective's transport error replays every "
+                         "in-flight request token-exact on the largest "
+                         "healthy sub-mesh, at most this many times "
+                         "before the replica goes drained-sticky "
+                         "(grow-backs are free; 0 keeps no weight "
+                         "copy and never reshards)")
     ap.add_argument("--reshard-checkpoint", default=None,
-                    help=f"reshard weight source (requires --mesh): "
-                         f"{TODO_MESH}")
+                    help="reshard weight source (requires --mesh): a "
+                         "safetensors file written once at boot, of "
+                         "which each rank reads only its slices on a "
+                         "reshard, instead of a host copy of the whole "
+                         "tree per rank")
     from tpushare_torch.slo import TIER_ORDER
     ap.add_argument("--default-tier", default=DEFAULT_TIER,
                     choices=list(TIER_ORDER),
@@ -3512,9 +4300,11 @@ def main() -> int:
         # A follower rank: no HTTP surface, replay rank 0's calls.
         print(f"tpushare-torch-serve rank {args.rank} following "
               f"(mesh {args.mesh}, {engine.device})", flush=True)
-        n = engine.follow()
+        n = engine.follow(report=lambda r: print(json.dumps(
+            {"mesh_generation_report": r}), flush=True))
         print(f"tpushare-torch-serve rank {args.rank}: rank 0 stopped "
               f"after {n} calls", flush=True)
+        engine.stop()
         return 0
     httpd = serve(engine, args.host, args.port, daemon_threads=False)
     print(f"tpushare-torch-serve on {args.host}:{httpd.server_address[1]} "
@@ -3615,20 +4405,39 @@ def build_engine(args, **engine_kw) -> ServeEngine:
                          "engine's reshard weight source; it needs "
                          "--mesh (an unsharded engine has no mesh "
                          "failure domain)")
-    for flag, val, todo in (
-            ("--process-view", getattr(args, "process_view", 0) > 1,
-             TODO_MESH),
-            ("--reshard-checkpoint",
-             getattr(args, "reshard_checkpoint", None), TODO_MESH),
-            ("--max-reshards above 0 on a mesh",
-             args.mesh and getattr(args, "max_reshards", 0) > 0,
-             TODO_MESH)):
-        if val:
-            raise NotImplementedError(f"{flag}: {todo}")
     mesh = None
+    num_processes, gang_host = 1, None
     if args.mesh:
-        mesh = _cli_mesh(args, device)
+        from tpushare_torch.parallel.multihost import initialize
+        # A gang env grant (TPUSHARE_COORDINATOR / NUM_PROCESSES /
+        # PROCESS_ID) names this process's rank and the rendezvous.
+        contract = initialize()
+        if contract is not None:
+            args.rank = contract["process_id"]
+            args.dist_init = args.dist_init or contract["init_method"]
+        pview = int(getattr(args, "process_view", 0) or 0)
+        if pview > 1 and contract is not None:
+            raise SystemExit(
+                "--process-view conflicts with a gang env grant "
+                "(TPUSHARE_NUM_PROCESSES > 1)")
+        num_processes = (contract["num_processes"] if contract
+                         else max(1, pview))
+        mesh = _cli_mesh(args, device, num_processes)
         device = mesh.device
+        if num_processes > 1:
+            gang_host = args.dist_init
+    engine_kw = dict(engine_kw)
+    if mesh is not None:
+        engine_kw.setdefault("num_processes", num_processes)
+        engine_kw.setdefault("max_reshards",
+                             getattr(args, "max_reshards", 3))
+        engine_kw.setdefault("reshard_checkpoint",
+                             getattr(args, "reshard_checkpoint", None))
+        if gang_host and mesh.process_id == 0:
+            from tpushare_torch.parallel.gang import GangLeader
+            host, port = _liaison_address(gang_host)
+            engine_kw.setdefault("gang", GangLeader(
+                num_processes, port=port, host=host))
     common = dict(
         n_slots=args.n_slots, n_blocks=args.n_blocks or 256,
         block_size=args.block_size or 16,
@@ -3711,7 +4520,7 @@ def build_engine(args, **engine_kw) -> ServeEngine:
                           speculative_draft=mspec, draft_layers_hook=mdhook,
                           **common)
         del params, mspec
-        return _release_whole(eng)
+        return _attach_gang_follower(_release_whole(eng), gang_host)
     if args.int8_experts:
         raise SystemExit("--int8-experts is a moe flag; dense int8 "
                          "weights load via the API (quantize_params "
@@ -3730,6 +4539,12 @@ def build_engine(args, **engine_kw) -> ServeEngine:
     from tpushare_torch.models import transformer as tt
     cfg = {"tiny": tt.tiny, "gemma_2b": tt.gemma_2b,
            "llama3_8b": tt.llama3_8b}[args.preset]()
+    if getattr(args, "dtype", ""):
+        import dataclasses
+        cfg = dataclasses.replace(cfg, dtype=getattr(torch, args.dtype))
+    if getattr(args, "n_layers", 0):
+        import dataclasses
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     params = tt.init_params(args.seed, cfg, device=device)
     spec, hook = None, None
     if args.draft_preset == "int8-self":
@@ -3745,13 +4560,50 @@ def build_engine(args, **engine_kw) -> ServeEngine:
                       speculative_draft=spec, draft_layers_hook=hook,
                       **common)
     del params, spec
-    return _release_whole(eng)
+    return _attach_gang_follower(_release_whole(eng), gang_host)
 
 
-def _cli_mesh(args, device):
+def _launch_probe() -> Dict[str, Any]:
+    """The kernel launches each wrapper counted so far in this process
+    (a generation's own are the difference from the one before)."""
+    from tpushare_torch.tools.multichip import read_launches
+    return {"launches": {k: v for k, v in read_launches().items() if v}}
+
+
+def _liaison_address(init_method: str):
+    """The gang liaison's (host, port): one port above the mesh's
+    ``tcp://host:port`` rendezvous."""
+    host, _, port = init_method[len("tcp://"):].rpartition(":")
+    return host or "127.0.0.1", int(port) + 1
+
+
+def _attach_gang_follower(engine: ServeEngine, gang_host) -> ServeEngine:
+    """A mesh engine's generation records carry its kernel launches.
+    The first rank of every host past the first heartbeats its host to
+    rank 0's liaison, each beat carrying the rank's device-fetch
+    counter."""
+    mesh = engine._mesh_configured
+    if mesh is not None:
+        engine.generation_probe = _launch_probe
+    if not gang_host or mesh is None or not engine._mesh.process_id:
+        return engine
+    per_host = mesh.size // engine._topo.num_processes
+    pid = engine._mesh.process_id
+    if pid % per_host:
+        return engine
+    from tpushare_torch.parallel.gang import GangFollower
+    host, port = _liaison_address(gang_host)
+    engine._gang_follower = GangFollower(
+        f"{host}:{port}", pid // per_host,
+        fetches_fn=lambda: getattr(engine.srv, "device_fetches", 0))
+    return engine
+
+
+def _cli_mesh(args, device, num_processes: int = 1):
     """--mesh/--rank/--dist-init -> a bound ServingMesh (SystemExit
-    with the reference's texts on a bad spec). On the CPU (--device
-    cpu) the ranks share the host; otherwise they mesh over the granted
+    with the reference's texts on a bad spec, and where its ranks do
+    not divide into ``num_processes`` hosts). On the CPU (--device cpu)
+    the ranks share the host; otherwise they mesh over the granted
     cards."""
     from tpushare_torch.parallel.mesh import parse_mesh_spec, serving_mesh
     from tpushare_torch.utils.tenant import AllocationError
@@ -3769,6 +4621,10 @@ def _cli_mesh(args, device):
             f"cpu runs every rank on the host over gloo)")
     except AllocationError as e:
         raise SystemExit(f"--mesh {args.mesh!r}: {e}")
+    if mesh.size % num_processes:
+        raise SystemExit(
+            f"--process-view {num_processes}: the {mesh.size}-rank mesh "
+            f"does not divide into {num_processes} hosts")
     if mesh.size > 1 and not args.dist_init:
         raise SystemExit(
             f"--mesh {args.mesh!r} has {mesh.size} ranks: start one "

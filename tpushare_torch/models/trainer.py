@@ -57,8 +57,9 @@ def load_state(path: str, *, like_params: Any, like_opt: Any,
     reference's remap onto a new mesh): {"params": tree, "opt_state":
     tree} of ``checkpoint.FlatShard`` leaves (``training.fsdp_shardings``;
     a missing or None entry reads whole), so each rank of an fsdp group
-    of any size reads its own slices of a global flat checkpoint; other
-    placements raise ``NotImplementedError`` naming ROADMAP A10b."""
+    of any size reads its own slices of a global flat checkpoint;
+    ``checkpoint.MeshShard`` leaves read a tp / ep rank's slices of a
+    tree saved whole; other placements raise ``NotImplementedError``."""
     like = {"params": like_params, "opt_state": like_opt,
             "step": torch.zeros((), dtype=torch.int32)}
     sh = None

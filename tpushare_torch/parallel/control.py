@@ -15,27 +15,38 @@ which is what the engine above reads; the engine itself is unchanged.
 The other ranks run ``follow(server, mesh)``, which replays the calls
 in order until ``ShardedServer.stop()`` sends its stop message.
 
+The channel (``StoreChannel``) is the mesh generation's store: message
+n is the key ``m<n>`` under the generation's prefix, which rank 0 sets
+and each follower waits for (the store answers the wait when the key is
+set). No collective carries it, so a follower never waits on a dead
+peer's group to hear from rank 0. Rank 0 ends a generation with a
+``regen`` message (``retire``); a follower that hears nothing for longer
+than rank 0's heartbeat also checks whether rank 0 posted the next
+generation's plan (``ServingMesh.next_plan_ready``) and leaves with
+``GenerationEnded``.
+
 Faults. A call that raises on rank 0 is followed by a ``raised``
 message naming the exception type; a follower checks that its replay
 raised the same type (a host decision such as ``PoolExhausted`` raises
 on every rank alike) and stops with ``ControlDesync`` where the ranks
 part. Both sides fold every call's result into a digest (``digest``),
 so a run can show every rank's stream equal to rank 0's. Every wait
-has a time limit: the control and data groups time out
-after the mesh's ``bind(timeout_s=)``, and while rank 0 is idle a
-heartbeat thread sends a ping every ``heartbeat_s``, so a follower
-whose rank 0 died stops within that limit instead of hanging.
+has a time limit: the data groups time out after the mesh's
+``bind(timeout_s=)``, a follower that hears nothing for as long raises
+``TimeoutError``, and while rank 0 is idle a heartbeat thread sends a
+ping every ``heartbeat_s``.
 """
 
 from __future__ import annotations
 
+import datetime
 import hashlib
+import pickle
 import threading
 import time
 from typing import Any, Dict, Optional
 
 import torch
-import torch.distributed as dist
 
 from tpushare_torch.models.serving import PendingStep
 
@@ -47,6 +58,59 @@ CALLS = frozenset({"admit", "admit_start", "admit_step", "step",
 
 class ControlDesync(RuntimeError):
     """A follower's replay parted from rank 0's call."""
+
+
+class GenerationEnded(Exception):
+    """Rank 0 ended the mesh's generation (a reshard or a grow-back):
+    the follower leaves its replay loop to meet the next one. ``calls``:
+    the calls it replayed in that generation."""
+
+    calls = 0
+
+
+class StoreChannel:
+    """Rank 0's messages to the followers of one mesh generation, in
+    order, as keys of the generation's store prefix. ``ended()`` tells a
+    waiting follower that rank 0 moved on. Rank 0 deletes a message
+    ``WINDOW`` messages after sending it (a follower is never that far
+    behind: every tick's forward meets it in a collective)."""
+
+    WINDOW = 4096
+    # Longer than rank 0's idle heartbeat (ShardedServer, 5 s): a wait
+    # this long without a message means rank 0 moved on or stalled.
+    WAIT_S = 10.0
+
+    def __init__(self, store, timeout_s: float, ended):
+        self.store, self.timeout_s, self._ended = store, timeout_s, ended
+        self.sent = self.read = 0
+
+    def send(self, msg) -> None:
+        self.sent += 1
+        self.store.set(f"m{self.sent}", pickle.dumps(msg))
+        if self.sent > self.WINDOW:
+            self.store.delete_key(f"m{self.sent - self.WINDOW}")
+
+    def recv(self):
+        """The next message. Blocks in the store's wait, which returns
+        as soon as rank 0 sets the key; after each ``WAIT_S`` of silence
+        asks ``ended()``. A store that is gone (rank 0's process died)
+        raises from the wait or from ``ended()``."""
+        self.read += 1
+        key = f"m{self.read}"
+        deadline = time.monotonic() + self.timeout_s
+        while True:
+            left = deadline - time.monotonic()
+            try:
+                self.store.wait([key], datetime.timedelta(
+                    seconds=max(0.001, min(self.WAIT_S, left))))
+                break
+            except torch.distributed.DistStoreError:
+                if self._ended():
+                    raise GenerationEnded() from None
+                if left <= self.WAIT_S:
+                    raise TimeoutError(f"rank 0 sent nothing for "
+                                       f"{self.timeout_s} s") from None
+        return pickle.loads(self.store.get(key))
 
 
 def _host(obj):
@@ -68,9 +132,11 @@ def fold(h, out) -> None:
 
 
 def _bcast(mesh, msg=None):
-    box = [msg]
-    dist.broadcast_object_list(box, src=0, group=mesh.control)
-    return box[0]
+    """Rank 0 sends ``msg``; a follower receives the next message."""
+    if mesh.rank == 0:
+        mesh.control.send(msg)
+        return msg
+    return mesh.control.recv()
 
 
 class _Pending:
@@ -155,11 +221,24 @@ class ShardedServer:
     def stop(self) -> None:
         """Send the followers their stop message (once) and end the
         heartbeat."""
+        self._end(("stop",))
+
+    def retire(self, generation: int) -> None:
+        """End this mesh generation: the followers leave their replay
+        loop for ``generation`` (sent once; a follower that is gone
+        misses nothing it needs, the plan is on the store)."""
+        self._end(("regen", int(generation)))
+
+    def _end(self, msg) -> None:
         with self._lock:
             if self._stopped.is_set():
                 return
             self._stopped.set()
-            self._send(("stop",))
+            try:
+                self._send(msg)
+            except Exception:           # noqa: BLE001 — the store's
+                if msg[0] == "stop":    # owner is this process
+                    raise
         self._hb.join(timeout=30)
 
     @property
@@ -171,8 +250,9 @@ def follow(srv, mesh, *, log=None, digest=None) -> int:
     """Replay rank 0's calls on this rank's ``srv`` until the stop
     message; returns the calls replayed, each result folded into
     ``digest`` (a hashlib object) where given. Raises ``ControlDesync``
-    where a replay's outcome parts from rank 0's, and the control
-    group's timeout where rank 0 falls silent."""
+    where a replay's outcome parts from rank 0's, ``GenerationEnded``
+    where rank 0 ended the mesh generation, and ``TimeoutError`` where
+    rank 0 falls silent."""
     h = digest if digest is not None else hashlib.sha256()
     if mesh.rank == 0:
         raise ValueError("rank 0 serves; follow() runs on the others")
@@ -200,6 +280,10 @@ def follow(srv, mesh, *, log=None, digest=None) -> int:
             continue
         if kind == "stop":
             return n
+        if kind == "regen":
+            ended = GenerationEnded(msg[1])
+            ended.calls = n
+            raise ended
         try:
             if kind == "call":
                 _, seq, name, a, kw = msg

@@ -22,21 +22,38 @@ Serving: ``serving_mesh`` meshes over the cards the plugin granted and
 returns a ``ServingMesh``: the axis sizes, the card each rank runs on,
 and the transport of its collectives. One process per rank; ``bind``
 joins this process to the group (or adopts one already initialized) and
-builds one process group per axis above 1, plus a gloo group for host
-objects (``parallel/control.py``). The transport follows from the card
-count alone: NCCL where every rank has a card of its own, gloo over
-CUDA tensors where ranks outnumber the cards (they then share cards,
-rank r on card r mod n, and every collective stages through the host:
-such a run's times are not tensor-parallel measurements), and gloo on
-the CPU.
+builds one process group per axis above 1, plus the control channel of
+``parallel/control.py`` over the group's store. The transport follows
+from the card count alone: NCCL where every rank has a card of its own,
+gloo over CUDA tensors where ranks outnumber the cards (they then share
+cards, rank r on card r mod n, and every collective stages through the
+host: such a run's times are not tensor-parallel measurements), and
+gloo on the CPU.
+
+Generations. A reshard (``models/reshard.py``) ends the mesh's
+generation g; the ranks that go on serve generation g+1 on a mesh of
+its own (``successor``): a fresh default process group on the store
+prefix ``mesh/g<g+1>/`` with the survivors re-ranked 0..n-1, new axis
+groups and a new control channel. Every process keeps its *process id*,
+its rank in the configured mesh (``--rank``), for good; the process of
+id 0 leads every generation (it takes the requests), and the others
+take the configured positions the plan carved, in order. Rank 0
+publishes each plan on the store (``publish``) before any rank leaves
+the old generation, so a rank that waits on a dead peer's group, or on
+the old control channel, learns of it without a collective. A process
+no generation names stands by (``wait_plan``) and rejoins when a plan
+names it again: a process restarted after a crash finds the mesh past
+generation 0 at ``bind`` and stands by from the start.
 """
 
 from __future__ import annotations
 
 import datetime
+import json
 import math
 import os
 import sys
+import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import torch
@@ -181,6 +198,16 @@ class ServingMesh:
         self.rank: Optional[int] = None
         self._groups: Dict[str, Any] = {}
         self.control = None
+        # Generations: this mesh's number, the process id of each of its
+        # ranks, this process's id, and the store every generation meets
+        # on (None for a one-rank configured mesh, which never reshards).
+        self.generation = 0
+        self.members: List[int] = list(range(self.size))
+        self.process_id: Optional[int] = None
+        self.store = None
+        self.timeout_s = 300.0
+        self.release_ids: List[int] = []
+        self.stop_posted = False
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -229,32 +256,74 @@ class ServingMesh:
              init_method: Optional[str] = None,
              timeout_s: float = 300.0) -> "ServingMesh":
         """Join this process to the mesh's group as ``rank``: initialize
-        torch.distributed with the mesh's transport at ``init_method``
-        (``tcp://localhost:<port>``), or adopt the default group when it
-        is already initialized (its world size must be the mesh's). Then
-        build the per-axis groups and the gloo control group; every rank
-        makes the same calls in the same order. Prints the transport on
-        a line of its own. Every collective waits at most ``timeout_s``."""
+        torch.distributed with the mesh's transport over a TCP store at
+        ``init_method`` (``tcp://localhost:<port>``; rank 0 serves the
+        store), or adopt the default group when it is already
+        initialized (its world size must be the mesh's). Then build the
+        per-axis groups and the control channel; every rank makes the
+        same calls in the same order. Prints the transport on a line of
+        its own. Every collective waits at most ``timeout_s``.
+
+        A process whose rank finds the mesh already formed (restarted
+        after a crash) joins no group: it is left standing by
+        (``rank`` None, ``standby`` True) until a plan names it."""
+        self.timeout_s = float(timeout_s)
         if self.size == 1:
             self.rank = 0
+            self.process_id = 0
             return self
-        timeout = datetime.timedelta(seconds=timeout_s)
         if dist.is_initialized():
             if dist.get_world_size() != self.size:
                 raise ValueError(
                     f"mesh {self.shape_str()} needs {self.size} ranks, "
                     f"the process group has {dist.get_world_size()}")
-            self.rank = dist.get_rank()
+            self.rank = self.process_id = dist.get_rank()
+            from torch.distributed import distributed_c10d
+            self.store = distributed_c10d._get_default_store()
+            if self.rank == 0:
+                self.store.set(_GEN_KEY, "0")
         else:
             if rank is None or init_method is None:
                 raise ValueError("bind needs rank and init_method when "
                                  "torch.distributed is not initialized")
-            self.rank = int(rank)
-            if self.cards[self.rank].type == "cuda":
-                torch.cuda.set_device(self.cards[self.rank])
-            dist.init_process_group(
-                self.transport, init_method=init_method,
-                world_size=self.size, rank=self.rank, timeout=timeout)
+            self.process_id = int(rank)
+            self.store = _tcp_store(init_method, self.process_id == 0,
+                                    self.timeout_s)
+            if self.process_id == 0:
+                self.store.set(_GEN_KEY, "0")
+            else:
+                gen = int(self.store.get(_GEN_KEY))
+                if gen > 0 or self.store.check([_formed_key(0)]):
+                    self.generation = gen
+                    self.rank = None
+                    return self
+            self.rank = self.process_id
+            self._init_group()
+        self._bind_groups()
+        if self.rank == 0:
+            self.store.set(_formed_key(0), "1")
+            print(f"mesh {self.shape_str()}: {self.size} ranks on "
+                  f"{self.n_cards} card(s), transport {self.describe()}",
+                  flush=True)
+        return self
+
+    @property
+    def standby(self) -> bool:
+        """True where this process serves no rank of this generation."""
+        return self.rank is None
+
+    def _init_group(self) -> None:
+        if self.cards[self.rank].type == "cuda":
+            torch.cuda.set_device(self.cards[self.rank])
+        dist.init_process_group(
+            self.transport,
+            store=dist.PrefixStore(f"mesh/g{self.generation}/pg",
+                                   self.store),
+            world_size=self.size, rank=self.rank,
+            timeout=datetime.timedelta(seconds=self.timeout_s))
+
+    def _bind_groups(self) -> None:
+        timeout = datetime.timedelta(seconds=self.timeout_s)
         for ax in MESH_AXES:
             if self.sizes[ax] == 1:
                 continue
@@ -262,12 +331,143 @@ class ServingMesh:
                 g = dist.new_group(ranks, timeout=timeout)
                 if self.rank in ranks:
                     self._groups[ax] = g
-        self.control = dist.new_group(list(range(self.size)),
-                                      backend="gloo", timeout=timeout)
-        if self.rank == 0:
-            print(f"mesh {self.shape_str()}: {self.size} ranks on "
-                  f"{self.n_cards} card(s), transport {self.describe()}",
-                  flush=True)
+        from tpushare_torch.parallel.control import StoreChannel
+        self.control = StoreChannel(
+            dist.PrefixStore(f"mesh/g{self.generation}/ctl", self.store),
+            self.timeout_s, self.next_plan_ready)
+
+    # -- generations -----------------------------------------------------
+    def successor(self, sizes: Mapping[str, int], positions: Sequence[int],
+                  configured: "ServingMesh") -> "ServingMesh":
+        """The mesh of the next generation, unbound: ``sizes`` over the
+        ``configured`` mesh's positions ``positions`` (the plan's carve,
+        in rank order). Process 0 takes the first position, and the
+        process of each other position its own."""
+        return self._next(sizes, [configured.cards[p] for p in positions],
+                          [0] + [int(p) for p in positions[1:]])
+
+    def _next(self, sizes, cards, members, release=()) -> "ServingMesh":
+        """The next generation's mesh, unbound, with this process's rank
+        in it (None where it stands by)."""
+        nxt = ServingMesh(sizes, cards)
+        nxt.generation = self.generation + 1
+        nxt.members = [int(m) for m in members]
+        nxt.release_ids = [int(r) for r in release]
+        nxt.process_id, nxt.store = self.process_id, self.store
+        nxt.timeout_s = self.timeout_s
+        if self.process_id in nxt.members:
+            nxt.rank = nxt.members.index(self.process_id)
+        return nxt
+
+    def publish(self, release: Sequence[int]) -> None:
+        """Rank 0: post this (unbound) generation's plan on the store,
+        naming the processes whose memory must be freed before any rank
+        builds (``release``), then make it the current generation."""
+        self.release_ids = sorted(int(r) for r in release)
+        plan = {"sizes": self.sizes, "members": self.members,
+                "cards": [str(c) for c in self.cards],
+                "release": self.release_ids}
+        self.store.set(_plan_key(self.generation), json.dumps(plan))
+        self.store.set(_GEN_KEY, str(self.generation))
+
+    def publish_stop(self) -> None:
+        """Rank 0 at shutdown: post a plan that names no process past
+        rank 0, so processes standing by leave (``wait_plan`` returns
+        it with ``stop`` set)."""
+        self.store.set(_plan_key(self.generation + 1),
+                       json.dumps({"stop": True}))
+
+    def next_plan_ready(self) -> bool:
+        """Has rank 0 posted the next generation's plan?"""
+        return self.store is not None and self.store.check(
+            [_plan_key(self.generation + 1)])
+
+    def wait_plan(self, timeout_s: Optional[float] = None,
+                  stop=None) -> Optional["ServingMesh"]:
+        """A follower: block until rank 0 posts the next generation's
+        plan (``stop()`` true, ``timeout_s`` past, or rank 0 posted its
+        stop: None, ``stop_posted`` set for the last) and return
+        that generation's mesh, unbound, with this process's rank in it
+        (None where it stands by). Marks this process ready for it."""
+        key = _plan_key(self.generation + 1)
+        self.store.set(_ready_key(self.process_id),
+                       str(self.generation + 1))
+        deadline = time.monotonic() + (timeout_s if timeout_s is not None
+                                       else self.timeout_s)
+        delay = 0.001
+        while not self.store.check([key]):
+            if (stop is not None and stop()) or \
+                    time.monotonic() > deadline:
+                return None
+            time.sleep(delay)
+            delay = min(0.05, delay * 2)
+        plan = json.loads(self.store.get(key))
+        if plan.get("stop"):
+            self.stop_posted = True
+            return None
+        return self._next(plan["sizes"], plan["cards"], plan["members"],
+                          plan["release"])
+
+    def ready_ids(self, n_processes: int) -> List[int]:
+        """Rank 0: the processes of ids 1..n_processes-1 standing by for
+        the next generation (``wait_plan`` marks them)."""
+        want = str(self.generation + 1)
+        return [pid for pid in range(1, n_processes)
+                if self.store.check([_ready_key(pid)])
+                and self.store.get(_ready_key(pid)).decode() == want]
+
+    def abort(self) -> None:
+        """Abort this generation's process groups (NCCL: its
+        communicators are aborted, not waited on), unblocking a
+        collective that waits on a dead peer with an error."""
+        if self.size == 1 or self.rank is None or \
+                not dist.is_initialized():
+            return
+        if self.transport == "nccl":
+            from torch.distributed import distributed_c10d
+            abort = getattr(distributed_c10d, "_abort_process_group",
+                            None)
+            if abort is not None:
+                try:
+                    abort()
+                except Exception:       # noqa: BLE001 — already torn
+                    pass
+
+    def release(self) -> None:
+        """End this generation on this process: abort (NCCL) and
+        destroy its process groups, then mark this process's memory
+        freed for the next generation (the caller drops its server and
+        empties the CUDA cache first)."""
+        if self.size > 1 and self.rank is not None and \
+                dist.is_initialized():
+            self.abort()
+            try:
+                dist.destroy_process_group()
+            except Exception:           # noqa: BLE001 — aborted above
+                pass
+        self._groups = {}
+        self.control = None
+        if self.store is not None:
+            self.store.set(_freed_key(self.generation + 1,
+                                      self.process_id), "1")
+
+    def missing_frees(self) -> List[int]:
+        """The processes of this (published) generation's release list
+        that have not freed their memory yet."""
+        return [pid for pid in self.release_ids
+                if not self.store.check([_freed_key(self.generation,
+                                                    pid)])]
+
+    def join(self) -> "ServingMesh":
+        """A member of this (published) generation: form its group,
+        axis groups and control channel (on this rank's card). The
+        caller waits for ``missing_frees`` to empty first."""
+        if self.size == 1:
+            if self.cards[0].type == "cuda":
+                torch.cuda.set_device(self.cards[0])
+            return self
+        self._init_group()
+        self._bind_groups()
         return self
 
     def describe(self) -> str:
@@ -278,6 +478,38 @@ class ServingMesh:
             return ("gloo (ranks share cards; collectives staged "
                     "through the host)")
         return "gloo"
+
+
+_GEN_KEY = "mesh/gen"
+
+
+def _plan_key(gen: int) -> str:
+    return f"mesh/g{gen}/plan"
+
+
+def _formed_key(gen: int) -> str:
+    """Set once generation 0's group formed: a process binding later was
+    restarted, and stands by."""
+    return f"mesh/g{gen}/formed"
+
+
+def _freed_key(gen: int, pid: int) -> str:
+    return f"mesh/g{gen}/freed/{pid}"
+
+
+def _ready_key(pid: int) -> str:
+    return f"mesh/ready/{pid}"
+
+
+def _tcp_store(init_method: str, is_master: bool, timeout_s: float):
+    """The TCP store at ``tcp://host:port`` (served by the master)."""
+    if not init_method.startswith("tcp://"):
+        raise ValueError(f"--dist-init {init_method!r}: want "
+                         f"tcp://host:port")
+    host, _, port = init_method[len("tcp://"):].rpartition(":")
+    return dist.TCPStore(host or "localhost", int(port), None, is_master,
+                         datetime.timedelta(seconds=timeout_s),
+                         wait_for_workers=False)
 
 
 def visible_cards() -> List[torch.device]:

@@ -73,7 +73,11 @@ def local_shape(shape: Sequence[int], spec: P,
 def shard_leaf(leaf: torch.Tensor, spec: P, sizes: Mapping[str, int],
                coords: Mapping[str, int],
                device=None) -> torch.Tensor:
-    """This rank's contiguous slice of ``leaf`` (on ``device``)."""
+    """This rank's contiguous slice of ``leaf`` (on ``device``). A
+    checkpoint's lazy leaf (``checkpoint.LazyLeaf``) reads only that
+    slice."""
+    if hasattr(leaf, "read_slice"):
+        return leaf.read_slice(spec, sizes, coords, device).contiguous()
     local = local_shape(leaf.shape, spec, sizes)
     out = leaf
     for d, entry in enumerate(spec):

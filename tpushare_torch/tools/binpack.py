@@ -785,15 +785,20 @@ class Run:
         with self.kubelet._changed:
             return [u for u in self.kubelet.updates if u[0] > since]
 
-    def churn(self, prompts, before: dict) -> None:
+    def churn(self, prompts, before: dict, quiet_since: float) -> None:
+        """D: the control window opened at ``quiet_since`` (before C's
+        requests, which bump no counter: the window overlaps them), then
+        the bump, its detection and the recovery."""
         port = self.tenants[0][1]
         poll = self.interval
         record = {"interval_s": poll, "recovery_polls": RECOVERY_POLLS}
         # Control: two polls with no bump must show no transition.
-        t0 = time.monotonic()
-        time.sleep(2 * poll + OBSERVE_SLACK_S)
+        t0 = quiet_since
+        time.sleep(max(0.0, t0 + 2 * poll + OBSERVE_SLACK_S
+                       - time.monotonic()))
         quiet = self.health_window(t0)
         record["control_transitions"] = len(quiet)
+        record["control_window_s"] = time.monotonic() - t0
         if quiet:
             self.fail("D", f"control window saw {len(quiet)} transitions")
         path = self.counters[min(self.counters)]
@@ -869,6 +874,7 @@ class Run:
             self.run_binpack_tenants(grants)
             prompts = slice_prompts(self.args.device)
             self.start_serve_tenants(grants)
+            quiet_since = time.monotonic()
             served = self.serve_requests(prompts)
             streams = [[r.get("tokens") for r in rs] for rs in served]
             if any(r.get("status") != 200 or r.get("error") or
@@ -878,7 +884,7 @@ class Run:
                 self.fail("C", f"completions: {served}")
             elif any(s != streams[0] for s in streams):
                 self.fail("C", "the tenants' streams differ")
-            self.churn(prompts, served[0][CHURN_PROMPT])
+            self.churn(prompts, served[0][CHURN_PROMPT], quiet_since)
             tenants = []
             for (p, port, log_path), rs in zip(self.tenants, served):
                 rc = stop(p)

@@ -90,6 +90,10 @@ MIXTRAL_8X7B = dict(
     tie_word_embeddings=False, router_aux_loss_coef=0.02)
 MOE_LAYERS = 4
 INIT_TIMEOUT_S = 600.0
+#: part E's second wave (on the regrown mesh): the first prompts of B's
+E_WAVE2 = 4
+#: part E's process case: the model's depth there
+E_KILL_LAYERS = 8
 
 # (name, module, function, counter attribute) of every kernel wrapper.
 COUNTERS = (
@@ -449,12 +453,12 @@ def rank_main(args) -> None:
     device = ["--device", "cpu"] if job["device"] == "cpu" else []
     argv = job["engine_argv"] + device + [
         "--mesh", "tp=%d" % RANKS, "--rank", str(r), "--dist-init",
-        job["dist_init"], "--port", "0"]
+        job["dist_init"], "--port", "0"] + reshard_source(job, r, rec)
     t0 = time.perf_counter()
     eng = serve_mod.build_engine(serve_mod.build_parser().parse_args(argv))
-    mesh, dev = eng._mesh, eng.device
+    dev = eng.device
     rec["build_s"] = time.perf_counter() - t0
-    rec["transport"] = mesh.describe()
+    rec["transport"] = eng._mesh.describe()
     zero_launches()
     if r == 0:
         httpd = serve_mod.serve(eng, "127.0.0.1", 0, timeout_s=600.0)
@@ -464,9 +468,15 @@ def rank_main(args) -> None:
         httpd.server_close()
         eng.stop()                        # the followers' stop message
         st = eng.stats()
+        rec["generations"] = st.get("mesh_generations")
     else:
-        eng.follow()
+        gens: List[dict] = []
+        eng.follow(report=gens.append)
         st = eng.stats()
+        rec["generations"] = gens
+    # Part E ended the engine on a later mesh generation, whose groups
+    # the direct servers below use.
+    mesh = eng._mesh
     rec["engine"] = {
         "launches": read_launches(), "digest": st["mesh_digest"],
         "fetches": eng.srv.device_fetches,
@@ -544,9 +554,76 @@ def rank_main(args) -> None:
     torch.distributed.destroy_process_group()
 
 
-def _post(port: int, body: dict, timeout: float = 600.0) -> dict:
+def reshard_source(job: dict, rank: int, rec: dict) -> List[str]:
+    """Part E's weight source for a reshard, chosen from the host's
+    ``MemAvailable`` (printed first): a host copy of the whole tree on
+    every rank where the host holds them with a third to spare, else a
+    checkpoint of it per rank (each read back by slice)."""
+    from tpushare_torch.models import transformer as tt
+    from tpushare_torch.models.reshard import host_mem_available
+    argv = job["engine_argv"]
+    cfg = {"llama3_8b": tt.llama3_8b, "tiny": tt.tiny}[
+        argv[argv.index("--preset") + 1]]()
+    need = cfg.num_params() * torch.empty(0, dtype=cfg.dtype).element_size()
+    avail = host_mem_available()
+    print(f"rank {rank}: MemAvailable {avail} bytes, a whole tree "
+          f"{need} bytes", file=sys.stderr, flush=True)
+    host = avail is None or avail >= need * (RANKS + 1)
+    rec["reshard_source"] = {"mem_available": avail, "tree_bytes": need,
+                             "source": "host" if host else "checkpoint"}
+    if host:
+        return []
+    return ["--reshard-checkpoint",
+            os.path.join(job["out"], f"reshard_rank{rank}.safetensors")]
+
+
+def elastic_chip(port: int, prompts, max_tokens: int, n_wave2: int) -> dict:
+    """Part E on part B's engine: a wave of ``prompts`` with ``POST
+    /mesh/chip`` marking rank 1's card unhealthy once the first tokens
+    are out (the engine reshards to tp=1 on rank 0 and replays), the
+    card healthy again once the wave is answered (the engine grows back
+    to tp=2 at an idle tick), then a second wave of the first
+    ``n_wave2`` prompts on the regrown mesh."""
+    from tpushare_torch.parallel.multihost_smoke import _pick, _wait, _wave
+    out: Dict[str, object] = {}
+    st0 = _get(port, "/stats")
+    out["before"] = _pick(st0)
+    t0 = time.perf_counter()
+    threads, wave1, codes1 = _wave(port, prompts, max_tokens,
+                                   INIT_TIMEOUT_S)
+    _wait(lambda: _get(port, "/stats")["tokens_out"] > st0["tokens_out"],
+          INIT_TIMEOUT_S, 0.02)
+    t_fault = time.perf_counter()
+    out["chip_down"] = _post(port, {"device": 1, "healthy": False},
+                             path="/mesh/chip")
+    _wait(lambda: _get(port, "/stats")["reshards"] >= 1, INIT_TIMEOUT_S,
+          0.01)
+    out["reshard_s"] = time.perf_counter() - t_fault
+    for t in threads:
+        t.join(INIT_TIMEOUT_S)
+    out["wave1_s"] = time.perf_counter() - t0
+    out["degraded"] = _pick(_get(port, "/stats"))
+    t_back = time.perf_counter()
+    out["chip_up"] = _post(port, {"device": 1, "healthy": True},
+                           path="/mesh/chip")
+    _wait(lambda: _get(port, "/stats")["grow_backs"] >= 1, INIT_TIMEOUT_S,
+          0.02)
+    out["grow_back_s"] = time.perf_counter() - t_back
+    t2 = time.perf_counter()
+    threads, wave2, codes2 = _wave(port, prompts[:n_wave2], max_tokens,
+                                   INIT_TIMEOUT_S)
+    for t in threads:
+        t.join(INIT_TIMEOUT_S)
+    out["wave2_s"] = time.perf_counter() - t2
+    out["after"] = _pick(_get(port, "/stats"))
+    out.update(wave1=wave1, codes1=codes1, wave2=wave2, codes2=codes2)
+    return out
+
+
+def _post(port: int, body: dict, timeout: float = 600.0,
+          path: str = "/v1/completions") -> dict:
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/v1/completions",
+        f"http://127.0.0.1:{port}{path}",
         data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=timeout) as resp:
@@ -673,6 +750,9 @@ def run_ranks(args, tmp: str, llama, moe_w) -> dict:
                             "healthy_devices", "degraded",
                             "fetches_per_tick", "forwards_per_tick",
                             "fused_ticks", "chunked_admits", "work_ticks")}
+        t2 = time.perf_counter()
+        res["E"] = elastic_chip(port, prompts, max_tokens, E_WAVE2)
+        res["E"]["seconds"] = time.perf_counter() - t2
         procs[0].stdin.write("STOP\n")
         procs[0].stdin.flush()
         for p in procs:
@@ -791,6 +871,134 @@ def gates(twin: dict, res: dict, n_prompts: int, ticks: int,
            for n in twin["moe"]}}
     out["memory"] = [rk.get("memory") for rk in ranks]
     out["transport"] = ranks[0]["transport"]
+    out["E"] = gates_e(tw, res, ranks, failures, streams_vs)
+    out["failures"] = failures
+    return out
+
+
+def _deltas(gens: List[dict]) -> Dict[int, dict]:
+    """A rank's generation records (cumulative launches) -> each
+    generation's own launches, shape and peak memory."""
+    out, prev = {}, {}
+    for g in sorted(gens or [], key=lambda g: g["mesh_generation"]):
+        cum = g.get("launches") or {}
+        out[g["mesh_generation"]] = {
+            "rank": g.get("rank"), "mesh_shape": g.get("mesh_shape"),
+            "peak_bytes": g.get("peak_bytes"), "digest": g.get("digest"),
+            "launches": {k: v - prev.get(k, 0) for k, v in cum.items()
+                         if v - prev.get(k, 0)}}
+        prev = cum
+    return out
+
+
+def gates_e(tw: dict, res: dict, ranks: List[dict], failures: List[str],
+            streams_vs) -> dict:
+    """Part E's chip case: the shrink, the replay and the grow-back (the
+    kernels of each generation only where the ranks ran on a card)."""
+    e = res["E"]
+    out: Dict[str, object] = {k: e[k] for k in (
+        "reshard_s", "grow_back_s", "wave1_s", "wave2_s", "seconds")}
+    out["reshard_ms"] = e["after"]["reshard_ms"]
+    out["grow_back_ms"] = e["after"]["grow_back_ms"]
+    out["reshard_source"] = [rk.get("reshard_source") for rk in ranks]
+    deg, aft = e["degraded"], e["after"]
+    out["stats"] = {"degraded": deg, "after": aft}
+    if not (deg["reshards"] == 1 and deg["degraded"]
+            and deg["mesh_shape_current"] == {}):
+        failures.append(f"E: no shrink to tp=1: {deg}")
+    if not (aft["grow_backs"] == 1 and not aft["degraded"]
+            and aft["mesh_shape_current"] == {"tp": RANKS}):
+        failures.append(f"E: no grow-back to tp={RANKS}: {aft}")
+    if not deg["replayed_on_reshard"]:
+        failures.append("E: the shrink replayed no request")
+    for wave in ("1", "2"):
+        if any(c != 200 for c in e["codes" + wave]):
+            failures.append(f"E wave {wave} statuses {e['codes' + wave]}")
+    out["wave1_flips"] = streams_vs("E wave 1 (shrink)", e["wave1"], tw,
+                                    LOGIT_REL_TOL)
+    out["wave2_flips"] = streams_vs("E wave 2 (regrown)", e["wave2"], tw,
+                                    LOGIT_REL_TOL)
+    per = [_deltas(rk.get("generations")) for rk in ranks]
+    out["generations"] = per
+    r0, r1 = per[0], per[1] if len(per) > 1 else {}
+    for g in sorted(set(r0) & set(r1)):
+        if r0[g]["digest"] != r1[g]["digest"]:
+            failures.append(f"E generation {g}: digests {r0[g]['digest']} "
+                            f"!= {r1[g]['digest']}")
+    last = max(r0) if r0 else None
+    if last is None or last not in r1 or \
+            r1[last]["digest"] != aft["mesh_digest"]:
+        failures.append(f"E: rank 1 served no final generation with "
+                        f"rank 0's digest {aft['mesh_digest']}")
+    if ranks[0]["transport"] == "gloo":         # the CPU: no kernels
+        return out
+    tp1 = [g for g, v in r0.items() if v["mesh_shape"] == {}]
+    for g in tp1:
+        got = r0[g]["launches"]
+        for name in ("flash_attention", "paged_flash_decode",
+                     "paged_flash_verify"):
+            if not got.get(name):
+                failures.append(f"E generation {g} (tp=1): {name} was "
+                                f"not launched on rank 0 ({got})")
+    if last is not None:
+        for rk, gens in enumerate(per):
+            got = gens.get(last, {}).get("launches", {})
+            if not got.get("paged_flash_decode") or not (
+                    got.get("flash_attention")
+                    or got.get("paged_flash_verify")):
+                failures.append(f"E generation {last} (tp={RANKS}): rank "
+                                f"{rk} launched {got}")
+    return out
+
+
+def gates_kill(tw: dict, rec: dict) -> dict:
+    """Part E's process case: the liaison's verdict, the reshard around
+    the killed rank (within the liaison's heartbeat timeout + 10 s), its
+    rejoin and the grow-back."""
+    from tpushare_torch.parallel.gang import HEARTBEAT_TIMEOUT_S
+    heartbeat_s = HEARTBEAT_TIMEOUT_S
+    failures: List[str] = []
+    st = rec["stats"]
+    out = {k: rec.get(k) for k in ("ready_s", "detect_s", "reshard_s",
+                                   "grow_back_s", "rc")}
+    out["stats"] = st
+
+    def flips(name, streams, n):
+        got = []
+        for i, (g, w) in enumerate(zip(streams, tw["streams"][:n])):
+            if g is None:
+                failures.append(f"{name}: prompt {i} got no answer")
+                continue
+            try:
+                f = flip_check(g, w, tw["rows"][i], LOGIT_REL_TOL)
+            except AssertionError as e:
+                failures.append(f"{name}: prompt {i}: {e}")
+                continue
+            if f is not None:
+                got.append([i] + f)
+        return got
+    out["wave1_flips"] = flips("E kill wave 1", rec["wave1"], len(
+        rec["wave1"]))
+    out["wave2_flips"] = flips("E kill wave 2", rec["wave2"], len(
+        rec["wave2"]))
+    if not ((st["host_losses"] or 0) >= 1 and st["reshards"] >= 1
+            and st["grow_backs"] >= 1
+            and st["mesh_shape_current"] == {"tp": RANKS}
+            and st["healthy_processes"] == st["num_processes"] == RANKS):
+        failures.append(f"E kill: no loss, reshard and grow-back: {st}")
+    if rec.get("detect_s") is None or \
+            rec["reshard_s"] > heartbeat_s + 10.0:
+        failures.append(f"E kill: resharded {rec.get('reshard_s')} s after "
+                        f"the kill (limit {heartbeat_s} + 10)")
+    reports = rec["reports"].get("rank1_restarted") or []
+    if not reports or reports[-1]["digest"] != st["mesh_digest"]:
+        failures.append(f"E kill: the restarted rank's digest "
+                        f"{reports[-1]['digest'] if reports else None} != "
+                        f"rank 0's {st['mesh_digest']}")
+    out["generations"] = {
+        "rank0": _deltas(st.get("mesh_generations")),
+        "rank1": _deltas(rec["reports"].get("rank1")),
+        "rank1_restarted": _deltas(reports)}
     out["failures"] = failures
     return out
 
@@ -867,8 +1075,51 @@ def small_tenants(args) -> dict:
     return {"tenants": results, "failures": failures}
 
 
-def run(args, log=print) -> dict:
-    """Parts A to D; the record, with every gate's failures."""
+def elastic_kill(args, tmp: str, llama, twin: dict) -> dict:
+    """Part E's process case: B's engine flags on two rank processes of
+    the serve CLI with ``--process-view 2`` and the gang liaison,
+    rank 1's process SIGKILLed mid-wave and restarted
+    (``parallel/multihost_smoke.run_elastic``), at ``E_KILL_LAYERS``
+    of the model's layers (the twin cut alike); gated by ``gates_kill``."""
+    from tpushare_torch.models import transformer as tt
+    from tpushare_torch.models.paged import PagedSlotServer
+    from tpushare_torch.parallel.multihost_smoke import run_elastic
+    from tpushare_torch.tools.binpack import child_env
+    argv, cfg, prompts, max_tokens, ticks, rounds, gamma = llama
+    extra = ["--device", "cpu"] if args.device == "cpu" else []
+    tw = twin["llama"]
+    if E_KILL_LAYERS and E_KILL_LAYERS < cfg.n_layers and not args.tiny:
+        extra += ["--n-layers", str(E_KILL_LAYERS)]
+        ccfg = dataclasses.replace(cfg, n_layers=E_KILL_LAYERS)
+        nb, bs = twin["paged"]
+        dev = torch.device("cuda")
+        with torch.inference_mode():
+            params = tt.init_params(0, ccfg, device=dev)
+            tw = direct_run(PagedSlotServer(
+                params, ccfg, n_slots=len(prompts), n_blocks=nb,
+                block_size=bs, device=dev), prompts,
+                max(max_tokens - 1, ticks))
+            del params
+        _free(dev)
+    env = child_env(serving_env(args))
+    if args.device == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+    t0 = time.perf_counter()
+    rec = run_elastic(argv + extra, [p.tolist() for p in prompts],
+                      max_tokens, scenario="kill", log_dir=tmp, env=env,
+                      timeout=INIT_TIMEOUT_S, n_wave2=E_WAVE2)
+    out = gates_kill(tw, rec)
+    out["seconds"] = time.perf_counter() - t0
+    out["n_layers"] = (E_KILL_LAYERS if "--n-layers" in extra
+                       else cfg.n_layers)
+    return out
+
+
+def run(args, log=print, before_kill=None) -> dict:
+    """Parts A to E and D; the record, with every gate's failures.
+    ``before_kill`` (optional) is called once B and C's rank processes
+    are gone, just before E's process case starts (a caller starts
+    work there that fits beside it on the card)."""
     record: Dict[str, object] = {"device": args.device, "tiny": args.tiny}
     t_all = time.perf_counter()
     llama = llama_workload(args.tiny)
@@ -884,6 +1135,10 @@ def run(args, log=print) -> dict:
         t0 = time.perf_counter()
         res = run_ranks(args, tmp, llama, moe_w)
         ranks_s = time.perf_counter() - t0
+        if before_kill is not None:
+            before_kill()
+        record["E_kill"] = elastic_kill(args, tmp, llama, twin)
+        log(json.dumps({"part": "E_kill", **record["E_kill"]}))
     g = gates(twin, res, len(llama[2]), llama[4], len(moe_w[1]), moe_w[2])
     record["BC"] = dict(g, twin_s=twin_s, ranks_s=ranks_s,
                         ready_s=res["ready_s"], http_s=res["http_s"],
@@ -896,7 +1151,7 @@ def run(args, log=print) -> dict:
     record["D"]["seconds"] = time.perf_counter() - t0
     log(json.dumps({"part": "D", **record["D"]}))
     record["seconds"] = time.perf_counter() - t_all
-    record["failures"] = [f"{p}: {f}" for p in ("A", "BC", "D")
+    record["failures"] = [f"{p}: {f}" for p in ("A", "BC", "E_kill", "D")
                           for f in record[p]["failures"]]
     return record
 

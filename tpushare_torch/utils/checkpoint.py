@@ -23,13 +23,23 @@ renames it into place (``utils/atomicio.py``'s pattern; its directory
 fsync), so a reader never sees a torn checkpoint. ``restore`` reads a
 leaf at a time.
 
-Cross-mesh restore (the reference's ``restore(shardings=)``) covers
-fsdp state: a checkpoint of it holds the global flat leaves
-(``training.fsdp_stream_shard_params``' bytes, or the plain
-``fsdp_shard_params`` layout), and a ``FlatShard`` per leaf reads one
-rank's slice of them at any fsdp size, the one it was written at or
-another (the leaf is cut to its unpadded elements, padded for the new
-size and sliced). Other placements wait for the multi-GPU item.
+Cross-mesh restore (the reference's ``restore(shardings=)``) reads one
+rank's slice of each leaf of a tree saved whole:
+
+- ``MeshShard`` (tp / ep serving placement, ``parallel/sharding.py``
+  spec trees; ``mesh_shardings`` builds the tree for a mesh's rank): the
+  contiguous block at the rank's coordinates, read by offset through a
+  memory map, so only the slice's bytes are read and no rank holds the
+  whole leaf;
+- ``FlatShard`` (fsdp flat storage): a checkpoint of fsdp state holds
+  the global flat leaves (``training.fsdp_stream_shard_params``' bytes,
+  or the plain ``fsdp_shard_params`` layout), read at any fsdp size (the
+  leaf is cut to its unpadded elements, padded for the new size and
+  sliced).
+
+``lazy_tree`` returns a tree of ``LazyLeaf`` handles instead of tensors:
+``sharding.shard_leaf`` reads each one's slice for the rank placing it
+(the reshard checkpoint of ``models/reshard.py`` ``ParamStore``).
 """
 
 from __future__ import annotations
@@ -38,15 +48,13 @@ import dataclasses
 import json
 import os
 import struct
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpushare_torch import DeviceLike, resolve_device
 from tpushare_torch.utils import atomicio
-
-TODO_RESHARD = "ROADMAP A10b (resharding checkpoints across tp and ep)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,23 +91,50 @@ class FlatShard:
             [1, c] if self.stacked else [c])
 
 
-def _shard_at(shardings: Any, parts: List[str]) -> Optional[FlatShard]:
-    """The FlatShard (or None) that ``shardings`` gives the leaf at key
-    path ``parts``: a None subtree reads its leaves whole; anything but
-    a dict, a FlatShard or None raises ``NotImplementedError``."""
+@dataclasses.dataclass(frozen=True)
+class MeshShard:
+    """How ``restore(shardings=)`` reads one leaf placed by ``spec`` (a
+    ``sharding.P``) on a serving mesh of axis ``sizes``: the contiguous
+    block at the rank's ``coords`` (both as (axis, value) pairs)."""
+    spec: Tuple[Any, ...]
+    sizes: Tuple[Tuple[str, int], ...]
+    coords: Tuple[Tuple[str, int], ...]
+
+    def shape(self, full: List[int]) -> List[int]:
+        from tpushare_torch.parallel.sharding import local_shape
+        return list(local_shape(full, self.spec, dict(self.sizes)))
+
+
+def mesh_shardings(specs: Any, mesh) -> Any:
+    """The ``restore(shardings=)`` tree of ``mesh``'s rank for a spec
+    tree (``transformer.param_specs`` and its kin)."""
+    sizes = tuple(sorted(mesh.sizes.items()))
+    coords = tuple(sorted(mesh.coords(mesh.rank or 0).items()))
+    if isinstance(specs, Mapping):
+        return {k: mesh_shardings(v, mesh) for k, v in specs.items()}
+    return MeshShard(tuple(specs or ()), sizes, coords)
+
+
+def _shard_at(shardings: Any, parts: List[str]):
+    """The FlatShard, MeshShard or None that ``shardings`` gives the
+    leaf at key path ``parts``: a None subtree reads its leaves whole;
+    anything else is no placement of the port (``NotImplementedError``,
+    naming the two it has)."""
     node = shardings
     for p in parts:
-        if node is None or isinstance(node, FlatShard):
+        if node is None or isinstance(node, (FlatShard, MeshShard)):
             break
         if not isinstance(node, dict):
             break
         node = node.get(p)
-    if node is None or isinstance(node, FlatShard):
+    if node is None or isinstance(node, (FlatShard, MeshShard)):
         return node
     raise NotImplementedError(
         f"restore(shardings=) with {type(node).__name__} at "
-        f"{_SEP.join(parts)}: only FlatShard (fsdp flat storage) is "
-        f"ported; {TODO_RESHARD}")
+        f"{_SEP.join(parts)}: the port's placements are FlatShard (fsdp "
+        f"flat storage, ROADMAP A10a) and MeshShard (tp / ep serving "
+        f"slices), or None")
+
 
 # safetensors dtype names <-> torch dtypes.
 _DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16",
@@ -219,6 +254,87 @@ def _read_leaf(f, base: int, info: Dict[str, Any], device: torch.device,
     return t.to(device=device, dtype=dtype or stored)
 
 
+_UINT = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+
+
+def _read_block(path: str, base: int, info: Dict[str, Any],
+                spec: Any, sizes: Mapping[str, int],
+                coords: Mapping[str, int], device: torch.device,
+                dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The contiguous block of one stored leaf that ``spec`` places at
+    ``coords``, read by offset: a memory map of the leaf's bytes, of
+    which only the block's pages are touched."""
+    from tpushare_torch.parallel.sharding import _split, local_shape
+    shape = list(info["shape"])
+    stored = _FROM_NAME[info["dtype"]]
+    local = local_shape(shape, spec, sizes)
+    if not shape or 0 in shape or list(local) == shape:
+        with open(path, "rb") as f:
+            return _read_leaf(f, base, info, device, dtype)
+    begin, _ = info["data_offsets"]
+    size = torch.empty(0, dtype=stored).element_size()
+    mm = np.memmap(path, dtype=_UINT[size], mode="r",
+                   offset=base + begin, shape=tuple(shape))
+    index = []
+    for d in range(len(shape)):
+        if d < len(spec):
+            parts, idx = _split(spec[d], sizes, coords)
+        else:
+            parts, idx = 1, 0
+        index.append(slice(idx * local[d], (idx + 1) * local[d])
+                     if parts > 1 else slice(None))
+    block = torch.from_numpy(np.ascontiguousarray(mm[tuple(index)]))
+    del mm
+    t = block.to(torch.bool) if stored == torch.bool else block.view(stored)
+    return t.to(device=device, dtype=dtype or stored)
+
+
+class LazyLeaf:
+    """One stored leaf, unread: ``shape`` and ``dtype`` come from the
+    header, ``read_slice`` reads the block a spec places at a rank's
+    coordinates (``sharding.shard_leaf`` calls it), ``load`` the whole
+    leaf."""
+
+    __slots__ = ("path", "base", "info")
+
+    def __init__(self, path: str, base: int, info: Dict[str, Any]):
+        self.path, self.base, self.info = path, base, info
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size(self.info["shape"])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _FROM_NAME[self.info["dtype"]]
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("cpu")
+
+    def read_slice(self, spec, sizes, coords, device) -> torch.Tensor:
+        return _read_block(self.path, self.base, self.info, spec, sizes,
+                           coords, torch.device(device or "cpu"), None)
+
+    def load(self, device=None) -> torch.Tensor:
+        with open(self.path, "rb") as f:
+            return _read_leaf(f, self.base, self.info,
+                              torch.device(device or "cpu"), None)
+
+
+def lazy_tree(path: str) -> Any:
+    """The tree of a checkpoint with every leaf a ``LazyLeaf``."""
+    path = os.path.abspath(path)
+    header, base = _read_header(path)
+    skeleton = json.loads(header["__metadata__"]["tree"])
+
+    def build(node, prefix):
+        return {k: build(v, f"{prefix}{k}{_SEP}") if isinstance(v, dict)
+                else LazyLeaf(path, base, header[prefix + k])
+                for k, v in node.items()}
+    return build(skeleton, "")
+
+
 def restore(path: str, *, like: Optional[Any] = None,
             shardings: Optional[Any] = None,
             device: DeviceLike = None) -> Any:
@@ -229,11 +345,12 @@ def restore(path: str, *, like: Optional[Any] = None,
     lacks, or holds at another shape, raises ``ValueError``. Leaves go to
     ``device``, else to ``like``'s leaf's device, else to the card (the
     port's default device). ``shardings`` (the reference's cross-mesh
-    restore): a tree over the same keys whose leaves are ``FlatShard``
-    (read that rank's slice of a global flat fsdp leaf; ``like`` then
-    holds the slice's shape) or None (read the leaf whole); a None
-    subtree reads whole. Any other placement raises
-    ``NotImplementedError`` naming ROADMAP A10b."""
+    restore): a tree over the same keys whose leaves are ``MeshShard``
+    (read that rank's tp / ep block of a leaf saved whole, by offset),
+    ``FlatShard`` (that rank's slice of a global flat fsdp leaf) or None
+    (read the leaf whole); a None subtree reads whole, and ``like``
+    holds the slices' shapes. Any other leaf raises
+    ``NotImplementedError``."""
     path = os.path.abspath(path)
     header, base = _read_header(path)
 
@@ -241,6 +358,10 @@ def restore(path: str, *, like: Optional[Any] = None,
         spec = _shard_at(shardings, key.split(_SEP))
         if spec is None:
             return _read_leaf(f, base, header[key], dev, dtype)
+        if isinstance(spec, MeshShard):
+            return _read_block(path, base, header[key], spec.spec,
+                               dict(spec.sizes), dict(spec.coords), dev,
+                               dtype)
         return spec.take(_read_leaf(f, base, header[key], torch.device(
             "cpu"), None)).to(device=dev, dtype=dtype or
                               _FROM_NAME[header[key]["dtype"]])
@@ -264,7 +385,12 @@ def restore(path: str, *, like: Optional[Any] = None,
         if info is None:
             problems.append(f"{key}: missing")
             continue
-        have = list(info["shape"]) if spec is None else spec.shape()
+        if spec is None:
+            have = list(info["shape"])
+        elif isinstance(spec, MeshShard):
+            have = spec.shape(list(info["shape"]))
+        else:
+            have = spec.shape()
         if have != list(ref.shape):
             where = "in the file" if spec is None else "sliced"
             problems.append(f"{key}: shape {have} {where}, "
