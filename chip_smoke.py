@@ -365,11 +365,12 @@ Phases, one JSON line each, each with its own seconds:
           fake four-card host places a 32-unit serving pod on two cards
           (GetPreferredAllocation spans two, Allocate's env is
           gpu_env_for_cards') and bin-packs two 8-unit pods onto one
-          shared card. (B) Llama-3-8B at full width and depth over
-          tp=2: two rank processes of tpushare-torch-serve --mesh tp=2
-          (rank 0 serves HTTP, rank 1 follows its broadcast calls), on
-          this one card over the gloo transport (the collectives stage
-          through the host: not a tp measurement); 8 prompts of
+          shared card. (B) Llama-3-8B at full width, B_LAYERS (8) of
+          its 32 layers, over tp=2: two rank processes of
+          tpushare-torch-serve --mesh tp=2 (rank 0 serves HTTP, rank 1
+          follows its broadcast calls), on this one card over the gloo
+          transport (the collectives stage through the host: not a tp
+          measurement); 8 prompts of
           16..2048 tokens with chunked admission (512), then a direct
           sharded PagedSlotServer on the engine's slices (whole
           admissions, 8 timed ticks) and greedy speculative rounds (the
@@ -417,6 +418,37 @@ Phases, one JSON line each, each with its own seconds:
           run beside slice_mesh's process case; then slo (a Gemma-2B
           mixed-tier storm) alone, its gate being latency deadlines.
           Each one's record; a smoke that exits non-zero fails the run.
+  slice_mesh_train
+          tools/multichip.py's part F, training over tp and ep on rank
+          processes sharing the card over gloo (their step times are a
+          stand-in, not tp or ep measurements), each gradient held to a
+          one-card twin's, run in this process first, by the relative
+          L2 of every rank's slice against the same slice of the twin's
+          gradient (read by offset from a scratch file), within
+          GRAD_REL_L2_TOL. The ranks of all three parts start before
+          the twins run and wait their turn. F1: Llama-3-8B at full
+          width, F1_LAYERS (16) of its 32 layers (32 took part F past
+          its time budget), over tp=2 (remat on, 1 x 2048 tokens of
+          utils/data.py): the
+          gradient of make_spmd_train_step's loss, two SGD steps whose
+          losses lie within 1e-2 of the twin's, the replicated leaves'
+          digests equal on both ranks, each rank's launches exact (the
+          SPMD step's one-hop ring at sp 1, as slice_train's:
+          flash_attention_partial 2 x 16 with the remat recompute,
+          flash_attention_bwd 16, at 16/4 heads); then at
+          F1_ADAMW_LAYERS of 32 layers, trainer.fit of
+          the AdamW step for 3 steps, the loss falling, each rank's
+          moments its slices' only. F2: Mixtral-8x7B's width at 2 of 32
+          layers over ep=2, bf16 experts: psum at capacity 1.25 on
+          1 x 2048 tokens (replicated over ep) and a2a at E / top_k on
+          2 x 2048 (a row a rank), each replaying the twin's routes, and
+          one SGD step. F3: Llama-3-8B's width at 4 of 32 layers on four
+          ranks: sp=2 x tp=2 (ring attention over 1 x 4096: the partial
+          kernel and the gradient at 16/4 heads on shards of 2048) and
+          pp=2 x tp=2 (1F1B over 4 microbatches of 1 x 1024), each a
+          gradient against its twin and one SGD step. Per part and rank:
+          the kernels launched, peak memory, seconds, the twin's
+          gradient bytes and the seconds to write and read them.
   flex    the softcapped cases' library call, flex_attention under
           torch.compile with the softcap as its score_mod and the mask
           as its block mask, on the kernels phase's inputs; each case
@@ -1611,7 +1643,7 @@ def check_case(failures, what, cmp, fault_cmp, fault_name):
 
 
 def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
-                          D, window, softcap, flex=False, B=1):
+                          D, window, softcap, flex=False, B=1, sdpa=False):
     """Case (a): a training step's attention layer on one card, B rows,
     q and K/V over the whole sequence (a one-rank ring is one hop at
     offsets 0).
@@ -1620,8 +1652,9 @@ def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
     (fault: a zero dsum, the term a kernel could drop). Both have a
     softcap, which SDPA lacks; with ``flex`` (the global case) their
     library times are flex_attention's under torch.compile (forward
-    with the lse; its backward), queued for the flex phase, else
-    null."""
+    with the lse; its backward), queued for the flex phase; with
+    ``sdpa`` (no window, no softcap) SDPA's causal forward and its
+    backward through autograd at the same shape; else null."""
     q, k, v, do = bf16_inputs(torch, dev, 7, [(B, S, H, D), (B, S, Hkv, D),
                                                (B, S, Hkv, D), (B, S, H, D)])
     kw = dict(q_offset=0, k_offset=0, window=window, attn_softcap=softcap)
@@ -1649,6 +1682,22 @@ def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
                "a zero dsum")
     del gotb
     pairs = B * H * causal_pairs(S, S, 0, window)
+    lib = {}
+    if sdpa:
+        from torch.nn import functional as F
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        out_t = sdpa_fwd()
+        lib["flash_attention_bwd"] = time_ms(lambda: torch.autograd.grad(
+            out_t, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 5,
+            flush)
+        with torch.no_grad():
+            lib["flash_attention_partial"] = time_ms(sdpa_fwd, 5, flush)
+        del out_t, qt, kt, vt
     rows = []
     for kernel, fn, plain, flops, nbytes, c, f in (
             ("flash_attention_partial",
@@ -1673,12 +1722,15 @@ def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
                "S": S, "H": H, "Hkv": Hkv, "D": D, "window": window,
                "softcap": softcap, **c, "fault_ulp_ratio": f["ulp_ratio"],
                "ms": ms, "plain_ms": time_ms(plain, 3, flush),
-               "library_ms": None,
+               "library_ms": lib.get(kernel),
                "library_calls": "flex_attention (torch.compile; softcap "
                                 "score_mod, causal block mask)"
                                 + ("; forward with the lse"
                                    if kernel == "flash_attention_partial"
-                                   else "; its backward") if flex else None,
+                                   else "; its backward") if flex else
+               "SDPA causal" + ("" if kernel == "flash_attention_partial"
+                                else " (backward through autograd)")
+               if sdpa else None,
                "library_err": None, "library_error": None,
                "flex_compile_s": None, "bound_ms": bms,
                "bound_by": by, "tflops": flops / ms / 1e9}
@@ -1701,7 +1753,7 @@ def attention_layer_cases(fa, torch, dev, flush, failures, name, S, H, Hkv,
 
 
 def ring_cases(fa, ring, F, torch, dev, flush, failures, n, Sc, H, Hkv,
-               D):
+               D, tag="llama3_8b"):
     """Case (b): a ring of n hops on one card, Llama-3-8B geometry, n
     shards of Sc positions. Each shard's q runs against each K/V chunk
     at its offsets (the wholly-future chunks too), merged with the
@@ -1736,7 +1788,7 @@ def ring_cases(fa, ring, F, torch, dev, flush, failures, n, Sc, H, Hkv,
     fault = compare_parts([t for st in ring_fwd(fa.flash_attention_partial,
                                                 shift=1) for t in st],
                           [t for st in whole for t in st])
-    check_case(failures, "flash_attention_partial ring", cmp, fault,
+    check_case(failures, f"flash_attention_partial {tag} ring", cmp, fault,
                "k_offset + 1")
     lse, dsum = [], []
     for i, (acc, m, l) in enumerate(whole):
@@ -1758,7 +1810,7 @@ def ring_cases(fa, ring, F, torch, dev, flush, failures, n, Sc, H, Hkv,
     wantb = ring_bwd(fa.flash_attention_bwd_plain)
     cmpb = compare_parts(ring_bwd(fa.flash_attention_bwd), wantb)
     faultb = compare_parts(ring_bwd(fa.flash_attention_bwd, True), wantb)
-    check_case(failures, "flash_attention_bwd ring", cmpb, faultb,
+    check_case(failures, f"flash_attention_bwd {tag} ring", cmpb, faultb,
                "a zero dsum")
     del wantb
 
@@ -1805,7 +1857,7 @@ def ring_cases(fa, ring, F, torch, dev, flush, failures, n, Sc, H, Hkv,
         bms, by = bound(flops, nbytes)
         ms = time_ms(fn, 5, flush)
         row = {"phase": "kernels", "kernel": kernel,
-               "case": f"llama3_8b_ring{n}x{Sc}", "S": S, "H": H, "Hkv": Hkv,
+               "case": f"{tag}_ring{n}x{Sc}", "S": S, "H": H, "Hkv": Hkv,
                "D": D, "hops": n * n, **c, "fault_ulp_ratio": f["ulp_ratio"],
                "ms": ms, "plain_ms": time_ms(plain, 3, flush),
                "library_ms": lib, "library_calls": "SDPA causal, whole "
@@ -3868,7 +3920,17 @@ MESH_NEEDS = {"engine": ("flash_attention", "paged_flash_verify",
               "moe_psum": ("flash_attention", "paged_flash_decode",
                            "q8_expert_ffn"),
               "moe_a2a": ("flash_attention", "paged_flash_decode",
-                          "q8_expert_ffn")}
+                          "q8_expert_ffn"),
+              # Part F (slice_mesh_train), training over tp and ep: the
+              # SPMD steps' one-hop ring at sp 1 (the partial kernel).
+              "train_f1": ("flash_attention_partial", "flash_attention_bwd"),
+              "train_f2_psum": ("flash_attention_partial",
+                                "flash_attention_bwd"),
+              "train_f2_a2a": ("flash_attention_partial",
+                               "flash_attention_bwd"),
+              "train_f3_sp": ("flash_attention_partial",
+                              "flash_attention_bwd"),
+              "train_f3_pp": ("flash_attention", "flash_attention_bwd")}
 
 
 def slice_mesh(card, failures, before_kill=None):
@@ -3886,6 +3948,8 @@ def slice_mesh(card, failures, before_kill=None):
     failures += [f"slice_mesh {f}" for f in record["failures"]]
     bc = record["BC"]
     for part, names in MESH_NEEDS.items():
+        if part.startswith("train_"):
+            continue
         got = bc["launches"][part]
         for name in names:
             if got.get(name, 0) <= 0:
@@ -3893,11 +3957,13 @@ def slice_mesh(card, failures, before_kill=None):
                                 f"launched on its ranks ({got})")
     work = bc["stats"].get("work_ticks") or bc["stats"].get("fused_ticks")
     kill = record["E_kill"]
-    emit({"phase": "slice_mesh", "part": "E", "model": "llama3_8b tp=2",
+    emit({"phase": "slice_mesh", "part": "E",
+          "model": f"llama3_8b {mc.B_LAYERS} layers tp=2",
           "chip": bc["E"], "kill": kill,
           "heartbeat_timeout_s": gang.HEARTBEAT_TIMEOUT_S, "card": card})
-    emit({"phase": "slice_mesh", "model": "llama3_8b tp=2, mixtral "
-          f"{mc.MOE_LAYERS} layers ep=2", "placement": record["A"],
+    emit({"phase": "slice_mesh", "model": f"llama3_8b {mc.B_LAYERS} "
+          f"layers tp=2, mixtral {mc.MOE_LAYERS} layers ep=2",
+          "placement": record["A"],
           "transport": bc["transport"], "printed": bc.get("printed"),
           "engine_stats": bc["stats"], "ready_s": bc["ready_s"],
           "http_s": bc["http_s"], "twin_s": bc["twin_s"],
@@ -3922,6 +3988,45 @@ def slice_mesh(card, failures, before_kill=None):
     out["slice_mesh_e_kill"] = _sum_counts(
         _cumulative(g) for g in ends)
     return out
+
+
+def slice_mesh_train(card, failures):
+    """slice_mesh_train (see the module docstring): tools/multichip.py's
+    part F. Returns each part's kernel launches, summed over its
+    ranks."""
+    import importlib
+    mc = importlib.import_module("tpushare_torch.tools.multichip")
+    t0 = time.perf_counter()
+    rec = mc.run_train(mc.build_parser().parse_args([]),
+                       log=lambda line: None)
+    failures += [f"slice_mesh_train {f}" for f in rec["failures"]]
+    for part, names in MESH_NEEDS.items():
+        if not part.startswith("train_"):
+            continue
+        got = rec["launches"][part[len("train_"):]]
+        for name in names:
+            if got.get(name, 0) <= 0:
+                failures.append(f"slice_mesh_train {part}: {name} was not "
+                                f"launched on its ranks ({got})")
+    L = mc.F1_LAYERS
+    for i, rk in enumerate(rec["ranks"]["f1"]):
+        want = {"flash_attention_partial": 2 * L, "flash_attention_bwd": L,
+                "flash_attention": 0}
+        if any(rk["launches"][k] != n for k, n in want.items()):
+            failures.append(f"slice_mesh_train F1 rank {i}: launches "
+                            f"{rk['launches']}, expected {want}")
+    emit({"phase": "slice_mesh_train",
+          "model": f"llama3_8b {mc.F1_LAYERS} layers tp=2; mixtral 2 "
+                   f"layers ep=2; llama3_8b 4 layers sp=2 x tp=2, pp=2 x "
+                   f"tp=2",
+          "transport": "gloo (ranks share one card; collectives staged "
+                       "through the host)",
+          "grad_rel_l2_tol": mc.GRAD_REL_L2_TOL,
+          "loss_tol": mc.F_LOSS_TOL,
+          **{k: v for k, v in rec.items() if k not in ("failures",)},
+          "failures": rec["failures"],
+          "seconds": time.perf_counter() - t0, "card": card})
+    return {f"slice_mesh_train_{k}": v for k, v in rec["launches"].items()}
 
 
 def _cumulative(gens):
@@ -5066,6 +5171,19 @@ def main() -> int:
              256),
             (f"gemma2b_pp_mb1_s{FS_SEQ}", 1, FS_SEQ, 8, 1, 256),
             (f"mixtral_pp_mb1_s{MPP_SEQ}", 1, MPP_SEQ, 32, 8, 128))])
+    # slice_mesh_train's per-rank training shapes (Llama-3-8B over tp=2:
+    # 16 query and 4 kv heads): F1's 1 x 2048 and F3's 1 x 1024
+    # microbatch, the forward with its lse and the gradient; F3's ring
+    # of two shards of 2048, the partial pass and the gradient. Each
+    # against SDPA at the same shape.
+    pre_t = [gpc(f"llama3_8b_tp2_train_s{S}", S, S, 16, 4, 128, q_offset=0,
+                 lse=True, fault=True) for S in (2048, 1024)]
+    part_t, bwd_t = zip(*[attention_layer_cases(
+        fa, torch, dev, flush, failures, f"llama3_8b_tp2_s{S}", S, 16, 4,
+        128, None, None, sdpa=True) for S in (2048, 1024)])
+    torch.cuda.empty_cache()
+    part_r, bwd_r = ring_cases(fa, ring, F, torch, dev, flush, failures, 2,
+                               2048, 16, 4, 128, tag="llama3_8b_tp2")
     del flush
     torch.cuda.empty_cache()
     kernels_s = time.perf_counter() - t_k
@@ -5631,6 +5749,13 @@ def main() -> int:
     smoke_launches = smokes.finish()
     smokes_s = time.perf_counter() - t_sm
 
+    # -- slice_mesh_train: training over tp and ep (part F) -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_mt = time.perf_counter()
+    mesh_train_launches = slice_mesh_train(card, failures)
+    mesh_train_s = time.perf_counter() - t_mt
+
     t_f = time.perf_counter()
     run_flex_later()
     flex_s = time.perf_counter() - t_f
@@ -5646,7 +5771,8 @@ def main() -> int:
              "slice_rows": r_launches, "slice_train_sgd": sgd_launches,
              "slice_train_fit": fit_launches, "slice_plugin": p_launches,
              **ft_launches, **mt_launches, **gn_launches, **fs_launches,
-             **pp_launches, **mesh_launches, **smoke_launches}
+             **pp_launches, **mesh_launches, **smoke_launches,
+             **mesh_train_launches}
 
     def total(name):
         return sum(c.get(name, 0) for c in paths.values())
@@ -5677,7 +5803,7 @@ def main() -> int:
     kernels = [
         dict(entry("flash_attention", src + "flash_prefill.cu",
                    ref_fa + "105", pre_g + pre_l + pre_m + pre_n,
-                   pre + pre_n + pre_mesh),
+                   pre + pre_n + pre_mesh + pre_t),
              also_replaces=ref_fa + "180"),
         entry("paged_flash_decode", src + "paged_decode.cu", ref_fa + "659",
               dec[:2] + dec_m, dec + dec_mesh),
@@ -5696,11 +5822,12 @@ def main() -> int:
              library_no_softcap_calls=fdec[0]["library_no_softcap_calls"]),
         dict(entry("flash_attention_partial", src + "flash_prefill.cu",
                    ref_fa + "453", part_a + part_n[1:3],
-                   part_a + (part_b,) + part_n),
+                   part_a + (part_b,) + part_n + part_t + (part_r,)),
              library_ms_no_softcap=part_b["library_ms"],
              no_softcap_case=part_b["case"]),
         dict(entry("flash_attention_bwd", src + "flash_bwd.cu",
-                   ref_fa + "105", bwd_a + bwd_n, bwd_a + (bwd_b,) + bwd_n),
+                   ref_fa + "105", bwd_a + bwd_n,
+                   bwd_a + (bwd_b,) + bwd_n + bwd_t + (bwd_r,)),
              note="the gradient of _fa_kernel: the JAX package has no "
                   "backward kernel (jax 0.9.0 pallas_call registers no "
                   "transpose)",
@@ -5727,7 +5854,7 @@ def main() -> int:
           "finetune": finetune_s,
           "moe_train": moe_train_s, "generate": generate_s,
           "fsdp": fsdp_s, "pipeline": pipeline_s,
-          "mesh": mesh_s, "smokes": smokes_s,
+          "mesh": mesh_s, "smokes": smokes_s, "mesh_train": mesh_train_s,
           "flex": flex_s,
           "flex_compile": {f"{r['kernel']} {r['case']}": r["flex_compile_s"]
                            for r in dec + fdec + list(part_a) + list(bwd_a)

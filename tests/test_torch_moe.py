@@ -553,16 +553,27 @@ class TestRefusals:
         _close_rel(got, want)
         assert abs(float(taux) - float(jaux)) < 1e-5
 
-    def test_forward_and_entry_points(self):
+    def test_forward_and_entry_points(self, tmp_path):
         cfg = tm.tiny()
         tp = tm.init_params(0, cfg, device="cpu")
         tok = torch.zeros((1, 3), dtype=torch.int64)
-        with pytest.raises(NotImplementedError, match="A10"):
-            tm.forward(tp, tok, cfg, ep_axis="ep")
-        with pytest.raises(NotImplementedError, match="A10"):
-            tm.forward(tp, tok, cfg, pctx=tm.ParallelCtx(tp="tp"))
-        with pytest.raises(NotImplementedError, match="A10"):
-            tm.sgd_train_step(tp, tok, cfg, ep_axis="ep")
+        # Training over ep and tp is ported (ROADMAP A10c): over groups
+        # of one rank the forward, with grad mode on, and the SGD step
+        # are the plain ones.
+        import torch_spawn
+        want = tm.forward(tp, tok, cfg)
+        want_p, want_l = tm.sgd_train_step(ttr.tree_map(
+            lambda t: t.clone(), tp), tok, cfg)
+        with torch_spawn.one_rank_group(tmp_path / "store") as group:
+            for kw in ({"ep_axis": group},
+                       {"pctx": tm.ParallelCtx(tp=group)}):
+                got = tm.forward(tp, tok, cfg, **kw)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+            got_p, got_l = tm.sgd_train_step(ttr.tree_map(
+                lambda t: t.clone(), tp), tok, cfg, ep_axis=group)
+        assert torch.equal(got_l, want_l)
+        for a, b in zip(ttr.tree_leaves(got_p), ttr.tree_leaves(want_p)):
+            assert torch.equal(a, b)
         # generate and the loss run (their parity: TestTraining and
         # tests/test_torch_generate.py).
         assert tm.generate(tp, tok, cfg, max_new_tokens=2).shape == (1, 5)

@@ -13,10 +13,11 @@ optimizer state carried across by ``bridge``.
   ``make_mesh({"dp": 2, "sp": 2})`` / ``{"sp": 4}``, and against the
   port's own single-process step.
 - ``remat`` on and off giving the same gradients, and every refusal
-  naming its ROADMAP item (Ulysses, ``sp_impl="a2a"``, checkpoints, fsdp
-  and the pipelines are ported: tests/test_torch_ring.py,
-  tests/test_torch_finetune.py, tests/test_torch_fsdp.py and
-  tests/test_torch_pipeline.py).
+  naming its ROADMAP item or the reference's message (Ulysses,
+  ``sp_impl="a2a"``, checkpoints, fsdp, the pipelines and training
+  under tp and ep are ported: tests/test_torch_ring.py,
+  tests/test_torch_finetune.py, tests/test_torch_fsdp.py,
+  tests/test_torch_pipeline.py and tests/test_torch_tp_train.py).
 
 Tolerances: losses within 1e-5 relative; logits 2e-5 abs; parameters
 and moments 2e-6 abs after the steps (an update moves a parameter by
@@ -287,12 +288,19 @@ class TestSpmd:
 
 
 class TestRefusals:
-    def test_each_refusal_names_its_roadmap_item(self):
+    def test_each_refusal_names_its_roadmap_item(self, tmp_path):
         cfg = tt.tiny()
         tp = tt.init_params(0, cfg, device="cpu")
         tok = torch.zeros((1, 4), dtype=torch.int64)
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            tt.forward(tp, tok, cfg, pctx=tt.ParallelCtx(tp="tp"))
+        # Grad mode under pctx.tp is ported (ROADMAP A10c): over a tp
+        # group of one rank the loss and gradients are the plain ones.
+        with torch_spawn.one_rank_group(tmp_path / "store") as group:
+            got = ttr.loss_and_grads(tp, tok, tok, cfg,
+                                     pctx=tt.ParallelCtx(tp=group))
+        want = ttr.loss_and_grads(tp, tok, tok, cfg)
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(ttr.tree_leaves(got[1]), ttr.tree_leaves(want[1])):
+            assert torch.equal(a, b)
         with pytest.raises(ValueError, match="sp_impl"):
             tt.forward(tp, tok, cfg, pctx=tt.ParallelCtx(sp_impl="ulysses"))
         with pytest.raises(ValueError, match="sp_impl"):
@@ -307,18 +315,25 @@ class TestRefusals:
                         flops_per_step=1e12)
 
     @pytest.mark.parametrize("sizes,match", [
-        ({"tp": 2}, "ROADMAP A10"), ({"ep": 2}, "ROADMAP A10"),
-        ({"fsdp": 2, "tp": 2}, "ROADMAP A10"),
-        ({"pp": 2, "ep": 2}, "ROADMAP A10")])
+        ({"tp": 2}, None), ({"ep": 2}, "ep axis not used"),
+        ({"fsdp": 2, "tp": 2}, "use make_fsdp_train_step"),
+        ({"pp": 2, "ep": 2}, "pp axis not used")],
+        ids=[f"sizes{i}-ROADMAP A10" for i in range(4)])
     def test_make_mesh_refuses_axes_it_does_not_carry(self, sizes, match):
-        """make_mesh carries tp and ep since sharded serving (ROADMAP
-        A10a); the training steps refuse a mesh with either above 1,
-        naming training under tp / ep."""
+        """The training steps carry tp (ROADMAP A10c: a tp mesh builds,
+        each rank on its ``param_specs`` slices); the dense step refuses
+        ep, fsdp and pp with the reference's messages
+        (``training.py:97-101,116-119``)."""
         n = int(np.prod(list(sizes.values())))
         mesh = tmesh.ServingMesh(sizes, ["cpu"] * n)
         cfg = tt.tiny()
         for factory in (ttr.make_spmd_train_step,
                         ttr.make_adamw_spmd_train_step):
+            if match is None:
+                step = factory(cfg, mesh)
+                assert step.specs == tt.param_specs(cfg)
+                assert step.axes == ("dp", "sp")
+                continue
             with pytest.raises(NotImplementedError, match=match):
                 factory(cfg, mesh)
 

@@ -456,7 +456,7 @@ class TestPrefillHelpers:
 
 
 class TestRefusals:
-    def test_unported_branches_name_their_roadmap_item(self):
+    def test_unported_branches_name_their_roadmap_item(self, tmp_path):
         cfg = tt.tiny()
         tp = tt.init_params(0, cfg, device="cpu")
         tok = torch.zeros((2, 3), dtype=torch.int64)
@@ -472,8 +472,17 @@ class TestRefusals:
             tt.forward(tp, tok, cfg, cache=dict(
                 paged, pool_k=pool.to(torch.int8)),
                 pos_offset=torch.zeros(2, dtype=torch.int32))
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            tt.forward(tp, tok, cfg, pctx=tt.ParallelCtx(tp="tp"))
+        # Grad mode under tp is ported (ROADMAP A10c): over a tp group of
+        # one rank the forward and its gradient are the plain ones.
+        import torch_spawn
+        emb = tp["embed"].detach().requires_grad_()
+        with torch_spawn.one_rank_group(tmp_path / "store") as group:
+            got, _ = tt.forward(dict(tp, embed=emb), tok, cfg,
+                                pctx=tt.ParallelCtx(tp=group))
+            (g_got,) = torch.autograd.grad(got.sum(), emb)
+        want, _ = tt.forward(dict(tp, embed=emb), tok, cfg)
+        (g_want,) = torch.autograd.grad(want.sum(), emb)
+        assert torch.equal(got, want) and torch.equal(g_got, g_want)
         # mlora_idx without a bank is ignored, as in the reference.
         assert torch.equal(tt.forward(tp, tok, cfg, mlora_idx=torch.zeros(
             2, dtype=torch.int64))[0], tt.forward(tp, tok, cfg)[0])

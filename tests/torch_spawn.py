@@ -65,6 +65,23 @@ def run_ranks(target, world, tmp_path, inputs, *args, timeout=150.0,
         return dict(f)
 
 
+class one_rank_group:
+    """A gloo group of this process alone (a FileStore at ``path``), for
+    the whole ``with`` block; the default group, which is every axis
+    group of a one-rank mesh."""
+
+    def __init__(self, path):
+        self.path = str(path)
+
+    def __enter__(self):
+        dist.init_process_group("gloo", store=dist.FileStore(self.path, 1),
+                                rank=0, world_size=1)
+        return dist.group.WORLD
+
+    def __exit__(self, *exc):
+        dist.destroy_process_group()
+
+
 def _rank_main(target, rank, world, base, backend, args):
     torch.set_num_threads(1)
     try:
@@ -467,6 +484,348 @@ def moe_pp_worker(rank, world, inp, cases, mesh_sizes, M, lr, wd):
         out[f"{name}/adamw_loss"] = _np(loss)
         out.update(flatten(_gather_stages(params, mesh, P),
                            f"{name}/adamw/"))
+    return out
+
+
+# -- training under tp and ep (tests/test_torch_tp_train.py) -----------------
+
+def _plant_g_allreduce():
+    """A broken "g": the row-parallel product's backward all-reduces its
+    input gradient over tp (what ``torch.distributed.nn`` would
+    differentiate a sum into), multiplying the gradients by tp."""
+    from tpushare_torch.models import transformer as tt
+    base = tt._RowParallel
+
+    class Faulty(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, group):
+            ctx.group = group
+            ctx.save_for_backward(x, w)
+            return tt._row_parallel(x, w, group)
+
+        @staticmethod
+        def backward(ctx, g):
+            dx, dw, _ = base.backward(ctx, g)
+            dist.all_reduce(dx, group=ctx.group)
+            return dx, dw, None
+    tt._RowParallel = Faulty
+
+
+def _tp_digests(training, params, specs, mesh):
+    """(key, digest) of this rank's replicated leaves, from every rank:
+    the key names the rank's coordinates but tp, so ranks of one tp
+    group share it."""
+    from tpushare_torch.parallel.mesh import mesh_layout
+    _, coords = mesh_layout(mesh)
+    key = ",".join(f"{ax}{i}" for ax, i in coords.items() if ax != "tp")
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, (key, training.replicated_digest(params,
+                                                                 specs)))
+    return got
+
+
+def _digest_out(out, prefix, pairs):
+    out[f"{prefix}digest_keys"] = np.asarray([k for k, _ in pairs])
+    out[f"{prefix}digests"] = np.asarray([d for _, d in pairs])
+
+
+def _state_from(inp, dev):
+    return {"mu": unflatten(inp, "mu/", dev), "nu": unflatten(inp, "nu/", dev),
+            "count": torch.tensor(inp["count"], dtype=torch.int32,
+                                  device=dev)}
+
+
+def _local_bytes(tree):
+    from tpushare_torch.models.training import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def tp_train_worker(rank, world, inp, cfg, mesh_sizes, lr, steps, wd, opts):
+    """The dense SPMD steps over a mesh with tp, each rank on its
+    ``param_specs`` slices: ``steps`` SGD steps and ``steps`` AdamW steps
+    from the given state, the whole params (and moments) gathered by
+    ``tp_gather``, the replicated leaves' digests, and each rank's
+    moment bytes. ``opts``: ``sp_impl``; ``fault`` "g_allreduce" plants
+    the broken "g"."""
+    from tpushare_torch.models import training
+    from tpushare_torch.parallel.mesh import make_mesh
+    from tpushare_torch.parallel.sharding import shard_tree
+    if opts.get("fault") == "g_allreduce":
+        _plant_g_allreduce()
+    mesh = make_mesh(mesh_sizes)
+    dev = _device()
+    tokens = torch.tensor(inp["tokens"], device=dev)
+    sp_impl = opts.get("sp_impl", "ring")
+    step = training.make_spmd_train_step(cfg, mesh, lr=lr, sp_impl=sp_impl)
+    params = step.shard(unflatten(inp, "p/", dev))
+    out = {}
+    for s in range(steps):
+        params, loss = step(params, tokens)
+        out[f"sgd_loss{s}"] = _np(loss)
+    _digest_out(out, "sgd_", _tp_digests(training, params, step.specs, mesh))
+    out.update(flatten(step.gather(params), "sgd/"))
+    astep = training.make_adamw_spmd_train_step(cfg, mesh, lr=lr,
+                                                weight_decay=wd,
+                                                sp_impl=sp_impl)
+    ospecs = training.opt_state_specs(astep.specs)
+    params = astep.shard(unflatten(inp, "p/", dev))
+    state = shard_tree(_state_from(inp, dev), ospecs, mesh)
+    moment_bytes = [None] * world
+    dist.all_gather_object(moment_bytes, _local_bytes(
+        {"mu": state["mu"], "nu": state["nu"]}))
+    out["moment_bytes"] = np.asarray(moment_bytes)
+    for s in range(steps):
+        params, state, loss = astep(params, state, tokens)
+        out[f"adamw_loss{s}"] = _np(loss)
+    _digest_out(out, "adamw_", _tp_digests(training, params, astep.specs,
+                                           mesh))
+    out.update(flatten(astep.gather(params), "adamw/"))
+    whole = training.tp_gather(state, ospecs, mesh)
+    out.update(flatten(whole["mu"], "adamw_mu/"))
+    out.update(flatten(whole["nu"], "adamw_nu/"))
+    out["adamw_count"] = _np(whole["count"])
+    return out
+
+
+def tp_save_worker(rank, world, inp, cfg, mesh_sizes, path):
+    """``training.save_sharded`` of an AdamW state over the mesh,
+    watched: every whole leaf a rank gathers (``training._whole_leaf``,
+    held by a weak reference) and every leaf rank 0 writes
+    (``checkpoint._write_leaf``). Returns each rank's most gathered
+    leaves still alive when it starts a gather and its gathers, rank
+    0's order of gathers ("g") and writes ("w"), and the whole state by
+    ``tp_gather``."""
+    import weakref
+    from tpushare_torch.models import training
+    from tpushare_torch.parallel.mesh import make_mesh
+    from tpushare_torch.parallel.sharding import shard_tree
+    from tpushare_torch.utils import checkpoint
+    mesh = make_mesh(mesh_sizes)
+    dev = _device()
+    step = training.make_adamw_spmd_train_step(cfg, mesh)
+    ospecs = training.opt_state_specs(step.specs)
+    params = step.shard(unflatten(inp, "p/", dev))
+    state = shard_tree(_state_from(inp, dev), ospecs, mesh)
+    gather, write_leaf = training._whole_leaf, checkpoint._write_leaf
+    alive, events, most = [], [], [0]
+
+    def watched_gather(*a):
+        most[0] = max(most[0], sum(r() is not None for r in alive))
+        t = gather(*a)
+        alive.append(weakref.ref(t))
+        events.append("g")
+        return t
+
+    def watched_write(f, t, *rest):
+        events.append("w")
+        write_leaf(f, t, *rest)
+    training._whole_leaf, checkpoint._write_leaf = watched_gather, \
+        watched_write
+    try:
+        training.save_sharded(path, params, state, 3, specs=step.specs,
+                              mesh=mesh)
+    finally:
+        training._whole_leaf, checkpoint._write_leaf = gather, write_leaf
+    seen = [None] * world
+    dist.all_gather_object(seen, (most[0], events.count("g")))
+    out = {"most_alive": np.asarray([m for m, _ in seen]),
+           "gathers": np.asarray([n for _, n in seen]),
+           "events": np.asarray("".join(events))}
+    out.update(flatten(training.tp_gather(
+        {"params": params, "opt_state": state},
+        {"params": step.specs, "opt_state": ospecs}, mesh), "whole/"))
+    return out
+
+
+def tp_fit_worker(rank, world, inp, family, cfg, mesh_sizes, lr, steps,
+                  out_dir):
+    """``trainer.fit`` of an AdamW SPMD step (``family``: "dense" or
+    "moe") over the mesh: ``steps`` steps straight, and ``steps // 2``
+    steps, a checkpoint (whole leaves, through the step's
+    ``save_state``), a restore of this rank's slices
+    (``load_state(shardings=step.load_shardings())``) and the rest.
+    Returns both runs' losses and gathered params, and the checkpoint's
+    path."""
+    import os
+    from tpushare_torch.models import moe, trainer, training
+    from tpushare_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(mesh_sizes)
+    dev = _device()
+    batches = [torch.tensor(inp[f"tokens{i}"], device=dev)
+               for i in range(steps)]
+    if family == "moe":
+        step, opt_init = moe.make_adamw_spmd_train_step(cfg, mesh, lr=lr)
+    else:
+        step = training.make_adamw_spmd_train_step(cfg, mesh, lr=lr)
+        opt_init = training.adamw_init
+
+    def fresh():
+        p = step.shard(unflatten(inp, "p/", dev))
+        return p, opt_init(p)
+    p, st = fresh()
+    p, st, straight = trainer.fit(step, p, st, iter(batches), steps=steps,
+                                  log_every=0)
+    out = {"straight_losses": np.asarray([float(x) for x in straight])}
+    out.update(flatten(step.gather(p), "straight/"))
+    half = steps // 2
+    ck = os.path.join(out_dir, family)
+    p, st = fresh()
+    p, st, first = trainer.fit(step, p, st, iter(batches[:half]),
+                               steps=half, ckpt_dir=ck, ckpt_every=half,
+                               log_every=0)
+    path = trainer.latest_checkpoint(ck)
+    like_p = step.shard(unflatten(inp, "p/", dev))
+    p2, st2, at = trainer.load_state(path, like_params=like_p,
+                                     like_opt=opt_init(like_p),
+                                     shardings=step.load_shardings())
+    same = all(torch.equal(a, b) for a, b in zip(
+        training.tree_leaves({"p": p, "o": st}),
+        training.tree_leaves({"p": p2, "o": st2})))
+    flags = [None] * world
+    dist.all_gather_object(flags, same)
+    p2, st2, rest = trainer.fit(step, p2, st2, iter(batches[half:]),
+                                steps=steps, start_step=at, log_every=0)
+    out["resumed_losses"] = np.asarray([float(x) for x in first + rest])
+    out["restored_equal"] = np.asarray(flags)
+    out["ckpt"] = np.asarray(path)
+    out.update(flatten(step.gather(p2), "resumed/"))
+    return out
+
+
+def moe_tp_train_worker(rank, world, inp, cases, mesh_sizes, lr, wd):
+    """For each (name, cfg) case: one MoE SPMD SGD step and one AdamW
+    step from the given state over the mesh (ep x tp), each rank on its
+    ``param_specs`` slices; losses, gathered params and moments, and the
+    replicated leaves' digests."""
+    from tpushare_torch.models import moe, training
+    from tpushare_torch.parallel.mesh import make_mesh
+    from tpushare_torch.parallel.sharding import shard_tree
+    mesh = make_mesh(mesh_sizes)
+    dev = _device()
+    tokens = torch.tensor(inp["tokens"], device=dev)
+    out = {}
+    for name, cfg in cases:
+        step = moe.make_spmd_train_step(cfg, mesh, lr=lr)
+        params = step.shard(unflatten(inp, f"{name}/p/", dev))
+        params, loss = step(params, tokens)
+        out[f"{name}/sgd_loss"] = _np(loss)
+        _digest_out(out, f"{name}/sgd_",
+                    _tp_digests(training, params, step.specs, mesh))
+        out.update(flatten(step.gather(params), f"{name}/sgd/"))
+        astep, _ = moe.make_adamw_spmd_train_step(cfg, mesh, lr=lr,
+                                                  weight_decay=wd)
+        ospecs = training.opt_state_specs(astep.specs)
+        params = astep.shard(unflatten(inp, f"{name}/p/", dev))
+        state = shard_tree(
+            {"mu": unflatten(inp, f"{name}/mu/", dev),
+             "nu": unflatten(inp, f"{name}/nu/", dev),
+             "count": torch.tensor(inp["count"], dtype=torch.int32,
+                                   device=dev)}, ospecs, mesh)
+        params, state, loss = astep(params, state, tokens)
+        out[f"{name}/adamw_loss"] = _np(loss)
+        out.update(flatten(astep.gather(params), f"{name}/adamw/"))
+        out.update(flatten(training.tp_gather(state, ospecs, mesh)["mu"],
+                           f"{name}/adamw_mu/"))
+    return out
+
+
+def pp_tp_worker(rank, world, inp, family, cases, mesh_sizes, M, lr, wd,
+                 fit_steps=0, out_dir=None):
+    """Pipelines over a mesh with tp or ep, each rank on its slices of
+    the pipeline's ``param_specs`` (gathered back by ``tp_gather``).
+    ``family`` "dense": per case (name, cfg, schedule) one SGD step of
+    ``make_pp_train_step`` and one AdamW step from the given state of
+    ``make_pp_adamw_train_step`` (moments gathered too); then, with
+    ``fit_steps``, ``trainer.fit`` of the 1F1B AdamW step straight and
+    resumed from a checkpoint of whole leaves halfway. "moe": per case
+    (name, cfg) the MoE pipeline's SGD and AdamW steps."""
+    import os
+    from tpushare_torch.models import moe_pipeline as mp
+    from tpushare_torch.models import pipeline as pl
+    from tpushare_torch.models import trainer, training
+    from tpushare_torch.parallel.mesh import axis_size, make_mesh
+    from tpushare_torch.parallel.sharding import shard_tree
+    mesh = make_mesh(mesh_sizes)
+    dev = _device()
+    P = axis_size(mesh, "pp")
+    tokens = torch.tensor(inp["tokens"], device=dev)
+    out = {}
+    for case in cases:
+        name, cfg = case[:2]
+        sched = case[2] if family == "dense" else None
+        specs = (pl.param_specs(cfg) if family == "dense"
+                 else mp.param_specs(cfg))
+        perm = (pl.interleaved_layer_order(cfg.n_layers, P, 2)
+                if sched == "interleaved" else None)
+        pre = f"{name}/" if family == "moe" else ""
+
+        def load(prefix):
+            t = unflatten(inp, f"{pre}{prefix}/", dev)
+            if perm is not None:
+                t = pl.to_interleaved_storage(t, P, 2)
+            return shard_tree(t, specs, mesh)
+
+        def whole(tree):
+            """Whole params (or moments) in model order."""
+            t = training.tp_gather(tree, specs, mesh)
+            if perm is not None:
+                inv = torch.as_tensor(np.argsort(perm), device=dev)
+                t = dict(t, layers={k: a[inv] for k, a in
+                                    t["layers"].items()})
+            return t
+        if family == "dense":
+            step = pl.make_pp_train_step(cfg, mesh, n_microbatches=M, lr=lr,
+                                         schedule=sched)
+            astep = pl.make_pp_adamw_train_step(
+                cfg, mesh, n_microbatches=M, lr=lr, weight_decay=wd,
+                schedule=sched)
+        else:
+            step = mp.make_moe_pp_train_step(cfg, mesh, n_microbatches=M,
+                                             lr=lr)
+            astep = mp.make_moe_pp_adamw_train_step(
+                cfg, mesh, n_microbatches=M, lr=lr, weight_decay=wd)
+        params, loss = step(load("p"), tokens)
+        out[f"{name}/sgd_loss"] = _np(loss)
+        out.update(flatten(whole(params), f"{name}/sgd/"))
+        state = {"mu": load("mu"), "nu": load("nu"),
+                 "count": torch.tensor(inp["count"], dtype=torch.int32,
+                                       device=dev)}
+        params, state, loss = astep(load("p"), state, tokens)
+        out[f"{name}/adamw_loss"] = _np(loss)
+        out.update(flatten(whole(params), f"{name}/adamw/"))
+        out.update(flatten(whole(state["mu"]), f"{name}/adamw_mu/"))
+    if not fit_steps:
+        return out
+    cfg = cases[0][1]
+    specs = pl.param_specs(cfg)
+    astep = pl.make_pp_adamw_train_step(cfg, mesh, n_microbatches=M, lr=lr,
+                                        schedule="1f1b")
+    batches = [torch.tensor(inp[f"fit{i}"], device=dev)
+               for i in range(fit_steps)]
+
+    def fresh():
+        p = shard_tree(unflatten(inp, "p/", dev), specs, mesh)
+        return p, training.adamw_init(p)
+    p, st = fresh()
+    p, st, straight = trainer.fit(astep, p, st, iter(batches),
+                                  steps=fit_steps, log_every=0)
+    out["fit_straight"] = np.asarray([float(x) for x in straight])
+    out.update(flatten(training.tp_gather(p, specs, mesh), "fit_straight/"))
+    half = fit_steps // 2
+    ck = os.path.join(out_dir, "pp_fit")
+    p, st = fresh()
+    p, st, first = trainer.fit(astep, p, st, iter(batches[:half]),
+                               steps=half, ckpt_dir=ck, ckpt_every=half,
+                               log_every=0)
+    like = fresh()
+    p2, st2, at = trainer.load_state(
+        trainer.latest_checkpoint(ck), like_params=like[0],
+        like_opt=like[1], shardings=astep.load_shardings())
+    p2, st2, rest = trainer.fit(astep, p2, st2, iter(batches[half:]),
+                                steps=fit_steps, start_step=at,
+                                log_every=0)
+    out["fit_resumed"] = np.asarray([float(x) for x in first + rest])
+    out.update(flatten(training.tp_gather(p2, specs, mesh), "fit_resumed/"))
     return out
 
 

@@ -40,8 +40,20 @@ part of the combine, reduces the expert products over tp and the
 combined output over ep; ``"a2a"`` ships the per-expert queues to the
 experts' owners with ``all_to_all_single`` over ep and back, with the
 tp reduction between. ``MoESlotServer(mesh=)`` serves over such a
-``ServingMesh``. Training under ep or tp raises, naming its ROADMAP
-item.
+``ServingMesh``.
+
+Training over ep x tp (reference ``moe.py:1718-1830``): under psum,
+dropless and expert_choice the batch is replicated over ep, each rank
+computes its experts' part and the ep sum (f32, rounded once) is a "g"
+whose gradient is the identity, while the expert input and the combine
+weights enter the ep- (and tp-) split work through "f"
+(``transformer.copy_to``: the backward sums their gradients over the
+group), so the replicated leaves' gradients are whole and equal on
+every rank. Under a2a ep is a data axis (``ep_data``, its group among
+``data_axes``): the batch shards over (dp, ep) and sp (``shard_tokens``), each
+rank routes all of its own tokens into queues at its own capacity, and
+the two exchanges are an autograd pair (``_Exchange``: the backward is
+the reverse exchange), the reference's layout, not the serving one.
 
 Dense-row decode attends through ``mha_reference`` with the ragged mask,
 exactly as the reference does (its masked read never reaches a flash
@@ -73,13 +85,16 @@ from tpushare_torch.models.serving import (PendingStep, SlotServer,
 from tpushare_torch.models.spec import SpecDecodeMixin
 from tpushare_torch.models import training as _training
 from tpushare_torch.models.training import adamw_init
-from tpushare_torch.models.transformer import (TODO_TRAIN_TP, ParallelCtx,
-                                               _act, _paged_attn, drop_write,
-                                               tp_all_reduce, tp_matmul)
+from tpushare_torch.models.transformer import (ParallelCtx, _act,
+                                               _paged_attn, copy_to,
+                                               drop_write, reduce_from,
+                                               tp_matmul)
 from tpushare_torch.ops.attention import attention
 from tpushare_torch.ops.norms import rms_norm
 from tpushare_torch.ops.q8_expert import q8_expert_dispatch
 from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
+from tpushare_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
+                                          data_axes, data_groups)
 from tpushare_torch.parallel.ring_attention import ring_attention
 
 ROUTINGS = ("psum", "a2a", "dropless", "expert_choice")
@@ -308,6 +323,35 @@ def _ep_sum_dtype(y: torch.Tensor, ep) -> torch.dtype:
     return torch.float32 if ep is not None else y.dtype
 
 
+def _expert_input(h: torch.Tensor, tp, ep) -> torch.Tensor:
+    """The expert products' input, replicated over tp and (but under
+    a2a) ep, entering work split over both: "f" over each group, so its
+    gradient, each rank's part, is summed back into a whole one."""
+    return copy_to(copy_to(h, tp), ep)
+
+
+class _Exchange(torch.autograd.Function):
+    """``all_to_all_single`` over the group of a tensor whose dim 0 is
+    the destination rank (after it: the source rank). The exchange is
+    its own inverse, so the backward sends each gradient block back to
+    where its rows came from."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g, group=ctx.group)
+        return out, None
+
+
 def _ep_slice(t: torch.Tensor, ep, E_local: int, dim: int = 0
               ) -> torch.Tensor:
     """This ep rank's expert block of ``t`` along ``dim`` (all of it
@@ -329,22 +373,22 @@ def _grouped_dispatch(h, layer, cfg: MoEConfig, top_w, top_i,
     T = B * S
     C = expert_capacity(T, cfg)
     pt = phase_timer
-    buf, wbuf = _route_buffers(top_w, top_i, T, E, C)
+    buf, wbuf = _route_buffers(copy_to(top_w, ep), top_i, T, E, C)
     E_local = _local_experts(layer)
     buf, wbuf = _ep_slice(buf, ep, E_local), _ep_slice(wbuf, ep, E_local)
-    hc = h.reshape(T, Dm).to(cfg.dtype)
+    hc = _expert_input(h.reshape(T, Dm).to(cfg.dtype), tp, ep)
     hpad = torch.cat([hc, hc.new_zeros((1, Dm))], dim=0)
     x_e = hpad[buf]                                    # [E, C, Dm]
     if pt is not None:
         pt.mark("dispatch", block_on=x_e)
-    y_e = tp_all_reduce(_q8_expert_mlps(x_e.contiguous(), layer, cfg) if q8
-                        else _expert_mlps(x_e, layer, cfg), tp)
+    y_e = reduce_from(_q8_expert_mlps(x_e.contiguous(), layer, cfg) if q8
+                      else _expert_mlps(x_e, layer, cfg), tp)
     if pt is not None:
         pt.mark("expert_gemm", block_on=y_e)
     contrib = wbuf[..., None].to(y_e.dtype) * y_e
     out = y_e.new_zeros((T + 1, Dm), dtype=_ep_sum_dtype(y_e, ep))
     out.index_add_(0, buf.reshape(-1), contrib.reshape(-1, Dm).to(out.dtype))
-    out = tp_all_reduce(out[:T].contiguous(), ep).to(y_e.dtype)
+    out = reduce_from(out[:T].contiguous(), ep).to(y_e.dtype)
     if pt is not None:
         pt.mark("dispatch", block_on=out)
     return out.reshape(B, S, Dm)
@@ -383,8 +427,8 @@ def _a2a_dispatch(h, layer, cfg: MoEConfig, top_w, top_i, q8: bool,
     x_recv = torch.empty_like(x_send)
     dist.all_to_all_single(x_recv, x_send, group=ep)
     xe = x_recv.transpose(0, 1).reshape(E_local, n_ep * C, Dm).contiguous()
-    y = tp_all_reduce(_q8_expert_mlps(xe, layer, cfg) if q8
-                      else _expert_mlps(xe, layer, cfg), tp)
+    y = reduce_from(_q8_expert_mlps(xe, layer, cfg) if q8
+                    else _expert_mlps(xe, layer, cfg), tp)
     # Inverse exchange: outputs return to their source rank, arriving
     # rank-major over expert owners == the [E, C] queue order.
     y = y.reshape(E_local, n_ep, C, Dm).transpose(0, 1).contiguous()
@@ -399,6 +443,39 @@ def _a2a_dispatch(h, layer, cfg: MoEConfig, top_w, top_i, q8: bool,
     rows = [torch.empty_like(out[:share]) for _ in range(n_ep)]
     dist.all_gather(rows, out[:share].contiguous(), group=ep)
     return torch.cat(rows)[:T].reshape(B, S, Dm)
+
+
+def _a2a_train_dispatch(h, layer, cfg: MoEConfig, top_w, top_i, q8: bool,
+                        tp, ep) -> torch.Tensor:
+    """GShard token routing with ep a data axis, the reference's layout
+    (``moe.py:375-424``): h holds this rank's own tokens, all T of them
+    routed into per-expert queues [E, C] at C = capacity(T); an exchange
+    ships each queue to its expert's owner, the experts run on [E_local,
+    ep * C] received rows (the expert hidden split over tp: "f" on the
+    rows, "g" on the products), the reverse exchange returns the
+    outputs for the local scatter-add. Both exchanges are differentiable
+    (``_Exchange``), so an expert's gradient holds every ep rank's
+    tokens' part."""
+    B, S, Dm = h.shape
+    E = cfg.n_experts
+    E_local = _local_experts(layer)
+    n_ep = E // E_local
+    T = B * S
+    C = expert_capacity(T, cfg)
+    buf, wbuf = _route_buffers(top_w, top_i, T, E, C)
+    hc = h.reshape(T, Dm).to(cfg.dtype)
+    hpad = torch.cat([hc, hc.new_zeros((1, Dm))], dim=0)
+    x_recv = _Exchange.apply(hpad[buf].reshape(n_ep, E_local, C, Dm), ep)
+    xe = x_recv.transpose(0, 1).reshape(E_local, n_ep * C, Dm)
+    xe = copy_to(xe.contiguous(), tp)
+    y = reduce_from(_q8_expert_mlps(xe, layer, cfg) if q8
+                    else _expert_mlps(xe, layer, cfg), tp)
+    y = y.reshape(E_local, n_ep, C, Dm).transpose(0, 1)
+    y_ret = _Exchange.apply(y, ep).reshape(E, C, Dm)
+    out = y_ret.new_zeros((T + 1, Dm))
+    out.index_add_(0, buf.reshape(-1),
+                   (wbuf[..., None].to(y_ret.dtype) * y_ret).reshape(-1, Dm))
+    return out[:T].reshape(B, S, Dm)
 
 
 def _grouped_mm_fits(x: torch.Tensor, w: torch.Tensor) -> bool:
@@ -476,7 +553,7 @@ def _dropless_dispatch(h, layer, cfg: MoEConfig, top_w,
     A = T * K
     dev = h.device
     eid = top_i.reshape(A)
-    w = top_w.reshape(A).float()
+    w = copy_to(top_w, ep).reshape(A).float()
     tok = torch.arange(A, device=dev) // K
     keep = None
     if ep is not None:
@@ -488,17 +565,17 @@ def _dropless_dispatch(h, layer, cfg: MoEConfig, top_w,
     tok_s, w_s, e_s = tok[order], w[order], eid[order]
     offs = torch.searchsorted(e_s, torch.arange(1, E + 1, device=dev)
                               ).to(torch.int32)
-    x = h.reshape(T, Dm).to(cfg.dtype)[tok_s]            # [A, Dm] sorted
+    x = _expert_input(h.reshape(T, Dm).to(cfg.dtype), tp, ep)[tok_s]
     if keep is not None:
         x = torch.where(keep[order][:, None], x, torch.zeros_like(x))
     gate = _grouped_products(x, layer["w_gate"], offs, e_s)
     up = _grouped_products(x, layer["w_up"], offs, e_s)
     y = _grouped_products(_act(cfg.act, gate) * up, layer["w_down"], offs,
                           e_s)                            # [A, Dm]
-    y = tp_all_reduce(y, tp)
+    y = reduce_from(y, tp)
     out = y.new_zeros((T, Dm), dtype=_ep_sum_dtype(y, ep))
     out.index_add_(0, tok_s, (w_s[:, None].to(y.dtype) * y).to(out.dtype))
-    return tp_all_reduce(out, ep).to(y.dtype).reshape(B, S, Dm)
+    return reduce_from(out, ep).to(y.dtype).reshape(B, S, Dm)
 
 
 def _expert_choice_dispatch(h, layer, cfg: MoEConfig, probs: torch.Tensor,
@@ -516,14 +593,15 @@ def _expert_choice_dispatch(h, layer, cfg: MoEConfig, probs: torch.Tensor,
     C = expert_capacity(T, cfg, default_factor=1.0)
     w_e, idx_e = top_k_lower_index(probs.reshape(T, E).T, C)   # [E, C]
     E_local = _local_experts(layer)
-    w_e, idx_e = _ep_slice(w_e, ep, E_local), _ep_slice(idx_e, ep, E_local)
-    x_e = h.reshape(T, Dm).to(cfg.dtype)[idx_e]             # [E_l, C, Dm]
-    y_e = tp_all_reduce(_q8_expert_mlps(x_e.contiguous(), layer, cfg) if q8
-                        else _expert_mlps(x_e, layer, cfg), tp)
+    w_e = _ep_slice(copy_to(w_e, ep), ep, E_local)
+    idx_e = _ep_slice(idx_e, ep, E_local)
+    x_e = _expert_input(h.reshape(T, Dm).to(cfg.dtype), tp, ep)[idx_e]
+    y_e = reduce_from(_q8_expert_mlps(x_e.contiguous(), layer, cfg) if q8
+                      else _expert_mlps(x_e, layer, cfg), tp)
     contrib = w_e[..., None].to(y_e.dtype) * y_e
     out = y_e.new_zeros((T, Dm), dtype=_ep_sum_dtype(y_e, ep))
     out.index_add_(0, idx_e.reshape(-1), contrib.reshape(-1, Dm).to(out.dtype))
-    return tp_all_reduce(out, ep).to(y_e.dtype).reshape(B, S, Dm)
+    return reduce_from(out, ep).to(y_e.dtype).reshape(B, S, Dm)
 
 
 def _group_mean(t: torch.Tensor, groups) -> torch.Tensor:
@@ -539,7 +617,8 @@ def _group_mean(t: torch.Tensor, groups) -> torch.Tensor:
 
 def _moe_ffn(h: torch.Tensor, layer: Dict[str, torch.Tensor],
              cfg: MoEConfig, phase_timer=None, data_axes=(), tp=None,
-             ep=None) -> Tuple[torch.Tensor, torch.Tensor]:
+             ep=None, ep_data: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed expert MLP. h [B, S, Dm] -> (out [B, S, Dm], aux scalar).
     A layer carrying raw ``w_gate#q8`` leaves (``fused_expert_hook``)
     runs its expert products through the int8 kernel, except under
@@ -556,7 +635,10 @@ def _moe_ffn(h: torch.Tensor, layer: Dict[str, torch.Tensor],
     their gradients (what the SPMD steps take) is its gradient.
 
     ``tp`` / ``ep``: the tensor- and expert-parallel process groups this
-    rank's expert slices (``param_specs``) are split over."""
+    rank's expert slices (``param_specs``) are split over. ``ep_data``:
+    ep is a data axis (a2a training): each ep rank routes its own
+    tokens, the reference's layout; else a server's, every ep rank
+    holding all T tokens."""
     B, S, Dm = h.shape
     E = cfg.n_experts
     pt = phase_timer
@@ -598,7 +680,8 @@ def _moe_ffn(h: torch.Tensor, layer: Dict[str, torch.Tensor],
     if cfg.routing == "a2a" and ep is not None:
         if cfg.capacity_factor is None:
             raise ValueError("routing='a2a' requires capacity_factor")
-        out = _a2a_dispatch(h, layer, cfg, top_w, top_i, q8, tp, ep)
+        dispatch = _a2a_train_dispatch if ep_data else _a2a_dispatch
+        out = dispatch(h, layer, cfg, top_w, top_i, q8, tp, ep)
         if pt is not None:
             pt.mark("expert_gemm", block_on=out)
         return out.to(h.dtype), aux
@@ -608,8 +691,8 @@ def _moe_ffn(h: torch.Tensor, layer: Dict[str, torch.Tensor],
                                 phase_timer=pt, tp=tp, ep=ep)
         return out.to(h.dtype), aux
     E_local = _local_experts(layer)
-    combine = _ep_slice(combine, ep, E_local, dim=2)
-    hc = h.to(cfg.dtype)
+    combine = _ep_slice(copy_to(combine, ep), ep, E_local, dim=2)
+    hc = _expert_input(h.to(cfg.dtype), tp, ep)
     if q8:
         # Every expert runs the whole token block: ONE shared [T, Dm]
         # block goes to the kernel, never an [E, T, Dm] broadcast.
@@ -620,14 +703,14 @@ def _moe_ffn(h: torch.Tensor, layer: Dict[str, torch.Tensor],
         up = torch.einsum("bsd,edf->besf", hc, layer["w_up"])
         out_e = torch.einsum("besf,efd->besd", _act(cfg.act, gate) * up,
                              layer["w_down"])
-    out_e = tp_all_reduce(out_e.contiguous(), tp) if tp is not None \
+    out_e = reduce_from(out_e.contiguous(), tp) if tp is not None \
         else out_e
     if pt is not None:
         pt.mark("expert_gemm", block_on=out_e)
     # Under ep the local experts' combine sums in f32 and the ep sum
     # rounds once, as one card's single product over every expert does.
     acc = _ep_sum_dtype(out_e, ep)
-    out = tp_all_reduce(torch.einsum(
+    out = reduce_from(torch.einsum(
         "bse,besd->bsd", combine.to(out_e.dtype).to(acc), out_e.to(acc)),
         ep).to(out_e.dtype)
     if pt is not None:
@@ -636,7 +719,8 @@ def _moe_ffn(h: torch.Tensor, layer: Dict[str, torch.Tensor],
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig, *,
-            pctx=None, ep_axis=None, data_axes=(), attn_impl: str = "auto",
+            pctx=None, ep_axis=None, data_axes=(), ep_data: bool = False,
+            attn_impl: str = "auto",
             cache: Optional[Dict[str, torch.Tensor]] = None, pos_offset=0,
             layers_hook=None, last_logit_only: bool = False,
             phase_timer=None):
@@ -668,14 +752,11 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig, *,
     ``cfg.remat``, grad mode on, no cache and no timer, each layer runs
     under ``torch.utils.checkpoint``.
 
-    Serving over a mesh: ``ep_axis`` (the ep process group) and
-    ``pctx.tp`` (the tp group) with this rank's ``param_specs`` slices;
-    with grad mode on either raises (training under ep / tp)."""
+    Over a mesh: ``ep_axis`` (the ep process group) and ``pctx.tp`` (the
+    tp group) with this rank's ``param_specs`` slices, serving or, with
+    grad mode on, training (the module docstring); ``ep_data`` makes ep
+    a data axis (a2a training), its group then among ``data_axes``."""
     pctx = pctx or ParallelCtx()
-    for name, val in (("ep_axis", ep_axis), ("pctx.tp", pctx.tp)):
-        if val is not None and torch.is_grad_enabled():
-            raise NotImplementedError(f"{name} with grad mode on: "
-                                      f"{TODO_TRAIN_TP}")
     data_axes = tuple(data_axes or ())
     pt = phase_timer
     B, S = tokens.shape
@@ -718,7 +799,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig, *,
             layer = layers_hook(layer)
             if pt is not None:
                 pt.mark("dequant", block_on=layer)
-        h = rms_norm(x, layer["ln1"], eps=cfg.norm_eps)
+        h = copy_to(rms_norm(x, layer["ln1"], eps=cfg.norm_eps), pctx.tp)
         H = layer["wq"].shape[-1] // Dh
         Hkv = layer["wk"].shape[-1] // Dh
         q = apply_rotary((h @ layer["wq"]).reshape(B, S, H, Dh), cos, sin)
@@ -754,7 +835,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig, *,
             pt.mark("attn", block_on=x)
         h = rms_norm(x, layer["ln2"], eps=cfg.norm_eps)
         ff, aux = _moe_ffn(h, layer, cfg, phase_timer=pt,
-                           data_axes=data_axes, tp=pctx.tp, ep=ep_axis)
+                           data_axes=data_axes, tp=pctx.tp, ep=ep_axis,
+                           ep_data=ep_data)
         return x + ff, aux
 
     # The model has no randomness, so the recompute needs no RNG state.
@@ -849,85 +931,111 @@ def generate(params, tokens: torch.Tensor, cfg: MoEConfig, *,
 
 def xent_loss(params, inputs: torch.Tensor, targets: torch.Tensor,
               cfg: MoEConfig, *, pctx=None, ep_axis=None, data_axes=(),
-              attn_impl: str = "auto") -> torch.Tensor:
+              ep_data: bool = False, attn_impl: str = "auto"
+              ) -> torch.Tensor:
     """Mean cross-entropy of forward(inputs) against aligned ``targets``
     (both [B, S]) plus ``aux_loss_weight`` x the mean aux loss over
     layers. Under ``data_axes`` this is this rank's term; the SPMD steps
     average the ranks' terms (and gradients) into the global loss
     (``_moe_ffn``)."""
     logits, aux = forward(params, inputs, cfg, pctx=pctx, ep_axis=ep_axis,
-                          data_axes=data_axes, attn_impl=attn_impl)
+                          data_axes=data_axes, ep_data=ep_data,
+                          attn_impl=attn_impl)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])
     return nll.mean() + cfg.aux_loss_weight * aux
 
 
 def lm_loss(params, tokens: torch.Tensor, cfg: MoEConfig, *, pctx=None,
-            ep_axis=None, data_axes=(), attn_impl: str = "auto"
-            ) -> torch.Tensor:
+            ep_axis=None, data_axes=(), ep_data: bool = False,
+            attn_impl: str = "auto") -> torch.Tensor:
     """``xent_loss`` over the next-token shift of tokens [B, S+1]."""
     return xent_loss(params, tokens[:, :-1], tokens[:, 1:], cfg, pctx=pctx,
-                     ep_axis=ep_axis, data_axes=data_axes,
+                     ep_axis=ep_axis, data_axes=data_axes, ep_data=ep_data,
                      attn_impl=attn_impl)
 
 
-def _data_axes(mesh):
-    """The groups the aux loss's routed fractions average over: under
-    every routing the batch shards over (dp, sp) ("a2a" without an ep
-    axis is the psum math)."""
-    return (mesh.get_group("dp"), mesh.get_group("sp"))
+def _ep_data(cfg: MoEConfig) -> bool:
+    """ep is a data axis under a2a (reference ``moe.py:1769-1771``)."""
+    return cfg.routing == "a2a"
 
 
-def shard_tokens(tokens: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's block of tokens [B, S+1]: rows over ``dp``, columns
-    over ``sp``, as the reference's MoE steps shard them (``P("dp",
-    "sp")`` on the tokens themselves). Each shard then takes its own
-    next-token shift, so the pair across a shard boundary is not
-    trained, as in the reference (the dense steps shift first,
-    ``training.shard_batch``)."""
+def shard_tokens(tokens: torch.Tensor, mesh, ep: bool = False
+                 ) -> torch.Tensor:
+    """This rank's block of tokens [B, S+1]: rows over ``dp`` (over
+    (dp, ep) jointly with ``ep``, dp outermost), columns over ``sp``, as
+    the reference's MoE steps shard them (``P("dp", "sp")``, or
+    ``P(("dp", "ep"), "sp")`` under a2a, on the tokens themselves). Each
+    shard then takes its own next-token shift, so the pair across a
+    shard boundary is not trained, as in the reference (the dense steps
+    shift first, ``training.shard_batch``)."""
     B, S1 = tokens.shape
-    dp, sp = mesh["dp"].size(), mesh["sp"].size()
+    n_ep = axis_size(mesh, "ep") if ep else 1
+    dp, sp = axis_size(mesh, "dp") * n_ep, axis_size(mesh, "sp")
     if B % dp or S1 % sp:
         raise ValueError(f"tokens [{B}, {S1}] do not shard over dp={dp}, "
                          f"sp={sp}")
-    i, j = mesh.get_local_rank("dp"), mesh.get_local_rank("sp")
+    i = axis_rank(mesh, "dp") * n_ep + (axis_rank(mesh, "ep") if ep else 0)
+    j = axis_rank(mesh, "sp")
     return tokens[i * B // dp:(i + 1) * B // dp,
                   j * S1 // sp:(j + 1) * S1 // sp].contiguous()
 
 
-def shard_pairs(tokens: torch.Tensor, mesh):
+def shard_pairs(tokens: torch.Tensor, mesh, ep: bool = False):
     """(inputs, targets) of this rank's ``shard_tokens`` block: the
     ``shard_fn`` of the MoE SPMD steps."""
-    local = shard_tokens(tokens, mesh)
+    local = shard_tokens(tokens, mesh, ep)
     return local[:, :-1], local[:, 1:]
 
 
-# The four steps are training.py's with this module's loss (and, under
-# SPMD, its sharding): one SGD step (params, loss), one AdamW step
-# (params, state, loss), and their SPMD forms over a ("dp", "sp") mesh,
-# ring attention over sp. ep_axis raises in ``forward``.
+# The single-device steps are training.py's with this module's loss;
+# the SPMD steps its ``SpmdStep`` with this module's loss, specs and
+# sharding over a dp x sp x ep x tp mesh.
 sgd_train_step = functools.partial(_training.sgd_train_step,
                                    loss_fn=xent_loss)
 adamw_train_step = functools.partial(_training.adamw_train_step,
                                      loss_fn=xent_loss)
 
 
+def _spmd_step(cfg: MoEConfig, mesh, **kw):
+    """The MoE SpmdStep over ``mesh`` (reference ``moe.py:1755-1830``):
+    experts over ep, expert hidden and attention over tp
+    (``param_specs``); the batch over (dp, sp), or ((dp, ep), sp) under
+    a2a, whose aux statistics, loss and gradients average over those
+    data axes."""
+    if cfg.n_experts % axis_size(mesh, "ep"):
+        raise ValueError(f"ep={axis_size(mesh, 'ep')} must divide "
+                         f"n_experts={cfg.n_experts}")
+    if axis_size(mesh, "fsdp") > 1:
+        raise NotImplementedError(
+            "use make_fsdp_train_step for the manual-fsdp schedule, or "
+            "pjit auto sharding with param_specs(fsdp='fsdp')")
+    _training._reject_axes(mesh, ("pp",))
+    ep = _ep_data(cfg)
+    return _training.SpmdStep(
+        cfg, mesh, pctx=ParallelCtx(tp=axis_group(mesh, "tp"),
+                                    sp=axis_group(mesh, "sp")),
+        specs=param_specs(cfg), axes=data_axes(ep), loss_fn=xent_loss,
+        shard_fn=functools.partial(shard_pairs, ep=ep),
+        loss_kw={"ep_axis": axis_group(mesh, "ep"), "ep_data": ep,
+                 "data_axes": data_groups(mesh, ep)}, **kw)
+
+
 def make_spmd_train_step(cfg: MoEConfig, mesh, *, lr: float = 1e-3):
     """The SGD step over ``mesh``: step(params, tokens [B, S+1]) ->
-    (params, global loss)."""
-    return _training.make_spmd_train_step(
-        cfg, mesh, lr=lr, loss_fn=xent_loss, shard_fn=shard_pairs,
-        data_axes=_data_axes(mesh))
+    (params, global loss), params this rank's slices
+    (``step.shard``)."""
+    return _spmd_step(cfg, mesh, lr=lr)
 
 
 def make_adamw_spmd_train_step(cfg: MoEConfig, mesh, *, lr: float = 1e-3,
                                weight_decay: float = 0.0):
     """(step, opt_init): AdamW over ``mesh``, laid out as
-    ``make_spmd_train_step``, and ``training.adamw_init``, as the
-    reference returns its sharded initializer beside the step."""
-    return _training.make_adamw_spmd_train_step(
-        cfg, mesh, lr=lr, weight_decay=weight_decay, loss_fn=xent_loss,
-        shard_fn=shard_pairs, data_axes=_data_axes(mesh)), adamw_init
+    ``make_spmd_train_step``, and ``training.adamw_init`` (of a rank's
+    slices: the moments shard like the params), as the reference
+    returns its sharded initializer beside the step."""
+    return _spmd_step(cfg, mesh, lr=lr, adamw=True,
+                      weight_decay=weight_decay), adamw_init
 
 
 class MoESlotServer(SpecDecodeMixin, SlotServer):

@@ -8,10 +8,14 @@ M + P - 1 round fill/drain loop, differentiated by autograd, one
 ``pipeline._Hop`` per round. Inside a stage the FFN is
 ``moe._moe_ffn``, unchanged; its aux statistics average over dp.
 
-Routing: ``"psum"`` and ``"dropless"`` ride the pipeline; ``"a2a"`` is
-refused as the reference refuses it (it makes ep a data axis, which
-contradicts the replicated microbatch queue). ep or tp above 1 raise,
-naming ROADMAP A10c.
+Over pp x ep x tp x dp (reference ``:179-242``): each rank holds its
+stage's layers, their experts split over ep and the expert hidden and
+attention over tp (``param_specs``); the block's attention runs the
+Megatron operators over tp and ``moe._moe_ffn`` its ep / tp training
+dispatch (the microbatches replicated over ep). Routing: ``"psum"`` and
+``"dropless"`` ride the pipeline; ``"a2a"`` is refused as the reference
+refuses it (it makes ep a data axis, which contradicts the replicated
+microbatch queue).
 
 The aux (load-balancing) loss counts only rounds that carry a real
 microbatch: every stage accumulates its per-round mean aux over its
@@ -30,38 +34,52 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from tpushare_torch.models.moe import MoEConfig, _moe_ffn
-from tpushare_torch.models.pipeline import _Hop, _pick, gpipe_grads
+from tpushare_torch.models.moe import param_specs as moe_specs
+from tpushare_torch.models.pipeline import (_Hop, _pick, checkpointed,
+                                            gpipe_grads)
 from tpushare_torch.models.training import _sgd_update, apply_adamw
+from tpushare_torch.models.transformer import copy_to, tp_matmul
 from tpushare_torch.ops.attention import attention
 from tpushare_torch.ops.norms import rms_norm
 from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
 from tpushare_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from tpushare_torch.parallel.sharding import P
 
-TODO_EP = "ROADMAP A10c (training under tp / ep)"
+
+def param_specs(cfg: MoEConfig, *, pp: str = "pp", tp: str = "tp",
+                ep: str = "ep") -> Dict[str, Any]:
+    """The MoE specs with the stacked-layer axis split over pp
+    (reference ``moe_pipeline.py:54``): experts stay over ep, the expert
+    hidden over tp."""
+    specs = moe_specs(cfg, tp=tp, ep=ep)
+    specs["layers"] = {k: P(pp, *tuple(s)[1:])
+                       for k, s in specs["layers"].items()}
+    return specs
 
 
 def _block(x, layer: Dict[str, torch.Tensor], cfg: MoEConfig, cos, sin,
-           data_groups, attn_impl: str):
+           data_groups, attn_impl: str, tp=None, ep=None):
     """One MoE block without a cache: (x, this layer's aux)."""
     B, S, _ = x.shape
     Dh = cfg.head_dim
-    h = rms_norm(x, layer["ln1"], eps=cfg.norm_eps)
+    h = copy_to(rms_norm(x, layer["ln1"], eps=cfg.norm_eps), tp)
     H = layer["wq"].shape[-1] // Dh
     Hkv = layer["wk"].shape[-1] // Dh
     q = apply_rotary((h @ layer["wq"]).reshape(B, S, H, Dh), cos, sin)
     k = apply_rotary((h @ layer["wk"]).reshape(B, S, Hkv, Dh), cos, sin)
     v = (h @ layer["wv"]).reshape(B, S, Hkv, Dh)
     attn = attention(q, k, v, causal=True, impl=attn_impl)
-    x = x + attn.reshape(B, S, H * Dh) @ layer["wo"]
+    x = x + tp_matmul(attn.reshape(B, S, H * Dh), layer["wo"], tp)
     h = rms_norm(x, layer["ln2"], eps=cfg.norm_eps)
-    ff, aux = _moe_ffn(h, layer, cfg, data_axes=data_groups)
+    ff, aux = _moe_ffn(h, layer, cfg, data_axes=data_groups, tp=tp, ep=ep)
     return x + ff, aux
 
 
 def moe_pipelined_lm_loss(params, inputs: torch.Tensor,
                           targets: torch.Tensor, cfg: MoEConfig, *,
                           pp_group, data_groups=(), n_microbatches: int,
-                          attn_impl: str = "auto") -> torch.Tensor:
+                          attn_impl: str = "auto", tp_group=None,
+                          ep_group=None) -> torch.Tensor:
     """This rank's term of the MoE loss (nll + aux_loss_weight * aux)
     through the pp pipeline (reference ``moe_pipeline.py:64``);
     inputs/targets [B, S] aligned (this rank's dp rows), ``params`` this
@@ -94,12 +112,12 @@ def moe_pipelined_lm_loss(params, inputs: torch.Tensor,
             layer = {k: a[li] for k, a in layers.items()}
             if remat:
                 x, aux = checkpoint(_block, x, layer, cfg, cos, sin,
-                                    data_groups, attn_impl,
-                                    use_reentrant=False,
+                                    data_groups, attn_impl, tp_group,
+                                    ep_group, use_reentrant=False,
                                     preserve_rng_state=False)
             else:
                 x, aux = _block(x, layer, cfg, cos, sin, data_groups,
-                                attn_impl)
+                                attn_impl, tp_group, ep_group)
             auxes.append(aux)
         return x, torch.stack(auxes).mean()
 
@@ -130,15 +148,11 @@ def moe_pipelined_lm_loss(params, inputs: torch.Tensor,
 
 
 def _check_mesh(cfg: MoEConfig, mesh) -> None:
-    """The reference's check (``:179``), and the axes the port leaves to
-    ROADMAP A10c."""
+    """The reference's check (``:179``), and the axes it does not
+    compose with the MoE pipeline."""
     if cfg.n_experts % axis_size(mesh, "ep"):
         raise ValueError(f"ep={axis_size(mesh, 'ep')} must divide "
                          f"n_experts={cfg.n_experts}")
-    for ax in ("ep", "tp"):
-        if axis_size(mesh, ax) > 1:
-            raise NotImplementedError(f"MoE pipeline with {ax} > 1: "
-                                      f"{TODO_EP}")
     for ax in ("sp", "fsdp"):
         if axis_size(mesh, ax) > 1:
             raise NotImplementedError(f"MoE pipeline with {ax} > 1: the "
@@ -162,15 +176,17 @@ def moe_pp_loss_and_grads(params, tokens: torch.Tensor, cfg: MoEConfig,
     data = (mesh.get_group("dp"),) if dp > 1 else ()
     return gpipe_grads(lambda p: moe_pipelined_lm_loss(
         p, inputs, targets, cfg, pp_group=pp, data_groups=data,
-        n_microbatches=n_microbatches, attn_impl=attn_impl), params, pp,
-        data)
+        n_microbatches=n_microbatches, attn_impl=attn_impl,
+        tp_group=axis_group(mesh, "tp"), ep_group=axis_group(mesh, "ep")),
+        params, pp, data)
 
 
 def make_moe_pp_train_step(cfg: MoEConfig, mesh, *, n_microbatches: int,
                            lr: float = 1e-3, attn_impl: str = "auto"):
-    """SGD over a pp x dp mesh for the MoE LM (reference ``:193``):
-    step(params, tokens [B, S+1]) -> (params, loss), params this
-    stage's (``pipeline.stage_params``), updated in place."""
+    """SGD over a pp x ep x tp x dp mesh for the MoE LM (reference
+    ``:193``): step(params, tokens [B, S+1]) -> (params, loss), params
+    this rank's (``pipeline.stage_params``, or ``sharding.shard_tree``
+    of ``param_specs`` under ep / tp), updated in place."""
     _check_mesh(cfg, mesh)
 
     def step(params, tokens):
@@ -179,15 +195,16 @@ def make_moe_pp_train_step(cfg: MoEConfig, mesh, *, n_microbatches: int,
             attn_impl=attn_impl)
         return _sgd_update(params, grads, lr), loss
 
-    return step
+    return checkpointed(step, param_specs(cfg), mesh)
 
 
 def make_moe_pp_adamw_train_step(cfg: MoEConfig, mesh, *,
                                  n_microbatches: int, lr: float = 1e-3,
                                  weight_decay: float = 0.0,
                                  attn_impl: str = "auto"):
-    """AdamW over the pp x dp mesh (reference ``:215``): f32 moments of
-    this stage's params only (``training.adamw_init`` of them).
+    """AdamW over the pp x ep x tp x dp mesh (reference ``:215``): f32
+    moments of this rank's params only (``training.adamw_init`` of
+    them).
     step(params, opt_state, tokens) -> (params, opt_state, loss)."""
     _check_mesh(cfg, mesh)
 
@@ -199,4 +216,4 @@ def make_moe_pp_adamw_train_step(cfg: MoEConfig, mesh, *,
                                     weight_decay=weight_decay)
         return params, state, loss
 
-    return step
+    return checkpointed(step, param_specs(cfg), mesh)

@@ -40,14 +40,25 @@ shard (``_sp_rotary``, reference ``:124``); on sp = 1 the blocks take
 applies ``cfg.final_softcap`` as ``transformer.forward`` does (the
 reference's pipeline head leaves it out).
 
-Gradients: layer gradients stay on their stage; the replicated leaves'
-are summed over pp; everything, and the loss, is averaged over dp and
-sp. The manual schedules accumulate in f32 and cast to each leaf's dtype
-at the end. tp and ep above 1 raise, naming ROADMAP A10c.
+Under ``tp`` (pp x tp x sp x dp, reference ``:819-905``) each stage
+holds its layers' Megatron slices (``param_specs``) and ``_block`` runs
+``transformer``'s two operators, "f" (``copy_to``) on the inputs of the
+column-parallel products and "g" (``tp_matmul``) on ``wo`` and
+``w_down``; every rank of a tp group sits at the same stage and replays
+the same timetable, so their tp collectives come in the same order
+between the pp hops (and again in a remat or manual recompute). ep is
+refused: the dense pipeline has no experts (the reference runs it with
+ep idle, the batch replicated over ep).
+
+Gradients: layer gradients stay on their stage (and tp rank); the
+replicated leaves' are summed over pp; everything, and the loss, is
+averaged over dp and sp. The manual schedules accumulate in f32 and cast
+to each leaf's dtype at the end.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -55,22 +66,46 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from tpushare_torch.models.training import (
-    Tree, _sgd_update, _unflatten, apply_adamw, tree_leaves, tree_map,
+    Tree, _sgd_update, _unflatten, apply_adamw, save_sharded, sharded_load,
+    tree_leaves, tree_map,
 )
-from tpushare_torch.models.transformer import TransformerConfig, layer_windows
+from tpushare_torch.models.transformer import (TransformerConfig, copy_to,
+                                               layer_windows, tp_matmul)
+from tpushare_torch.models.transformer import param_specs as dense_specs
 from tpushare_torch.ops.attention import attention
 from tpushare_torch.ops.norms import rms_norm
 from tpushare_torch.ops.q8_expert import _apply_act as _act
 from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
-from tpushare_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from tpushare_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
+                                          data_groups, host_staged)
 from tpushare_torch.parallel.ring_attention import ring_attention
-
-TODO_TP = "ROADMAP A10c (training under tp / ep)"
+from tpushare_torch.parallel.sharding import P
 
 _SCHEDULES = ("gpipe", "1f1b", "interleaved")
 
 
 # --- layout -----------------------------------------------------------------
+
+def checkpointed(step, specs: Tree, mesh):
+    """``step`` with ``trainer.fit``'s checkpoint hooks for its state
+    sharded by ``specs`` on ``mesh``: ``save_state`` writes whole leaves
+    (``training.save_sharded``), ``load_shardings()`` gives this rank's
+    slices of them (``training.sharded_load``)."""
+    step.save_state = functools.partial(save_sharded, specs=specs, mesh=mesh)
+    step.load_shardings = functools.partial(sharded_load, specs, mesh)
+    return step
+
+
+def param_specs(cfg: TransformerConfig, *, pp: str = "pp",
+                tp: str = "tp") -> Tree:
+    """The dense specs with the stacked-layer axis split over pp
+    (reference ``pipeline.py:45``): a rank's slices are its stage's
+    block of layers, Megatron-split over tp."""
+    specs = dense_specs(cfg, tp=tp)
+    specs["layers"] = {k: P(pp, *tuple(s)[1:])
+                       for k, s in specs["layers"].items()}
+    return specs
+
 
 def stage_params(params: Tree, n_stages: int, stage: int) -> Tree:
     """Stage ``stage``'s share of a whole params tree: its block of every
@@ -247,13 +282,15 @@ def _sp_rotary(S: int, Bm: int, cfg: TransformerConfig, sp_group,
 
 
 def _block(x, layer, cfg: TransformerConfig, cos, sin, sp_group, w,
-           attn_impl: str):
+           attn_impl: str, tp_group=None):
     """One transformer block without a cache (reference ``:54``): ring
     attention over ``sp_group`` when given, else ``attention``; ``w`` is
-    the layer's window (0 or None: global)."""
+    the layer's window (0 or None: global); the Megatron operators over
+    ``tp_group``."""
     B, S, _ = x.shape
     Dh = cfg.head_dim
-    h = rms_norm(x, layer["ln1"], eps=cfg.norm_eps, offset=cfg.norm_offset)
+    h = copy_to(rms_norm(x, layer["ln1"], eps=cfg.norm_eps,
+                         offset=cfg.norm_offset), tp_group)
     H = layer["wq"].shape[-1] // Dh
     Hkv = layer["wk"].shape[-1] // Dh
     q = apply_rotary((h @ layer["wq"]).reshape(B, S, H, Dh), cos, sin)
@@ -268,14 +305,15 @@ def _block(x, layer, cfg: TransformerConfig, cos, sin, sp_group, w,
         attn = attention(q, k, v, causal=True, scale=cfg.attn_scale,
                          window=w, attn_softcap=cfg.attn_softcap,
                          impl=attn_impl)
-    o = attn.reshape(B, S, H * Dh) @ layer["wo"]
+    o = tp_matmul(attn.reshape(B, S, H * Dh), layer["wo"], tp_group)
     if cfg.post_norms:
         o = rms_norm(o, layer["ln_post_attn"], eps=cfg.norm_eps,
                      offset=cfg.norm_offset)
     x = x + o
-    h = rms_norm(x, layer["ln2"], eps=cfg.norm_eps, offset=cfg.norm_offset)
-    ff = (_act(cfg.act, h @ layer["w_gate"]) * (h @ layer["w_up"])) \
-        @ layer["w_down"]
+    h = copy_to(rms_norm(x, layer["ln2"], eps=cfg.norm_eps,
+                         offset=cfg.norm_offset), tp_group)
+    ff = tp_matmul(_act(cfg.act, h @ layer["w_gate"]) * (h @ layer["w_up"]),
+                   layer["w_down"], tp_group)
     if cfg.post_norms:
         ff = rms_norm(ff, layer["ln_post_ffw"], eps=cfg.norm_eps,
                       offset=cfg.norm_offset)
@@ -283,7 +321,7 @@ def _block(x, layer, cfg: TransformerConfig, cos, sin, sp_group, w,
 
 
 def _chunk(x, layers: Dict[str, torch.Tensor], windows, cfg, cos, sin,
-           sp_group, attn_impl: str, remat: bool = False):
+           sp_group, attn_impl: str, remat: bool = False, tp_group=None):
     """x through the stacked ``layers`` in order (each under
     ``torch.utils.checkpoint`` with ``remat``)."""
     n = next(iter(layers.values())).shape[0]
@@ -292,10 +330,11 @@ def _chunk(x, layers: Dict[str, torch.Tensor], windows, cfg, cos, sin,
         w = None if windows is None else windows[li]
         if remat:
             x = checkpoint(_block, x, layer, cfg, cos, sin, sp_group, w,
-                           attn_impl, use_reentrant=False,
+                           attn_impl, tp_group, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _block(x, layer, cfg, cos, sin, sp_group, w, attn_impl)
+            x = _block(x, layer, cfg, cos, sin, sp_group, w, attn_impl,
+                       tp_group)
     return x
 
 
@@ -333,18 +372,26 @@ def _exchange(sends, recvs, group) -> List[torch.Tensor]:
     me = dist.get_rank(group) if group is not None else 0
     out = [None] * len(recvs)
     local = [t for t, r in sends if r == me]
-    ops = [dist.P2POp(dist.isend, t.contiguous(), _peer(group, r), group)
-           for t, r in sends if r != me]
+    some = (sends or recvs or [(None, None)])[0][0]
+    staged = some is not None and group is not None and \
+        host_staged(some, group)
+    ops = [dist.P2POp(dist.isend, t.cpu() if staged else t.contiguous(),
+                      _peer(group, r), group) for t, r in sends if r != me]
+    remote = []
     for i, (like, r) in enumerate(recvs):
         if r == me:
             out[i] = local.pop(0)
         else:
-            out[i] = torch.empty_like(like)
+            out[i] = torch.empty_like(like, device="cpu" if staged
+                                      else like.device)
+            remote.append(i)
             ops.append(dist.P2POp(dist.irecv, out[i], _peer(group, r),
                                   group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+    for i in remote if staged else ():
+        out[i] = out[i].to(some.device)
     return out
 
 
@@ -381,12 +428,14 @@ def _pick(cond: bool, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # --- the schedules -------------------------------------------------------------
 
 class _Stage:
-    """What every schedule reads about this rank: its stage, the pp and
-    sp groups, the microbatches, and the rotary tables."""
+    """What every schedule reads about this rank: its stage, the pp, sp
+    and tp groups, the microbatches, and the rotary tables."""
 
     def __init__(self, params, inputs, targets, cfg: TransformerConfig, *,
-                 pp_group, sp_group, n_microbatches: int, attn_impl: str):
-        self.cfg, self.pp, self.sp = cfg, pp_group, sp_group
+                 pp_group, sp_group, n_microbatches: int, attn_impl: str,
+                 tp_group=None):
+        self.cfg, self.pp, self.sp, self.tp = cfg, pp_group, sp_group, \
+            tp_group
         self.P = 1 if pp_group is None else dist.get_world_size(pp_group)
         self.s = 0 if pp_group is None else dist.get_rank(pp_group)
         M = n_microbatches
@@ -405,13 +454,13 @@ class _Stage:
 
     def chunk(self, x, layers, windows, remat=False):
         return _chunk(x, layers, windows, self.cfg, self.cos, self.sin,
-                      self.sp, self.attn_impl, remat)
+                      self.sp, self.attn_impl, remat, self.tp)
 
 
 def pipelined_lm_loss(params, inputs: torch.Tensor, targets: torch.Tensor,
                       cfg: TransformerConfig, *, pp_group, sp_group=None,
-                      n_microbatches: int,
-                      attn_impl: str = "auto") -> torch.Tensor:
+                      n_microbatches: int, attn_impl: str = "auto",
+                      tp_group=None) -> torch.Tensor:
     """GPipe (reference ``pipeline.py:139``): this rank's term of the
     next-token loss through the fill/drain loop; inputs/targets [B, S]
     aligned (this rank's dp/sp shard), B divisible by n_microbatches,
@@ -421,7 +470,7 @@ def pipelined_lm_loss(params, inputs: torch.Tensor, targets: torch.Tensor,
     backward its own term (the hops exchange gradients)."""
     st = _Stage(params, inputs, targets, cfg, pp_group=pp_group,
                 sp_group=sp_group, n_microbatches=n_microbatches,
-                attn_impl=attn_impl)
+                attn_impl=attn_impl, tp_group=tp_group)
     P, s, M = st.P, st.s, st.M
     last = s == P - 1
     wls = local_layer_windows(cfg, P, s)
@@ -553,7 +602,8 @@ def gpipe_grads(term_fn, params: Tree, pp_group, data_groups):
 def onef1b_loss_and_grads(params, inputs: torch.Tensor,
                           targets: torch.Tensor, cfg: TransformerConfig, *,
                           pp_group, sp_group=None, data_groups=(),
-                          n_microbatches: int, attn_impl: str = "auto"):
+                          n_microbatches: int, attn_impl: str = "auto",
+                          tp_group=None):
     """1F1B with a manual per-microbatch backward (reference
     ``pipeline.py:377``). Round r, stage s of P: the forward of
     microbatch r - s, the backward of microbatch r - (2P - 2 - s); the
@@ -563,7 +613,7 @@ def onef1b_loss_and_grads(params, inputs: torch.Tensor,
     Returns (global mean loss, grads) ready to apply."""
     st = _Stage(params, inputs, targets, cfg, pp_group=pp_group,
                 sp_group=sp_group, n_microbatches=n_microbatches,
-                attn_impl=attn_impl)
+                attn_impl=attn_impl, tp_group=tp_group)
     P, s, M = st.P, st.s, st.M
     layers = params["layers"]
     wls = local_layer_windows(cfg, P, s)
@@ -614,7 +664,7 @@ def interleaved_loss_and_grads(params, inputs: torch.Tensor,
                                cfg: TransformerConfig, *, pp_group,
                                sp_group=None, data_groups=(),
                                n_microbatches: int, n_chunks: int = 2,
-                               attn_impl: str = "auto"):
+                               attn_impl: str = "auto", tp_group=None):
     """Interleaved 1F1B, v = n_chunks virtual stages a rank (reference
     ``pipeline.py:635``): each slot a rank replays its row of
     ``build_interleaved_schedule``: at most one chunk forward and one
@@ -625,7 +675,8 @@ def interleaved_loss_and_grads(params, inputs: torch.Tensor,
     order. Returns (global mean loss, grads)."""
     v, M = n_chunks, n_microbatches
     st = _Stage(params, inputs, targets, cfg, pp_group=pp_group,
-                sp_group=sp_group, n_microbatches=M, attn_impl=attn_impl)
+                sp_group=sp_group, n_microbatches=M, attn_impl=attn_impl,
+                tp_group=tp_group)
     P, s = st.P, st.s
     D = P * v
     sched = build_interleaved_schedule(P, v, M)
@@ -702,20 +753,20 @@ def interleaved_loss_and_grads(params, inputs: torch.Tensor,
 # --- the steps ------------------------------------------------------------------
 
 def _mesh_setup(mesh, schedule: str):
-    """(pp group, sp group or None, data groups) of the pp step over
-    ``mesh``; tp and ep above 1 raise (ROADMAP A10c)."""
+    """(pp group, sp group or None, data groups, tp group or None) of
+    the pp step over ``mesh``; ep and fsdp above 1 raise."""
     if schedule not in _SCHEDULES:
         raise ValueError(f"unknown pipeline schedule {schedule!r}")
-    for ax in ("tp", "ep"):
-        if axis_size(mesh, ax) > 1:
-            raise NotImplementedError(f"pipeline with {ax} > 1: {TODO_TP}")
+    if axis_size(mesh, "ep") > 1:
+        raise NotImplementedError(
+            "dense pipeline with ep > 1: the dense LM has no experts to "
+            "split (models.moe_pipeline runs pp x ep)")
     if axis_size(mesh, "fsdp") > 1:
         raise NotImplementedError("pipeline with fsdp > 1: the reference "
                                   "composes pp with dp, sp and tp only")
     sp = axis_group(mesh, "sp") if axis_size(mesh, "sp") > 1 else None
-    data = tuple(mesh.get_group(ax) for ax in ("dp", "sp")
-                 if axis_size(mesh, ax) > 1)
-    return axis_group(mesh, "pp"), sp, data
+    return axis_group(mesh, "pp"), sp, data_groups(mesh), \
+        axis_group(mesh, "tp")
 
 
 def shard_pp_batch(tokens: torch.Tensor, mesh):
@@ -739,10 +790,10 @@ def pp_loss_and_grads(params, tokens: torch.Tensor, cfg, mesh, *,
     """(global mean loss, grads of this stage's params) of one batch
     tokens [B, S+1] under ``schedule`` (reference ``_pp_loss_and_grads``,
     ``pipeline.py:789``)."""
-    pp, sp, data = _mesh_setup(mesh, schedule)
+    pp, sp, data, tp = _mesh_setup(mesh, schedule)
     inputs, targets = shard_pp_batch(tokens, mesh)
     kw = dict(pp_group=pp, sp_group=sp, n_microbatches=n_microbatches,
-              attn_impl=attn_impl)
+              attn_impl=attn_impl, tp_group=tp)
     if schedule == "interleaved":
         return interleaved_loss_and_grads(params, inputs, targets, cfg,
                                           data_groups=data,
@@ -758,10 +809,12 @@ def pp_loss_and_grads(params, tokens: torch.Tensor, cfg, mesh, *,
 def make_pp_train_step(cfg: TransformerConfig, mesh, *, n_microbatches: int,
                        lr: float = 1e-3, schedule: str = "gpipe",
                        n_chunks: int = 2, attn_impl: str = "auto"):
-    """SGD step over a pp x dp x sp mesh (reference ``pipeline.py:819``):
-    step(params, tokens [B, S+1]) -> (params, global mean loss), params
-    this stage's (``stage_params``; in ``to_interleaved_storage`` order
-    for "interleaved", whose M must divide by P), updated in place."""
+    """SGD step over a pp x tp x sp x dp mesh (reference
+    ``pipeline.py:819``): step(params, tokens [B, S+1]) -> (params,
+    global mean loss), params this rank's (``stage_params``, or
+    ``sharding.shard_tree`` of ``param_specs`` under tp; in
+    ``to_interleaved_storage`` order for "interleaved", whose M must
+    divide by P), updated in place."""
     _mesh_setup(mesh, schedule)
 
     def step(params, tokens):
@@ -771,7 +824,7 @@ def make_pp_train_step(cfg: TransformerConfig, mesh, *, n_microbatches: int,
             attn_impl=attn_impl)
         return _sgd_update(params, grads, lr), loss
 
-    return step
+    return checkpointed(step, param_specs(cfg), mesh)
 
 
 def make_pp_adamw_train_step(cfg: TransformerConfig, mesh, *,
@@ -779,9 +832,10 @@ def make_pp_adamw_train_step(cfg: TransformerConfig, mesh, *,
                              weight_decay: float = 0.0,
                              schedule: str = "1f1b", n_chunks: int = 2,
                              attn_impl: str = "auto"):
-    """AdamW over the pp x dp x sp mesh (reference ``pipeline.py:864``):
-    the moments mirror this stage's params (``training.adamw_init`` of
-    them), so a stage holds f32 moments for its own layers only.
+    """AdamW over the pp x tp x sp x dp mesh (reference
+    ``pipeline.py:864``): the moments mirror this rank's params
+    (``training.adamw_init`` of them), so a rank holds f32 moments for
+    its own slices of its own layers only.
     step(params, opt_state, tokens) -> (params, opt_state, loss)."""
     _mesh_setup(mesh, schedule)
 
@@ -794,4 +848,4 @@ def make_pp_adamw_train_step(cfg: TransformerConfig, mesh, *,
                                     weight_decay=weight_decay)
         return params, state, loss
 
-    return step
+    return checkpointed(step, param_specs(cfg), mesh)

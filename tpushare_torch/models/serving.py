@@ -288,8 +288,8 @@ class MeshPlacement:
     def forward_fn(self, base):
         """``base`` (a ``transformer.forward``-shaped callable) bound to
         the mesh's groups — ``pctx.tp``, and ``ep_axis`` where the
-        mesh has ep — and run without grad (the forward refuses
-        training under tp)."""
+        mesh has ep — and run without grad (a server keeps no autograd
+        graph; the no-grad path sums each partial in place)."""
         from tpushare_torch.models.transformer import ParallelCtx
         kw = {"pctx": ParallelCtx(tp=self.mesh.axis_group("tp"))}
         if self.mesh.shape.get("ep", 1) > 1:

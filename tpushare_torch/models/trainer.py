@@ -12,8 +12,14 @@ lifecycle: a bin-packed training pod can be preempted or rescheduled at
 any time, so ``fit`` writes params, optimizer state and step to
 ``ckpt_dir/step_<n>`` every ``ckpt_every`` steps (``save_state``; one
 safetensors file, ``utils/checkpoint.py``) and ``load_state`` +
-``latest_checkpoint`` resume bit for bit. The steps update params IN
-PLACE, so a caller that keeps a tree across a ``fit`` passes a copy.
+``latest_checkpoint`` resume bit for bit. A step over a tp or ep mesh
+(``training.SpmdStep``) writes through its own ``save_state``: the
+whole leaves gathered from the ranks' slices (``training.tp_gather``),
+the file the reference's save of its global arrays writes, and
+``load_state(shardings=step.load_shardings())`` reads each rank's slices
+back onto any tp / ep shape (the rescheduled-tenant path). The steps
+update params IN PLACE, so a caller that keeps a tree across a ``fit``
+passes a copy.
 
 Not ported: the MFU telemetry (``flops_per_step``; the reference
 divides by TPU peak tables; the port's card figures come with the
@@ -98,7 +104,9 @@ def fit(step_fn: StepFn, params: Any, opt_state: Any,
     timing honest) and logged with tokens/s when ``tokens_per_step`` is
     given; the first window holds warm-up and logs no rate. With
     ``ckpt_dir`` and ``ckpt_every``, the state after every
-    ``ckpt_every``-th step lands in ``ckpt_dir/step_<n>``.
+    ``ckpt_every``-th step lands in ``ckpt_dir/step_<n>``, through the
+    step's own ``save_state`` where it has one (a sharded step: whole
+    leaves).
     """
     if flops_per_step:
         raise NotImplementedError(f"MFU telemetry (flops_per_step): "
@@ -124,6 +132,7 @@ def fit(step_fn: StepFn, params: Any, opt_state: Any,
             warmed = True
         if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
             path = os.path.join(ckpt_dir, f"step_{step + 1}")
-            save_state(path, params, opt_state, step + 1)
+            getattr(step_fn, "save_state", save_state)(
+                path, params, opt_state, step + 1)
             log.info("checkpointed %s", path)
     return params, opt_state, losses

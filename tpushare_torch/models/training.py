@@ -3,12 +3,18 @@
 
 One loss (``xent_loss``), one gradient routine (``value_and_grad``) and
 two update rules (SGD, AdamW), run two ways: single device
-(``sgd_train_step``, ``adamw_train_step``) and SPMD over a ``("dp",
-"sp")`` mesh (``make_spmd_train_step``, ``make_adamw_spmd_train_step``:
-batch rows over dp, sequence over sp through ring attention, or Ulysses
-all-to-all attention with ``sp_impl="a2a"``). The four steps take the
-loss (``loss_fn``) and, under SPMD, the sharding (``shard_fn``) as
-parameters; ``moe.py``'s steps are these with its own loss and
+(``sgd_train_step``, ``adamw_train_step``) and SPMD over a dp x sp x tp
+mesh (``make_spmd_train_step``, ``make_adamw_spmd_train_step``: batch
+rows over dp, sequence over sp through ring attention, or Ulysses
+all-to-all attention with ``sp_impl="a2a"``, and the Megatron split of
+``transformer.param_specs`` over tp: each rank holds its slices,
+``sharding.shard_tree``, and AdamW's moments shard like them,
+``opt_state_specs``). ``tp_gather`` rebuilds whole trees from the
+slices; ``save_sharded`` writes a sharded state as whole leaves and
+``sharded_load`` reads any rank's slices back (``trainer.fit``'s
+checkpoints of the SPMD and pipeline steps). The four steps take the loss
+(``loss_fn``) and, under SPMD, the sharding (``shard_fn``) as
+parameters; ``moe.py``'s steps are these with its own loss, specs and
 ``moe.shard_pairs``. The manual fsdp steps (``make_fsdp_train_step``,
 ``make_fsdp_stream_train_step``, ``make_fsdp_stream_adamw_step``) keep
 each rank's slice of flat, padded leaves and gather them per step (or
@@ -18,11 +24,14 @@ Gradients under SPMD: the reference makes the loss global (pmean over
 the data axes) before ``jax.grad`` and lets the shard_map transpose
 insert the reductions (``training.py:10-16``). The port takes each
 rank's local mean and backwards it — the ring backward returns every
-K/V chunk's gradient to the rank that owns it — then all-reduces (sum)
-the gradients over the mesh and divides by its size: the gradient of
-the same global mean, since the shards are equal. The next-token shift
-happens before sharding (``:110-114``), so every shard holds aligned
-(input, target) pairs.
+K/V chunk's gradient to the rank that owns it, the tp operators of
+``transformer`` ("f" and "g") make every rank of a tp group hold the
+whole gradient of its replicated leaves and its own slices' — then
+sums each leaf's gradient over the data axes (``mesh.data_axes``) it
+is not split over and divides by their size: the gradient of the same
+global mean, since the shards are equal. Never over tp: its ranks hold
+one loss. The next-token shift happens before sharding (``:110-114``),
+so every shard holds aligned (input, target) pairs.
 
 Updates use f32 math and keep each parameter's dtype (``:65-71``,
 ``:456-463``); AdamW increments ``count`` before its update. Unlike the
@@ -35,16 +44,20 @@ same on every rank.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from tpushare_torch.models.transformer import (
-    ParallelCtx, TransformerConfig, forward, init_params,
+    ParallelCtx, TransformerConfig, forward, init_params, param_specs,
 )
 from tpushare_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
-                                          refuse_serving_axes)
+                                          data_axes, mesh_layout)
+from tpushare_torch.parallel.sharding import (P, shard_tree, spec_axes,
+                                              walk_specs)
+from tpushare_torch.utils import checkpoint
 from tpushare_torch.utils.checkpoint import FlatShard
 
 Tree = Dict[str, Any]
@@ -219,55 +232,226 @@ def shard_batch(tokens: torch.Tensor, mesh) -> Tuple[torch.Tensor,
     return inputs[rows, cols].contiguous(), targets[rows, cols].contiguous()
 
 
-def _mesh_mean(grads: Tree, loss: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum gradients and the loss over the mesh (which spans the default
-    process group), divide by its size; the gradients in place. Returns
-    the global mean loss."""
-    n = mesh.size()
-    for g in tree_leaves(grads):
-        dist.all_reduce(g)
-        g.div_(n)
+def opt_state_specs(specs: Tree) -> Tree:
+    """The spec tree of an ``adamw_init`` state for params placed by
+    ``specs`` (reference ``training.py:490``): the moments shard like
+    their params, the count is replicated."""
+    return {"mu": specs, "nu": specs, "count": P()}
+
+
+def _whole_leaf(t: torch.Tensor, spec, sizes, mesh) -> torch.Tensor:
+    """One leaf whole from every rank's slice (no gradient): all-gathered
+    over every axis its spec splits it over, innermost first. Every rank
+    of the mesh must call it; every rank gets the whole leaf."""
+    t = t.detach()
+    for d in reversed(range(len(spec))):
+        entry = spec[d]
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        for ax in reversed(axes):
+            if sizes.get(ax, 1) == 1:
+                continue
+            parts = [torch.empty_like(t) for _ in range(sizes[ax])]
+            dist.all_gather(parts, t.contiguous(),
+                            group=axis_group(mesh, ax))
+            t = torch.cat(parts, dim=d)
+            del parts
+    return t
+
+
+def _whole_shape(t: torch.Tensor, spec, sizes) -> Tuple[int, ...]:
+    shape = list(t.shape)
+    for d, entry in enumerate(spec or ()):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        for ax in axes:
+            shape[d] *= sizes.get(ax, 1)
+    return tuple(shape)
+
+
+def tp_gather(local: Tree, specs: Tree, mesh) -> Tree:
+    """The whole tree from every rank's slices (no gradient): each leaf
+    all-gathered over every axis its spec splits it over, innermost
+    first — the counterpart of ``fsdp_gather_flat``, for tests and
+    ``SpmdStep.gather``. Every rank of the mesh must call it; every rank
+    gets the whole tree (a checkpoint gathers a leaf at a time instead:
+    ``save_sharded``)."""
+    sizes, _ = mesh_layout(mesh)
+    return walk_specs(local, specs, lambda t, spec: (
+        _whole_leaf(t, spec, sizes, mesh)
+        if any(sizes.get(ax, 1) > 1 for ax in spec_axes(spec))
+        else t.detach().clone()))
+
+
+def save_sharded(path: str, params: Tree, opt_state: Tree, step: int, *,
+                 specs: Tree, mesh) -> int:
+    """``trainer.fit``'s checkpoint of a state sharded by ``specs`` (and
+    ``opt_state_specs``) on ``mesh``: the file of the whole leaves, the
+    one the reference's save of its global arrays writes. Collective:
+    every rank calls it. One leaf at a time is gathered (over the axes
+    that split it) and written by rank 0, then dropped, so no rank holds
+    more than one whole leaf beside its slices; the ranks other than 0
+    take part in each gather and drop its result. Every rank returns
+    once the file is in place."""
+    sizes, _ = mesh_layout(mesh)
+    tree = {"params": params, "opt_state": opt_state,
+            "step": torch.tensor(step, dtype=torch.int32)}
+    tspecs = {"params": specs, "step": P(),
+              "opt_state": opt_state_specs(specs) if opt_state else opt_state}
+
+    def pending(t, spec):
+        if not any(sizes.get(ax, 1) > 1 for ax in spec_axes(spec)):
+            return t
+        return checkpoint.Pending(_whole_shape(t, spec, sizes), t.dtype,
+                                  functools.partial(_whole_leaf, t, spec,
+                                                    sizes, mesh))
+    tree = walk_specs(tree, tspecs, pending)
+    n = 0
+    if dist.get_rank() == 0:
+        n = checkpoint.save(path, tree)
+    else:
+        # The gathers rank 0's write makes, in its (key) order.
+        for _, leaf in checkpoint.key_paths(tree):
+            if isinstance(leaf, checkpoint.Pending):
+                leaf.make()
+    dist.barrier()
+    return n
+
+
+def sharded_load(specs: Tree, mesh) -> Dict[str, Any]:
+    """``trainer.load_state(shardings=)`` for this rank of ``mesh``: its
+    slices of the params and AdamW state of a checkpoint saved whole."""
+    return {"params": checkpoint.mesh_shardings(specs, mesh),
+            "opt_state": checkpoint.mesh_shardings(opt_state_specs(specs),
+                                                   mesh)}
+
+
+def replicated_digest(tree: Tree, specs: Tree) -> str:
+    """A hash of the leaves ``specs`` replicates (their bytes, in
+    ``tree_leaves`` order): equal on two ranks exactly when those leaves
+    are bit-equal there."""
+    import hashlib
+    h = hashlib.blake2b(digest_size=16)
+    flags = walk_specs(tree, specs, lambda t, spec: not spec_axes(spec))
+    for t, rep in zip(tree_leaves(tree), tree_leaves(flags)):
+        if rep:
+            h.update(t.detach().contiguous().view(torch.uint8)
+                     .reshape(-1).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_mean(grads: Tree, loss: torch.Tensor, mesh, specs: Tree,
+               axes) -> torch.Tensor:
+    """Average the gradients and the loss over the data axes ``axes``:
+    each leaf's gradient summed (in place) over those of its axes its
+    spec does not split it over (a leaf split over ep under a2a already
+    holds every ep rank's tokens' part, carried by the exchange), all
+    divided by the product of their sizes. Returns the global mean
+    loss."""
+    n = 1
+    for ax in axes:
+        n *= axis_size(mesh, ax)
+    live = [ax for ax in axes if axis_size(mesh, ax) > 1]
+
+    def reduce(g, spec):
+        split = spec_axes(spec)
+        for ax in live:
+            if ax not in split:
+                dist.all_reduce(g, group=axis_group(mesh, ax))
+        return g.div_(n)
+    walk_specs(grads, specs, reduce)
     loss = loss.clone()
-    dist.all_reduce(loss)
+    for ax in live:
+        dist.all_reduce(loss, group=axis_group(mesh, ax))
     return loss / n
 
 
 def _spmd_ctx(mesh, sp_impl: str) -> ParallelCtx:
     """The SPMD steps' checks (reference ``training.py:116-126``) and
-    their ParallelCtx."""
+    their ParallelCtx: ring (or Ulysses) attention over sp, the Megatron
+    operators over tp."""
     if sp_impl not in ("ring", "a2a"):
         raise ValueError(f"unknown sp_impl {sp_impl!r}; 'ring' or 'a2a'")
-    refuse_serving_axes(mesh)
     if axis_size(mesh, "fsdp") > 1:
         raise NotImplementedError(
             "use make_fsdp_train_step for the manual-fsdp schedule, or "
             "pjit auto sharding with param_specs(fsdp='fsdp')")
     _reject_axes(mesh, ("pp", "ep"))
-    return ParallelCtx(sp=mesh.get_group("sp"), sp_impl=sp_impl)
+    return ParallelCtx(tp=axis_group(mesh, "tp"), sp=axis_group(mesh, "sp"),
+                       sp_impl=sp_impl)
+
+
+class SpmdStep:
+    """One SPMD training step over ``mesh``: every rank passes the same
+    global tokens [B, S+1]; ``shard_fn(tokens, mesh)`` gives this rank's
+    (inputs, targets); ``loss_fn(params, inputs, targets, cfg, pctx=,
+    **loss_kw)`` is this rank's local mean, differentiated with respect
+    to this rank's slices (``specs`` on the mesh), its gradients and
+    value averaged over the data axes ``axes``. SGD steps are called
+    step(params, tokens) -> (params, loss); AdamW steps step(params,
+    opt_state, tokens) -> (params, opt_state, loss), updating in
+    place."""
+
+    def __init__(self, cfg, mesh, *, lr, pctx, specs, axes, loss_fn,
+                 shard_fn, loss_kw, adamw=False, weight_decay=0.0):
+        self.cfg, self.mesh, self.lr, self.pctx = cfg, mesh, lr, pctx
+        self.specs, self.axes = specs, tuple(axes)
+        self.loss_fn, self.shard_fn, self.loss_kw = loss_fn, shard_fn, loss_kw
+        self.adamw, self.weight_decay = adamw, weight_decay
+
+    def loss_and_grads(self, params: Tree, tokens: torch.Tensor
+                       ) -> Tuple[torch.Tensor, Tree]:
+        """(global mean loss, this rank's averaged gradient slices)."""
+        inputs, targets = self.shard_fn(tokens, self.mesh)
+        loss, grads = value_and_grad(self.loss_fn, params, inputs, targets,
+                                     self.cfg, pctx=self.pctx,
+                                     **self.loss_kw)
+        loss = _mesh_mean(grads, loss, self.mesh, self.specs, self.axes)
+        return loss, grads
+
+    def __call__(self, params, *rest):
+        if not self.adamw:
+            (tokens,) = rest
+            loss, grads = self.loss_and_grads(params, tokens)
+            return _sgd_update(params, grads, self.lr), loss
+        opt_state, tokens = rest
+        loss, grads = self.loss_and_grads(params, tokens)
+        params, state = apply_adamw(params, grads, opt_state, lr=self.lr,
+                                    weight_decay=self.weight_decay)
+        return params, state, loss
+
+    def shard(self, params: Tree, device=None) -> Tree:
+        """This rank's slices of whole params."""
+        return shard_tree(params, self.specs, self.mesh, device)
+
+    def gather(self, params: Tree) -> Tree:
+        """Whole params from the ranks' slices (collective)."""
+        return tp_gather(params, self.specs, self.mesh)
+
+    def save_state(self, path: str, params: Tree, opt_state: Tree,
+                   step: int) -> int:
+        """``trainer.fit``'s checkpoint of this step's state
+        (``save_sharded``)."""
+        return save_sharded(path, params, opt_state, step,
+                            specs=self.specs, mesh=self.mesh)
+
+    def load_shardings(self) -> Dict[str, Any]:
+        """``trainer.load_state(shardings=)`` for this rank
+        (``sharded_load``)."""
+        return sharded_load(self.specs, self.mesh)
 
 
 def make_spmd_train_step(cfg, mesh, *, lr: float = 1e-3,
                          sp_impl: str = "ring", loss_fn: Callable = xent_loss,
                          shard_fn: Callable = shard_batch, **loss_kw):
-    """The SGD step over ``mesh`` (``parallel.mesh.make_mesh``): every
-    rank passes the same global tokens [B, S+1]; ``shard_fn(tokens,
-    mesh)`` gives this rank's (inputs, targets) (rows over dp, the
-    sequence over sp), attention runs as ring attention over sp (or
-    Ulysses with ``sp_impl="a2a"``), and ``loss_fn(params, inputs,
-    targets, cfg, pctx=, **loss_kw)``'s gradients and value are
-    averaged over the mesh. Returns step(params, tokens) -> (params,
-    global mean loss); params are replicated and stay equal on every
-    rank."""
-    pctx = _spmd_ctx(mesh, sp_impl)
-
-    def step(params, tokens):
-        inputs, targets = shard_fn(tokens, mesh)
-        loss, grads = value_and_grad(loss_fn, params, inputs, targets, cfg,
-                                     pctx=pctx, **loss_kw)
-        loss = _mesh_mean(grads, loss, mesh)
-        return _sgd_update(params, grads, lr), loss
-
-    return step
+    """The SGD step over a dp x sp x tp ``mesh`` (``parallel.mesh
+    .make_mesh``; reference ``training.py:102``): rows over dp, the
+    sequence over sp (ring attention, or Ulysses with ``sp_impl="a2a"``),
+    the weights over tp by ``transformer.param_specs`` (each rank passes
+    its slices, ``SpmdStep.shard``), gradients and loss averaged over dp
+    and sp. Returns an ``SpmdStep``: step(params, tokens) -> (params,
+    global mean loss), params updated in place."""
+    return SpmdStep(cfg, mesh, lr=lr, pctx=_spmd_ctx(mesh, sp_impl),
+                    specs=param_specs(cfg), axes=data_axes(),
+                    loss_fn=loss_fn, shard_fn=shard_fn, loss_kw=loss_kw)
 
 
 def make_adamw_spmd_train_step(cfg, mesh, *, lr: float = 1e-3,
@@ -275,21 +459,15 @@ def make_adamw_spmd_train_step(cfg, mesh, *, lr: float = 1e-3,
                                sp_impl: str = "ring",
                                loss_fn: Callable = xent_loss,
                                shard_fn: Callable = shard_batch, **loss_kw):
-    """AdamW over ``mesh``, laid out as ``make_spmd_train_step``; the
-    moments are replicated like the params. Returns step(params,
-    opt_state, tokens) -> (params, state, global mean loss)."""
-    pctx = _spmd_ctx(mesh, sp_impl)
-
-    def step(params, opt_state, tokens):
-        inputs, targets = shard_fn(tokens, mesh)
-        loss, grads = value_and_grad(loss_fn, params, inputs, targets, cfg,
-                                     pctx=pctx, **loss_kw)
-        loss = _mesh_mean(grads, loss, mesh)
-        params, state = apply_adamw(params, grads, opt_state, lr=lr,
-                                    weight_decay=weight_decay)
-        return params, state, loss
-
-    return step
+    """AdamW over ``mesh``, laid out as ``make_spmd_train_step`` (reference
+    ``training.py:510``); the moments shard like the params
+    (``opt_state_specs``: ``adamw_init`` of a rank's slices is its
+    state). Returns an ``SpmdStep``: step(params, opt_state, tokens) ->
+    (params, state, global mean loss)."""
+    return SpmdStep(cfg, mesh, lr=lr, pctx=_spmd_ctx(mesh, sp_impl),
+                    specs=param_specs(cfg), axes=data_axes(),
+                    loss_fn=loss_fn, shard_fn=shard_fn, loss_kw=loss_kw,
+                    adamw=True, weight_decay=weight_decay)
 
 
 

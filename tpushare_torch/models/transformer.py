@@ -28,13 +28,20 @@ offset by the rank's shard (``:325-326``). ``cfg.remat``
 checkpoints each layer (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` of the block, ``:670-671``).
 
-Serving under tensor parallelism: ``ParallelCtx(tp=<process group>)``
-with this rank's Megatron slices of the weights (``param_specs``:
-q/k/v/gate/up columns and o/down rows over tp) and of the KV cache (kv
+Tensor parallelism: ``ParallelCtx(tp=<process group>)`` with this
+rank's Megatron slices of the weights (``param_specs``: q/k/v/gate/up
+columns and o/down rows over tp) and, serving, of the KV cache (kv
 heads over tp). Head counts are read off the weight shapes, and the two
 partial sums of each block, after ``wo`` and after ``w_down``, are
 all-reduced over the group (reference ``transformer.py:651-652,
-663-664``). Training under tp raises, naming its ROADMAP item.
+663-664``). With grad mode on the block runs Megatron's two operators:
+"f" (``copy_to``) on the input of every column-parallel product, the
+identity forward whose backward sums the input's gradient over tp, and
+"g" (``tp_matmul``'s ``_RowParallel``), the row-parallel product whose
+f32 partials are summed once and whose backward is each rank's own
+product gradient, with no collective. The reference gets the same
+gradients from the shard_map transpose of its psums. Without grad mode
+the serving forward is untouched.
 """
 
 from __future__ import annotations
@@ -57,12 +64,8 @@ from tpushare_torch.ops.flash_attention import (flash_decode,
 from tpushare_torch.ops.norms import rms_norm
 from tpushare_torch.ops.q8_expert import _apply_act as _act
 from tpushare_torch.ops.rotary import apply_rotary, rotary_embedding
-from tpushare_torch.parallel.mesh import TODO_TRAIN_AXES
 from tpushare_torch.parallel.ring_attention import ring_attention
 from tpushare_torch.parallel.ulysses import ulysses_attention
-
-# The ROADMAP item that ports what the forward still leaves out.
-TODO_TRAIN_TP = TODO_TRAIN_AXES
 
 
 def layer_windows(cfg: "TransformerConfig") -> Optional[List[int]]:
@@ -85,7 +88,7 @@ class ParallelCtx:
     it, or as Ulysses all-to-all attention with ``sp_impl="a2a"``. ``tp``
     holds the tensor-parallel process group (``ServingMesh.axis_group(
     "tp")``): the forward all-reduces each block's two partial sums
-    over it; with grad mode on it raises (training under tp)."""
+    over it, differentiably with grad mode on."""
     tp: Any = None
     sp: Any = None
     sp_impl: str = "ring"
@@ -257,14 +260,7 @@ def tp_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
-def tp_matmul(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
-    """``x @ w`` for a row-parallel weight (``wo``, ``w_down``: its
-    input axis split over ``group``), summed over the group. Each rank's
-    partial leaves its product in f32 (``out_dtype`` on the card), the
-    sum runs in f32 and rounds once to ``x``'s dtype, as one card's
-    single product rounds its f32 accumulator once. No group: ``x @ w``."""
-    if group is None:
-        return x @ w
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1])
     if x.dtype == torch.float32:
         part = x2 @ w
@@ -274,6 +270,101 @@ def tp_matmul(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
         part = x2.float() @ w.float()
     dist.all_reduce(part, group=group)
     return part.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _RowParallel(torch.autograd.Function):
+    """Megatron's "g" over a row-parallel product: the forward is
+    ``tp_matmul``'s (f32 partials summed once); the sum's gradient is
+    the identity (the loss is the same on every rank of the group), so
+    the backward is this rank's own product gradient, computed here
+    (``mm`` with ``out_dtype`` has no derivative): dx = g w^T,
+    dw = x^T g, in the operands' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.save_for_backward(x, w)
+        return _row_parallel(x, w, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g2 @ w.t()).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = x.reshape(-1, x.shape[-1]).t() @ g2
+        return dx, dw, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's "f": the identity forward; the backward sums the
+    input's gradient over the group (in f32, rounded once), since each
+    rank's slice of the following product sees only its part of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        acc = g.float() if g.dtype != torch.float32 else g.clone()
+        dist.all_reduce(acc, group=ctx.group)
+        return acc.to(g.dtype), None
+
+
+class _SumOver(torch.autograd.Function):
+    """A partial summed over the group (out of place), the "g" of a
+    partial computed elsewhere (an expert product's tp part, an ep
+    rank's experts' share): the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """"f" on the input of a product split over ``group``: ``x`` itself
+    without a group or without a gradient to carry."""
+    if group is None or not _needs_grad(x):
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of a partial over ``group`` ("g"): ``tp_all_reduce`` (in
+    place) where no gradient flows, else out of place with the identity
+    as its gradient. No group: ``x``."""
+    if group is None:
+        return x
+    if not _needs_grad(x):
+        return tp_all_reduce(x, group)
+    return _SumOver.apply(x, group)
+
+
+def tp_matmul(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """``x @ w`` for a row-parallel weight (``wo``, ``w_down``: its
+    input axis split over ``group``), summed over the group. Each rank's
+    partial leaves its product in f32 (``out_dtype`` on the card), the
+    sum runs in f32 and rounds once to ``x``'s dtype, as one card's
+    single product rounds its f32 accumulator once. With a gradient to
+    carry it is "g" (``_RowParallel``). No group: ``x @ w``."""
+    if group is None:
+        return x @ w
+    if _needs_grad(x, w):
+        return _RowParallel.apply(x, w, group)
+    return _row_parallel(x, w, group)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
@@ -470,9 +561,6 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     cache, each layer runs under ``torch.utils.checkpoint``.
     """
     pctx = pctx or ParallelCtx()
-    if pctx.tp is not None and torch.is_grad_enabled():
-        raise NotImplementedError(f"tensor parallelism (pctx.tp) with "
-                                  f"grad mode on: {TODO_TRAIN_TP}")
     if pctx.sp_impl not in ("ring", "a2a"):
         raise ValueError(f"unknown sp_impl {pctx.sp_impl!r}; 'ring' or "
                          f"'a2a'")
@@ -544,8 +632,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
             return tp_matmul(inp, layer[name], pctx.tp)
 
         w = None if wls is None else wls[li]
-        h = rms_norm(x, layer["ln1"], eps=cfg.norm_eps,
-                     offset=cfg.norm_offset)
+        h = copy_to(rms_norm(x, layer["ln1"], eps=cfg.norm_eps,
+                             offset=cfg.norm_offset), pctx.tp)
         H = layer["wq"].shape[-1] // Dh
         Hkv = layer["wk"].shape[-1] // Dh
         q = lin("wq", h).reshape(B, S, H, Dh)
@@ -608,8 +696,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
             o = rms_norm(o, layer["ln_post_attn"], eps=cfg.norm_eps,
                          offset=cfg.norm_offset)
         x = x + o
-        h = rms_norm(x, layer["ln2"], eps=cfg.norm_eps,
-                     offset=cfg.norm_offset)
+        h = copy_to(rms_norm(x, layer["ln2"], eps=cfg.norm_eps,
+                             offset=cfg.norm_offset), pctx.tp)
         ff = _act(cfg.act, lin("w_gate", h)) * lin("w_up", h)
         ff = tp_lin("w_down", ff)
         if cfg.post_norms:

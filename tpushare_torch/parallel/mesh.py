@@ -15,8 +15,11 @@ are laid out as the JAX mesh lays out devices: the axes in
 ``sp`` (size 1 or more); ``pp``, ``fsdp``, ``ep`` and ``tp`` are
 dimensions of it only above 1. ``axis_size`` / ``axis_group`` /
 ``axis_rank`` read any canonical axis, an absent one as size 1, no
-group, rank 0. The training steps refuse ``tp`` and ``ep`` above 1
-(training under tp is its own ROADMAP item).
+group, rank 0; ``mesh_layout`` gives every axis's size and this rank's
+coordinate (what ``parallel/sharding.py`` slices a tree by), and
+``data_axes`` the axes a training step's batch is split over (dp and
+sp, and ep where the MoE routing makes ep a data axis): its gradients
+are averaged over those only, never over tp.
 
 Serving: ``serving_mesh`` meshes over the cards the plugin granted and
 returns a ``ServingMesh``: the axis sizes, the card each rank runs on,
@@ -62,9 +65,6 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 MESH_AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 
-# What the training steps do not carry yet.
-TODO_TRAIN_AXES = "ROADMAP A10c (training under tp / ep)"
-
 _ALWAYS = ("dp", "sp")
 
 
@@ -97,14 +97,39 @@ def make_mesh(axis_sizes: Mapping[str, int]) -> DeviceMesh:
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
-def refuse_serving_axes(mesh) -> None:
-    """The training steps' guard: a mesh with ``tp`` or ``ep`` above 1
-    raises, naming the ROADMAP item (they would silently replicate)."""
-    for ax in ("tp", "ep"):
-        if mesh is not None and axis_size(mesh, ax) > 1:
-            raise NotImplementedError(
-                f"training over mesh axis {ax}={axis_size(mesh, ax)}: "
-                f"{TODO_TRAIN_AXES}")
+def data_axes(ep: bool = False) -> tuple:
+    """The axes a training step's batch is split over, in canonical
+    order: dp and sp, plus ep where the routing makes ep a data axis
+    (MoE ``routing="a2a"``, reference ``moe.py:1769-1771``). A step's
+    loss and gradients are averaged over these and no other: tp (and ep
+    under the other routings) splits the model, not the batch."""
+    return ("dp", "ep", "sp") if ep else ("dp", "sp")
+
+
+def data_groups(mesh, ep: bool = False) -> tuple:
+    """The process groups of ``data_axes(ep)`` above size 1 on
+    ``mesh``."""
+    return tuple(axis_group(mesh, ax) for ax in data_axes(ep)
+                 if axis_size(mesh, ax) > 1)
+
+
+def host_staged(t: torch.Tensor, group) -> bool:
+    """True where a point-to-point message of ``t`` over ``group`` must
+    go through host memory: a CUDA tensor over gloo (ranks sharing one
+    card), whose send and receive take host buffers only."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def mesh_layout(mesh):
+    """(sizes, coords): every canonical axis's size on ``mesh`` (a
+    DeviceMesh, or a ServingMesh or anything with its ``sizes``,
+    ``coords`` and ``rank``) and this rank's coordinate along it."""
+    if hasattr(mesh, "coords"):
+        sizes = {ax: int(mesh.sizes.get(ax, 1)) for ax in MESH_AXES}
+        coords = mesh.coords(mesh.rank or 0)
+        return sizes, {ax: int(coords.get(ax, 0)) for ax in MESH_AXES}
+    return ({ax: axis_size(mesh, ax) for ax in MESH_AXES},
+            {ax: axis_rank(mesh, ax) for ax in MESH_AXES})
 
 
 def axis_size(mesh, axis: str) -> int:

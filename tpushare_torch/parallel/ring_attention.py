@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from tpushare_torch.ops.attention import NEG_INF
+from tpushare_torch.parallel.mesh import host_staged
 from tpushare_torch.ops.flash_attention import (
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_partial,
     flash_attention_partial_plain, softmax_dsum,
@@ -44,6 +45,10 @@ def _rotate(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
     if n == 1:
         return tensors
     r = dist.get_rank(group)
+    staged = host_staged(tensors[0], group)
+    dev = tensors[0].device
+    if staged:
+        tensors = [t.cpu() for t in tensors]
     bufs = [torch.empty_like(t) for t in tensors]
     ops = []
     for t, buf in zip(tensors, bufs):
@@ -53,7 +58,7 @@ def _rotate(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
                               group_peer=(r - 1) % n))
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return bufs
+    return [b.to(dev) for b in bufs] if staged else bufs
 
 
 def _bshd(stat: torch.Tensor) -> torch.Tensor:

@@ -108,14 +108,27 @@ def _walk(tree, specs, fn, path=""):
 
 def shard_tree(tree, specs, mesh, device=None) -> Dict[str, Any]:
     """This rank's slices of every leaf of ``tree`` placed per the spec
-    tree ``specs`` on ``mesh`` (a ``ServingMesh``; its ``device`` when
-    ``device`` is None). Replicated leaves are placed whole."""
-    sizes = mesh.sizes
-    coords = mesh.coords(mesh.rank or 0)
-    dev = mesh.device if device is None else device
+    tree ``specs`` on ``mesh``: a ``ServingMesh`` (its ``device`` when
+    ``device`` is None) or a training ``DeviceMesh`` (each leaf's own
+    device when ``device`` is None). Replicated leaves are placed
+    whole."""
+    from tpushare_torch.parallel.mesh import mesh_layout
+    sizes, coords = mesh_layout(mesh)
+    dev = getattr(mesh, "device", None) if device is None else device
     return _walk(tree, specs,
                  lambda leaf, spec, _p: shard_leaf(leaf, spec, sizes,
                                                    coords, dev))
+
+
+def spec_axes(spec: P) -> Tuple[str, ...]:
+    """Every axis ``spec`` splits a dimension over."""
+    return tuple(ax for e in spec for ax in _axes(e))
+
+
+def walk_specs(tree, specs, fn):
+    """``fn(leaf, spec)`` over the leaves of ``tree`` and their specs
+    (a missing spec subtree: replicated), as a tree of the results."""
+    return _walk(tree, specs, lambda leaf, spec, _p: fn(leaf, spec))
 
 
 def replicated_specs(tree):

@@ -4,10 +4,11 @@ counterpart of ``demo/e2e_multichip.py``. Run from the repository root:
 
     python -m tpushare_torch.tools.multichip                 # on the card(s)
     python -m tpushare_torch.tools.multichip --device cpu --tiny
+    python -m tpushare_torch.tools.multichip --part train    # part F
 
 Without ``--device cpu`` it needs a CUDA card and exits 2, naming it,
-where there is none. Prints one JSON line per part, then the record;
-exits 1 when a gate fails.
+where there is none. Prints one JSON line per part, then the record
+(part F: its one line); exits 1 when a gate fails.
 
 - A. Placement, hardware-free as the reference's: a fake host of four
   16 GiB cards, the port's device plugin serving it to a kubelet
@@ -19,15 +20,15 @@ exits 1 when a gate fails.
   env names them as ``gpu_env_for_cards`` writes them, and both small
   pods share one card.
 - B. The serving tenant: ``tpushare-torch-serve --mesh tp=2`` (Llama-3-
-  8B at full width and depth from seed 0; ``--tiny``: the tiny config on
-  the CPU) as two rank processes, their env the node's grant for the
-  serving pod (``gpu_env_for_cards``). Rank 0 serves HTTP; rank 1
-  follows. With fewer cards than ranks the ranks share card 0 and their
-  collectives run over gloo through the host (printed): such times are
-  not tensor-parallel measurements. Eight prompts of 16..2048 tokens
-  (``--tiny``: 4..40) go over HTTP with chunked admission; then both
-  ranks drive a direct sharded ``PagedSlotServer`` over the engine's
-  slices: the prompts admitted whole, decode ticks timed, and a second
+  8B at full width, ``B_LAYERS`` of its 32 layers, from seed 0;
+  ``--tiny``: the tiny config on the CPU) as two rank processes, their
+  env the node's grant for the serving pod (``gpu_env_for_cards``).
+  Rank 0 serves HTTP; rank 1 follows. With fewer cards than ranks the
+  ranks share card 0 and their collectives run over gloo through the
+  host (printed): such times are not tensor-parallel measurements.
+  Eight prompts of 16..2048 tokens (``--tiny``: 4..40) go over HTTP
+  with chunked admission; then both ranks drive a direct sharded
+  ``PagedSlotServer`` over the engine's slices: the prompts admitted whole, decode ticks timed, and a second
   server's greedy speculative rounds (the model drafting for itself).
   The one-card twin (the same weights on one device, a direct server,
   run in this process before the ranks start) is the oracle: every
@@ -48,6 +49,21 @@ exits 1 when a gate fails.
 
 Each rank reports the kernel launches of each part (counts zeroed just
 before it, read just after), its peak device memory and ms per tick.
+
+- F. Training over tp and ep (``--part train``), rank processes sharing
+  the card over gloo: F1, Llama-3-8B at ``F1_LAYERS`` layers over tp=2
+  (the gradient of the SPMD step's loss, two SGD steps, the replicated
+  leaves' digests, then ``trainer.fit`` of the AdamW step at
+  ``F1_ADAMW_LAYERS`` layers with each rank's moment bytes); F2,
+  Mixtral's width at ``F2_LAYERS`` layers over ep=2 under psum and a2a,
+  replaying the twin's routes (``RouteLog``); F3, Llama's width at
+  ``F3_LAYERS`` layers over sp=2 x tp=2 (ring attention) and pp=2 x tp=2
+  (1F1B). The one-card twins run first in this process; each writes its
+  gradient whole to a scratch file, and every rank holds each of its
+  gradient slices, read by offset, to the twin's within
+  ``GRAD_REL_L2_TOL`` (relative L2), and its losses within
+  ``F_LOSS_TOL``. Every group's ranks start before the twins and wait
+  for their turn.
 """
 
 from __future__ import annotations
@@ -94,6 +110,9 @@ INIT_TIMEOUT_S = 600.0
 E_WAVE2 = 4
 #: part E's process case: the model's depth there
 E_KILL_LAYERS = 8
+#: parts B and E's depth, of Llama-3-8B's 32 layers: chip_smoke.py ran
+#: past its 1200 s limit on a slower host with B at 32
+B_LAYERS = 8
 
 # (name, module, function, counter attribute) of every kernel wrapper.
 COUNTERS = (
@@ -142,14 +161,14 @@ def llama_workload(tiny: bool):
                 "--block-size", "4", "--prefill-chunk", "8",
                 "--prefill-chunk-force"]
         return argv, cfg, _prompts(cfg, lens, 1), 6, 4, 2, 2
-    cfg = tt.llama3_8b()
+    cfg = dataclasses.replace(tt.llama3_8b(), n_layers=B_LAYERS)
     lens = [16, 100, 255, 511, 700, 1100, 1500, 2048]
     # 4 slots for 8 requests: a fused tick carries every slot's row at
     # the chunk's width, and over the one-card gloo stand-in each row's
-    # bytes cross 64 host-staged all-reduces.
-    argv = ["--preset", "llama3_8b", "--n-slots", "4", "--n-blocks",
-            str(8 * 160 + 1), "--block-size", "16", "--prefill-chunk",
-            "512"]
+    # bytes cross two host-staged all-reduces a layer.
+    argv = ["--preset", "llama3_8b", "--n-layers", str(B_LAYERS),
+            "--n-slots", "4", "--n-blocks", str(8 * 160 + 1),
+            "--block-size", "16", "--prefill-chunk", "512"]
     return argv, cfg, _prompts(cfg, lens, 1), 16, 8, 2, 4
 
 
@@ -564,6 +583,9 @@ def reshard_source(job: dict, rank: int, rec: dict) -> List[str]:
     argv = job["engine_argv"]
     cfg = {"llama3_8b": tt.llama3_8b, "tiny": tt.tiny}[
         argv[argv.index("--preset") + 1]]()
+    if "--n-layers" in argv:
+        cfg = dataclasses.replace(
+            cfg, n_layers=int(argv[argv.index("--n-layers") + 1]))
     need = cfg.num_params() * torch.empty(0, dtype=cfg.dtype).element_size()
     avail = host_mem_available()
     print(f"rank {rank}: MemAvailable {avail} bytes, a whole tree "
@@ -1115,6 +1137,775 @@ def elastic_kill(args, tmp: str, llama, twin: dict) -> dict:
     return out
 
 
+# -- part F: training over tp and ep -------------------------------------------
+#: part F's gradient gate: the relative L2 of each rank's gradient slice
+#: against the one-card twin's same slice (chip_smoke.py's
+#: GRAD_REL_L2_TOL).
+GRAD_REL_L2_TOL = 5e-2
+#: |rank loss - twin loss| of F1's two SGD steps
+F_LOSS_TOL = 1e-2
+F_SEQ = 2048                  # F1, F2: tokens a row
+#: F1's SGD depth, of Llama-3-8B's 32: 32 layers took part F to 202 s
+#: against its 150 s budget (PERF.md §6)
+F1_LAYERS = 16
+F1_ADAMW_LAYERS = 4           # F1's AdamW depth (the f32 moments)
+F1_ADAMW_STEPS = 3
+F2_LAYERS = 2                 # of Mixtral-8x7B's 32, as slice_moe_train
+F2_CAPACITY = 1.25            # psum's capacity factor
+F3_LAYERS = 4                 # of Llama-3-8B's 32
+F3_SP_SEQ = 4096              # F3 sp=2 x tp=2: one row in two shards
+F3_PP_M, F3_PP_SEQ = 4, 1024  # F3 pp=2 x tp=2: 1F1B microbatches
+TRAIN_LR = 3e-4
+#: part F's rank groups: (part, mesh); F3 runs two meshes of 4 ranks
+F_GROUPS = (("f1", {"tp": 2}), ("f2", {"ep": 2}),
+            ("f3", {"sp": 2, "tp": 2}))
+
+
+def train_workload(tiny: bool) -> dict:
+    """Part F's configurations and token batches (``utils/data.py``'s
+    batches over a seeded corpus)."""
+    from tpushare_torch.models import convert, moe
+    from tpushare_torch.models import transformer as tt
+    from tpushare_torch.utils.data import batch_at
+    if tiny:
+        llama, mix = tt.tiny(), moe.tiny()
+        seq, f1_layers, f3_layers, sp_seq, pp_seq, f1_adamw = (
+            16, 2, 4, 32, 8, 2)
+    else:
+        llama = tt.llama3_8b()
+        mix = convert.moe_config_from_hf(argparse.Namespace(**MIXTRAL_8X7B))
+        seq, f1_layers, f3_layers, sp_seq, pp_seq, f1_adamw = (
+            F_SEQ, F1_LAYERS, F3_LAYERS, F3_SP_SEQ, F3_PP_SEQ,
+            F1_ADAMW_LAYERS)
+    corpus = np.random.default_rng(11).integers(
+        0, min(llama.vocab_size, mix.vocab_size), 16 * sp_seq).astype(
+            np.uint32)
+
+    def batch(step, b, s):
+        return batch_at(corpus, step, batch_size=b, seq_len=s, seed=11)
+    return {
+        "f1": {"cfg": dataclasses.replace(llama, n_layers=f1_layers,
+                                          remat=True),
+               "tokens": batch(0, 1, seq), "adamw_layers": f1_adamw,
+               # One batch, repeated: the loss must fall.
+               "fit": [batch(0, 1, seq)] * F1_ADAMW_STEPS},
+        # Remat off: one top-k a layer, the routes the ranks replay.
+        "f2": {"cfg": dataclasses.replace(mix, n_layers=F2_LAYERS,
+                                          remat=False),
+               "psum": batch(0, 1, seq), "a2a": batch(1, 2, seq)},
+        "f3": {"cfg": dataclasses.replace(llama, n_layers=f3_layers,
+                                          remat=True),
+               "sp": batch(0, 1, sp_seq), "pp": batch(1, F3_PP_M, pp_seq)},
+    }
+
+
+def train_routings(cfg):
+    """F2's routings: psum at capacity F2_CAPACITY (the batch replicated
+    over ep), a2a at E / top_k (ep a data axis, nothing dropped)."""
+    return [("psum", dataclasses.replace(cfg, routing="psum",
+                                         capacity_factor=F2_CAPACITY)),
+            ("a2a", dataclasses.replace(cfg, routing="a2a",
+                                        capacity_factor=a2a_capacity(cfg)))]
+
+
+class RouteLog:
+    """``moe.top_k_lower_index`` patched for the with-block: each call's
+    expert ids kept in order (one a layer of a forward, remat off), or,
+    with ``replay`` (another run's ids cut to this rank's rows), each
+    call routes to the ids replayed, its weights gathered from this
+    run's own router probabilities; ``flips`` counts the entries where
+    this run alone would have routed otherwise."""
+
+    def __init__(self, moe, replay=None):
+        self.moe, self.replay, self.ids, self.flips = moe, replay, [], 0
+
+    def top_k(self, probs, k):
+        vals, idx = self.orig(probs, k)
+        if self.replay is None:
+            self.ids.append(idx.detach().cpu())
+            return vals, idx
+        want = self.replay[len(self.ids)].to(idx.device)
+        self.ids.append(want)
+        self.flips += int((idx.sort(-1).values
+                           != want.sort(-1).values).sum())
+        return torch.gather(probs, -1, want), want
+
+    def __enter__(self):
+        self.orig = self.moe.top_k_lower_index
+        self.moe.top_k_lower_index = self.top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k_lower_index = self.orig
+
+
+def _leaves_bytes(tree) -> int:
+    from tpushare_torch.models.training import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _leaves_numel(tree) -> int:
+    from tpushare_torch.models.training import tree_leaves
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def _pairs(tokens, dev):
+    t = torch.as_tensor(np.asarray(tokens), device=dev)
+    return t[:, :-1], t[:, 1:]
+
+
+def _write_scratch(path: str, tree) -> int:
+    """``tree`` in the checkpoint file format at ``path`` (``checkpoint
+    .write``), with no fsync: scratch, read back at once and gone with
+    the run's directory. Returns the file's bytes."""
+    from tpushare_torch.utils import checkpoint
+    with open(path, "wb") as f:
+        checkpoint.write(f, tree)
+    return os.path.getsize(path)
+
+
+def _twin(out_dir: str, name: str, loss_fn, params, tokens, cfg, dev,
+          rec: dict, writer):
+    """One one-card gradient through the kernels: its loss, time and
+    launches; the gradient is written whole to ``<out_dir>/<name>``
+    (``_write_scratch``) on the ``writer`` thread while the next twin
+    computes, and the ranks read their slices of it by offset. Returns
+    the gradient."""
+    from tpushare_torch.models import training
+    inputs, targets = _pairs(tokens, dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    loss, grads = training.value_and_grad(loss_fn, params, inputs, targets,
+                                          cfg)
+    _sync(dev)
+    rec[name] = {"loss": float(loss), "s": time.perf_counter() - t0,
+                 "launches": read_launches(), **_memory(dev)}
+
+    def write():
+        t0 = time.perf_counter()
+        rec[name]["grad_bytes"] = _write_scratch(
+            os.path.join(out_dir, name), grads)
+        rec[name]["write_s"] = time.perf_counter() - t0
+    writer(write)
+    return grads
+
+
+def train_twins(args, tmp: str, wl: dict) -> dict:
+    """Part F's one-card oracles, run in this process before the ranks
+    start, each freed before the next: F1's gradient and the loss its
+    second SGD step starts from, F2's gradient under each routing with
+    the routes it took, F3's gradient of each batch."""
+    from concurrent.futures import ThreadPoolExecutor
+    from tpushare_torch import resolve_device
+    dev = resolve_device("cpu" if args.device == "cpu" else None)
+    rec: Dict[str, object] = {}
+    # One writer a twin's kind: the gradients go to the page cache side
+    # by side.
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        writes = []
+        _twins(tmp, wl, dev, rec,
+               lambda fn: writes.append(pool.submit(fn)))
+        for w in writes:
+            w.result()                    # a failed write raises here
+    # The gradients the writes held are free only now: hand their cached
+    # blocks back to the card before the ranks start.
+    _free(dev)
+    return rec
+
+
+def _twins(tmp: str, wl: dict, dev, rec: dict, writer) -> None:
+    from tpushare_torch.models import moe, training
+    from tpushare_torch.models import transformer as tt
+
+    def seeded(init, cfg, seed):
+        return init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                    device=dev)
+
+    f1 = wl["f1"]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = seeded(tt.init_params, f1["cfg"], 21)
+    g = _twin(tmp, "f1", training.xent_loss, params, f1["tokens"],
+              f1["cfg"], dev, rec, writer)
+    training._sgd_update(params, g, TRAIN_LR)
+    del g
+    with torch.no_grad():
+        rec["f1"]["loss_after_step"] = float(training.xent_loss(
+            params, *_pairs(f1["tokens"], dev), f1["cfg"]))
+    del params
+    _free(dev)
+
+    f2 = wl["f2"]
+    params = seeded(moe.init_params, f2["cfg"], 22)
+    for name, rcfg in train_routings(f2["cfg"]):
+        with RouteLog(moe) as log:
+            g = _twin(tmp, f"f2_{name}", moe.xent_loss, params, f2[name],
+                      rcfg, dev, rec, writer)
+        del g
+        torch.save(log.ids, os.path.join(tmp, f"f2_{name}_routes.pt"))
+        _free(dev)
+    del params
+    _free(dev)
+
+    f3 = wl["f3"]
+    params = seeded(tt.init_params, f3["cfg"], 23)
+    for name in ("sp", "pp"):
+        g = _twin(tmp, f"f3_{name}", training.xent_loss, params, f3[name],
+                  f3["cfg"], dev, rec, writer)
+        del g
+        _free(dev)
+    del params
+    _free(dev)
+
+
+def _nest(key: str, leaf):
+    out = leaf
+    for part in reversed(key.split("/")):
+        out = {part: out}
+    return out
+
+
+def _pick(tree, key: str):
+    for part in key.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def compare_slices(path: str, grads, specs, mesh) -> Dict[str, float]:
+    """The relative L2 of each of this rank's gradient slices against the
+    same slice of the twin's whole gradient at ``path``, read by offset
+    one leaf at a time (only the slice's bytes)."""
+    from tpushare_torch.utils import checkpoint
+    sp = dict(checkpoint.key_paths(specs))
+    out = {}
+    for key, g in checkpoint.key_paths(grads):
+        want = _pick(checkpoint.restore(
+            path, like=_nest(key, g), shardings=checkpoint.mesh_shardings(
+                _nest(key, sp[key]), mesh)), key).float()
+        out[key] = float((g.float() - want).norm()
+                         / want.norm().clamp_min(1e-30))
+        del want
+    return out
+
+
+def _digests_equal(training, params, specs, mesh) -> bool:
+    """Every rank of a tp group holds bit-equal replicated leaves."""
+    from tpushare_torch.parallel.mesh import mesh_layout
+    _, coords = mesh_layout(mesh)
+    key = tuple(v for ax, v in coords.items() if ax != "tp")
+    got = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(
+        got, (key, training.replicated_digest(params, specs)))
+    by: Dict[tuple, set] = {}
+    for k, d in got:
+        by.setdefault(tuple(k), set()).add(d)
+    return all(len(v) == 1 for v in by.values())
+
+
+def _f1(job, mesh, dev, wl) -> dict:
+    """F1 on this rank: Llama-3-8B over tp=2."""
+    from tpushare_torch.models import trainer, training
+    from tpushare_torch.models import transformer as tt
+    f1 = wl["f1"]
+    cfg = f1["cfg"]
+    tokens = torch.as_tensor(np.asarray(f1["tokens"]), device=dev)
+    step = training.make_spmd_train_step(cfg, mesh, lr=TRAIN_LR)
+    whole = tt.init_params(torch.Generator(device=dev).manual_seed(21), cfg,
+                           device=dev)
+    params = step.shard(whole)
+    del whole
+    _free(dev)
+    out: Dict[str, object] = {"param_bytes": _leaves_bytes(params)}
+    zero_launches()
+    t0 = time.perf_counter()
+    with ReduceClock(dev) as clock:
+        loss, grads = step.loss_and_grads(params, tokens)
+        _sync(dev)
+    out["grad_s"] = time.perf_counter() - t0
+    out["reduce_s"] = clock.s
+    out["launches"] = read_launches()
+    out["losses"] = [float(loss)]
+    t0 = time.perf_counter()
+    out["grad_rel_l2"] = compare_slices(os.path.join(job["tmp"], "f1"),
+                                        grads, step.specs, mesh)
+    out["compare_s"] = time.perf_counter() - t0
+    training._sgd_update(params, grads, TRAIN_LR)
+    del grads
+    t0 = time.perf_counter()
+    params, loss = step(params, tokens)
+    _sync(dev)
+    out["step_s"] = time.perf_counter() - t0
+    out["losses"].append(float(loss))
+    out["digests_equal"] = _digests_equal(training, params, step.specs, mesh)
+    out["memory"] = _memory(dev)
+    del params
+    _free(dev)
+    # AdamW at F1_ADAMW_LAYERS layers through trainer.fit: the moments
+    # shard like the params.
+    acfg = dataclasses.replace(cfg, n_layers=f1["adamw_layers"])
+    astep = training.make_adamw_spmd_train_step(acfg, mesh, lr=TRAIN_LR)
+    whole = tt.init_params(torch.Generator(device=dev).manual_seed(24), acfg,
+                           device=dev)
+    whole_numel, whole_bytes = _leaves_numel(whole), _leaves_bytes(whole)
+    params = astep.shard(whole)
+    del whole
+    state = training.adamw_init(params)
+    moments = _leaves_bytes({"mu": state["mu"], "nu": state["nu"]})
+    batches = [torch.as_tensor(np.asarray(b), device=dev) for b in f1["fit"]]
+    save = _CkptWatch(astep, dev)
+    t0 = time.perf_counter()
+    params, state, losses = trainer.fit(
+        astep, params, state, iter(batches), steps=len(batches),
+        log_every=0, ckpt_dir=os.path.join(job["tmp"], "f1_ckpt"),
+        ckpt_every=len(batches))
+    _sync(dev)
+    out["adamw"] = {"layers": acfg.n_layers, "losses":
+                    [float(x) for x in losses],
+                    "fit_s": time.perf_counter() - t0,
+                    "moment_bytes": moments,
+                    "slice_params": _leaves_numel(params),
+                    "whole_params": whole_numel,
+                    "whole_param_bytes": whole_bytes,
+                    "ckpt": dict(save.rec, whole_leaf_max=_whole_leaf_max(
+                        training, params, astep.specs, mesh))}
+    del params, state
+    _free(dev)
+    return out
+
+
+class _Sink:
+    """A binary file object that keeps only the count of bytes written."""
+
+    def __init__(self):
+        self.n = 0
+
+    def write(self, b) -> int:
+        self.n += memoryview(b).nbytes
+        return memoryview(b).nbytes
+
+
+class _CkptWatch:
+    """``step.save_state`` (``trainer.fit``'s checkpoint: its gathers and
+    its file's bytes, made leaf by leaf as ever) timed, with the card
+    memory it takes beyond the state already held: the peak allocated
+    during the save less what was allocated before it. The file goes to
+    a ``_Sink``, not the disk (``checkpoint.save`` patched for the
+    save): F1's AdamW state is 19.2 GB whole, and the machine's disk
+    takes 45 GiB of writes a run."""
+
+    def __init__(self, step, dev):
+        self.save, self.dev, self.rec = step.save_state, dev, {}
+        step.save_state = self
+
+    def __call__(self, path, params, opt_state, n):
+        from tpushare_torch.utils import checkpoint
+        _sync(self.dev)
+        cuda = self.dev.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            before = torch.cuda.memory_allocated(self.dev)
+        sink, save = _Sink(), checkpoint.save
+
+        def to_sink(path, tree):
+            checkpoint.write(sink, tree)
+            return sink.n
+        checkpoint.save = to_sink
+        t0 = time.perf_counter()
+        try:
+            size = self.save(path, params, opt_state, n)
+            _sync(self.dev)
+        finally:
+            checkpoint.save = save
+        self.rec = {"s": time.perf_counter() - t0, "file_bytes": size}
+        if cuda:
+            self.rec["peak_over_state"] = (
+                torch.cuda.max_memory_allocated(self.dev) - before)
+        return size
+
+
+def _whole_leaf_max(training, params, specs, mesh) -> int:
+    """The bytes of the largest leaf a checkpoint of (params, AdamW
+    moments) gathers whole: an f32 moment of the largest split param."""
+    from tpushare_torch.parallel.mesh import mesh_layout
+    from tpushare_torch.parallel.sharding import spec_axes, walk_specs
+    sizes, _ = mesh_layout(mesh)
+    split = walk_specs(params, specs, lambda t, spec: math.prod(
+        training._whole_shape(t, spec, sizes)) * 4
+        if spec_axes(spec) else 0)
+    return max(training.tree_leaves(split))
+
+
+def _f2(job, mesh, dev, wl) -> dict:
+    """F2 on this rank: Mixtral's width over ep=2, each routing's
+    gradient with the twin's routes replayed, then one SGD step."""
+    from tpushare_torch.models import moe, training
+    from tpushare_torch.parallel.mesh import axis_rank
+    f2 = wl["f2"]
+    r = axis_rank(mesh, "ep")
+    out: Dict[str, object] = {}
+    for name, rcfg in train_routings(f2["cfg"]):
+        step = moe.make_spmd_train_step(rcfg, mesh, lr=TRAIN_LR)
+        whole = moe.init_params(torch.Generator(device=dev).manual_seed(22),
+                                rcfg, device=dev)
+        params = step.shard(whole)
+        del whole
+        _free(dev)
+        routes = torch.load(os.path.join(job["tmp"], f"f2_{name}_routes.pt"))
+        if name == "a2a":          # this rank's row of the twin's batch
+            routes = [t[r:r + 1] for t in routes]
+        tokens = torch.as_tensor(np.asarray(f2[name]), device=dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        with RouteLog(moe, replay=routes) as log, ReduceClock(dev) as clock:
+            loss, grads = step.loss_and_grads(params, tokens)
+            _sync(dev)
+        rec = {"grad_s": time.perf_counter() - t0, "reduce_s": clock.s,
+               "launches": read_launches(), "loss": float(loss),
+               "route_flips": log.flips,
+               "routed": sum(int(t.numel()) for t in routes)}
+        t0 = time.perf_counter()
+        rec["grad_rel_l2"] = compare_slices(
+            os.path.join(job["tmp"], f"f2_{name}"), grads, step.specs, mesh)
+        rec["compare_s"] = time.perf_counter() - t0
+        training._sgd_update(params, grads, TRAIN_LR)
+        rec["finite"] = all(bool(torch.isfinite(t).all())
+                            for t in training.tree_leaves(params))
+        rec["digests_equal"] = _digests_equal(training, params, step.specs,
+                                              mesh)
+        rec["memory"] = _memory(dev)
+        out[name] = rec
+        del params, grads
+        _free(dev)
+    return out
+
+
+def _f3(job, dev, wl) -> dict:
+    """F3 on this rank: Llama-3-8B's width at F3_LAYERS layers over
+    sp=2 x tp=2 (ring attention) and pp=2 x tp=2 (1F1B), each a
+    gradient against the twin and one SGD step."""
+    from tpushare_torch.models import pipeline as pl
+    from tpushare_torch.models import training
+    from tpushare_torch.models import transformer as tt
+    from tpushare_torch.parallel.mesh import make_mesh
+    from tpushare_torch.parallel.sharding import shard_tree
+    f3 = wl["f3"]
+    cfg = f3["cfg"]
+    out: Dict[str, object] = {}
+    for name, sizes in (("sp", {"sp": 2, "tp": 2}), ("pp", {"pp": 2,
+                                                             "tp": 2})):
+        mesh = make_mesh(sizes)
+        tokens = torch.as_tensor(np.asarray(f3[name]), device=dev)
+        whole = tt.init_params(torch.Generator(device=dev).manual_seed(23),
+                               cfg, device=dev)
+        if name == "sp":
+            step = training.make_spmd_train_step(cfg, mesh, lr=TRAIN_LR)
+            specs = step.specs
+
+            def grad_fn(p):
+                return step.loss_and_grads(p, tokens)
+        else:
+            specs = pl.param_specs(cfg)
+
+            def grad_fn(p):
+                return pl.pp_loss_and_grads(p, tokens, cfg, mesh,
+                                            schedule="1f1b",
+                                            n_microbatches=F3_PP_M)
+        params = shard_tree(whole, specs, mesh)
+        del whole
+        _free(dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        with ReduceClock(dev) as clock:
+            loss, grads = grad_fn(params)
+            _sync(dev)
+        rec = {"grad_s": time.perf_counter() - t0, "reduce_s": clock.s,
+               "launches": read_launches(), "loss": float(loss)}
+        t0 = time.perf_counter()
+        rec["grad_rel_l2"] = compare_slices(
+            os.path.join(job["tmp"], f"f3_{name}"), grads, specs, mesh)
+        rec["compare_s"] = time.perf_counter() - t0
+        training._sgd_update(params, grads, TRAIN_LR)
+        rec["finite"] = all(bool(torch.isfinite(t).all())
+                            for t in training.tree_leaves(params))
+        rec["memory"] = _memory(dev)
+        out[name] = rec
+        del params, grads
+        _free(dev)
+    return out
+
+
+class ReduceClock:
+    """The host seconds (device synced on both sides) of every call to
+    the steps' gradient averaging over the data axes
+    (``training._mesh_mean``) and the pipelines' (``pipeline
+    .reduce_grads``), patched for the with-block: where the collectives
+    of a step go, beside its tp collectives inside the backward."""
+
+    def __init__(self, dev):
+        self.dev, self.s = dev, 0.0
+
+    def wrap(self, fn):
+        def timed(*a, **kw):
+            _sync(self.dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            _sync(self.dev)
+            self.s += time.perf_counter() - t0
+            return out
+        return timed
+
+    def __enter__(self):
+        from tpushare_torch.models import pipeline, training
+        self.saved = [(training, "_mesh_mean", training._mesh_mean),
+                      (pipeline, "reduce_grads", pipeline.reduce_grads)]
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self.wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def train_rank_main(args) -> None:
+    """One rank of a part F group, started before the twins run: imports,
+    then waits for its group's go file (holding no memory of the card),
+    joins the group's gloo mesh, runs its part and writes its record."""
+    with open(args.job) as f:
+        job = json.load(f)
+    r = args.rank
+    dev = torch.device("cpu")
+    if job["device"] == "cpu":
+        torch.set_num_threads(1)
+    else:
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    import datetime
+    from tpushare_torch.models import moe, pipeline, training  # noqa: F401
+    from tpushare_torch.parallel.mesh import make_mesh
+    go = os.path.join(job["tmp"], f"{job['part']}_go")
+    while not os.path.exists(go):
+        time.sleep(0.05)
+    world = int(np.prod(list(job["mesh"].values())))
+    torch.distributed.init_process_group(
+        "gloo", init_method=job["dist_init"], rank=r, world_size=world,
+        timeout=datetime.timedelta(seconds=INIT_TIMEOUT_S))
+    wl = train_workload(job["tiny"])
+    t0 = time.perf_counter()
+    if job["part"] == "f3":
+        rec = _f3(job, dev, wl)
+    else:
+        mesh = make_mesh(job["mesh"])
+        rec = (_f1 if job["part"] == "f1" else _f2)(job, mesh, dev, wl)
+    rec["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(job["tmp"], f"{job['part']}_rank{r}.json"),
+              "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+
+
+def _start_group(args, tmp: str, part: str, sizes: dict) -> List:
+    """Start one part F group's rank processes; they wait for the
+    group's go file (``_finish_group``)."""
+    from tpushare_torch.tools.binpack import child_env, free_port
+    world = int(np.prod(list(sizes.values())))
+    job = {"device": args.device, "tiny": args.tiny, "part": part,
+           "mesh": sizes, "tmp": tmp,
+           "dist_init": f"tcp://127.0.0.1:{free_port()}"}
+    path = os.path.join(tmp, f"{part}_job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    env = child_env()
+    if args.device == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+    procs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{part}_rank{r}.log"), "w") as lf:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "tpushare_torch.tools.multichip",
+                 "--train-worker", "--job", path, "--rank", str(r)],
+                env=env, stdout=lf, stderr=lf, text=True))
+    return procs
+
+
+def _finish_group(tmp: str, part: str, procs) -> List[dict]:
+    """Let one started group go, wait for its ranks to end; their
+    records."""
+    with open(os.path.join(tmp, f"{part}_go"), "w"):
+        pass
+    try:
+        for p in procs:
+            p.wait(INIT_TIMEOUT_S)
+    finally:
+        _stop(procs)
+    recs = []
+    for r in range(len(procs)):
+        fp = os.path.join(tmp, f"{part}_rank{r}.json")
+        if not os.path.exists(fp):
+            with open(os.path.join(tmp, f"{part}_rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            raise RuntimeError(f"part {part} rank {r} wrote no record (rc "
+                               f"{[p.returncode for p in procs]}): {tail}")
+        with open(fp) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _grad_gate(failures, what, rel: Dict[str, float]) -> float:
+    worst = max(rel.values())
+    if not worst <= GRAD_REL_L2_TOL:
+        bad = {k: v for k, v in rel.items() if not v <= GRAD_REL_L2_TOL}
+        failures.append(f"{what}: gradient slices vs the twin's {bad}")
+    return worst
+
+
+def train_gates(twin: dict, f1: List[dict], f2: List[dict], f3: List[dict],
+                cuda: bool) -> dict:
+    """Part F's readings and failures. ``cuda``: the launch gates (on
+    the CPU no kernel runs)."""
+    failures: List[str] = []
+    out: Dict[str, object] = {}
+    # F1
+    worst = max(_grad_gate(failures, f"F1 rank {i}", rk["grad_rel_l2"])
+                for i, rk in enumerate(f1))
+    want = [twin["f1"]["loss"], twin["f1"]["loss_after_step"]]
+    for i, rk in enumerate(f1):
+        if any(not abs(a - b) <= F_LOSS_TOL for a, b in zip(rk["losses"],
+                                                            want)):
+            failures.append(f"F1 rank {i}: losses {rk['losses']} vs the "
+                            f"twin's {want}")
+        if not rk["digests_equal"]:
+            failures.append(f"F1 rank {i}: replicated leaves differ across "
+                            f"tp")
+        ad = rk["adamw"]
+        if not (all(math.isfinite(x) for x in ad["losses"])
+                and ad["losses"][-1] < ad["losses"][0]):
+            failures.append(f"F1 rank {i}: AdamW losses {ad['losses']} did "
+                            f"not fall")
+        if ad["moment_bytes"] != 2 * 4 * ad["slice_params"]:
+            failures.append(f"F1 rank {i}: moments of {ad['moment_bytes']} "
+                            f"bytes are not two f32 copies of its "
+                            f"{ad['slice_params']} sliced params")
+        ck = ad["ckpt"]
+        # The whole state: the params, two f32 moments, the count and
+        # the step, and the header (under 1 MiB).
+        whole = ad["whole_param_bytes"] + ad["whole_params"] * 2 * 4 + 8
+        if i == 0 and not 0 < ck.get("file_bytes", 0) - whole < 1 << 20:
+            failures.append(f"F1: the AdamW checkpoint holds "
+                            f"{ck.get('file_bytes')} bytes, not the whole "
+                            f"state's {whole}")
+        # A save gathers one leaf at a time: its parts and their
+        # concatenation, two whole leaves at the most.
+        if cuda and not ck["peak_over_state"] <= 2 * ck["whole_leaf_max"]:
+            failures.append(f"F1 rank {i}: the checkpoint took "
+                            f"{ck['peak_over_state']} bytes of the card "
+                            f"beyond the state, over two whole leaves "
+                            f"({ck['whole_leaf_max']} bytes each)")
+    out["f1"] = {"grad_rel_l2_max": worst, "twin_losses": want,
+                 "losses": [rk["losses"] for rk in f1]}
+    # F2
+    for name in ("psum", "a2a"):
+        worst = max(_grad_gate(failures, f"F2 {name} rank {i}",
+                               rk[name]["grad_rel_l2"])
+                    for i, rk in enumerate(f2))
+        for i, rk in enumerate(f2):
+            if not (rk[name]["finite"] and rk[name]["digests_equal"]):
+                failures.append(f"F2 {name} rank {i}: a step left non-finite "
+                                f"or unequal replicated leaves")
+        losses = [rk[name]["loss"] for rk in f2]
+        if not abs(losses[0] - twin[f"f2_{name}"]["loss"]) <= F_LOSS_TOL:
+            failures.append(f"F2 {name}: loss {losses} vs the twin's "
+                            f"{twin[f'f2_{name}']['loss']}")
+        out[f"f2_{name}"] = {"grad_rel_l2_max": worst, "losses": losses,
+                             "route_flips": [rk[name]["route_flips"]
+                                             for rk in f2],
+                             "routed": f2[0][name]["routed"]}
+    # F3
+    for name in ("sp", "pp"):
+        worst = max(_grad_gate(failures, f"F3 {name} rank {i}",
+                               rk[name]["grad_rel_l2"])
+                    for i, rk in enumerate(f3))
+        losses = [rk[name]["loss"] for rk in f3]
+        if not abs(losses[0] - twin[f"f3_{name}"]["loss"]) <= F_LOSS_TOL:
+            failures.append(f"F3 {name}: loss {losses} vs the twin's "
+                            f"{twin[f'f3_{name}']['loss']}")
+        if not all(rk[name]["finite"] for rk in f3):
+            failures.append(f"F3 {name}: the SGD step left non-finite params")
+        out[f"f3_{name}"] = {"grad_rel_l2_max": worst, "losses": losses}
+    launches = {"f1": _sum([rk["launches"] for rk in f1]),
+                **{f"f2_{n}": _sum([rk[n]["launches"] for rk in f2])
+                   for n in ("psum", "a2a")},
+                **{f"f3_{n}": _sum([rk[n]["launches"] for rk in f3])
+                   for n in ("sp", "pp")}}
+    if cuda:
+        for part, names in TRAIN_NEEDS.items():
+            for n in names:
+                if launches[part].get(n, 0) <= 0:
+                    failures.append(f"F {part}: {n} was not launched on its "
+                                    f"ranks ({launches[part]})")
+    out["launches"] = launches
+    out["failures"] = failures
+    return out
+
+
+# The kernels each part F group must launch on its ranks. The SPMD
+# steps attend through ring attention over sp at every sp size, one hop
+# at sp 1, as the reference's do (a ParallelCtx naming sp); the
+# pipeline's stages take the prefill kernel at sp 1.
+TRAIN_NEEDS = {"f1": ("flash_attention_partial", "flash_attention_bwd"),
+               "f2_psum": ("flash_attention_partial", "flash_attention_bwd"),
+               "f2_a2a": ("flash_attention_partial", "flash_attention_bwd"),
+               "f3_sp": ("flash_attention_partial", "flash_attention_bwd"),
+               "f3_pp": ("flash_attention", "flash_attention_bwd")}
+
+
+def run_train(args, log=print) -> dict:
+    """Part F: the one-card twins, then each rank group in turn; the
+    record, with every gate's failures and each stage's seconds."""
+    t_all = time.perf_counter()
+    wl = train_workload(args.tiny)
+    rec: Dict[str, object] = {}
+    with tempfile.TemporaryDirectory(prefix="multichip-train-") as tmp:
+        # Every group's ranks start now and wait: their imports and the
+        # card's contexts overlap the twins.
+        started = {part: _start_group(args, tmp, part, sizes)
+                   for part, sizes in F_GROUPS}
+        try:
+            t0 = time.perf_counter()
+            twin = train_twins(args, tmp, wl)
+            rec["twin_s"] = time.perf_counter() - t0
+            groups = {}
+            for part, _ in F_GROUPS:
+                t0 = time.perf_counter()
+                groups[part] = _finish_group(tmp, part, started[part])
+                rec[f"{part}_s"] = time.perf_counter() - t0
+        finally:
+            for procs in started.values():
+                _stop(procs)
+    g = train_gates(twin, groups["f1"], groups["f2"], groups["f3"],
+                    args.device == "cuda")
+    rec.update(g, twin=twin, ranks={k: [{kk: vv for kk, vv in rk.items()
+                                         if "grad_rel_l2" not in kk}
+                                        for rk in v]
+                                    for k, v in groups.items()},
+               grad_rel_l2={k: [rk.get("grad_rel_l2") or {
+                   n: rk[n]["grad_rel_l2"] for n in rk
+                   if isinstance(rk[n], dict) and "grad_rel_l2" in rk[n]}
+                   for rk in v] for k, v in groups.items()},
+               seconds=time.perf_counter() - t_all)
+    log(json.dumps({"part": "F", **{k: v for k, v in rec.items()
+                                    if k != "grad_rel_l2"}}, default=str))
+    return rec
+
+
 def run(args, log=print, before_kill=None) -> dict:
     """Parts A to E and D; the record, with every gate's failures.
     ``before_kill`` (optional) is called once B and C's rank processes
@@ -1160,7 +1951,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--part", choices=("serve", "train"), default="serve",
+                    help="serve: parts A-E and D (BASELINE row 5); train: "
+                         "part F")
     ap.add_argument("--rank-worker", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--train-worker", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--small-tenant", action="store_true",
                     help=argparse.SUPPRESS)
@@ -1174,6 +1970,9 @@ def main(argv=None) -> int:
     if args.rank_worker:
         rank_main(args)
         return 0
+    if args.train_worker:
+        train_rank_main(args)
+        return 0
     if args.small_tenant:
         small_main(args)
         return 0
@@ -1181,8 +1980,11 @@ def main(argv=None) -> int:
         print("multichip: no CUDA card (pass --device cpu for the host "
               "run)", file=sys.stderr)
         return 2
-    record = run(args)
-    print(json.dumps(record, default=str))
+    if args.part == "train":
+        record = run_train(args)
+    else:
+        record = run(args)
+        print(json.dumps(record, default=str))
     return 1 if record["failures"] else 0
 
 

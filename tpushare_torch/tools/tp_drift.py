@@ -3,8 +3,8 @@ device. Two threads stand for the two ranks: each holds its
 ``transformer.param_specs`` slices, and the all-reduce sums rank 0's
 partial and rank 1's through a barrier (a two-rank sum, the same in
 either order). Both rank threads and the one-card forward run
-``transformer.forward`` over ``tools/multichip.py``'s eight Llama prompts
-from the same seeded weights, once with the row-parallel partials in f32
+``transformer.forward`` over ``tools/multichip.py``'s eight Llama prompts,
+at its part B's depth (``multichip.B_LAYERS``), from the same seeded weights, once with the row-parallel partials in f32
 (``transformer.tp_matmul``, what the port serves) and once with each
 partial rounded to bf16 before the sum.
 

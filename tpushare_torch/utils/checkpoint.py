@@ -18,10 +18,11 @@ states round-trip). The header is padded with spaces to a multiple of
 8 bytes. Nothing here imports the ``safetensors`` package; a file
 written here is one ``safetensors.torch.load_file`` reads.
 
-``save`` streams the leaves into ``<path>.tmp.<pid>``, fsyncs it and
-renames it into place (``utils/atomicio.py``'s pattern; its directory
-fsync), so a reader never sees a torn checkpoint. ``restore`` reads a
-leaf at a time.
+``write`` streams the leaves into an open file, a ``Pending`` leaf made
+only when its turn comes and dropped once written; ``save`` writes
+``<path>.tmp.<pid>`` so, fsyncs it and renames it into place
+(``utils/atomicio.py``'s pattern; its directory fsync), so a reader
+never sees a torn checkpoint. ``restore`` reads a leaf at a time.
 
 Cross-mesh restore (the reference's ``restore(shardings=)``) reads one
 rank's slice of each leaf of a tree saved whole:
@@ -46,9 +47,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import struct
-from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -106,13 +109,26 @@ class MeshShard:
 
 
 def mesh_shardings(specs: Any, mesh) -> Any:
-    """The ``restore(shardings=)`` tree of ``mesh``'s rank for a spec
-    tree (``transformer.param_specs`` and its kin)."""
-    sizes = tuple(sorted(mesh.sizes.items()))
-    coords = tuple(sorted(mesh.coords(mesh.rank or 0).items()))
-    if isinstance(specs, Mapping):
-        return {k: mesh_shardings(v, mesh) for k, v in specs.items()}
-    return MeshShard(tuple(specs or ()), sizes, coords)
+    """The ``restore(shardings=)`` tree of ``mesh``'s rank (a serving
+    mesh or a training DeviceMesh) for a spec tree
+    (``transformer.param_specs`` and its kin, ``training
+    .opt_state_specs``)."""
+    from tpushare_torch.parallel.mesh import mesh_layout
+    return shardings_at(specs, *mesh_layout(mesh))
+
+
+def shardings_at(specs: Any, sizes: Mapping[str, int],
+                 coords: Mapping[str, int]) -> Any:
+    """``mesh_shardings`` for the rank at ``coords`` of a mesh of axis
+    ``sizes`` (no process group needed)."""
+    sz = tuple(sorted(sizes.items()))
+    co = tuple(sorted(coords.items()))
+
+    def build(node):
+        if isinstance(node, Mapping):
+            return {k: build(v) for k, v in node.items()}
+        return MeshShard(tuple(node or ()), sz, co)
+    return build(specs)
 
 
 def _shard_at(shardings: Any, parts: List[str]):
@@ -167,19 +183,33 @@ def _skeleton(tree: Any) -> Any:
             for k, v in tree.items()}
 
 
-def _as_tensor(leaf: Any) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class Pending:
+    """A leaf of ``write``'s tree that is made only when its bytes are
+    due: ``shape`` and ``dtype`` go into the header, ``make()`` gives the
+    tensor (no gradient), which is dropped once written (a sharded
+    state's whole leaves, gathered one at a time:
+    ``training.save_sharded``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    make: Callable[[], torch.Tensor]
+
+
+def _as_tensor(leaf: Any) -> Union[torch.Tensor, Pending]:
+    if isinstance(leaf, Pending):
+        return leaf
     if isinstance(leaf, torch.Tensor):
         return leaf.detach()
     return torch.as_tensor(np.asarray(leaf))
 
 
-def _header(entries: List[Tuple[str, torch.Tensor]], skeleton) -> bytes:
+def _header(entries: List[Tuple[str, Any]], skeleton) -> bytes:
     header: Dict[str, Any] = {"__metadata__": {"tree": json.dumps(skeleton)}}
     off = 0
     for key, t in entries:
         if t.dtype not in _DTYPES:
             raise ValueError(f"{key}: no safetensors dtype for {t.dtype}")
-        n = t.numel() * t.element_size()
+        n = math.prod(t.shape) * t.dtype.itemsize
         header[key] = {"dtype": _DTYPES[t.dtype], "shape": list(t.shape),
                        "data_offsets": [off, off + n]}
         off += n
@@ -187,36 +217,59 @@ def _header(entries: List[Tuple[str, torch.Tensor]], skeleton) -> bytes:
     return raw + b" " * (-len(raw) % 8)
 
 
-def _write_leaf(f, t: torch.Tensor) -> None:
-    """Write a tensor's bytes (little-endian, row-major), copying at most
-    ``_CHUNK`` bytes to the host at a time."""
+def _write_leaf(f, t: torch.Tensor,
+                stage: Optional[torch.Tensor] = None) -> None:
+    """Write a tensor's bytes (little-endian, row-major), at most
+    ``_CHUNK`` bytes at a time; a card's tensor through ``stage``, a
+    pinned host buffer of ``_CHUNK`` bytes reused from chunk to chunk."""
     flat = t.contiguous().reshape(-1)
     if flat.dtype == torch.bool:
         flat = flat.to(torch.uint8)
-    per = max(1, _CHUNK // max(1, flat.element_size()))
-    for i in range(0, flat.numel(), per):
-        part = flat[i:i + per].cpu().view(torch.uint8)
+    flat = flat.view(torch.uint8)
+    for i in range(0, flat.numel(), _CHUNK):
+        part = flat[i:i + _CHUNK]
+        if part.is_cuda:
+            part = stage[:part.numel()].copy_(part)
         f.write(memoryview(part.numpy()))
+
+
+def write(f, tree: Any) -> None:
+    """Write the file of a nested dict of tensors and ``Pending`` leaves
+    (the layout above) to the binary file object ``f``: the header, then
+    each leaf's bytes in key order, a ``Pending`` leaf made just before
+    its bytes and dropped after them."""
+    entries = [(k, _as_tensor(v)) for k, v in key_paths(tree)]
+    header = _header(entries, _skeleton(tree))
+    f.write(struct.pack("<Q", len(header)))
+    f.write(header)
+    stage = None
+    for key, t in entries:
+        if isinstance(t, Pending):
+            want = (tuple(t.shape), t.dtype)
+            t = t.make()
+            if (tuple(t.shape), t.dtype) != want:
+                raise ValueError(f"{key}: made {tuple(t.shape)} "
+                                 f"{t.dtype}, declared {want}")
+        if t.is_cuda and stage is None:
+            stage = torch.empty(_CHUNK, dtype=torch.uint8, pin_memory=True)
+        _write_leaf(f, t, stage)
+        del t
 
 
 def save(path: str, tree: Any, *, overwrite: bool = True) -> int:
     """Write a nested dict of tensors (params, optimizer state, 0-d
-    leaves such as ``step``) to the file ``path``. An existing ``path``
-    is replaced when ``overwrite``, else ``ValueError`` (the reference's
-    orbax refusal). Returns the file's size in bytes."""
+    leaves such as ``step``; ``Pending`` leaves) to the file ``path``
+    (``write``). An existing ``path`` is replaced when ``overwrite``,
+    else ``ValueError`` (the reference's orbax refusal). Returns the
+    file's size in bytes."""
     path = os.path.abspath(path)
     if os.path.exists(path) and not overwrite:
         raise ValueError(f"Destination {path} already exists.")
-    entries = [(k, _as_tensor(v)) for k, v in key_paths(tree)]
-    header = _header(entries, _skeleton(tree))
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
-            f.write(struct.pack("<Q", len(header)))
-            f.write(header)
-            for _, t in entries:
-                _write_leaf(f, t)
+            write(f, tree)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -283,7 +336,9 @@ def _read_block(path: str, base: int, info: Dict[str, Any],
             parts, idx = 1, 0
         index.append(slice(idx * local[d], (idx + 1) * local[d])
                      if parts > 1 else slice(None))
-    block = torch.from_numpy(np.ascontiguousarray(mm[tuple(index)]))
+    # A copy: a block that is already contiguous (a split of the first
+    # dimension) would otherwise stay a view of the read-only map.
+    block = torch.from_numpy(np.array(mm[tuple(index)], copy=True))
     del mm
     t = block.to(torch.bool) if stored == torch.bool else block.view(stored)
     return t.to(device=device, dtype=dtype or stored)
