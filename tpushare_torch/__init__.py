@@ -17,15 +17,17 @@ from __future__ import annotations
 
 from typing import Union
 
-import torch
+# torch is imported on first use, not here: the static-analysis gate
+# (tpushare_torch.analysis) imports this package and needs only the
+# standard library.
+DeviceLike = Union[str, "torch.device", None]
 
-DeviceLike = Union[str, torch.device, None]
 
-
-def resolve_device(device: DeviceLike = None) -> torch.device:
+def resolve_device(device: DeviceLike = None) -> "torch.device":
     """The device an entry point runs on: ``device`` when given, else
     the first CUDA card. Raises when no device was given and CUDA is
     absent, so a missing card can never turn into a quiet CPU run."""
+    import torch
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():

@@ -148,10 +148,32 @@ from tpushare_torch.slo import (DEFAULT_TIER, KvQuota, TickScheduler,
                                 tier_rank)
 from tpushare_torch.utils import ownership as _ownership
 
+# Machine-readable cross-class ownership contracts, read by the static
+# gate (tpushare_torch/analysis/threads.py) beside the inline
+# `# tpushare: owner[...]` declarations. The engine/supervisor pair is
+# SERIALIZED, not concurrent: the supervisor touches engine-owned state
+# only after _join_or_watchdog observes the engine thread dead (or
+# abandons a wedged generation), the handover _adopt_ownership makes at
+# run time, so its writes to owned fields (draining, quarantine, the
+# reshard between generations) are sanctioned. KvQuota and TierStats
+# are owned by the engine that charges them; their snapshot() methods
+# are the one sanctioned cross-thread reader each, held to the one-site
+# atomic-copy discipline by TO902.
+TPUSHARE_OWNERSHIP = {
+    "owners": {"KvQuota.used": "engine"},
+    "readers": ["KvQuota.snapshot", "TierStats.snapshot"],
+    "serialized": [["engine", "supervisor"]],
+}
+
 
 def _mesh_axes(mesh):
     from tpushare_torch.models.serving import mesh_axes
     return mesh_axes(mesh)
+
+
+# The gang liaison's watch loop prints a failed poll at most once in
+# this many seconds (each printed line gives the count so far).
+LIAISON_LOG_INTERVAL_S = 30.0
 
 
 # Words of a collective's transport error (a dead or departed peer):
@@ -715,6 +737,9 @@ class ServeEngine:
         # while a tick may be blocked in a collective, by a liaison
         # thread of its own.
         self._gang = gang
+        # Failed polls of the liaison thread (/stats keeps the
+        # reference's keys; the count is in each printed line).
+        self._liaison_errors = 0
         if gang is not None and (self._topo is None
                                  or self._topo.num_processes < 2):
             raise ValueError(
@@ -2799,10 +2824,22 @@ class ServeEngine:
         may be blocked in a collective with the lost host's ranks; over
         NCCL, abort the generation's communicators so that collective
         ends with an error (gloo raises on a closed peer by itself)."""
+        last_log = None
         while not self._stop.wait(0.1):
             try:
                 lost = self._poll_gang()
-            except Exception:           # noqa: BLE001 — keep watching
+            except Exception as e:      # noqa: BLE001 — keep watching
+                # Never silent: over NCCL this loop is what ends a
+                # collective blocked on a lost host. Count every failed
+                # poll; print the first, then one per interval.
+                self._liaison_errors += 1
+                now = time.monotonic()
+                if last_log is None or \
+                        now - last_log >= LIAISON_LOG_INTERVAL_S:
+                    last_log = now
+                    print(f"tpushare-torch-serve: gang liaison poll "
+                          f"failed ({self._liaison_errors} so far): "
+                          f"{e!r}", file=sys.stderr, flush=True)
                 continue
             mesh = self._mesh
             if lost and self._mesh_fault is not None and \

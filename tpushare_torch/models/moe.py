@@ -1288,7 +1288,7 @@ class MoESlotServer(SpecDecodeMixin, SlotServer):
         nxt = self._sampler.pick(st["last"])[0]
         self._activate(slot, nxt, S)
         self.device_fetches += 1
-        return int(nxt.item())
+        return int(nxt.item())  # tpushare: ignore[TS103] the one token fetch
 
     def step_async(self, prefill_work: Optional[int] = None,
                    max_chunk_tokens: Optional[int] = None) -> PendingStep:
@@ -1396,7 +1396,7 @@ class MoESlotServer(SpecDecodeMixin, SlotServer):
 
         def _finalize(invalid):
             self.device_fetches += 1
-            toks_h = fetch.tolist()
+            toks_h = fetch.tolist()  # tpushare: ignore[TS103] the one token fetch
             out: Dict[int, int] = {s: toks_h[s] for s in decode_slots
                                    if s not in invalid}
             if final and slot not in invalid:

@@ -1066,7 +1066,7 @@ class PagedSlotServer(SpecDecodeMixin):
         self.active[slot] = True
         self._sync_active()
         self.device_fetches += 1
-        tok = int(nxt.item())
+        tok = int(nxt.item())  # tpushare: ignore[TS103] the one token fetch
         if tier is not None:
             tier.estimator.observe_prefill(
                 end - done0, time.perf_counter() - t0)
@@ -1246,7 +1246,7 @@ class PagedSlotServer(SpecDecodeMixin):
 
         def _finalize(invalid):
             self.device_fetches += 1
-            toks = nxt.tolist()
+            toks = nxt.tolist()  # tpushare: ignore[TS103] the one token fetch
             return {s: toks[s] for s in slots if s not in invalid}
 
         return PendingStep(_finalize, slots=slots)
@@ -1325,7 +1325,7 @@ class PagedSlotServer(SpecDecodeMixin):
 
         def _finalize(invalid):
             self.device_fetches += 1
-            toks_h = fetch.tolist()
+            toks_h = fetch.tolist()  # tpushare: ignore[TS103] the one token fetch
             out: Dict[int, int] = {s: toks_h[s] for s in decode_slots
                                    if s not in invalid}
             if final and slot not in invalid:

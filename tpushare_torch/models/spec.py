@@ -272,7 +272,7 @@ class SpecDecodeMixin:
 
         def _finalize(invalid):
             self.device_fetches += 1
-            rows = packed.tolist()
+            rows = packed.tolist()  # tpushare: ignore[TS103] the one token fetch
             lnp = self._spec_host_lengths()
             out: Dict[int, list] = {}
             retired = False

@@ -268,7 +268,7 @@ def save(path: str, tree: Any, *, overwrite: bool = True) -> int:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
-        with open(tmp, "wb") as f:
+        with open(tmp, "wb") as f:  # tpushare: ignore[RL403] tmp, fsync, replace
             write(f, tree)
             f.flush()
             os.fsync(f.fileno())

@@ -44,18 +44,23 @@ import threading
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
-ENV_NVIDIA_VISIBLE_DEVICES = "NVIDIA_VISIBLE_DEVICES"
-ENV_TPU_VISIBLE_CHIPS = "TPU_VISIBLE_CHIPS"
-ENV_TPU_VISIBLE_DEVICES = "TPU_VISIBLE_DEVICES"
-ENV_RESOURCE_INDEX = "ALIYUN_COM_TPU_MEM_IDX"
-ENV_RESOURCE_BY_POD = "ALIYUN_COM_TPU_MEM_POD"
-ENV_RESOURCE_BY_CONTAINER = "ALIYUN_COM_TPU_MEM_CONTAINER"
-ENV_RESOURCE_BY_DEV = "ALIYUN_COM_TPU_MEM_DEV"
-ENV_HBM_LIMIT_BYTES = "TPUSHARE_HBM_LIMIT_BYTES"
-ENV_HBM_ENFORCE = "TPUSHARE_HBM_ENFORCE"
-ENV_DISABLE_ISOLATION = "CTPU_DISABLE"
-ENV_KV_BLOCK_RESERVE = "TPUSHARE_KV_BLOCK_RESERVE"
-ENV_KV_BLOCK_LIMIT = "TPUSHARE_KV_BLOCK_LIMIT"
+from tpushare_torch.plugin import const
+
+# The env the plugin's Allocate injects, by the plugin's own names: the
+# wire contract has one home (plugin/const.py), so a renamed variable
+# cannot reach the daemon and miss the tenant.
+ENV_NVIDIA_VISIBLE_DEVICES = const.ENV_NVIDIA_VISIBLE_DEVICES
+ENV_TPU_VISIBLE_CHIPS = const.ENV_TPU_VISIBLE_CHIPS
+ENV_TPU_VISIBLE_DEVICES = const.ENV_TPU_VISIBLE_DEVICES
+ENV_RESOURCE_INDEX = const.ENV_RESOURCE_INDEX
+ENV_RESOURCE_BY_POD = const.ENV_RESOURCE_BY_POD
+ENV_RESOURCE_BY_CONTAINER = const.ENV_RESOURCE_BY_CONTAINER
+ENV_RESOURCE_BY_DEV = const.ENV_RESOURCE_BY_DEV
+ENV_HBM_LIMIT_BYTES = const.ENV_HBM_LIMIT_BYTES
+ENV_HBM_ENFORCE = const.ENV_HBM_ENFORCE
+ENV_DISABLE_ISOLATION = const.ENV_DISABLE_ISOLATION
+ENV_KV_BLOCK_RESERVE = const.ENV_KV_BLOCK_RESERVE
+ENV_KV_BLOCK_LIMIT = const.ENV_KV_BLOCK_LIMIT
 ENV_CUDA_VISIBLE_DEVICES = "CUDA_VISIBLE_DEVICES"
 
 log = logging.getLogger("tpushare.tenant")
