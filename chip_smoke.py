@@ -56,6 +56,16 @@ Phases, one JSON line each, each with its own seconds:
           warms cuBLAS and the allocator first. A second server on the
           same weights with attn_impl="reference" checks the logits of
           every admission (both waves) and of each wave's first tick.
+          Then the measurement layer (tpushare_torch/utils/profiling.py)
+          on a third server on the same weights and wave-1 prompts:
+          time_step_chained over paged.paged_decode_step with a greedy
+          pick (k_lo 4, k_hi 12: must read credible), the decode tick's
+          bandwidth_utilization (quant.param_bytes + the live KV read +
+          the row writes over the profiled device ms per tick; a share
+          above 1.05 fails as a miscount), and one
+          tick under profiling.trace into chip_smoke_out/, whose
+          exported trace must hold a CUDA kernel event of the decode
+          walk (decode_tile.cuh's split_kernel).
   slice_engine
           the serving engine (tpushare_torch/cli/serve.py) built by
           build_engine(build_parser().parse_args(argv)), the argv a pod
@@ -213,7 +223,16 @@ Phases, one JSON line each, each with its own seconds:
           server's expert choices, holds the logits of every admission,
           the first fused tick and the first decode tick; beside each
           reading, the share of real (token, layer) pairs where the twin
-          alone would have chosen another expert set.
+          alone would have chosen another expert set. After (b), its
+          phase roofline: a paged server on the same int8 tree with a
+          PhaseTimer on its forward (measurement mode: a drain at every
+          phase mark) admits the 4 whole prompts, runs 2 decode ticks,
+          MOE_UNDRAINED_TICKS profiled with the timer not started (the
+          undrained tick's device time, top kernels and idle share),
+          then MOE_PHASE_TICKS timed ones; profiling.phase_roofline
+          against moe.decode_phase_bytes (weights at their stored
+          widths + the live KV). Gates: the fractions sum to 1 +- 0.01,
+          no phase above 105% of its roofline, expert_gemm has one.
   slice_moe_spec
           MoE int8-self speculation at Mixtral-8x7B's full width, depth
           cut to 6 of 32 layers (12 until PR 15's time cut; a bf16
@@ -255,7 +274,11 @@ Phases, one JSON line each, each with its own seconds:
           leaf against autograd through mha_reference (attn_impl
           "reference") by relative L2. Then one sgd_train_step without a
           mesh, and trainer.fit of make_adamw_spmd_train_step for 4 steps
-          (the loss must fall), one more step under torch.profiler.
+          (the loss must fall; log_every 2 with flops_per_step =
+          profiling.transformer_flops(cfg, 1, 8192, training=True): its
+          second line must carry MFU, recorded beside profiling.mfu over
+          the steady step ms, against the card's peak), one more step
+          under torch.profiler.
           The kernels phase adds, for these two kernels: (a) the slice's
           attention layer (S 8192, 8/4 heads, head_dim 256, softcap 50,
           window 4096 and global) and (b) a 4-hop ring in Llama-3-8B
@@ -536,9 +559,6 @@ GRAD_REL_L2_TOL = 5e-2
 TRAIN_SEQ = 8192              # slice_train's sequence (past the 4096 window)
 TRAIN_LR = 3e-4
 
-H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (H100 SXM)
-H100_HBM_BYTES_S = 3.35e12    # HBM3 rate (H100 SXM)
-
 
 def mean(xs):
     return sum(xs) / len(xs)
@@ -811,9 +831,26 @@ def causal_pairs(Sq, Sk, q_offset, window):
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
+@functools.lru_cache(maxsize=None)
+def card_peaks():
+    """(key, dense bf16 FLOP/s, HBM bytes/s) of this card from the
+    port's peak tables (``tpushare_torch/utils/profiling.py``); a card
+    the tables do not hold fails the run rather than borrow another
+    card's peaks."""
+    import torch
+    from tpushare_torch.utils import profiling
+    key = profiling.card_key()
+    if key is None:
+        raise AssertionError(f"no published peaks for "
+                             f"{torch.cuda.get_device_name(0)!r} in "
+                             f"tpushare_torch/utils/profiling.py")
+    return key, profiling.PEAK_FLOPS[key], profiling.HBM_BANDWIDTH[key]
+
+
 def bound(flops, nbytes):
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_HBM_BYTES_S * 1e3
+    _, peak_flops, peak_bytes_s = card_peaks()
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes / peak_bytes_s * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -1867,6 +1904,28 @@ def ring_cases(fa, ring, F, torch, dev, flush, failures, n, Sc, H, Hkv,
         emit(row)
         rows.append(row)
     return rows
+
+
+class LogLines:
+    """The messages one logger emits at INFO and above inside the
+    block (the logger's level is lowered to INFO meanwhile)."""
+
+    def __init__(self, name):
+        import logging
+        self.logger, self.lines = logging.getLogger(name), []
+        self.handler = logging.Handler(logging.INFO)
+        self.handler.emit = lambda rec: self.lines.append(rec.getMessage())
+
+    def __enter__(self):
+        import logging
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
 
 
 class StepClock:
@@ -3201,9 +3260,7 @@ def slice_moe_spec(torch, np, moe, paged, quant, q8, mcfg, dev, card,
     qparams = quant.quantize_params(params, cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    weight_bytes = {name: sum(t.numel() * t.element_size() for t in
-                              [tree["embed"], tree["unembed"],
-                               *tree["layers"].values()])
+    weight_bytes = {name: quant.param_bytes(tree)
                     for name, tree in (("target", params),
                                        ("draft", qparams))}
     launches = {}
@@ -3398,6 +3455,7 @@ def slice_moe_train(torch, np, moe, mcfg, dev, card, run_path, no_launch,
     trainer = importlib.import_module("tpushare_torch.models.trainer")
     training = importlib.import_module("tpushare_torch.models.training")
     pmesh = importlib.import_module("tpushare_torch.parallel.mesh")
+    quant = importlib.import_module("tpushare_torch.models.quant")
     cfg = dataclasses.replace(mcfg, n_layers=MT_LAYERS)
     L = cfg.n_layers
     t0 = time.perf_counter()
@@ -3407,8 +3465,7 @@ def slice_moe_train(torch, np, moe, mcfg, dev, card, run_path, no_launch,
         0, cfg.vocab_size, (1, MT_SEQ + 1)), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    param_bytes = sum(t.numel() * t.element_size()
-                      for t in training.tree_leaves(params))
+    param_bytes = quant.param_bytes(params)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     twins, launches = {}, {}
     for name, routing, factor in MT_ROUTINGS:
@@ -4807,6 +4864,151 @@ def slice_plugin(failures, card):
     return launches
 
 
+#: where ``slice``'s trace is written (git-ignored, inside the checkout)
+MEASURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chip_smoke_out")
+CHAIN_K = (4, 12)                # slice's time_step_chained k_lo, k_hi
+BW_TICKS = 4                     # slice's profiled ticks for its bandwidth
+MOE_PHASE_TICKS = 8              # slice_moe's timed phase-roofline ticks
+MOE_UNDRAINED_TICKS = 2          # ... and its profiled undrained ticks
+
+
+def slice_measure(torch, np, paged, quant, cfg, params, prompts, failures,
+                  card):
+    """``slice``'s measurement half: the port's measurement layer
+    (``tpushare_torch/utils/profiling.py``) on Gemma-2B's decode tick,
+    over a server on the slice's weights and wave-1 prompts (all 8
+    slots active). Returns its record; gate breaches go to
+    ``failures``."""
+    from tpushare_torch.utils import profiling
+    key, _, _ = card_peaks()
+    srv = paged.PagedSlotServer(params, cfg, n_slots=len(prompts),
+                                n_blocks=1024, block_size=16)
+    for p in prompts:
+        srv.admit(p)
+    for _ in range(2):
+        srv.step()
+    c = srv.cache
+    # K and V of one position in one layer, at the pool's width.
+    L = cfg.n_layers
+    row = 2 * cfg.n_kv_heads * cfg.head_dim * cfg.dtype.itemsize
+    w_bytes = quant.param_bytes(params)
+
+    def tick_bytes():
+        """Weights read once, each active slot's live rows read (its new
+        row included), its new row written."""
+        live = c.host_lengths()[srv.active] + 1
+        return w_bytes + (int(live.sum()) + len(live)) * L * row
+
+    # (1) The decode step chained on its own greedy picks: one scalar
+    # read per chain (all slots active: the step neither reads nor
+    # uploads its mask).
+    if not srv.active.all():
+        raise AssertionError("slice_measure: a slot is not decoding")
+
+    def step(tok, params_):
+        for s in range(c.n_slots):
+            paged.grow_if_needed(c, s)
+        logits, _ = paged.paged_decode_step(params_, tok, cfg, c)
+        return logits[:, -1].argmax(-1, keepdim=True).to(tok.dtype)
+
+    t0 = time.perf_counter()
+    chained_s, credible = profiling.time_step_chained(
+        step, srv.last_token.clone(), params, k_lo=CHAIN_K[0],
+        k_hi=CHAIN_K[1], iters=3)
+    chain_wall_s = time.perf_counter() - t0
+    if not credible:
+        failures.append(f"slice: time_step_chained over the decode step "
+                        f"read {chained_s * 1e3:.3f} ms, not credible")
+    # (2) The server's tick against the HBM roofline.
+    n_bytes = []
+    with DeviceProfile(BW_TICKS) as prof:
+        for _ in range(BW_TICKS):
+            n_bytes.append(tick_bytes())
+            srv.step()
+    dev_s = prof.stats["device_ms_per_tick"] / 1e3
+    bw = profiling.bandwidth_utilization(mean(n_bytes), dev_s, key)
+    if bw is None:
+        failures.append("slice: no bandwidth share of the decode tick")
+    elif bw > 1.05:
+        failures.append(f"slice: the decode tick's bandwidth share {bw} "
+                        f"is above the card's peak (bytes or device time "
+                        f"miscounted)")
+    # (3) One tick under profiling.trace: its Chrome trace must show the
+    # port's decode walk running on the card.
+    with profiling.trace(MEASURE_DIR) as path:
+        srv.step()
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = sorted({e.get("name", "") for e in events
+                      if e.get("cat") == "kernel"})
+    walk = [k for k in kernels if "split_kernel" in k]
+    if not walk:
+        failures.append(f"slice: the trace {path} holds no CUDA kernel "
+                        f"event of the decode walk: {kernels[:20]}")
+    del srv
+    torch.cuda.empty_cache()
+    return {"peak_key": key, "chained_ms": chained_s * 1e3,
+            "chained_credible": credible, "chain_k": list(CHAIN_K),
+            "chain_wall_s": chain_wall_s,
+            "tick_bytes": mean(n_bytes), "param_bytes": w_bytes,
+            "device_ms_per_tick": dev_s * 1e3,
+            "wall_ms_per_tick": prof.stats["wall_ms_per_tick"],
+            "bandwidth_utilization": bw, "trace": os.path.relpath(path),
+            "trace_kernels": len(kernels), "trace_walk": walk[:2],
+            "card": card}
+
+
+def moe_phase_window(torch, moe, paged, quant, cfg, params, prompts,
+                     failures, card):
+    """``slice_moe``'s phase roofline (see the module docstring). Returns
+    its record; gate breaches go to ``failures``."""
+    from tpushare_torch.utils import profiling
+    key, _, _ = card_peaks()
+    pt = profiling.PhaseTimer()
+    srv = paged.PagedSlotServer(
+        params, cfg, n_slots=len(prompts), n_blocks=256, block_size=16,
+        max_blocks_per_slot=128, layers_hook=quant.fused_expert_hook(cfg),
+        forward_fn=functools.partial(moe.paged_forward, phase_timer=pt))
+    for p in prompts:
+        srv.admit(p)
+    for _ in range(2):
+        srv.step()
+    # The same batch's undrained ticks first (the timer is not started,
+    # so its marks are no-ops): the card's busy time and idle share
+    # beside the drained split below.
+    undrained = profile_ticks(srv, MOE_UNDRAINED_TICKS)
+    kv_tokens = []
+    t0 = time.perf_counter()
+    for _ in range(MOE_PHASE_TICKS):
+        kv_tokens.append(int((srv.cache.host_lengths()[srv.active]
+                              + 1).sum()))
+        pt.start()                      # the forward's marks close spans
+        srv.step()
+    window_s = time.perf_counter() - t0
+    snap = pt.snapshot()
+    rows = profiling.phase_roofline(
+        snap, moe.decode_phase_bytes(cfg, params, round(mean(kv_tokens))),
+        MOE_PHASE_TICKS, key)
+    del srv
+    torch.cuda.empty_cache()
+    frac = sum(r["fraction"] for r in rows.values())
+    if abs(frac - 1.0) > 0.01:
+        failures.append(f"slice_moe phase roofline: fractions sum to "
+                        f"{frac}")
+    over = {ph: r["pct_of_roofline"] for ph, r in rows.items()
+            if (r["pct_of_roofline"] or 0) > 105}
+    if over:
+        failures.append(f"slice_moe phase roofline above 105%: {over}")
+    if rows.get("expert_gemm", {}).get("pct_of_roofline") is None:
+        failures.append(f"slice_moe phase roofline: expert_gemm has no "
+                        f"share: {rows.get('expert_gemm')}")
+    return {"peak_key": key, "ticks": MOE_PHASE_TICKS,
+            "slots": len(prompts), "kv_tokens": kv_tokens,
+            "window_s": window_s, "fraction_sum": frac, "rows": rows,
+            "undrained": undrained, "card": card}
+
+
 def main() -> int:
     # A crash in native code (the card's driver, a kernel, NVML) leaves
     # every thread's Python stack on stderr, here and in the processes
@@ -4829,6 +5031,7 @@ def main() -> int:
     from tpushare_torch.models import transformer as tt
     from tpushare_torch.ops import _build
     from tpushare_torch.parallel import mesh as pmesh
+    from tpushare_torch.utils import profiling
     ring = importlib.import_module("tpushare_torch.parallel.ring_attention")
     fa = importlib.import_module("tpushare_torch.ops.flash_attention")
     attn = importlib.import_module("tpushare_torch.ops.attention")
@@ -5277,6 +5480,8 @@ def main() -> int:
         raise AssertionError(f"logits vs reference server: {rel}")
     agree = sum(int(x == y) for k in run["streams"]
                 for x, y in zip(run["streams"][k], ref["streams"][k]))
+    measure = slice_measure(torch, np, paged, quant, cfg, params, prompts,
+                            failures, card)
     emit({"phase": "slice", "model": "gemma_2b", "params": cfg.num_params(),
           "init_s": init_s, "prompt_lengths": lengths,
           "wave2_cached_len": run["hits"], "prefill_shapes": path_shapes,
@@ -5294,6 +5499,7 @@ def main() -> int:
           "ref_profile": ref["profile"],
           "fetches": run["fetches"], "profile": run["profile"],
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "measure": measure,
           "seconds": time.perf_counter() - t_g, "card": card})
     del params, run, ref
     torch.cuda.empty_cache()
@@ -5441,9 +5647,7 @@ def main() -> int:
     mparams = mixtral_int8_params(torch, quant, mcfg, gen, dev)
     torch.cuda.synchronize()
     m_init_s = time.perf_counter() - t0
-    m_bytes = sum(t.numel() * t.element_size() for t in
-                  [mparams["embed"], mparams["unembed"],
-                   mparams["final_norm"], *mparams["layers"].values()])
+    m_bytes = quant.param_bytes(mparams)
     m_launches = {}
     for kind, needed in (
             ("rows", ("flash_attention", "q8_expert_ffn")),
@@ -5459,6 +5663,9 @@ def main() -> int:
             raise AssertionError(f"slice_moe {kind}: q8_expert_ffn launched "
                                  f"{m_launches[kind]['q8_expert_ffn']} times "
                                  f"over {mrun['forwards']} forwards")
+        phases = (moe_phase_window(torch, moe, paged, quant, mcfg, mparams,
+                                   m_sched["whole"], failures, card)
+                  if kind == "paged" else None)
         mref = no_launch(serve_moe, torch, moe, paged, mcfg, mparams,
                          m_sched, hook=quant.dequant_hook(mcfg),
                          kind=kind, attn_impl="reference",
@@ -5508,6 +5715,7 @@ def main() -> int:
               "ref_profile": mref["profile"],
               "peak_mem_gib": mrun["peak_mem_gib"],
               "ref_peak_mem_gib": mref["peak_mem_gib"],
+              "phase_roofline": phases,
               "seconds": time.perf_counter() - t_m, "card": card})
         if not (worst_m <= MOE_LOGIT_REL_TOL):
             raise AssertionError(f"slice_moe {kind} logits vs the dequant "
@@ -5649,16 +5857,29 @@ def main() -> int:
             torch.cuda.reset_peak_memory_stats()
             step = StepClock(training.make_adamw_spmd_train_step(
                 gcfg, mesh, lr=TRAIN_LR))
-            (tparams, state, losses), fit_launches = run_path(
-                ("flash_attention_partial", "flash_attention_bwd"),
-                trainer.fit, step, tparams, training.adamw_init(tparams),
-                [tokens] * 4, steps=4, log_every=0)
+            train_flops = profiling.transformer_flops(
+                gcfg, 1, TRAIN_SEQ, training=True)
+            with LogLines("tpushare_torch.trainer") as fit_log:
+                (tparams, state, losses), fit_launches = run_path(
+                    ("flash_attention_partial", "flash_attention_bwd"),
+                    trainer.fit, step, tparams, training.adamw_init(tparams),
+                    [tokens] * 4, steps=4, log_every=2,
+                    tokens_per_step=TRAIN_SEQ, flops_per_step=train_flops)
             train_peak = torch.cuda.max_memory_allocated() / 2**30
             with DeviceProfile(1) as tprof:
                 tparams, state, _ = step(tparams, state, tokens)
         finally:
             dist.destroy_process_group()
     losses = [float(x) for x in losses]
+    peak_key = card_peaks()[0]
+    steady_s = mean(step.ms[1:4]) / 1e3
+    mfu_steady = profiling.mfu(train_flops, steady_s, peak_key)
+    fit_mfu = [float(m) for m in re.findall(r"\| mfu ([0-9.]+)%",
+                                             "\n".join(fit_log.lines))]
+    if len(fit_log.lines) != 2 or fit_mfu == [] or mfu_steady is None:
+        failures.append(f"slice_train: fit's log {fit_log.lines} and the "
+                        f"steady step's MFU {mfu_steady} do not both read "
+                        f"MFU")
     emit({"phase": "slice_train", "model": "gemma2_2b",
           "params": gcfg.num_params(), "init_s": t_init_s,
           "seq": TRAIN_SEQ, "batch": 1, "remat": gcfg.remat,
@@ -5670,6 +5891,12 @@ def main() -> int:
           "step_ms_steady": mean(step.ms[1:4]),
           "tok_s": TRAIN_SEQ / (mean(step.ms[1:4]) / 1e3),
           "fit_launches": fit_launches, "peak_mem_gib": train_peak,
+          "flops_per_step": train_flops, "peak_key": peak_key,
+          "fit_log": fit_log.lines,
+          "mfu_pct": {"fit_log": fit_mfu[-1] if fit_mfu else None,
+                      "step_ms_steady": (100 * mfu_steady
+                                         if mfu_steady is not None
+                                         else None)},
           "profile": tprof.stats,
           "seconds": time.perf_counter() - t_t, "card": card})
     if not all(math.isfinite(x) for x in losses + [float(sgd_loss)]):

@@ -1191,3 +1191,214 @@ def test_cli_check_fails_on_a_baseline_entry_without_a_note(tmp_path):
         assert proc.returncode == rc, proc.stdout + proc.stderr
         if rc:
             assert "no note: WC301" in proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# Overlap report: golden fixture + the port engine's committed artifact
+# ---------------------------------------------------------------------------
+
+OVERLAP_ARTIFACT = os.path.join("tpushare_torch", "analysis",
+                                "overlap_baseline.json")
+
+
+def _fixture_index(name):
+    from tpushare_torch.analysis import callgraph
+    return callgraph.build_index([os.path.join(FIXTURES, name)], root=REPO,
+                                 jobs=1)
+
+
+def test_overlap_golden():
+    """The port's miniature overlapped tick: dispatch (``tick``) runs the
+    plan after its step, so the plan's write shows on both sides; the
+    ledger is debited by dispatch and read by the plan. Read/read
+    (``queue``, ``limits``) and one-sided fields stay out."""
+    from tpushare_torch.analysis import threads
+    report = threads.overlap_report(
+        _fixture_index("to_overlap_engine.py"), CONFIG,
+        ("MiniEngine.tick",), ("MiniEngine.plan",),
+        names=("dispatch", "schedule"))
+    by = {c["field"]: c for c in report["conflicts"]}
+    assert list(by) == ["MiniEngine.plan_cell", "MiniLedger.used"], report
+    assert by["MiniEngine.plan_cell"]["dispatch_access"] == "write"
+    assert by["MiniEngine.plan_cell"]["schedule_access"] == "write"
+    assert by["MiniLedger.used"]["dispatch_access"] == "read+write"
+    assert by["MiniLedger.used"]["schedule_access"] == "read"
+    for field in ("MiniEngine.queue", "MiniLedger.limits",
+                  "MiniEngine.slots", "MiniEngine.counters"):
+        assert field not in by
+
+
+def test_overlap_unresolved_entries_reported():
+    from tpushare_torch.analysis import threads
+    report = threads.overlap_report(
+        _fixture_index("to_overlap_engine.py"), CONFIG,
+        ("MiniEngine.tick",), ("NoSuch.method",))
+    assert report["b"]["unresolved"] == ["NoSuch.method"]
+    assert report["b"]["resolved"] == []
+
+
+def test_overlap_surfaces_resolve_on_the_port():
+    """Every named surface entry is a method of the port's engine, its
+    scheduler or its quota: none resolves to nothing."""
+    from tpushare_torch.analysis import callgraph, threads
+    from tpushare_torch.analysis.engine import iter_py_files
+    files = sorted(iter_py_files([CONFIG.resolve(p) for p in CONFIG.paths],
+                                 exclude=CONFIG.exclude))
+    index = callgraph.build_index(files, root=CONFIG.root, jobs=1)
+    for name, specs in threads.DEFAULT_SURFACES.items():
+        found, missing = threads.resolve_entries(index, specs)
+        assert missing == [], (name, missing)
+        assert all(f.relpath.startswith("tpushare_torch/") for f in found)
+
+
+def test_overlap_artifact_every_entry_justified():
+    with open(os.path.join(REPO, OVERLAP_ARTIFACT), encoding="utf-8") as f:
+        artifact = json.load(f)
+    assert artifact["conflicts"], "empty artifact — regenerate it"
+    for c in artifact["conflicts"]:
+        assert c.get("justification", "").strip(), (
+            f"overlap on {c.get('field')} committed without a "
+            f"justification — every shared field needs a written story")
+        assert "tpushare/" not in " ".join(
+            c["tick-dispatch_sites"] + c["tick-schedule_sites"])
+
+
+def test_overlap_cli_gate_green_against_committed_artifact():
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpushare_torch.analysis",
+         "--overlap-report", "tick-dispatch", "tick-schedule",
+         "--overlap-baseline", OVERLAP_ARTIFACT, "--format", "json"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout)
+    assert report["conflicts"], "surfaces no longer overlap?"
+    assert "justified" in proc.stderr
+
+
+def test_overlap_cli_gate_fails_on_unjustified_conflict(tmp_path):
+    empty = tmp_path / "overlap_baseline.json"
+    empty.write_text(json.dumps({"conflicts": []}))
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpushare_torch.analysis",
+         "--overlap-report", "tick-dispatch", "tick-schedule",
+         "--overlap-baseline", str(empty), "--format", "json"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1, proc.stderr
+    assert "new overlap" in proc.stderr
+
+
+@pytest.mark.parametrize("fmt", ["text", "sarif"])
+def test_overlap_renderings(fmt):
+    """Text names each field with both sides' access; sarif carries one
+    TO900 note per conflict, located at its first dispatch-side site."""
+    from tpushare_torch.analysis import threads
+    names = ("dispatch", "schedule")
+    report = threads.overlap_report(
+        _fixture_index("to_overlap_engine.py"), CONFIG,
+        ("MiniEngine.tick",), ("MiniEngine.plan",), names=names)
+    if fmt == "text":
+        text = threads.render_overlap_text(report, names=names)
+        assert "MiniLedger.used: dispatch=read+write schedule=read" in text
+        assert text.endswith("2 overlapping field(s)")
+    else:
+        doc = threads.render_overlap_sarif(report, names=names)
+        results = doc["runs"][0]["results"]
+        assert [r["ruleId"] for r in results] == ["TO900", "TO900"]
+        loc = results[1]["locations"][0]["physicalLocation"]
+        assert loc["artifactLocation"]["uri"].endswith(
+            "torch_analysis/to_overlap_engine.py")
+        assert loc["region"]["startLine"] == 20
+
+
+# ---------------------------------------------------------------------------
+# Doc-sync: the port's /stats tables are generated, byte for byte
+# ---------------------------------------------------------------------------
+
+WIRE_DOC = os.path.join(REPO, "docs", "torch", "SERVING_WIRE.md")
+
+
+@pytest.fixture(scope="module")
+def port_wire_index():
+    from tpushare_torch.analysis import callgraph, wire
+    from tpushare_torch.analysis.engine import iter_py_files
+    files = sorted(iter_py_files([CONFIG.resolve(p) for p in CONFIG.paths],
+                                 exclude=CONFIG.exclude))
+    index = callgraph.build_index(files, root=CONFIG.root, jobs=1)
+    return index, wire.build(index, CONFIG)
+
+
+def test_wire_table_doc_in_sync(port_wire_index):
+    from tpushare_torch.analysis import wire
+    doc = open(WIRE_DOC, encoding="utf-8").read()
+    embedded = wire.extract_table(doc)
+    assert embedded is not None, "WIRE TABLE markers missing"
+    assert embedded == wire.table_block(port_wire_index[1]), (
+        "docs/torch/SERVING_WIRE.md drifted from the extractor — "
+        "regenerate with `python -m tpushare_torch.analysis --wire-table`")
+
+
+def test_wire_table_cli_matches_library(port_wire_index):
+    from tpushare_torch.analysis import wire
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpushare_torch.analysis", "--wire-table"],
+        cwd=REPO, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout == wire.table_block(port_wire_index[1])
+
+
+def test_wire_table_is_deterministic(port_wire_index):
+    from tpushare_torch.analysis import wire
+    index, _ = port_wire_index
+    a = wire.table_block(wire.build(index, CONFIG))
+    b = wire.table_block(wire.build(index, CONFIG))
+    assert a == b
+    assert a.startswith(wire.TABLE_BEGIN)
+    assert a.rstrip("\n").endswith(wire.TABLE_END)
+
+
+def test_wire_table_holds_the_engines_keys(port_wire_index):
+    """The engine's table is the port's own: its handler resolves to the
+    keys ``ServeEngine.stats`` produces (the one-fetch counter, the
+    overlapped tick's host gap, the null-contract pool keys), each
+    produced in ``tpushare_torch/cli/serve.py``, and its markers are not
+    the JAX serving guide's."""
+    from tpushare.analysis import wire as jax_wire
+    from tpushare_torch.analysis import wire
+    block = wire.table_block(port_wire_index[1])
+    engine = block.split("**Router")[0]
+    for key in ("fetches_per_tick", "host_gap_ms", "free_blocks",
+                "queue_depth", "pipeline_flushes"):
+        row = next(l for l in engine.splitlines()
+                   if l.startswith(f"| `{key}` |"))
+        assert "`tpushare_torch/cli/serve.py:" in row, row
+    assert "`tpushare/" not in block
+    assert wire.TABLE_BEGIN != jax_wire.TABLE_BEGIN
+
+
+def test_wire_follows_a_returned_self_helper(tmp_path):
+    """``return self._helper()`` hands the helper's dict shape to the
+    method (the engine's ``stats`` returns ``_stats_locked`` under its
+    lock); a helper of another receiver is not followed."""
+    from tpushare_torch.analysis import callgraph, wire
+    (tmp_path / "eng.py").write_text(
+        "import threading\n"
+        "class Eng:\n"
+        "    def __init__(self):\n"
+        "        self._lock = threading.Lock()\n"
+        "        self.other = None\n"
+        "    def stats(self):\n"
+        "        with self._lock:\n"
+        "            return self._stats_locked()\n"
+        "    def _stats_locked(self):\n"
+        "        return {'a': 1, 'b': None if self.other else 2}\n"
+        "    def elsewhere(self):\n"
+        "        return self.other.stats()\n")
+    index = callgraph.build_index([str(tmp_path / "eng.py")],
+                                  root=str(tmp_path), jobs=1)
+    res = wire._Resolver(index)
+    shape = res.func_shape("eng.py::Eng.stats")
+    assert shape is not None and not shape.open
+    assert sorted(shape.keys) == ["a", "b"]
+    assert shape.keys["a"].types == {"int"} and shape.keys["b"].nullable
+    assert shape.keys["a"].site == ("eng.py", 10)
+    assert res.func_shape("eng.py::Eng.elsewhere") is None

@@ -129,3 +129,26 @@ def test_as_is_rule_tree_parity(package, monkeypatch):
             project=project), rel)
     assert sum(ref.values()) > 0
     assert port == ref, (ref - port, port - ref)
+
+
+@pytest.mark.parametrize("tree,schedule", [
+    ("analysis", "MiniEngine.pick"), ("torch_analysis", "MiniEngine.plan")])
+def test_overlap_report_parity(tree, schedule):
+    """``--overlap-report``'s model (threads.overlap_report over the call
+    graph) is ported as it stands: on the JAX package's overlap fixture
+    and the port's, both gates give the same conflict list, field for
+    field, access and sites included."""
+    from tpushare.analysis import threads as jax_threads
+    from tpushare_torch.analysis import threads
+    path = os.path.join(REPO, "tests", "fixtures", tree,
+                        "to_overlap_engine.py")
+    args = (("MiniEngine.tick",), (schedule,))
+    names = ("dispatch", "schedule")
+    ref = jax_threads.overlap_report(
+        jax_callgraph.build_index([path], root=REPO, jobs=1), JAX_CONFIG,
+        *args, names=names)
+    port = threads.overlap_report(
+        callgraph.build_index([path], root=REPO, jobs=1), CONFIG, *args,
+        names=names)
+    assert len(port["conflicts"]) == 2
+    assert port == ref

@@ -288,7 +288,7 @@ class TestSpmd:
 
 
 class TestRefusals:
-    def test_each_refusal_names_its_roadmap_item(self, tmp_path):
+    def test_each_refusal_names_its_roadmap_item(self, tmp_path, caplog):
         cfg = tt.tiny()
         tp = tt.init_params(0, cfg, device="cpu")
         tok = torch.zeros((1, 4), dtype=torch.int64)
@@ -309,10 +309,17 @@ class TestRefusals:
                         ttr.make_fsdp_stream_adamw_step):
             with pytest.raises(ValueError, match="remat"):
                 factory(tt.tiny(remat=False), None, lr=1e-3)
+        # MFU telemetry is ported (fit(flops_per_step=)): it trains, and
+        # on the CPU, which has no peak, its log line carries no mfu.
         step = functools.partial(ttr.adamw_train_step, cfg=cfg)
-        with pytest.raises(NotImplementedError, match="benchmark"):
-            trainer.fit(step, tp, ttr.adamw_init(tp), [], steps=1,
-                        flops_per_step=1e12)
+        with caplog.at_level("INFO", logger="tpushare_torch.trainer"):
+            _, _, losses = trainer.fit(step, tp, ttr.adamw_init(tp),
+                                       [tok] * 4, steps=4, log_every=2,
+                                       flops_per_step=1e12)
+        assert len(losses) == 4
+        lines = [r.getMessage() for r in caplog.records
+                 if r.name == "tpushare_torch.trainer"]
+        assert len(lines) == 2 and not any("mfu" in m for m in lines)
 
     @pytest.mark.parametrize("sizes,match", [
         ({"tp": 2}, None), ({"ep": 2}, "ep axis not used"),

@@ -20,6 +20,13 @@ Modes:
   entry it pruned (a silently shrinking ratchet is unauditable).
 - ``--format {text,json,sarif}``: sarif is the GitHub code-scanning
   upload format; ``--json`` is an alias for ``--format json``.
+- ``--overlap-report SET_A SET_B [--overlap-baseline FILE]``: the
+  read/write footprint intersection of two entry sets (the overlapped
+  tick's ``tick-dispatch`` and ``tick-schedule``); with the baseline,
+  exit 1 when a conflict field is missing from it
+  (``tpushare_torch/analysis/overlap_baseline.json``).
+- ``--wire-table``: the generated ``/stats`` schema tables of
+  ``docs/torch/SERVING_WIRE.md``.
 """
 
 from __future__ import annotations
@@ -81,6 +88,22 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="print the generated markdown rule table "
                         "(the text between the port's RULE TABLE "
                         "markers in README.md)")
+    p.add_argument("--wire-table", action="store_true",
+                   help="print the generated /stats wire-schema tables "
+                        "(the text between the WIRE TABLE markers in "
+                        "docs/torch/SERVING_WIRE.md)")
+    p.add_argument("--overlap-report", nargs=2, metavar=("SET_A", "SET_B"),
+                   default=None,
+                   help="emit the read/write footprint intersection of "
+                        "two entry sets instead of rule findings. Each "
+                        "set is a named surface (tick-dispatch, "
+                        "tick-schedule) or comma-separated "
+                        "Class.method specs; honors --format/--output. "
+                        "This is the overlapped tick's gate artifact")
+    p.add_argument("--overlap-baseline", metavar="FILE", default=None,
+                   help="with --overlap-report: exit 1 if any conflict "
+                        "field is absent from FILE (the committed, "
+                        "justified overlap artifact)")
     p.add_argument("--jobs", type=int, default=None, metavar="N",
                    help="fan per-file parse/summary extraction over N "
                         "processes (default: os.cpu_count(); results "
@@ -134,6 +157,76 @@ def changed_files(root: str, ref: str) -> List[str]:
     return paths
 
 
+def _overlap_mode(args, config, default_paths: List[str], fmt: str,
+                  jobs: int) -> int:
+    """--overlap-report SET_A SET_B [--overlap-baseline FILE]."""
+    import json
+
+    from tpushare_torch.analysis import callgraph, threads
+    from tpushare_torch.analysis.engine import iter_py_files
+
+    names: List[str] = []
+    entry_sets: List[List[str]] = []
+    for i, spec in enumerate(args.overlap_report):
+        if spec in threads.DEFAULT_SURFACES:
+            names.append(spec)
+            entry_sets.append(list(threads.DEFAULT_SURFACES[spec]))
+        else:
+            names.append(f"set{i + 1}")
+            entry_sets.append([s for s in spec.split(",") if s])
+    files = sorted(iter_py_files(default_paths, exclude=config.exclude))
+    index = callgraph.build_index(files, root=config.root, jobs=jobs)
+    report = threads.overlap_report(index, config, entry_sets[0],
+                                    entry_sets[1],
+                                    names=(names[0], names[1]))
+    for side in names:
+        for spec in report[side]["unresolved"]:
+            print(f"warning: [{side}] entry {spec!r} resolved no "
+                  f"function", file=sys.stderr)
+    if fmt == "sarif":
+        out = json.dumps(threads.render_overlap_sarif(
+            report, names=(names[0], names[1])), indent=2)
+    elif fmt == "json":
+        out = json.dumps(report, indent=2, sort_keys=True)
+    else:
+        out = threads.render_overlap_text(report,
+                                          names=(names[0], names[1]))
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as f:
+            f.write(out + "\n")
+    else:
+        print(out)
+    if args.overlap_baseline:
+        try:
+            with open(args.overlap_baseline, encoding="utf-8") as f:
+                committed = json.load(f)
+        except (OSError, ValueError) as e:
+            print(f"--overlap-baseline {args.overlap_baseline}: {e}",
+                  file=sys.stderr)
+            return EXIT_NEW_FINDINGS
+        known = {c.get("field") for c in committed.get("conflicts", [])}
+        fresh = [c for c in report["conflicts"]
+                 if c["field"] not in known]
+        gone = sorted(known - {c["field"]
+                               for c in report["conflicts"]})
+        for field in gone:
+            print(f"note: baselined overlap on {field!r} no longer "
+                  f"detected (prune it from {args.overlap_baseline})",
+                  file=sys.stderr)
+        if fresh:
+            print(f"FAIL: {len(fresh)} overlap conflict(s) not in "
+                  f"{args.overlap_baseline}; every shared field needs "
+                  f"a written serialization justification there:",
+                  file=sys.stderr)
+            for c in fresh:
+                print(f"  new overlap: {c['field']}", file=sys.stderr)
+            return EXIT_NEW_FINDINGS
+        print(f"OK: all {len(report['conflicts'])} overlap "
+              f"conflict(s) justified in {args.overlap_baseline}",
+              file=sys.stderr)
+    return EXIT_OK
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_arg_parser().parse_args(argv)
     config = load_config(root=args.root)
@@ -148,6 +241,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.rule_table:
         from tpushare_torch.analysis import ruledoc
         print(ruledoc.table_block())
+        return EXIT_OK
+
+    if args.wire_table:
+        from tpushare_torch.analysis import callgraph, wire
+        from tpushare_torch.analysis.engine import iter_py_files
+        files = sorted(iter_py_files(
+            [config.resolve(p) for p in config.paths],
+            exclude=config.exclude))
+        index = callgraph.build_index(files, root=config.root,
+                                      jobs=args.jobs or 0)
+        print(wire.table_block(wire.build(index, config)), end="")
         return EXIT_OK
 
     if args.explain is not None:
@@ -172,6 +276,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     default_paths = [config.resolve(p) for p in config.paths]
 
+    if args.overlap_report is not None:
+        return _overlap_mode(args, config, default_paths, fmt, jobs)
     if args.diff is not None:
         if args.paths:
             print("--diff and explicit paths are mutually exclusive",

@@ -288,6 +288,10 @@ class FuncFacts:
     #: conditional)
     returned_dicts: List[DictShape] = dataclasses.field(
         default_factory=list)
+    #: (line, col) of each ``return self.<meth>(...)``: the wire layer
+    #: takes that method's dict shapes as this function's own
+    returned_self_calls: List[Tuple[int, int]] = dataclasses.field(
+        default_factory=list)
     #: True when some return yields a constant ``None`` (incl. bare
     #: ``return`` and IfExp arms) — callee-level nullability
     returns_none: bool = False
@@ -622,7 +626,8 @@ def _extract_function(node: ast.AST, mod: ModuleFacts,
                       class_name=cls.name if cls else None,
                       line=node.lineno, params=params)
     _FuncVisitor(facts, mod, cls).run(node)
-    facts.returned_dicts, facts.returns_none = _dict_shapes(node)
+    (facts.returned_dicts, facts.returned_self_calls,
+     facts.returns_none) = _dict_shapes(node)
     return facts
 
 
@@ -791,6 +796,7 @@ class _DictPass:
         self.env: Dict[str, DictShape] = {}
         self.envval: Dict[str, DictKeyFact] = {}
         self.returned: List[DictShape] = []
+        self.returned_self_calls: List[Tuple[int, int]] = []
         self.returns_none = False
 
     def run(self, fn: ast.AST) -> None:
@@ -891,6 +897,13 @@ class _DictPass:
                     if shape is not None:
                         self.returned.append(shape)
             return
+        if (isinstance(value, ast.Call)
+                and isinstance(value.func, ast.Attribute)
+                and isinstance(value.func.value, ast.Name)
+                and value.func.value.id == "self"):
+            self.returned_self_calls.append((value.lineno,
+                                             value.col_offset))
+            return
         shape = _shape_of(value, self.env, self.envval)
         if shape is not None:
             self.returned.append(shape)
@@ -950,10 +963,11 @@ def _scan_class_attr_dicts(cls_node: ast.ClassDef,
                              else _merge_key_facts(shape.dynamic, fact))
 
 
-def _dict_shapes(fn: ast.AST) -> Tuple[List[DictShape], bool]:
+def _dict_shapes(fn: ast.AST
+                 ) -> Tuple[List[DictShape], List[Tuple[int, int]], bool]:
     p = _DictPass()
     p.run(fn)
-    return p.returned, p.returns_none
+    return p.returned, p.returned_self_calls, p.returns_none
 
 
 #: typing-module names that look like classes but type nothing

@@ -41,7 +41,10 @@ This module turns them into checkable facts, three layers deep:
    the dead engine thread) — writes across a serialized pair are not
    races.
 
-rules/ownership.py turns violations into TO901/TO902 findings.
+rules/ownership.py turns violations into TO901/TO902 findings;
+``--overlap-report`` uses the same footprints to print what the
+engine's overlapped tick (dispatch of tick N beside the host-side pick
+of tick N+1) contends on.
 """
 
 from __future__ import annotations
@@ -57,6 +60,29 @@ HANDLER_ROLE = "handler"
 #: index.memo keys (one model + one findings list per ProjectIndex)
 MEMO_MODEL = "thread_ownership_model"
 MEMO_FINDINGS = "thread_ownership_findings"
+
+#: named entry sets for --overlap-report. tick-dispatch is everything a
+#: tick runs (``cli/serve.py`` ``ServeEngine._tick``, the overlapped
+#: ``_tick_overlap`` among its callees); tick-schedule is the host-side
+#: work the overlapped tick runs inside tick N's flight window: the PURE
+#: pick — ``TickScheduler.peek`` / ``peek_admission`` (choice without
+#: rotation credit), the quota verdict over a ``ledger_view`` snapshot,
+#: and the engine's ``_plan_next_pick`` that assembles them. The impure
+#: halves (pop, commit_admission, charge, evict/activation) stay
+#: dispatch-side. Their footprint intersection is the serialization
+#: checklist: every entry of ``overlap_baseline.json`` carries its
+#: written story.
+DEFAULT_SURFACES: Dict[str, Tuple[str, ...]] = {
+    "tick-dispatch": ("ServeEngine._tick",),
+    "tick-schedule": ("ServeEngine._plan_next_pick",
+                      "TickScheduler.peek",
+                      "TickScheduler.peek_admission",
+                      "KvQuota.admit_verdict",
+                      "KvQuota.ledger_view"),
+}
+
+_MAX_SITES = 3          # example sites kept per overlap entry
+_BFS_DEPTH = 10
 
 @dataclasses.dataclass
 class OwnershipModel:
@@ -310,3 +336,168 @@ def _check_reads(model: OwnershipModel, f: FuncFacts
                     f"(role(s) {', '.join(sorted(roles))}): lock-free "
                     f"reads of contested field(s) {fields}"))
     return out
+
+
+# ---------------------------------------------------------------------------
+# --overlap-report: read/write footprint intersection of two surfaces
+# ---------------------------------------------------------------------------
+
+def resolve_entries(index: ProjectIndex, specs: Sequence[str]
+                    ) -> Tuple[List[FuncFacts], List[str]]:
+    """``Class.method`` / ``func`` / full ``relpath::qual`` specs ->
+    (matched functions, unmatched specs)."""
+    found: List[FuncFacts] = []
+    missing: List[str] = []
+    for spec in specs:
+        if spec in index.functions:
+            found.append(index.functions[spec])
+            continue
+        matches = [f for q, f in index.functions.items()
+                   if q.endswith("::" + spec)]
+        if matches:
+            found.extend(matches)
+        else:
+            missing.append(spec)
+    return found, missing
+
+
+def _footprint(index: ProjectIndex, entries: Sequence[FuncFacts]
+               ) -> Dict[str, Dict[str, List[str]]]:
+    """field -> {"reads": [sites], "writes": [sites]} over everything
+    reachable from ``entries`` (resolved edges, depth-limited)."""
+    foot: Dict[str, Dict[str, List[str]]] = {}
+
+    def note(field: str, kind: str, relpath: str, line: int) -> None:
+        slot = foot.setdefault(field, {"reads": [], "writes": []})
+        site = f"{relpath}:{line}"
+        if site not in slot[kind]:
+            slot[kind].append(site)
+
+    seen: Set[str] = set()
+    frontier = [(f, 0) for f in entries]
+    while frontier:
+        f, depth = frontier.pop()
+        if f.qual in seen:
+            continue
+        seen.add(f.qual)
+        prefix = f"{f.class_name}." if f.class_name else \
+            f"{f.relpath}::"
+        for attr, line, _col, _locks in f.attr_reads:
+            note(prefix + attr, "reads", f.relpath, line)
+        for attr, line, _col, _locks in f.attr_writes:
+            note(prefix + attr, "writes", f.relpath, line)
+        for name, line, _col, _locks in f.global_writes:
+            note(f"{f.relpath}::{name}", "writes", f.relpath, line)
+        if depth >= _BFS_DEPTH:
+            continue
+        for call in f.calls:
+            for qual in call.resolved:
+                callee = index.functions.get(qual)
+                if callee is not None and callee.qual not in seen:
+                    frontier.append((callee, depth + 1))
+    for slot in foot.values():
+        slot["reads"] = slot["reads"][:_MAX_SITES]
+        slot["writes"] = slot["writes"][:_MAX_SITES]
+    return foot
+
+
+def _access(slot: Dict[str, List[str]]) -> str:
+    kinds = [k for k in ("read", "write") if slot[k + "s"]]
+    return "+".join(kinds)
+
+
+def overlap_report(index: ProjectIndex, config,
+                   entries_a: Sequence[str], entries_b: Sequence[str],
+                   names: Tuple[str, str] = ("a", "b")) -> Dict:
+    """The overlapped tick's gate artifact: fields both surfaces touch
+    where at least one side writes — every entry is shared state an
+    overlapped pipeline must serialize (or prove immutable)."""
+    build_model(index, config)        # roles feed nothing here yet,
+    fa, missing_a = resolve_entries(index, entries_a)   # but keep the
+    fb, missing_b = resolve_entries(index, entries_b)   # memo warm
+    foot_a = _footprint(index, fa)
+    foot_b = _footprint(index, fb)
+    conflicts = []
+    for field in sorted(set(foot_a) & set(foot_b)):
+        a, b = foot_a[field], foot_b[field]
+        if not (a["writes"] or b["writes"]):
+            continue                  # read/read never contends
+        conflicts.append({
+            "field": field,
+            f"{names[0]}_access": _access(a),
+            f"{names[1]}_access": _access(b),
+            f"{names[0]}_sites": a["writes"][:_MAX_SITES]
+            or a["reads"][:_MAX_SITES],
+            f"{names[1]}_sites": b["writes"][:_MAX_SITES]
+            or b["reads"][:_MAX_SITES],
+        })
+    return {
+        names[0]: {"entries": list(entries_a),
+                   "resolved": sorted(f.qual for f in fa),
+                   "unresolved": missing_a},
+        names[1]: {"entries": list(entries_b),
+                   "resolved": sorted(f.qual for f in fb),
+                   "unresolved": missing_b},
+        "conflicts": conflicts,
+    }
+
+
+def render_overlap_text(report: Dict,
+                        names: Tuple[str, str] = ("a", "b")) -> str:
+    lines = []
+    for side in names:
+        info = report[side]
+        lines.append(f"[{side}] entries: {', '.join(info['entries'])}"
+                     f" ({len(info['resolved'])} functions)")
+        for spec in info["unresolved"]:
+            lines.append(f"[{side}] unresolved entry: {spec}")
+    if not report["conflicts"]:
+        lines.append("no overlapping read/write footprint")
+    for c in report["conflicts"]:
+        lines.append(
+            f"{c['field']}: {names[0]}={c[names[0] + '_access']} "
+            f"{names[1]}={c[names[1] + '_access']} "
+            f"(e.g. {c[names[0] + '_sites'][0]} vs "
+            f"{c[names[1] + '_sites'][0]})")
+    lines.append(f"{len(report['conflicts'])} overlapping field(s)")
+    return "\n".join(lines)
+
+
+def render_overlap_sarif(report: Dict,
+                         names: Tuple[str, str] = ("a", "b")) -> Dict:
+    results = []
+    for c in report["conflicts"]:
+        site = c[names[0] + "_sites"][0]
+        path, _, line = site.rpartition(":")
+        results.append({
+            "ruleId": "TO900",
+            "level": "note",
+            "message": {"text": (
+                f"overlap on {c['field']}: "
+                f"{names[0]}={c[names[0] + '_access']} "
+                f"{names[1]}={c[names[1] + '_access']}")},
+            "locations": [{"physicalLocation": {
+                "artifactLocation": {"uri": path,
+                                     "uriBaseId": "SRCROOT"},
+                "region": {"startLine": int(line or 1)},
+            }}],
+        })
+    return {
+        "$schema": ("https://raw.githubusercontent.com/oasis-tcs/"
+                    "sarif-spec/master/Schemata/sarif-schema-2.1.0.json"),
+        "version": "2.1.0",
+        "runs": [{
+            "tool": {"driver": {
+                "name": "tpushare-torch-analysis-overlap",
+                "rules": [{
+                    "id": "TO900",
+                    "name": "overlap-footprint",
+                    "shortDescription": {
+                        "text": "read/write footprint overlap between "
+                                "two execution surfaces"},
+                    "properties": {"category": "ownership"},
+                }],
+            }},
+            "results": results,
+        }],
+    }

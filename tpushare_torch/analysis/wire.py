@@ -57,6 +57,17 @@ NULL_NOT_ZERO_KEYS = frozenset((
     "num_processes", "process_index", "healthy_processes",
 ))
 
+TABLE_BEGIN = ("<!-- WIRE TABLE BEGIN (generated from the wire "
+               "registry; regenerate: python -m tpushare_torch.analysis "
+               "--wire-table) -->")
+TABLE_END = "<!-- WIRE TABLE END -->"
+
+#: server relpath -> display name for the generated tables
+_SERVER_TITLES = {
+    "tpushare_torch/cli/serve.py": "Engine",
+    "tpushare_torch/router/daemon.py": "Router",
+}
+
 # ---------------------------------------------------------------------------
 # Resolved shapes (the post-linking view of callgraph.DictShape)
 # ---------------------------------------------------------------------------
@@ -193,13 +204,24 @@ class _Resolver:
         if qual in self._memo:
             return self._memo[qual]
         facts = self.project.functions.get(qual)
-        if facts is None or not facts.returned_dicts:
+        if facts is None or not (facts.returned_dicts
+                                 or facts.returned_self_calls):
             self._memo[qual] = None
             return None
         self._memo[qual] = None            # cycle guard during build
         cls = self._class_of(facts)
         parts = [self.shape(s, facts, cls, stack + (qual,))
                  for s in facts.returned_dicts]
+        # ``return self._helper()``: the helper's shapes are this
+        # method's (a locked accessor over an unlocked body)
+        for call in facts.calls:
+            if (call.line, call.col) in facts.returned_self_calls:
+                for callee in call.resolved:
+                    sub = self.func_shape(callee, stack + (qual,))
+                    if sub is not None:
+                        parts.append(sub)
+        if not parts:
+            return None
         merged = _merge_shapes(parts)
         self._memo[qual] = merged
         return merged
@@ -1044,6 +1066,97 @@ def index_for(ctx) -> WireIndex:
         wi = build(project, ctx.config)
         project.memo["wire.index"] = wi
     return wi
+
+
+# ---------------------------------------------------------------------------
+# The canonical /stats registry + generated doc table
+# ---------------------------------------------------------------------------
+
+def _type_str(rk: ResolvedKey) -> str:
+    return "/".join(sorted(rk.types)) if rk.types else "?"
+
+
+def _null_str(rk: ResolvedKey) -> str:
+    if rk.nullable or rk.conditional:
+        return "yes"
+    return "no" if rk.types else "?"
+
+
+def _consumers_of(wi: WireIndex, ep: Endpoint,
+                  keypath: Tuple[str, ...]) -> List[str]:
+    out: Set[str] = set()
+    for c in wi.consumptions:
+        if c.keypath != keypath:
+            continue
+        for cand in wi.endpoints_for(c.method, c.path):
+            if cand is ep or (cand.method == ep.method
+                              and cand.path == ep.path):
+                out.add(c.relpath)
+                break
+    return sorted(out)
+
+
+def _registry_rows(wi: WireIndex, ep: Endpoint
+                   ) -> List[Tuple[str, ResolvedKey]]:
+    rows: List[Tuple[str, ResolvedKey]] = []
+
+    def emit(prefix: Tuple[str, ...], shape: ResolvedShape,
+             depth: int) -> None:
+        for k in sorted(shape.keys):
+            rk = shape.keys[k]
+            rows.append((".".join(prefix + (k,)), rk))
+            if rk.nested is not None and depth < 2:
+                emit(prefix + (k,), rk.nested, depth + 1)
+        if shape.dynamic is not None and depth < 2:
+            rk = shape.dynamic
+            rows.append((".".join(prefix + ("*",)), rk))
+            if rk.nested is not None:
+                emit(prefix + ("*",), rk.nested, depth + 1)
+
+    emit((), ep.shape, 0)
+    return rows
+
+
+def table_block(wi: WireIndex) -> str:
+    """The generated ``/stats`` schema tables, markers included —
+    byte-identical output for identical trees (everything sorted)."""
+    lines: List[str] = [TABLE_BEGIN, ""]
+    stats_eps = sorted(
+        (e for e in wi.endpoints
+         if e.path == "/stats" and e.method == "GET"),
+        key=lambda e: (e.server not in _SERVER_TITLES, e.server))
+    for ep in stats_eps:
+        title = _SERVER_TITLES.get(
+            ep.server, os.path.splitext(os.path.basename(ep.server))[0])
+        lines.append(f"**{title} `GET /stats`** — handler in "
+                     f"`{ep.server}`:")
+        lines.append("")
+        lines.append("| field | type | null | produced at | "
+                     "consumed by |")
+        lines.append("|---|---|---|---|---|")
+        for path, rk in _registry_rows(wi, ep):
+            keypath = tuple(path.split("."))
+            consumers = _consumers_of(wi, ep, keypath)
+            site = (f"`{rk.site[0]}:{rk.site[1]}`"
+                    if rk.site[0] else "?")
+            cons = (", ".join(f"`{c}`" for c in consumers)
+                    if consumers else "—")
+            lines.append(f"| `{path}` | {_type_str(rk)} | "
+                         f"{_null_str(rk)} | {site} | {cons} |")
+        lines.append("")
+    lines.append(TABLE_END)
+    return "\n".join(lines) + "\n"
+
+
+def extract_table(doc_text: str) -> Optional[str]:
+    """The generated block out of a doc, markers included (None when
+    the markers are absent/malformed)."""
+    try:
+        start = doc_text.index(TABLE_BEGIN)
+        end = doc_text.index(TABLE_END) + len(TABLE_END)
+    except ValueError:
+        return None
+    return doc_text[start:end] + "\n"
 
 
 # ---------------------------------------------------------------------------

@@ -887,6 +887,53 @@ def paged_forward(params, tokens: torch.Tensor, cfg: MoEConfig, *,
     return (out[0], None) if cache is None else (out[0], out[2])
 
 
+def decode_phase_bytes(cfg: MoEConfig, params: Dict[str, Any],
+                       kv_tokens: int) -> Dict[str, int]:
+    """Per-phase bytes that MUST move between HBM and the SMs for one
+    decode step — the phase-level roofline denominators that
+    ``utils.profiling.phase_roofline`` pairs with a ``PhaseTimer``
+    snapshot (keys: the phases ``forward``'s ``phase_timer`` marks:
+    embed, dequant, attn, router, dispatch, expert_gemm, kv_stack,
+    unembed). Splits the same total the
+    aggregate share uses (params streamed once + live KV read): weights
+    are charged to the phase that streams them AT THEIR STORED WIDTH
+    (``k#q8`` + ``k#scale`` when quantized: a phase running far below
+    the int8 floor pays for a wide copy the floor does not include).
+    Pure-overhead phases (embed, dequant, dispatch, kv_stack — no
+    mandatory weight traffic at decode activation sizes) carry 0.
+
+    ``kv_tokens`` = total live KV positions across the batch (sum of
+    lengths); a KV row is K and V of one position, one layer, at
+    ``cfg.dtype``'s width."""
+    layers = params["layers"]
+
+    def _stored(keys) -> int:
+        total = 0
+        for k in keys:
+            for kk in (k, k + "#q8", k + "#scale"):
+                if kk in layers:
+                    t = layers[kk]
+                    total += t.numel() * t.element_size()
+        return total
+
+    kv_row = 2 * cfg.n_kv_heads * cfg.head_dim * cfg.dtype.itemsize
+    unembed = (params["embed"] if cfg.tie_embeddings
+               else params["unembed"])
+    norm = params["final_norm"]
+    return {
+        "embed": 0,
+        "dequant": 0,
+        "attn": (_stored(("ln1", "wq", "wk", "wv", "wo"))
+                 + kv_tokens * cfg.n_layers * kv_row),
+        "router": _stored(("ln2", "router")),
+        "dispatch": 0,
+        "expert_gemm": _stored(("w_gate", "w_up", "w_down")),
+        "kv_stack": 0,
+        "unembed": (unembed.numel() * unembed.element_size()
+                    + norm.numel() * norm.element_size()),
+    }
+
+
 def generate(params, tokens: torch.Tensor, cfg: MoEConfig, *,
              max_new_tokens: int = 32, temperature: float = 0.0,
              top_k: Optional[int] = None, top_p: Optional[float] = None,

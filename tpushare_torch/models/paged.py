@@ -558,6 +558,41 @@ def decode_core(params, tokens, pool_k, pool_v, table, lengths, active,
     return logits, pool_k, pool_v, lengths + active.to(lengths.dtype)
 
 
+def paged_decode_step(params, tokens: torch.Tensor, cfg: TransformerConfig,
+                      cache: PagedCache, *,
+                      active: Optional[torch.Tensor] = None,
+                      attn_impl: str = "auto"
+                      ) -> Tuple[torch.Tensor, PagedCache]:
+    """One ragged decode step over the paged pool: tokens [n_slots, 1]
+    -> (logits [n_slots, 1, V], cache). Through ``decode_core``, as the
+    servers' ticks go; the pools and lengths are updated in place.
+
+    ``active`` [n_slots] bool masks which slots advance — inactive
+    slots keep their length and write only to the trash block (default:
+    all active, made on the device: the step then neither reads nor
+    uploads anything). The host lengths mirror advances by the same +1
+    per active slot before dispatch, so ``grow_if_needed`` (which reads
+    only the mirror) sees the post-step truth. This module-level
+    wrapper reads a device ``active`` back to the host (and uploads a
+    host one); the servers never go through it — they drive
+    ``decode_core`` directly and keep their mirrors from the host
+    active bitmap."""
+    dev = cache.lengths.device
+    if active is None:
+        act_np = np.ones((cache.n_slots,), bool)
+        active = torch.ones((cache.n_slots,), dtype=torch.bool, device=dev)
+    else:
+        act_np = np.asarray(active.cpu() if isinstance(active, torch.Tensor)
+                            else active, dtype=bool)
+        active = torch.as_tensor(active, dtype=torch.bool, device=dev)
+    cache.host_lengths()[act_np] += 1
+    logits, _, _, cache.lengths = decode_core(
+        params, tokens, cache.pool_k, cache.pool_v, cache.block_table,
+        cache.lengths, active, cfg=cfg, attn_impl=attn_impl,
+        pool_k_scale=cache.pool_k_scale, pool_v_scale=cache.pool_v_scale)
+    return logits, cache
+
+
 def verify_core(params, tokens, pool_k, pool_v, table, lengths, active,
                 *, cfg: TransformerConfig, attn_impl: str = "auto",
                 layers_hook=None, pool_k_scale=None, pool_v_scale=None,

@@ -12,7 +12,7 @@
   kernel (``ops/q8_expert.py``). Norms, the router and the embeddings
   stay full precision and are shared with the source tree.
   ``quantized_forward`` is ``forward`` over such a tree with
-  ``dequant_hook``.
+  ``dequant_hook``; ``param_bytes`` counts a tree's stored bytes.
 - KV: ``kv_quantize`` / ``kv_dequantize`` with per-(position, head)
   scales over the head dim (``s = max(absmax, 1e-12) / 127``) and
   ``init_cache_q8`` for a dense row cache.
@@ -38,6 +38,7 @@ from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 import torch
 
 from tpushare_torch import DeviceLike, resolve_device
+from tpushare_torch.utils import profiling
 
 if TYPE_CHECKING:     # transformer imports this module for the KV helpers
     from tpushare_torch.models.transformer import TransformerConfig
@@ -194,6 +195,14 @@ def quantized_forward(qparams: Dict[str, Any], tokens: torch.Tensor,
     from tpushare_torch.models.transformer import forward
     return forward(qparams, tokens, cfg, layers_hook=dequant_hook(cfg),
                    **kw)
+
+
+def param_bytes(params) -> int:
+    """Bytes of every tensor of a params tree (nested dicts, lists,
+    tuples) at its stored width: ``numel() * element_size()`` summed
+    over the leaves (int8 leaves and their f32 scales as stored)."""
+    return sum(t.numel() * t.element_size()
+               for t in profiling.tree_tensors(params))
 
 
 def dequant_expert_leaves(layer: Dict[str, torch.Tensor],

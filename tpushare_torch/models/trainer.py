@@ -21,10 +21,10 @@ back onto any tp / ep shape (the rescheduled-tenant path). The steps
 update params IN PLACE, so a caller that keeps a tree across a ``fit``
 passes a copy.
 
-Not ported: the MFU telemetry (``flops_per_step``; the reference
-divides by TPU peak tables; the port's card figures come with the
-port's own benchmark, which does not exist yet: ``benchmarks/`` is not
-ported).
+MFU telemetry: with ``flops_per_step`` each log line after the warm-up
+window carries `` | mfu X%`` against the card's peak
+(``utils/profiling.py``); on the CPU or a card the peak tables do not
+hold it carries none.
 """
 
 from __future__ import annotations
@@ -37,13 +37,11 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import torch
 
 from tpushare_torch import DeviceLike
-from tpushare_torch.utils import checkpoint
+from tpushare_torch.utils import checkpoint, profiling
 
 log = logging.getLogger("tpushare_torch.trainer")
 
 StepFn = Callable[..., Tuple[Any, Any, Any]]
-
-TODO_MFU = "the port's benchmark (MFU on the H100; a benchmark issue)"
 
 
 def save_state(path: str, params: Any, opt_state: Any, step: int) -> int:
@@ -88,6 +86,13 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, f"step_{max(steps)}")
 
 
+def _world_size() -> int:
+    """Ranks of the default process group, 1 without one."""
+    dist = torch.distributed
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
 def fit(step_fn: StepFn, params: Any, opt_state: Any,
         batches: Iterable[Any], *,
         steps: int,
@@ -103,14 +108,17 @@ def fit(step_fn: StepFn, params: Any, opt_state: Any,
     steps the loss is read (the device sync that makes the window's
     timing honest) and logged with tokens/s when ``tokens_per_step`` is
     given; the first window holds warm-up and logs no rate. With
+    ``flops_per_step`` (e.g. ``profiling.transformer_flops(cfg, B, S,
+    training=True)`` for a step over the GLOBAL batch B) the line also
+    logs MFU: ``profiling.mfu`` against the peak of the card the step's
+    loss is on, times the world size when ``torch.distributed`` is
+    initialized (each rank is a process of its own), else 1; none on
+    the CPU or a card the tables do not hold. With
     ``ckpt_dir`` and ``ckpt_every``, the state after every
     ``ckpt_every``-th step lands in ``ckpt_dir/step_<n>``, through the
     step's own ``save_state`` where it has one (a sharded step: whole
     leaves).
     """
-    if flops_per_step:
-        raise NotImplementedError(f"MFU telemetry (flops_per_step): "
-                                  f"{TODO_MFU}")
     losses = []
     it = iter(batches)
     window_t0 = time.perf_counter()
@@ -126,6 +134,13 @@ def fit(step_fn: StepFn, params: Any, opt_state: Any,
             msg = f"step {step + 1} loss {loss_f:.4f}"
             if warmed and tokens_per_step and dt > 0:
                 msg += f" | {tokens_per_step * window_steps / dt:,.0f} tok/s"
+            if warmed and flops_per_step and dt > 0:
+                m = profiling.mfu(
+                    flops_per_step, dt / window_steps,
+                    profiling.card_key(loss.device),
+                    n_chips=_world_size())
+                if m is not None:
+                    msg += f" | mfu {100 * m:.1f}%"
             log.info("%s", msg)
             window_t0 = time.perf_counter()
             window_steps = 0

@@ -27,7 +27,8 @@ where there is none. Prints one JSON line per run, then the record.
   guard's breaches, its pooled output for the seed's tokens (digest),
   that output's distance from the f32 forward through ``mha_reference``,
   its ``memory_reserved`` and NVML's per-process bytes, and ``mfu_pct``
-  against the card's dense bf16 peak.
+  against the card's dense bf16 peak (``utils/profiling.py``; null on a
+  card its tables do not hold).
 - A-B-A: solo, two tenants, solo again. ``colocated_pct`` = 100 x
   min(co serve) / mean(solo serve); the record is refused (``credible``
   false, with reasons) when the solo windows differ by more than 5% or
@@ -64,6 +65,7 @@ from tpushare_torch.plugin.backend import FakeBackend
 from tpushare_torch.plugin.devices import expand_devices
 from tpushare_torch.plugin.nvmldisc import (Nvml, NvmlBackend, NvmlError,
                                             load_library)
+from tpushare_torch.utils import profiling
 from tpushare_torch.utils.tenant import (SoftHbmOom, apply_tenant_limits,
                                          get_enforcing_guard, read_tenant_env,
                                          tenant_device)
@@ -76,9 +78,6 @@ CO_UNITS, HOG_UNITS, STEADY_UNITS = 16, 8, 16
 INIT_TIMEOUT_S = 300.0
 ISO_WINDOWS, HOG_AT_WINDOW = 10, 3
 HOG_OVERSHOOT = 1.5
-#: Dense bf16 peak of one H100 SXM (NVIDIA's data sheet, no sparsity,
-#: at the 700 W limit): the denominator of ``mfu_pct``.
-H100_BF16_PEAK_FLOPS = 989e12
 #: max |bf16 pooled - f32 pooled| over BERT-base's pooled output (tanh,
 #: in (-1, 1)) at 8 x 128: 12 post-norm layers of bf16 rounding (2^-9
 #: relative per op) against the f32 forward of the same weights. The
@@ -287,8 +286,9 @@ def tenant_main(args) -> None:
     }
     if dev.type == "cuda" and sat_calls:
         step_s = sat_s / (sat_calls * CHAIN_K)
-        result["mfu_pct"] = 100 * bert.flops_per_forward(
-            cfg, batch, seq) / step_s / H100_BF16_PEAK_FLOPS
+        m = profiling.mfu(bert.flops_per_forward(cfg, batch, seq), step_s,
+                          profiling.card_key(dev))
+        result["mfu_pct"] = None if m is None else 100 * m
         result["profile"] = _device_idle(serve, 50)
     print(RESULT_TAG + json.dumps(result), flush=True)
 

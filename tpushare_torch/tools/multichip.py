@@ -1239,11 +1239,6 @@ class RouteLog:
         self.moe.top_k_lower_index = self.orig
 
 
-def _leaves_bytes(tree) -> int:
-    from tpushare_torch.models.training import tree_leaves
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
-
-
 def _leaves_numel(tree) -> int:
     from tpushare_torch.models.training import tree_leaves
     return sum(t.numel() for t in tree_leaves(tree))
@@ -1406,6 +1401,7 @@ def _f1(job, mesh, dev, wl) -> dict:
     """F1 on this rank: Llama-3-8B over tp=2."""
     from tpushare_torch.models import trainer, training
     from tpushare_torch.models import transformer as tt
+    from tpushare_torch.models.quant import param_bytes
     f1 = wl["f1"]
     cfg = f1["cfg"]
     tokens = torch.as_tensor(np.asarray(f1["tokens"]), device=dev)
@@ -1415,7 +1411,7 @@ def _f1(job, mesh, dev, wl) -> dict:
     params = step.shard(whole)
     del whole
     _free(dev)
-    out: Dict[str, object] = {"param_bytes": _leaves_bytes(params)}
+    out: Dict[str, object] = {"param_bytes": param_bytes(params)}
     zero_launches()
     t0 = time.perf_counter()
     with ReduceClock(dev) as clock:
@@ -1446,11 +1442,11 @@ def _f1(job, mesh, dev, wl) -> dict:
     astep = training.make_adamw_spmd_train_step(acfg, mesh, lr=TRAIN_LR)
     whole = tt.init_params(torch.Generator(device=dev).manual_seed(24), acfg,
                            device=dev)
-    whole_numel, whole_bytes = _leaves_numel(whole), _leaves_bytes(whole)
+    whole_numel, whole_bytes = _leaves_numel(whole), param_bytes(whole)
     params = astep.shard(whole)
     del whole
     state = training.adamw_init(params)
-    moments = _leaves_bytes({"mu": state["mu"], "nu": state["nu"]})
+    moments = param_bytes({"mu": state["mu"], "nu": state["nu"]})
     batches = [torch.as_tensor(np.asarray(b), device=dev) for b in f1["fit"]]
     save = _CkptWatch(astep, dev)
     t0 = time.perf_counter()
